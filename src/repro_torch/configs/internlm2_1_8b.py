@@ -1,0 +1,17 @@
+"""internlm2-1.8b — dense GQA transformer [arXiv:2403.17297; hf]."""
+from repro_torch.configs.base import ArchConfig, GLOBAL_ATTN
+
+CONFIG = ArchConfig(
+    name="internlm2-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=92544,
+    head_dim=128,
+    layer_pattern=(GLOBAL_ATTN,),
+    rope_theta=1_000_000.0,
+    source="arXiv:2403.17297; hf",
+)

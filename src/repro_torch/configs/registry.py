@@ -1,0 +1,23 @@
+"""Architecture registry of the port: ``get_config(name)``.
+
+Holds the configurations the port can run so far (dense, all-global-
+attention families); the other families of ``repro.configs.registry``
+arrive with their layer kinds."""
+from __future__ import annotations
+
+from repro_torch.configs import gpt_oases, internlm2_1_8b
+from repro_torch.configs.base import ArchConfig
+
+_ARCHS = {internlm2_1_8b.CONFIG.name: internlm2_1_8b.CONFIG}
+for _cfg, *_rest in {**gpt_oases.PAPER_TABLE4,
+                     **gpt_oases.PAPER_TABLE5}.values():
+    _ARCHS[_cfg.name] = _cfg
+for _cfg in gpt_oases.SERVING_MODELS.values():
+    _ARCHS[_cfg.name] = _cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    try:
+        return _ARCHS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCHS)}") from None

@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels (one shared library, C ABI).
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), then linked into
+``build/repro_torch_kernels/librepro_torch_kernels.so`` at the repository
+root and loaded with :mod:`ctypes`.  The build runs at the first kernel
+launch, never at import, and is redone when a source is newer than the
+library.  Sources include no PyTorch headers, so a build takes seconds.
+
+``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+LIB_NAME = "librepro_torch_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v", "-lineinfo"]
+
+# dtype codes shared with the C entry points
+DTYPE_F32 = 0
+DTYPE_BF16 = 1
+
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, scale, out, rows, d, eps, dtype, stream
+    "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _P],
+    # q, k_pages, v_pages, tables, pos, out, b, kvh, g, hd, page, nb,
+    # scale, softcap, dtype, stream
+    "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _I, _P],
+}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH): the CUDA kernels cannot be built on this machine")
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library; returns its path.
+    Writes the compiler's messages (``-Xptxas -v`` register and shared
+    memory report) to ``build.log`` beside the library."""
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime for p in sources + headers)
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
+        return lib
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources:
+        obj = BUILD_DIR / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _obj, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src.name} (rc {p.returncode})\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / (LIB_NAME + ".tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *[str(o) for _s, o, _p in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str):
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = library().repro_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the C entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

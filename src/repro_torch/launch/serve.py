@@ -1,0 +1,83 @@
+"""Serving launcher of the PyTorch port: random requests through the paged
+continuous-batching engine, on the card (default) or the CPU.
+
+    # on the GPU (builds the CUDA kernels at the first step)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-serve-h4096 \
+        --slots 8 --max-seq 2048 --prefix-cache
+
+    # CPU smoke with the plain PyTorch versions of the kernels
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --page-size 8 --prefix-cache
+
+Prints the engine's stats as JSON.  Mesh, pipeline, plan, draft and
+telemetry flags of ``repro.launch.serve`` are not offered yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config in float32")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--prefill-len", type=int, default=0,
+                    help="longest admissible prompt; 0 = max_seq // 2")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=0,
+                    help="physical pages in the pool incl. the null page "
+                         "(0 = auto: every slot can still reach max_seq)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (max_seq must divide evenly)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse cached prompt blocks across requests")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; fails without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    # f32 products stay full f32 on the card (no TF32), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced().replace(dtype="float32")
+    eng = ServingEngine(cfg, slots=args.slots, max_seq=args.max_seq,
+                        prefill_len=args.prefill_len or None,
+                        pages=args.pages, page_size=args.page_size,
+                        prefix_cache=args.prefix_cache, device=args.device)
+    eng.load(seed=args.seed)
+
+    rng = np.random.default_rng(args.seed)
+    reqs = []
+    for i in range(args.requests):
+        hi = max(min(12, eng.prefill_len + 1), 2)
+        plen = int(rng.integers(min(4, hi - 1), hi))
+        r = Request(rid=i,
+                    prompt=rng.integers(3, cfg.vocab_size, plen,
+                                        dtype=np.int32),
+                    max_new_tokens=args.max_new_tokens)
+        reqs.append(r)
+        eng.submit(r)
+    stats = eng.run_until_drained()
+    print(json.dumps({**stats,
+                      "device": str(eng.device),
+                      "prefill_len": eng.prefill_len,
+                      "sample_output": reqs[0].out_tokens[:8]}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,163 @@
+"""Parameter and paged-cache shapes, init, and the bridge to the JAX
+package's flat checkpoint view.
+
+The port's weights are a plain dict with the JAX tree's structure at tp=1:
+``{"embed", "final_ln", "lm_head", "blocks": [{...}]}`` where every block
+leaf carries the stacked ``[n, ...]`` leading dim of
+``repro.models.params``.  Flat names are the JAX ``keystr`` paths
+(``"['blocks'][0]['wq']"``), so :func:`from_flat` reads
+``repro.models.params.tree_to_flat`` output without remapping.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import GLOBAL_ATTN, ArchConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    f32: bool = False            # stored in f32 whatever the model dtype
+    scale: float = 0.02          # init stddev; 0 -> zeros
+
+
+def check_supported(cfg: ArchConfig):
+    """The slice runs dense all-global-attention models only."""
+    other = sorted(set(cfg.layer_pattern) - {GLOBAL_ATTN})
+    unsupported = [what for what, on in (
+        (f"layer kinds {other}", other),
+        ("post-norms", cfg.post_norms),
+        ("tied embeddings", cfg.tie_embeddings),
+    ) if on]
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not run {', '.join(unsupported)} "
+            f"yet (ROADMAP.md queue A, other model families)")
+
+
+def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+    """One GLOBAL_ATTN + SwiGLU layer at tp=1 (``params.py`` ``_attn_specs``
+    and ``_mlp_specs``)."""
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
+    return {
+        "ln": Spec((d,), f32=True, scale=0.0),
+        "wq": Spec((d, cfg.num_heads * hd)),
+        "wk": Spec((d, cfg.num_kv_heads * hd)),
+        "wv": Spec((d, cfg.num_kv_heads * hd)),
+        "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
+        "ln2": Spec((d,), f32=True, scale=0.0),
+        "wg": Spec((d, f)),
+        "wu": Spec((d, f)),
+        "wd": Spec((f, d), scale=out_scale),
+    }
+
+
+def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
+    """Flat name -> Spec, in the JAX tree's flatten order."""
+    check_supported(cfg)
+    d, vp, n = cfg.d_model, cfg.padded_vocab(), cfg.num_layers
+    out = {f"['blocks'][0]['{name}']": Spec((n,) + s.shape, s.f32, s.scale)
+           for name, s in sorted(layer_specs(cfg).items())}
+    out["['embed']"] = Spec((vp, d))
+    out["['final_ln']"] = Spec((d,), f32=True, scale=0.0)
+    out["['lm_head']"] = Spec((d, vp))
+    return out
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    params: Dict[str, Any] = {"blocks": [{}]}
+    for key, t in flat.items():
+        if key.startswith("['blocks'][0]"):
+            params["blocks"][0][key[len("['blocks'][0]['"):-2]] = t
+        else:
+            params[key[2:-2]] = t
+    return params
+
+
+def _flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    flat = {}
+    for name, t in params["blocks"][0].items():
+        flat[f"['blocks'][0]['{name}']"] = t
+    for name in ("embed", "final_ln", "lm_head"):
+        flat[f"['{name}']"] = params[name]
+    return flat
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
+    """Random weights from ``seed``, drawn in place on ``device`` in the
+    storage dtype (no f32 staging copy of the large matrices).  The numbers
+    differ from JAX's ``init_params``; tests move JAX weights over with
+    :func:`from_flat`."""
+    wdt = DTYPES[cfg.dtype]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flat = {}
+    for key, s in model_specs(cfg).items():
+        t = torch.zeros(s.shape, dtype=torch.float32 if s.f32 else wdt,
+                        device=device)
+        if s.scale:
+            t.normal_(0.0, s.scale, generator=gen)
+        flat[key] = t
+    return _unflatten(flat)
+
+
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":          # ml_dtypes bf16 from JAX
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy() if not arr.flags.writeable else arr)
+
+
+def from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
+              device: torch.device = torch.device("cpu"),
+              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Build the port's weights from ``repro.models.params.tree_to_flat``
+    output: same names, same shapes, no remapping."""
+    specs = model_specs(cfg)
+    missing = sorted(set(specs) - set(flat))
+    extra = sorted(set(flat) - set(specs))
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: flat weights missing {missing}, "
+                       f"unexpected {extra}")
+    wdt = dtype if dtype is not None else DTYPES[cfg.dtype]
+    out = {}
+    for key, s in specs.items():
+        arr = flat[key]
+        if tuple(arr.shape) != s.shape:
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected "
+                             f"{s.shape}")
+        out[key] = _to_torch(arr).to(
+            device=device, dtype=torch.float32 if s.f32 else wdt)
+    return _unflatten(out)
+
+
+def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`from_flat`: flat name -> host array (bf16 leaves
+    come back as f32, which holds every bf16 value exactly)."""
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t)
+            .detach().cpu().numpy() for k, t in _flatten(params).items()}
+
+
+def cache_shape(cfg: ArchConfig, pages: int,
+                page_size: int) -> Tuple[int, ...]:
+    """Page pool of one k (or v) stack: ``[n, pages, page, kvh, hd]``
+    (``repro.models.params.cache_specs(paged=...)`` at tp=1)."""
+    return (cfg.num_layers, pages, page_size, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+
+
+def zeros_state(cfg: ArchConfig, pages: int, page_size: int,
+                device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
+    shape = cache_shape(cfg, pages, page_size)
+    dt = DTYPES[cfg.dtype]
+    return {"blocks": [{"k": torch.zeros(shape, dtype=dt, device=device),
+                        "v": torch.zeros(shape, dtype=dt, device=device)}]}
