@@ -21,6 +21,23 @@ Phases (any failure raises and the script exits non-zero):
    steps x 129 (RMSNorm).  After step 470 (8 active slots at positions
    up to ~470), 4 of its steps are timed plainly and 4 under ``torch.profiler``:
    device time against host wall per step.
+5. Training kernels against their plain versions on the card, in f32
+   (TF32 off) and bf16: flash attention forward (out, lse) and backward
+   (dq, dk, dv) at the training shapes (b 4, s 1024, 32 heads of 64;
+   GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000) and
+   the RMSNorm forward and backward at 4096 x 2048, each timed with its bound, its
+   plain version and, where one PyTorch call computes the same function,
+   that call (a yardstick only).
+6. Training consistency: ``gpt-h2048`` at full width and 2 layers in f32,
+   batch 2, seq 256, from the same weights on the card (kernels) and on
+   the CPU (plain versions): loss within 1e-5 relative and every gradient
+   leaf within ``grads_err`` 1e-4.
+7. Train ``gpt-h2048`` at full width and depth in bf16 through the port's
+   ``Trainer`` (batch 8, seq 1024, 2 microbatches, 8 AdamW steps): finite
+   losses, every leaf's gradient present and finite after the first step,
+   launches of steps x 2 x 24 (flash forward and backward) and
+   steps x 2 x 49 (RMSNorm forward and backward); step time, tokens/s,
+   MFU, peak memory and a ``torch.profiler`` window of one step.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -47,6 +64,24 @@ ARCH = "gpt-serve-h4096"
 PAGED_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
 RMS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 POOL_TOL = 1e-4          # f32 KV pools, card vs CPU, through 2 layers
+# flash attention, kernel vs plain version, (atol, rtol): f32 sums in
+# another order (out, lse; gradients sum up to g * s terms); bf16 results
+# are cast from f32 in both, so one bf16 ulp (rtol 2**-7)
+FLASH_TOL = {"float32": {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-5),
+                         "grad": (1e-4, 1e-4)},
+             "bfloat16": {"out": (1e-5, 2 ** -7), "lse": (1e-5, 1e-5),
+                          "grad": (1e-4, 2 ** -7)}}
+# RMSNorm backward: dx as the forward; dscale sums 4096 rows of O(1)
+# terms in another order (f32 in both dtypes)
+RMS_BWD_TOL = {"float32": {"dx": (1e-5, 1e-5), "dscale": (1e-3, 1e-5)},
+               "bfloat16": {"dx": (1e-5, 2 ** -7), "dscale": (1e-3, 1e-5)}}
+# kernels that serving (no autograd) must never launch
+SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0}
+TRAIN_ARCH = "gpt-h2048"
+LOSS_RTOL = 1e-5         # f32 loss, card vs CPU, 2 layers
+GRADS_TOL = 1e-4         # grads_err, card vs CPU
+H100_BF16_FLOPS = 989e12  # MFU denominator (dense bf16 peak)
 # the serve phase is profiled after this many steps: all 8 slots are then
 # active, at positions up to ~470 (mean ~330; the run's longest is 528)
 PROFILE_AT = 470
@@ -158,7 +193,6 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import paged_flash_decode
-    from repro_torch.kernels.rmsnorm import rmsnorm
 
     results = {"paged_decode": [], "rmsnorm": []}
     page, nb, b = 16, 128, 8
@@ -218,37 +252,42 @@ def phase_kernels():
             results["paged_decode"].append(row)
             del q, kp, vp, out, want
 
-    d = 4096
     for rows in (8, 8192):
         for dname in ("float32", "bfloat16"):
-            dtype = getattr(torch, dname)
-            gen = torch.Generator(device="cuda").manual_seed(2)
-            x = (torch.randn(rows, d, generator=gen, device="cuda") * 3
-                 ).to(dtype)
-            s = torch.randn(d, generator=gen, device="cuda") * 0.1
-            out = rmsnorm(x, s, eps=1e-5)
-            want = ref.rmsnorm_ref(x, s, 1e-5)
-            torch.cuda.synchronize()
-            atol, rtol = RMS_TOL[dname]
-            err, ok = max_err(out, want, atol, rtol)
-            w = (1.0 + s).to(dtype)
-            elt = x.element_size()
-            nbytes = 2 * rows * d * elt + d * 4
-            t_bytes = nbytes / PEAK_BYTES
-            t_ops = 4 * rows * d / PEAK_FLOPS[dname]
-            row = dict(rows=rows, d=d, dtype=dname, max_abs_err=err,
-                       atol=atol, rtol=rtol,
-                       ms=time_ms(lambda: rmsnorm(x, s, eps=1e-5)),
-                       plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
-                       bound_ms=1e3 * max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       library_ms=time_ms(lambda: F.rms_norm(
-                           x, (d,), weight=w, eps=1e-5)))
-            print(f"[rmsnorm] {json.dumps(row)}")
-            require(ok, f"rmsnorm rows={rows} {dname}: max abs err {err} "
-                        f"beyond atol {atol} + rtol {rtol}")
-            results["rmsnorm"].append(row)
+            results["rmsnorm"].append(_rmsnorm_row(rows, 4096, dname))
     return results
+
+
+def _rmsnorm_row(rows: int, d: int, dname: str) -> dict:
+    """The RMSNorm forward kernel on [rows, d] against its plain version,
+    timed beside its bound, the plain version and ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dtype)
+    s = torch.randn(d, generator=gen, device="cuda") * 0.1
+    out = rmsnorm(x, s, eps=1e-5)
+    want = ref.rmsnorm_ref(x, s, 1e-5)
+    torch.cuda.synchronize()
+    atol, rtol = RMS_TOL[dname]
+    err, ok = max_err(out, want, atol, rtol)
+    w = (1.0 + s).to(dtype)
+    bound = _bound(2 * rows * d * x.element_size() + d * 4, 4 * rows * d,
+                   dname)
+    row = dict(rows=rows, d=d, dtype=dname, max_abs_err=err, atol=atol,
+               rtol=rtol, ms=time_ms(lambda: rmsnorm(x, s, eps=1e-5)),
+               plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
+               bound_ms=bound[0], bound_by=bound[1],
+               library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=w,
+                                                     eps=1e-5)))
+    print(f"[rmsnorm] {json.dumps(row)}")
+    require(ok, f"rmsnorm rows={rows} d={d} {dname}: max abs err {err} "
+                f"beyond atol {atol} + rtol {rtol}")
+    return row
 
 
 def _consistency_requests(np, vocab):
@@ -294,10 +333,11 @@ def phase_consistency():
                          launches=dict(_build.LAUNCHES),
                          s=time.perf_counter() - t0)
     g, c = runs["cuda"], runs["cpu"]
-    require(g["launches"]["paged_decode"] == g["stats"]["steps"] * 2
-            and g["launches"]["rmsnorm"] == g["stats"]["steps"] * 5,
-            f"card run launched {g['launches']} in {g['stats']['steps']} steps")
-    require(c["launches"] == {"paged_decode": 0, "rmsnorm": 0},
+    steps = g["stats"]["steps"]
+    require(g["launches"] == {**SERVE_ONLY, "paged_decode": steps * 2,
+                              "rmsnorm": steps * 5},
+            f"card run launched {g['launches']} in {steps} steps")
+    require(not any(c["launches"].values()),
             f"CPU run launched kernels: {c['launches']}")
     for rg, rc in zip(g["reqs"], c["reqs"]):
         require(rg.done and rc.done and rg.out_tokens == rc.out_tokens,
@@ -376,6 +416,8 @@ def phase_serve():
     require(launches["rmsnorm"] == steps * (2 * n_layers + 1),
             f"rmsnorm launched {launches['rmsnorm']} times in {steps} steps "
             f"(expected {steps * (2 * n_layers + 1)})")
+    require(all(launches[k] == 0 for k in SERVE_ONLY),
+            f"serving launched training kernels: {launches}")
     vp = cfg.padded_vocab()
     for r in reqs:
         require(r.done and 1 <= len(r.out_tokens) <= 32
@@ -463,6 +505,330 @@ def _profile_steps(eng, steps: int = 4):
     ), (n0, n0 + steps)
 
 
+def _visible_pairs(s, causal, window):
+    """(query, key) pairs the mask leaves visible, per head."""
+    import numpy as np
+    i = np.arange(s)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(
+        i - window + 1, 0)
+    hi = i + 1 if causal else np.full(s, s)
+    return int((hi - lo).sum())
+
+
+def _bound(nbytes, flops, dname):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _check_all(name, pairs, tol):
+    """pairs: {label: (got, want)}; tol: {label: (atol, rtol)} -> errors."""
+    errs = {}
+    for label, (got, want) in pairs.items():
+        atol, rtol = tol[label]
+        errs[label], ok = max_err(got, want, atol, rtol)
+        require(ok, f"{name} {label}: max abs err {errs[label]} beyond "
+                    f"atol {atol} + rtol {rtol}")
+    return errs
+
+
+def phase_train_kernels():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    results = {"flash_attention": [], "flash_attention_bwd": [],
+               "rmsnorm": [], "rmsnorm_bwd": []}
+    cases = [
+        dict(name="main", b=4, s=1024, h=32, kvh=32, hd=64),
+        dict(name="gqa", b=4, s=1024, h=16, kvh=8, hd=128),
+        dict(name="softcap_window", b=4, s=1024, h=32, kvh=32, hd=64,
+             softcap=30.0, window=256),
+        dict(name="ragged", b=4, s=1000, h=32, kvh=32, hd=64),
+    ]
+    for case in cases:
+        b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
+        kw = dict(causal=True, window=case.get("window"),
+                  softcap=case.get("softcap", 0.0))
+        plain_lib = not kw["softcap"] and kw["window"] is None
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            q, dout = (torch.randn(b, s_, h, hd, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn(b, s_, kvh, hd, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want_grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                     **kw)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]
+            ferr = _check_all(f"flash {case['name']} {dname}",
+                              {"out": (out, want_out),
+                               "lse": (lse, want_lse)},
+                              {"out": tol["out"], "lse": tol["lse"]})
+            berr = _check_all(f"flash_bwd {case['name']} {dname}",
+                              dict(zip(("dq", "dk", "dv"),
+                                       zip(grads, want_grads))),
+                              {g: tol["grad"] for g in ("dq", "dk", "dv")})
+            elt = q.element_size()
+            pairs = _visible_pairs(s_, True, kw["window"]) * b * h
+            lse_bytes = b * h * s_ * 4
+            # reads q, k, v; writes out and lse; q.k and p.v per visible pair
+            fwd_bound = _bound(2 * (q.numel() + k.numel()) * elt + lse_bytes,
+                               4 * hd * pairs, dname)
+            # reads q, k, v, out, dout and lse; writes dq, dk, dv.  The
+            # four products the gradient needs (dP, dV, dQ, dK): the
+            # recomputation of S is this design's choice, not the work's
+            bwd_bound = _bound(4 * (q.numel() + k.numel()) * elt + lse_bytes,
+                               8 * hd * pairs, dname)
+            common = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h,
+                          kvh=kvh, hd=hd, window=kw["window"],
+                          softcap=kw["softcap"], visible_pairs=pairs)
+            frow = dict(common, max_abs_err=max(ferr.values()), errs=ferr,
+                        tol=tol["out"],
+                        ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+                        plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                            q, k, v, **kw), iters=10),
+                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                        library_ms=None)
+            brow = dict(common, max_abs_err=max(berr.values()), errs=berr,
+                        tol=tol["grad"],
+                        ms=time_ms(lambda: flash_attention_bwd(
+                            q, k, v, out, lse, dout, **kw)),
+                        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                            q, k, v, out, lse, dout, **kw), iters=10),
+                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                        library_ms=None)
+            if plain_lib:
+                # yardstick: SDPA in its own [b, h, s, hd] layout
+                # (transposes untimed); backward alone via retain_graph
+                qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                                   for t in (q, k, v, dout))
+                sdpa = dict(is_causal=True, enable_gqa=kvh != h)
+                frow["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           **sdpa))
+                qg, kg, vg = (t.detach().requires_grad_()
+                              for t in (qt, kt, vt))
+                lo = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+                frow["library_err"] = float(
+                    (lo.detach().transpose(1, 2).float()
+                     - want_out.float()).abs().max())
+                brow["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    lo, (qg, kg, vg), dot, retain_graph=True))
+                del qt, kt, vt, dot, qg, kg, vg, lo
+            print(f"[flash_attention] {json.dumps(frow)}")
+            print(f"[flash_attention_bwd] {json.dumps(brow)}")
+            results["flash_attention"].append(frow)
+            results["flash_attention_bwd"].append(brow)
+            del q, k, v, dout, out, lse, want_out, want_lse, grads, want_grads
+            torch.cuda.empty_cache()
+
+    # the training path's norms: x [b*s, d] = [4096, 2048], forward and
+    # backward
+    rows, d = 4096, 2048
+    for dname in ("float32", "bfloat16"):
+        results["rmsnorm"].append(_rmsnorm_row(rows, d, dname))
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        x = (torch.randn(rows, d, generator=gen, device="cuda") * 3
+             ).to(dtype)
+        dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        sc = torch.randn(d, generator=gen, device="cuda") * 0.1
+        dx, dsc = rmsnorm_bwd(x, sc, dy, eps=1e-5)
+        want_dx, want_dsc = ref.rmsnorm_bwd_ref(x, sc, dy, 1e-5)
+        torch.cuda.synchronize()
+        errs = _check_all(f"rmsnorm_bwd {dname}",
+                          {"dx": (dx, want_dx), "dscale": (dsc, want_dsc)},
+                          RMS_BWD_TOL[dname])
+        elt = x.element_size()
+        bound = _bound(3 * rows * d * elt + 2 * d * 4, 12 * rows * d, dname)
+        xr = x.detach().requires_grad_()
+        sr = sc.detach().requires_grad_()
+        ly = F.rms_norm(xr, (d,), weight=(1.0 + sr).to(dtype), eps=1e-5)
+        row = dict(rows=rows, d=d, dtype=dname, max_abs_err=max(errs.values()),
+                   errs=errs, tol=RMS_BWD_TOL[dname],
+                   ms=time_ms(lambda: rmsnorm_bwd(x, sc, dy, eps=1e-5)),
+                   plain_ms=time_ms(lambda: ref.rmsnorm_bwd_ref(
+                       x, sc, dy, 1e-5)),
+                   bound_ms=bound[0], bound_by=bound[1],
+                   library_ms=time_ms(lambda: torch.autograd.grad(
+                       ly, (xr, sr), dy, retain_graph=True)))
+        print(f"[rmsnorm_bwd] {json.dumps(row)}")
+        results["rmsnorm_bwd"].append(row)
+    return results
+
+
+def grads_err(g1: dict, g2: dict) -> float:
+    """``tests/_scripts/runner.py:174``: per leaf, max abs difference over
+    the max abs value of ``g1``; the worst leaf."""
+    return max(float((g1[k] - g2[k]).abs().max())
+               / (float(g1[k].abs().max()) + 1e-8) for k in g1)
+
+
+def phase_train_consistency():
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=2, seq_len=256,
+                                  vocab_size=cfg.vocab_size), 0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = prm.unflatten({k: t.to(dev).requires_grad_() for k, t in
+                                 prm.flatten(base).items()})
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = lm.train_loss(cfg, params, tb, TrainHParams())
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(loss=loss.item(), s=time.perf_counter() - t0,
+                         launches=dict(_build.LAUNCHES),
+                         grads={k: t.grad.detach().cpu() for k, t in
+                                prm.flatten(params).items()})
+    g, c = runs["cuda"], runs["cpu"]
+    n = cfg.num_layers
+    want = {"paged_decode": 0, "rmsnorm": 2 * n + 1,
+            "rmsnorm_bwd": 2 * n + 1, "flash_attention": n,
+            "flash_attention_bwd": n}
+    require(g["launches"] == want,
+            f"card pass launched {g['launches']}, expected {want}")
+    require(not any(c["launches"].values()),
+            f"CPU pass launched kernels: {c['launches']}")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    gerr = grads_err(c["grads"], g["grads"])
+    out = dict(arch=TRAIN_ARCH, layers=n, d_model=cfg.d_model,
+               dtype="float32", batch=2, seq=256, loss_card=g["loss"],
+               loss_cpu=c["loss"], loss_rel_err=loss_rel,
+               loss_rtol=LOSS_RTOL, grads_err=gerr, grads_tol=GRADS_TOL,
+               worst_leaf=max(c["grads"], key=lambda k: grads_err(
+                   {k: c["grads"][k]}, {k: g["grads"][k]})),
+               card_s=g["s"], cpu_s=c["s"])
+    print(f"[train_consistency] {json.dumps(out)}")
+    require(loss_rel <= LOSS_RTOL,
+            f"loss card {g['loss']} vs CPU {c['loss']}: rel {loss_rel}")
+    require(gerr <= GRADS_TOL, f"grads_err {gerr} > {GRADS_TOL}")
+    return out
+
+
+def _train_model_flops(cfg, batch, seq):
+    """6 x matmul weights (embedding table excluded, head included) x
+    tokens, plus causal attention's 3 x 2 b s^2 d per layer."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    per_layer = (d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+                 + cfg.num_heads * hd * d + 3 * d * cfg.d_ff)
+    weights = cfg.num_layers * per_layer + d * cfg.padded_vocab()
+    return (6 * weights * batch * seq
+            + cfg.num_layers * 3 * 2 * batch * seq * seq * d)
+
+
+def phase_train():
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.runtime import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    steps, batch, seq, micro = 8, 8, 1024, 2
+    hp = TrainHParams(learning_rate=3e-4, total_steps=steps,
+                      warmup_steps=max(steps // 20, 1), microbatch=micro)
+    tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None)
+    require(tr.device.type == "cuda", f"trainer chose {tr.device}")
+    _build.reset_launches()
+    first = tr.train(1, seed=0)
+    leaves = prm.flatten(tr.params)
+    bad = [k for k, t in leaves.items()
+           if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+    require(not bad, f"missing or non-finite gradients after step 1: {bad}")
+    rest = tr.train(steps, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = first["losses"] + rest["losses"]
+    times = first["step_times"] + rest["step_times"]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"losses {losses}")
+    n, passes = cfg.num_layers, steps * micro
+    want = {"paged_decode": 0, "rmsnorm": passes * (2 * n + 1),
+            "rmsnorm_bwd": passes * (2 * n + 1),
+            "flash_attention": passes * n, "flash_attention_bwd": passes * n}
+    require(launches == want, f"train launched {launches}, expected {want}")
+    step_ms = [1e3 * t for t in times[2:]]
+    med = statistics.median(step_ms)
+    flops = _train_model_flops(cfg, batch, seq)
+    out = dict(arch=TRAIN_ARCH, dtype=cfg.dtype, layers=n,
+               d_model=cfg.d_model, params=sum(t.numel() for t in
+                                               leaves.values()),
+               batch=batch, seq=seq, microbatch=micro, steps=steps,
+               losses=losses, step_ms=[1e3 * t for t in times],
+               step_ms_median=med, tokens_per_s=batch * seq / (med / 1e3),
+               model_tflop_per_step=flops / 1e12,
+               mfu=flops / (med / 1e3) / H100_BF16_FLOPS,
+               peak_mem_gb=peak / 1e9, launches=launches)
+    print(f"[train] {json.dumps(out)}")
+    out["profile"] = _profile_train_step(tr)
+    print(f"[train_profile] {json.dumps(out['profile'])}")
+    return out
+
+
+def _profile_train_step(tr):
+    """One more step (not counted above) under ``torch.profiler``: device
+    busy time against the host wall of the step, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig
+    dcfg = DataConfig(global_batch=tr.global_batch, seq_len=tr.seq_len,
+                      vocab_size=tr.cfg.vocab_size,
+                      microbatch=tr.hp.microbatch)
+    batch = tr.batch(dcfg, tr.opt_state["step"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels.append((us, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    return dict(
+        wall_ms_profiled=wall_ms,
+        device_ms=device_ms if kernels else "not measured",
+        idle_share=(1 - device_ms / wall_ms) if kernels else "not measured",
+        kernel_launches=sum(k[1] for k in kernels),
+        top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
+             for k in kernels[:16]])
+
+
 def main() -> int:
     try:
         import torch
@@ -489,13 +855,36 @@ def main() -> int:
     report["kernels"] = phase_kernels()
     report["consistency"] = phase_consistency()
     report["serve"] = phase_serve()
+    report["train_kernels"] = phase_train_kernels()
+    report["train_consistency"] = phase_train_consistency()
+    report["train"] = phase_train()
     report["total_s"] = time.perf_counter() - t0
 
     main_paged = next(r for r in report["kernels"]["paged_decode"]
                       if r["case"] == "main" and r["dtype"] == "bfloat16")
     main_rms = next(r for r in report["kernels"]["rmsnorm"]
                     if r["rows"] == 8 and r["dtype"] == "bfloat16")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     launches = report["serve"]["launches"]
+    train_launches = report["train"]["launches"]
+
+    def main_case(kernel, **want):
+        return next(r for r in report["train_kernels"][kernel]
+                    if all(r[k] == v for k, v in want.items()))
+
+    train_rms = main_case("rmsnorm", dtype="bfloat16")
+
+    train_rows = [
+        ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16",
+         main_case("rmsnorm_bwd", dtype="bfloat16")),
+        ("flash_attention", "flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:30",
+         main_case("flash_attention", case="main", dtype="bfloat16")),
+        ("flash_attention_bwd", "flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:30",
+         main_case("flash_attention_bwd", case="main", dtype="bfloat16")),
+    ]
     line = {"kernels": [
         dict(name="paged_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -507,11 +896,16 @@ def main() -> int:
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:16",
-             launches=launches["rmsnorm"],
-             **{k: main_rms[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")}),
-    ]}
+             launches=launches["rmsnorm"] + train_launches["rmsnorm"],
+             launches_by_path={"serve": launches["rmsnorm"],
+                               "train": train_launches["rmsnorm"]},
+             **{k: main_rms[k] for k in keys},
+             at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys}),
+    ] + [dict(name=name, route="cuda",
+              source=f"src/repro_torch/kernels/csrc/{src}",
+              replaces=replaces, launches=train_launches[name],
+              **{k: row[k] for k in keys})
+         for name, src, replaces, row in train_rows]}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"[total] {report['total_s']:.1f} s")

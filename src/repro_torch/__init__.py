@@ -2,7 +2,11 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 layout (``configs``, ``core``, ``models``, ``kernels``, ``serving``,
-``launch``) and imports nothing from it.  The first slice is the paged-KV
-serving path: the decode step of ``repro.models.lm.build_decode`` with
-hand-written CUDA kernels for paged decode attention and RMSNorm.
+``optim``, ``data``, ``runtime``, ``launch``) and imports nothing from
+it.  The first slice is the paged-KV serving path: the decode step of
+``repro.models.lm.build_decode`` with hand-written CUDA kernels for paged
+decode attention and RMSNorm.  The second is training on one device:
+``build_train_loss`` at tp=1, AdamW and the trainer, with hand-written
+CUDA kernels for flash attention forward and backward and the RMSNorm
+backward.
 """

@@ -1,6 +1,7 @@
-"""Architecture configuration: the port's own copy of the part of
-``repro.configs.base.ArchConfig`` that dense all-global-attention models
-use.  Field names and derived values match the JAX package's, so a config
+"""Architecture and training configuration: the port's own copies of the
+part of ``repro.configs.base.ArchConfig`` that dense all-global-attention
+models use, and of the ``TrainHParams`` fields its training path honours.
+Field names and derived values match the JAX package's, so a config
 means the same model in both; the fields of the other families (MoE, SSM,
 RG-LRU, local windows, encoders) arrive with their layer kinds."""
 from __future__ import annotations
@@ -63,3 +64,18 @@ class ArchConfig:
             vocab_size=512,
             head_dim=32,
         )
+
+
+@dataclass(frozen=True)
+class TrainHParams:
+    """The port's copy of the fields of ``repro.configs.base.TrainHParams``
+    that its one-device training path honours, with JAX's defaults.
+    Schedules, remat, ZeRO, gradient compression and sequence parallelism
+    are not offered yet (ROADMAP.md A2-A4)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    microbatch: int = 0               # 0 = auto; > 1 = gradient accumulation
+    loss_chunk: int = 512             # tokens per chunk of the cross entropy

@@ -8,7 +8,8 @@ launch, never at import, and is redone when a source is newer than the
 library.  Sources include no PyTorch headers, so a build takes seconds.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else (a backward entry point
+that runs two or three CUDA kernels counts as one call).
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
 
-LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0,
+                            "rmsnorm_bwd": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -49,6 +52,16 @@ _SIGNATURES = {
     # scale, softcap, dtype, stream
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _F, _I, _P],
+    # x, scale, dy, dx, dscale, partial, rows, d, nblocks, eps, dtype, stream
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, b, s, h, kvh, hd, causal, window, scale, softcap,
+    # dtype, stream
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                        _F, _I, _P],
+    # q, k, v, out, lse, dout, delta, dq, dk, dv, b, s, h, kvh, hd, causal,
+    # window, scale, softcap, dtype, stream
+    "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _F, _F, _I, _P],
 }
 
 
@@ -128,6 +141,21 @@ def check(rc: int, what: str):
     if rc != 0:
         msg = library().repro_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then takes its
+    plain version), False when all lie on one CUDA device (it launches its
+    kernel); raises for any other mix, so no CUDA tensor ever reaches a
+    plain version."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what}: all tensors must be on the CPU or on the same CUDA "
+            f"device, got {[str(t.device) for t in tensors]}")
+    return False
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -1,0 +1,633 @@
+// Flash attention forward and backward for Hopper (training path).
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py `_kernel`
+// (reached through `flash_attention`).  On the TPU the grid is
+// (batch, q head, q block, kv block) with the kv-block axis sequential
+// ("arbitrary"): the online-softmax state m/l/acc lives in VMEM scratch
+// from one grid step to the next, and `pl.when` skips kv blocks that the
+// causal/window mask hides entirely.  Hopper blocks run in no order, so
+// here one block owns one (batch, q head, 64-row q tile) and walks the key
+// tiles itself, keeping m/l/acc in registers; key tiles the mask hides
+// entirely are never loaded (causal: the loop stops after the diagonal
+// tile).  The JAX wrapper pads q/k/v to the block size; this kernel masks
+// the ragged edge itself (rows and keys >= s).
+//
+// The TPU kernel has no backward: JAX lets XLA differentiate
+// `chunked_attention`.  The port needs one, so the backward here is the
+// FlashAttention-2 algorithm: a pre-pass computes delta = rowsum(dO * O);
+// a dK/dV kernel runs one block per (batch, kv head, 64-key tile) and
+// loops over the g query heads of that kv head and the q tiles that see
+// the key tile, recomputing P = exp(s - lse) and dS = P * (dP - delta)
+// (times 1 - tanh^2 under a softcap), and writes dK/dV once; a dQ kernel
+// runs one block per (batch, q head, q tile) and loops over key tiles.
+// No atomics: every output element is summed by one thread in a fixed
+// order, so the result is deterministic.
+//
+// Bound on the H100: causal, the forward does about s/2 flops per element
+// it moves (256 a byte in bf16 at s 1024), just below the tensor cores'
+// ~295 flop-per-byte balance, so the card's bound is the bytes, by a
+// little; the backward is alike.  But this first kernel runs on the CUDA
+// cores (f32 FMAs, ~1/15 of the bf16 tensor-core rate) and its inner
+// products read shared memory at one load per two FMAs, so the FMA and
+// shared-memory rates bound it in practice.  Design: 256
+// threads as 16 x 16, each owning a 4 x 4 block of the 64 x 64 score tile
+// (rows ty*4+i, columns tx+16*j) and 4 rows x hd/16 columns of the
+// output tile; row reductions are shuffles within a half-warp.  Tiles
+// are staged in shared memory as f32 (q pre-scaled, as the TPU kernel
+// scales q in f32), rows padded by one word against bank conflicts.
+// Moving the products onto wgmma is later work.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kTile = 64;       // query rows and key rows per tile
+constexpr int kThreads = 256;   // 16 x 16
+constexpr int kPLD = kTile + 4; // row stride of the score tiles in smem
+constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
+
+struct Params {
+  int b, s, h, kvh, g;
+  int causal, window;  // window 0: none
+  float scale, softcap;
+};
+
+// key kj visible from query qi (positions arange(s))
+__device__ __forceinline__ bool visible(int qi, int kj, const Params& p) {
+  if (qi >= p.s || kj >= p.s) return false;
+  if (p.causal && kj > qi) return false;
+  if (p.window > 0 && kj <= qi - p.window) return false;
+  return true;
+}
+
+// some key of tile [k0, k0 + 64) is visible from some query of [q0, q0 + 64)
+// (the TPU kernel's `run` predicate)
+__device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& p) {
+  if (p.causal && k0 > q0 + kTile - 1) return false;
+  if (p.window > 0 && k0 + kTile - 1 <= q0 - p.window) return false;
+  return true;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [r0, r0 + 64) of head `hh` of a [b, s, nh, HD] tensor -> smem f32
+// [64][HD + 1], times `mul`; rows >= s are zero
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int bi, int r0, int hh, int nh,
+                                          int s, float mul) {
+  constexpr int LD = HD + 1;
+  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
+    const int r = idx / HD;
+    const int d = idx % HD;
+    const int row = r0 + r;
+    float v = 0.f;
+    if (row < s)
+      v = repro::to_float(
+              src[((static_cast<int64_t>(bi) * s + row) * nh + hh) * HD + d]) *
+          mul;
+    dst[r * LD + d] = v;
+  }
+}
+
+// rows [r0, r0 + 64) of a [b, h, s] f32 row statistic -> smem; 0 past s
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+                                          int bi, int hi, int h, int r0, int s) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int row = r0 + r;
+    dst[r] = row < s ? src[(static_cast<int64_t>(bi) * h + hi) * s + row] : 0.f;
+  }
+}
+
+template <int HD>
+constexpr size_t fwd_smem() {
+  return (3 * kTile * (HD + 1) + kTile * kPLD) * sizeof(float);
+}
+
+template <int HD>
+constexpr size_t bwd_smem() {  // dK/dV kernel; the dQ kernel uses less
+  return (4 * kTile * (HD + 1) + 2 * kTile * kPLD + 2 * kTile) * sizeof(float);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, Params p) {
+  constexpr int LD = HD + 1;
+  constexpr int NC = HD / 16;  // output columns per thread: tx + 16 * c
+  extern __shared__ float smem[];
+  float* qs = smem;                // [64][LD]  q * scale
+  float* ks = qs + kTile * LD;     // [64][LD]
+  float* vs = ks + kTile * LD;     // [64][LD]
+  float* ps = vs + kTile * LD;     // [64][kPLD]  P of the current key tile
+
+  const int q0 = blockIdx.x * kTile;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int kh = hi / p.g;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nk = (p.s + kTile - 1) / kTile;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    if (p.causal && k0 > q0 + kTile - 1) break;
+    if (!tile_runs(q0, k0, p)) continue;
+    __syncthreads();  // the previous tile's ks/vs/ps are consumed
+    load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty * 4 + i;
+      bool ok[4];
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = sc[i][j];
+        if (p.softcap != 0.f) x = p.softcap * tanhf(x / p.softcap);
+        ok[j] = visible(qi, k0 + tx + 16 * j, p);
+        sc[i][j] = x;
+        if (ok[j]) mx = fmaxf(mx, x);
+      }
+      mx = half_warp_max(mx);
+      const float corr = expf(m[i] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pv = ok[j] ? expf(sc[i][j] - mx) : 0.f;
+        ps[(ty * 4 + i) * kPLD + tx + 16 * j] = pv;
+        rs += pv;
+      }
+      rs = half_warp_sum(rs);
+      l[i] = l[i] * corr + rs;
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pr[4], vv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * kPLD + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = vs[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.s) continue;
+    const float lf = fmaxf(l[i], 1e-30f);
+    const int64_t o = ((static_cast<int64_t>(bi) * p.s + qi) * p.h + hi) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      out[o + tx + 16 * c] = repro::from_float<T>(acc[i][c] / lf);
+    if (tx == 0)
+      lse[(static_cast<int64_t>(bi) * p.h + hi) * p.s + qi] = m[i] + logf(lf);
+  }
+}
+
+// delta[b, h, s] = rowsum(dout * out) in f32; one warp per (b, s, h) row
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                           float* __restrict__ delta, int64_t rows, int s, int h) {
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // whole warps leave together
+  const int64_t base = row * HD;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < HD; d += 32)
+    acc += repro::to_float(dout[base + d]) * repro::to_float(out[base + d]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) {
+    const int hi = static_cast<int>(row % h);
+    const int64_t bs = row / h;
+    const int si = static_cast<int>(bs % s);
+    const int64_t bi = bs / s;
+    delta[(bi * h + hi) * s + si] = acc;
+  }
+}
+
+// probability and its score gradient for one (query, key) cell
+__device__ __forceinline__ void p_ds(float raw, float dp, float lse_q,
+                                     float delta_q, bool ok, const Params& p,
+                                     float& pv, float& ds) {
+  float x = raw, t = 0.f;
+  if (p.softcap != 0.f) {
+    t = tanhf(raw / p.softcap);
+    x = p.softcap * t;
+  }
+  pv = ok ? expf(x - lse_q) : 0.f;
+  ds = pv * (dp - delta_q);
+  if (p.softcap != 0.f) ds *= 1.f - t * t;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    Params p) {
+  constexpr int LD = HD + 1;
+  constexpr int NC = HD / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;                  // [64][LD]  this block's keys
+  float* vs = ks + kTile * LD;       // [64][LD]
+  float* qs = vs + kTile * LD;       // [64][LD]  q * scale of the q tile
+  float* dos = qs + kTile * LD;      // [64][LD]
+  float* ps = dos + kTile * LD;      // [64 keys][kPLD]  P^T
+  float* dss = ps + kTile * kPLD;    // [64 keys][kPLD]  dS^T
+  float* lse_s = dss + kTile * kPLD; // [64]
+  float* delta_s = lse_s + kTile;    // [64]
+
+  const int k0 = blockIdx.x * kTile;
+  const int kh = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int tx = threadIdx.x & 15;   // q columns tx + 16 * j
+  const int ty = threadIdx.x >> 4;   // key rows ty * 4 + i
+
+  load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+
+  float adk[4][NC], adv[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  const int nq = (p.s + kTile - 1) / kTile;
+  for (int gi = 0; gi < p.g; ++gi) {
+    const int hi = kh * p.g + gi;
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kTile;
+      if (!tile_runs(q0, k0, p)) continue;
+      __syncthreads();  // the previous q tile is consumed (first: ks/vs ready)
+      load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+      load_tile<T, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
+      load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
+      load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
+      __syncthreads();
+
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        float kr[4], vr[4], qc[4], dc[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kr[i] = ks[(ty * 4 + i) * LD + d];
+          vr[i] = vs[(ty * 4 + i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qc[j] = qs[(tx + 16 * j) * LD + d];
+          dc[j] = dos[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            st[i][j] = fmaf(kr[i], qc[j], st[i][j]);
+            dpt[i][j] = fmaf(vr[i], dc[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qr = tx + 16 * j;
+          float pv, ds;
+          p_ds(st[i][j], dpt[i][j], lse_s[qr], delta_s[qr],
+               visible(q0 + qr, k0 + ty * 4 + i, p), p, pv, ds);
+          ps[(ty * 4 + i) * kPLD + qr] = pv;
+          dss[(ty * 4 + i) * kPLD + qr] = ds;
+        }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int qq = 0; qq < kTile; ++qq) {
+        float pr[4], dr[4], dov[NC], qv[NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pr[i] = ps[(ty * 4 + i) * kPLD + qq];
+          dr[i] = dss[(ty * 4 + i) * kPLD + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          dov[c] = dos[qq * LD + tx + 16 * c];
+          qv[c] = qs[qq * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            adv[i][c] = fmaf(pr[i], dov[c], adv[i][c]);
+            adk[i][c] = fmaf(dr[i], qv[c], adk[i][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + ty * 4 + i;
+    if (kj >= p.s) continue;
+    const int64_t o = ((static_cast<int64_t>(bi) * p.s + kj) * p.kvh + kh) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dk[o + tx + 16 * c] = repro::from_float<T>(adk[i][c]);
+      dv[o + tx + 16 * c] = repro::from_float<T>(adv[i][c]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, Params p) {
+  constexpr int LD = HD + 1;
+  constexpr int NC = HD / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;                  // [64][LD]  q * scale
+  float* dos = qs + kTile * LD;      // [64][LD]
+  float* ks = dos + kTile * LD;      // [64][LD]
+  float* vs = ks + kTile * LD;       // [64][LD]
+  float* dss = vs + kTile * LD;      // [64 queries][kPLD]
+  float* lse_s = dss + kTile * kPLD; // [64]
+  float* delta_s = lse_s + kTile;    // [64]
+
+  const int q0 = blockIdx.x * kTile;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int kh = hi / p.g;
+  const int tx = threadIdx.x & 15;   // key columns tx + 16 * j
+  const int ty = threadIdx.x >> 4;   // query rows ty * 4 + i
+
+  load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+  load_tile<T, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
+  load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
+  load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
+
+  float adq[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) adq[i][c] = 0.f;
+
+  const int nk = (p.s + kTile - 1) / kTile;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    if (p.causal && k0 > q0 + kTile - 1) break;
+    if (!tile_runs(q0, k0, p)) continue;
+    __syncthreads();  // the previous key tile is consumed (first: q side ready)
+    load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+    __syncthreads();
+
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = qs[(ty * 4 + i) * LD + d];
+        da[i] = dos[(ty * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = ks[(tx + 16 * j) * LD + d];
+        vb[j] = vs[(tx + 16 * j) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float pv, ds;
+        p_ds(sc[i][j], dp[i][j], lse_s[qr], delta_s[qr],
+             visible(q0 + qr, k0 + tx + 16 * j, p), p, pv, ds);
+        dss[qr * kPLD + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float dr[4], kv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dr[i] = dss[(ty * 4 + i) * kPLD + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = ks[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) adq[i][c] = fmaf(dr[i], kv[c], adq[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= p.s) continue;
+    const int64_t o = ((static_cast<int64_t>(bi) * p.s + qi) * p.h + hi) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      dq[o + tx + 16 * c] = repro::from_float<T>(adq[i][c] * p.scale);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int HD>
+int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+        const Params& p, cudaStream_t st) {
+  const size_t smem = fwd_smem<HD>();
+  cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
+  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int bwd(const void* q, const void* k, const void* v, const void* out,
+        const void* lse, const void* dout, void* delta, void* dq, void* dk,
+        void* dv, const Params& p, cudaStream_t st) {
+  const int64_t rows = static_cast<int64_t>(p.b) * p.s * p.h;
+  const int64_t warps_per_block = kThreads / 32;
+  const dim3 dgrid(static_cast<unsigned>((rows + warps_per_block - 1) /
+                                         warps_per_block));
+  flash_bwd_delta_kernel<T, HD><<<dgrid, kThreads, 0, st>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout),
+      static_cast<float*>(delta), rows, p.s, p.h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const size_t smem = bwd_smem<HD>();
+  e = allow_smem(flash_bwd_dkdv_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 kgrid((p.s + kTile - 1) / kTile, p.kvh, p.b);
+  flash_bwd_dkdv_kernel<T, HD><<<kgrid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  e = allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 qgrid((p.s + kTile - 1) / kTile, p.h, p.b);
+  flash_bwd_dq_kernel<T, HD><<<qgrid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool make_params(int b, int s, int h, int kvh, int causal, int window,
+                 float scale, float softcap, Params* p) {
+  if (b <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh || h > 65535 ||
+      b > 65535 || window < 0)
+    return false;
+  *p = Params{b, s, h, kvh, h / kvh, causal, window, scale, softcap};
+  return true;
+}
+
+}  // namespace
+
+// q, out: [b, s, h, hd]; k, v: [b, s, kvh, hd], all of dtype code `dtype`
+// and contiguous; lse: [b, h, s] f32.  window 0 means no window.
+// Returns a cudaError_t code (0 on success).
+extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
+                               void* out, void* lse, int b, int s, int h,
+                               int kvh, int hd, int causal, int window,
+                               float scale, float softcap, int dtype,
+                               void* stream) {
+  Params p;
+  if (!make_params(b, s, h, kvh, causal, window, scale, softcap, &p))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32) {
+    switch (hd) {
+      case 32: return fwd<float, 32>(q, k, v, out, lse, p, st);
+      case 64: return fwd<float, 64>(q, k, v, out, lse, p, st);
+      case 128: return fwd<float, 128>(q, k, v, out, lse, p, st);
+    }
+  } else if (dtype == repro::kBF16) {
+    switch (hd) {
+      case 32: return fwd<__nv_bfloat16, 32>(q, k, v, out, lse, p, st);
+      case 64: return fwd<__nv_bfloat16, 64>(q, k, v, out, lse, p, st);
+      case 128: return fwd<__nv_bfloat16, 128>(q, k, v, out, lse, p, st);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Backward of repro_flash_fwd: dq [b, s, h, hd]; dk, dv [b, s, kvh, hd] in
+// the inputs' dtype; delta: [b, h, s] f32 scratch.  Three launches (delta,
+// dK/dV, dQ) on `stream`.  Returns a cudaError_t code (0 on success).
+extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
+                               const void* out, const void* lse,
+                               const void* dout, void* delta, void* dq,
+                               void* dk, void* dv, int b, int s, int h,
+                               int kvh, int hd, int causal, int window,
+                               float scale, float softcap, int dtype,
+                               void* stream) {
+  Params p;
+  if (!make_params(b, s, h, kvh, causal, window, scale, softcap, &p))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32) {
+    switch (hd) {
+      case 32: return bwd<float, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 64: return bwd<float, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 128: return bwd<float, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+    }
+  } else if (dtype == repro::kBF16) {
+    switch (hd) {
+      case 32: return bwd<__nv_bfloat16, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 64: return bwd<__nv_bfloat16, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 128: return bwd<__nv_bfloat16, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+    }
+  }
+  return cudaErrorInvalidValue;
+}

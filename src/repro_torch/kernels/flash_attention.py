@@ -1,9 +1,13 @@
-"""Paged decode attention: wrapper of the CUDA kernel ``csrc/paged_decode.cu``.
+"""Flash attention: wrappers of the CUDA kernels ``csrc/flash_attention.cu``
+(training forward and backward) and ``csrc/paged_decode.cu`` (paged
+decode).
 
-Counterpart of ``repro.kernels.flash_attention.paged_flash_decode``, with
-the same signature and layouts.  A CPU tensor takes the plain version
-(:func:`repro_torch.kernels.ref.paged_decode_attention_ref`); a CUDA
-tensor launches the kernel or raises.
+Counterparts of ``repro.kernels.flash_attention.flash_attention`` and
+``paged_flash_decode``, with the same layouts.  A CPU tensor takes the
+plain version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches
+the kernel or raises.  :func:`flash_attention` is a
+``torch.autograd.Function`` whose backward is the backward kernel (the
+plain backward on the CPU).
 """
 from __future__ import annotations
 
@@ -12,7 +16,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_decode_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                    flash_attention_ref,
+                                    paged_decode_attention_ref)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 GROUPS = (1, 2, 4, 8)
@@ -30,13 +36,9 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     bf16); tables [b, nb] int32 (physical page of logical block i; 0 is
     the null page); pos [b] int32 -> [b, 1, h, hd]."""
     tensors = (q, k_pages, v_pages, tables, pos)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.on_cpu("paged_flash_decode", *tensors):
         return paged_decode_attention_ref(q, k_pages, v_pages, tables, pos,
                                           softcap=softcap, scale=scale)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError(
-            "paged_flash_decode: all tensors must be on the CPU or on the "
-            f"same CUDA device, got {[str(t.device) for t in tensors]}")
     b, one, h, hd = q.shape
     npages, page, kvh, hd_k = k_pages.shape
     if one != 1 or hd_k != hd or v_pages.shape != k_pages.shape:
@@ -73,3 +75,133 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check(rc, "paged_decode kernel launch")
     _build.LAUNCHES["paged_decode"] += 1
     return out
+
+
+def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int]):
+    """Shapes the plain versions and the kernels share; raises otherwise."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[0] != q.shape[0] or k.shape[1] != q.shape[1] \
+            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)} do not match self-attention shapes "
+            f"[b, s, h, hd] and [b, s, kvh, hd] with kvh | h")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+
+
+def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None
+                  ) -> bool:
+    """``_build.on_cpu`` (over ``tensors`` and ``lse``), and on CUDA what
+    the kernels take: one f32 or bf16 dtype for ``tensors`` (``lse`` is
+    f32, checked by the caller), h/kvh and hd among the compiled
+    instances, contiguity."""
+    extra = () if lse is None else (lse,)
+    if _build.on_cpu(what, *tensors, *extra):
+        return True
+    if any(t.dtype != tensors[0].dtype for t in tensors) \
+            or tensors[0].dtype not in _DTYPES:
+        raise TypeError(
+            "flash_attention kernels take f32 or bf16 tensors of one dtype, "
+            f"got {[t.dtype for t in tensors]}")
+    b, s, h, hd = tensors[0].shape
+    kvh = tensors[1].shape[2]
+    if h // kvh not in GROUPS or hd not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention kernels support h/kvh in {GROUPS} and hd in "
+            f"{HEAD_DIMS}, got h={h} kvh={kvh} hd={hd}")
+    if not all(t.is_contiguous() for t in (*tensors, *extra)):
+        raise ValueError("flash_attention kernels take contiguous tensors")
+    return False
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: float = 0.0, scale: Optional[float] = None):
+    """Self-attention over positions ``arange(s)``: q [b, s, h, hd]; k, v
+    [b, s, kvh, hd] -> (out [b, s, h, hd], lse [b, h, s] f32).  No autograd
+    (see :func:`flash_attention`)."""
+    _flash_check(q, k, v, window)
+    if _flash_on_cpu("flash_attention", (q, k, v)):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    b, s, h, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.repro_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, h, k.shape[2], hd, int(causal), window or 0,
+        scale, softcap, _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check(rc, "flash_attention kernel launch")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, softcap: float = 0.0,
+                        scale: Optional[float] = None):
+    """Gradient of :func:`flash_attention_fwd` given its ``out`` and
+    ``lse``: -> (dq, dk, dv) in the inputs' dtype."""
+    _flash_check(q, k, v, window)
+    b, s, h, hd = q.shape
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(
+            f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+            f"{tuple(dout.shape)} must be {tuple(q.shape)} and lse "
+            f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {s}) f32")
+    if _flash_on_cpu("flash_attention_bwd", (q, k, v, out, dout), lse):
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    scale = hd ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.repro_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd, int(causal),
+        window or 0, scale, softcap, _DTYPES[q.dtype], _build.stream_ptr(q))
+    _build.check(rc, "flash_attention_bwd kernel launch")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Forward: the flash kernel; backward: the backward kernels (plain
+    versions on the CPU).  Saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable self-attention with the TPU kernel's arithmetic
+    (``repro.kernels.flash_attention.flash_attention``): q [b, s, h, hd];
+    k, v [b, s, kvh, hd] -> [b, s, h, hd] in q's dtype."""
+    return FlashAttentionFunction.apply(q, k, v, causal, window, softcap,
+                                        scale)

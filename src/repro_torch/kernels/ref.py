@@ -59,3 +59,131 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p, v)
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_ref` (no Pallas counterpart: XLA
+    differentiates ``core/tmp.py`` ``rms_norm`` in JAX).
+
+    With ``w = 1 + scale`` and ``r = rsqrt(mean(x^2) + eps)``:
+    ``dx = r * (w*dy - x * r^2 * mean(x*w*dy))`` and
+    ``dscale = sum_rows(dy * x * r)``, all in f32; dx in x's dtype,
+    dscale f32 [d]."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    dyf = dy.float().reshape(-1, d)
+    w = 1.0 + scale.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    wdy = w * dyf
+    dot = (xf * wdy).mean(dim=-1, keepdim=True)
+    dx = r * (wdy - xf * (r * r) * dot)
+    dscale = (dyf * xf * r).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dscale
+
+
+def _attn_mask(q0: int, q1: int, s: int, causal: bool,
+               window: Optional[int], device) -> torch.Tensor:
+    """[q1 - q0, s] bool: key j visible from query i (absolute positions
+    ``arange(s)``, as ``chunked_attention`` with default positions)."""
+    qi = torch.arange(q0, q1, device=device)[:, None]
+    kj = torch.arange(s, device=device)[None, :]
+    valid = torch.ones(q1 - q0, s, dtype=torch.bool, device=device)
+    if causal:
+        valid &= kj <= qi
+    if window is not None:
+        valid &= kj > qi - window
+    return valid
+
+
+# query rows per chunk of the plain flash attention: bounds the f32 score
+# block to [b, h, Q_CHUNK, s] instead of [b, h, s, s]
+Q_CHUNK = 256
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: float = 0.0, scale: Optional[float] = None):
+    """Self-attention over positions ``arange(s)`` with the arithmetic of
+    the TPU kernel ``flash_attention.py:30``: ``q * scale`` in f32, capped
+    f32 scores masked to NEG_INF, f32 softmax state, ``l`` floored at 1e-30.
+
+    q [b, s, h, hd]; k, v [b, s, kvh, hd] -> (out [b, s, h, hd] in q's
+    dtype, lse [b, h, s] f32 with ``lse = m + log(l)``)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5 if scale is None else scale
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, Q_CHUNK):
+        q1 = min(q0 + Q_CHUNK, s)
+        qc = (q[:, q0:q1].float() * scale).reshape(b, q1 - q0, kvh, g, hd)
+        qc = qc.permute(0, 2, 3, 1, 4)                     # [b, kvh, g, c, hd]
+        sc = torch.matmul(qc, kf.transpose(-1, -2))        # [b, kvh, g, c, s]
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        valid = _attn_mask(q0, q1, s, causal, window, q.device)
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)
+        out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, q1 - q0, h, hd).to(q.dtype)
+        lse[:, :, q0:q1] = (m + torch.log(l)).reshape(b, h, q1 - q0)
+    return out, lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: float = 0.0,
+                            scale: Optional[float] = None):
+    """Gradient of :func:`flash_attention_ref` (FlashAttention-2 form; the
+    JAX package has no Pallas backward and lets XLA differentiate
+    ``chunked_attention``).  P is recomputed from ``lse`` one query chunk
+    at a time; ``delta = rowsum(dout * out)``; with a softcap, dS is
+    multiplied by ``1 - tanh(s / c)^2``.  dk/dv sum over the g query heads
+    of a kv head.  All in f32; -> (dq, dk, dv) in the inputs' dtype."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5 if scale is None else scale
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    dq = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(b, kvh, s, hd, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(b, kvh, s, hd, dtype=torch.float32, device=q.device)
+
+    def heads(t, q0, q1):                                  # -> [b, kvh, g, c, hd]
+        return t[:, q0:q1].float().reshape(b, q1 - q0, kvh, g, hd) \
+            .permute(0, 2, 3, 1, 4)
+
+    for q0 in range(0, s, Q_CHUNK):
+        q1 = min(q0 + Q_CHUNK, s)
+        qc = heads(q, q0, q1) * scale
+        doc = heads(dout, q0, q1)
+        delta = (doc * heads(out, q0, q1)).sum(dim=-1, keepdim=True)
+        lse_c = lse[:, :, q0:q1].reshape(b, kvh, g, q1 - q0, 1)
+        raw = torch.matmul(qc, kf.transpose(-1, -2))       # [b, kvh, g, c, s]
+        sc = raw
+        if softcap:
+            t = torch.tanh(raw / softcap)
+            sc = softcap * t
+        valid = _attn_mask(q0, q1, s, causal, window, q.device)
+        p = torch.where(valid, torch.exp(sc - lse_c), torch.zeros_like(sc))
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        ds = p * (dp - delta)
+        if softcap:
+            ds = ds * (1.0 - t * t)
+        dq[:, q0:q1] = (torch.matmul(ds, kf) * scale).permute(
+            0, 3, 1, 2, 4).reshape(b, q1 - q0, h, hd).to(q.dtype)
+        dk += torch.matmul(ds.transpose(-1, -2), qc).sum(dim=2)
+        dv += torch.matmul(p.transpose(-1, -2), doc).sum(dim=2)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))

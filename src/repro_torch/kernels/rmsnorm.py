@@ -1,28 +1,27 @@
-"""RMSNorm: wrapper of the CUDA kernel ``csrc/rmsnorm.cu``.
+"""RMSNorm: wrappers of the CUDA kernels ``csrc/rmsnorm.cu`` and the
+autograd Function that joins them.
 
 Counterpart of ``repro.kernels.rmsnorm.rmsnorm``.  A CPU tensor takes the
-plain version (:func:`repro_torch.kernels.ref.rmsnorm_ref`); a CUDA
-tensor launches the kernel or raises.
+plain versions (:func:`repro_torch.kernels.ref.rmsnorm_ref` and
+:func:`~repro_torch.kernels.ref.rmsnorm_bwd_ref`); a CUDA tensor launches
+the kernels or raises.  The kernels are called through ``ctypes``, which
+autograd cannot see, so :func:`rmsnorm` wraps both directions in one
+``torch.autograd.Function`` on every device.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
+# blocks of the backward's first pass: each adds its rows into one f32 row
+# of the [blocks, d] dscale scratch (2 per SM of an H100)
+BWD_BLOCKS = 264
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
-            eps: float = 1e-5) -> torch.Tensor:
-    """x [..., d] (f32 or bf16); scale [d] f32 -> [..., d] in x's dtype."""
-    if x.device.type == "cpu" and scale.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda" or scale.device != x.device:
-        raise ValueError(
-            f"rmsnorm: x on {x.device} and scale on {scale.device}; both "
-            f"must be on the CPU or on the same CUDA device")
+def _check(x: torch.Tensor, scale: torch.Tensor):
     if x.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm kernel takes f32 or bf16 x, got {x.dtype}")
     d = x.shape[-1]
@@ -32,6 +31,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             f"{scale.dtype} {tuple(scale.shape)}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm kernel takes contiguous x and scale")
+
+
+def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x [..., d] (f32 or bf16); scale [d] f32 -> [..., d] in x's dtype.
+    No autograd (see :func:`rmsnorm`)."""
+    if _build.on_cpu("rmsnorm", x, scale):
+        return rmsnorm_ref(x, scale, eps)
+    _check(x, scale)
+    d = x.shape[-1]
     out = torch.empty_like(x)
     lib = _build.library()
     rc = lib.repro_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
@@ -40,3 +49,56 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     _build.check(rc, "rmsnorm kernel launch")
     _build.LAUNCHES["rmsnorm"] += 1
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-5):
+    """Gradient of :func:`rmsnorm_fwd`: -> (dx in x's dtype, dscale [d]
+    f32).  dy has x's shape and dtype."""
+    if _build.on_cpu("rmsnorm_bwd", x, scale, dy):
+        return rmsnorm_bwd_ref(x, scale, dy, eps)
+    _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(
+            f"rmsnorm_bwd kernel takes a contiguous dy like x "
+            f"{tuple(x.shape)} {x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    nblocks = min(rows, BWD_BLOCKS)
+    dscale = torch.empty_like(scale)
+    partial = torch.empty(nblocks, d, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    rc = lib.repro_rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                               dx.data_ptr(), dscale.data_ptr(),
+                               partial.data_ptr(), rows, d, nblocks, eps,
+                               _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "rmsnorm_bwd kernel launch")
+    _build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """Forward: the RMSNorm kernel (plain version on the CPU); backward:
+    the backward kernel.  Saves x and scale; r is recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_fwd(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), eps=ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x [..., d] (f32 or bf16); scale [d] f32 -> [..., d] in x's dtype,
+    differentiable in x and scale."""
+    return RMSNormFunction.apply(x, scale, eps)

@@ -1,0 +1,86 @@
+"""The training step of ``repro.launch.steps.build_train_step`` on one
+device: forward and backward of :func:`repro_torch.models.lm.train_loss`
+(with gradient accumulation over microbatches), then AdamW."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.models import lm
+from repro_torch.models.params import flat_leaves
+from repro_torch.optim import adamw
+
+
+def auto_microbatch(global_batch: int, seq_len: int, d_model: int,
+                    num_layers: int) -> int:
+    """Gradient-accumulation count sized so one microbatch's rematerialized
+    activations (~3 [t,d] bf16 tensors per layer with the fine policy) fit
+    a 5e9-byte activation budget, floored at 1 sequence (the JAX package's
+    rule at one data-parallel rank and unsharded activations, kept so both
+    packages pick the same count)."""
+    token_budget = 5e9 / (3.0 * d_model * 2.0 * max(num_layers, 1))
+    seqs = max(1, min(global_batch, int(token_budget // max(seq_len, 1))))
+    n = max(1, global_batch // seqs)
+    while n > 1 and global_batch % n:
+        n -= 1
+    return n    # 1 = no accumulation (resolved; 0 means "auto")
+
+
+def resolve_hp(hp: TrainHParams, global_batch: int, *, seq_len: int,
+               d_model: int, num_layers: int) -> TrainHParams:
+    """Fill the auto field of a training run (microbatch=0 -> auto)."""
+    if hp.microbatch == 0:
+        return dataclasses.replace(
+            hp, microbatch=auto_microbatch(global_batch, seq_len, d_model,
+                                           num_layers))
+    return hp
+
+
+def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
+                     global_batch: int, seq_len: int
+                     ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """-> ``train_step(params, opt_state, batch) -> {"loss", "grad_norm"}``
+    (0-d f32 tensors), updating ``params`` and ``opt_state`` in place.
+
+    With ``hp.microbatch`` n > 1 the batch arrives as [n, B/n, s]: each
+    microbatch's gradients (in the parameters' dtype, as in JAX) are cast
+    to f32 and summed, then divided by n, and the loss is the mean of the
+    microbatch losses.  The last microbatch's gradients stay on the
+    parameters' ``.grad``.  The resolved hyper-parameters are the step's
+    ``hp`` attribute."""
+    hp = resolve_hp(hp, global_batch, seq_len=seq_len, d_model=cfg.d_model,
+                    num_layers=cfg.num_layers)
+    n = hp.microbatch if hp.microbatch > 1 else 1
+    ocfg = adamw.AdamWConfig(
+        learning_rate=hp.learning_rate, weight_decay=hp.weight_decay,
+        warmup_steps=hp.warmup_steps, total_steps=hp.total_steps,
+        grad_clip=hp.grad_clip)
+
+    def train_step(params: Dict[str, Any], opt_state: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        leaves = flat_leaves(params)
+        micro = ([{k: t[i] for k, t in batch.items()} for i in range(n)]
+                 if n > 1 else [batch])
+        grads, loss_sum = None, 0.0
+        for mb in micro:
+            for w in leaves:
+                w.grad = None
+            loss, _ = lm.train_loss(cfg, params, mb, hp)
+            loss.backward()
+            if grads is None:
+                grads = [w.grad.float() for w in leaves]
+            else:
+                for acc, w in zip(grads, leaves):
+                    acc.add_(w.grad)
+            loss_sum = loss_sum + loss.detach()
+        if n > 1:
+            for acc in grads:
+                acc.div_(n)
+        gnorm = adamw.apply_updates(params, grads, opt_state, ocfg)
+        return {"loss": loss_sum / n, "grad_norm": gnorm}
+
+    train_step.hp = hp
+    return train_step

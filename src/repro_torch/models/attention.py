@@ -1,15 +1,17 @@
-"""Rotary embedding and paged decode attention (``repro.models.attention``
-for the decode path)."""
+"""Rotary embedding, training attention and paged decode attention
+(``repro.models.attention`` for the training and paged decode paths)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import paged_flash_decode
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                paged_flash_decode)
 from repro_torch.kernels.ref import gather_pages
 
-__all__ = ["rope", "gather_pages", "paged_decode_attention"]
+__all__ = ["rope", "gather_pages", "chunked_attention",
+           "paged_decode_attention"]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -28,6 +30,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      softcap: float = 0.0,
+                      q_positions: Optional[torch.Tensor] = None,
+                      kv_positions: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The training path's attention (``repro.models.attention
+    .chunked_attention`` over positions ``arange(s)``), differentiable:
+    the flash kernels on the card, their plain versions on the CPU.
+
+    q [b, s, h, hd]; k, v [b, s, kvh, hd] -> [b, s, h, hd].  ``q * scale``
+    is taken in f32, as the TPU kernel does (``chunked_attention`` scales
+    in q's dtype first; the two agree exactly in f32 and whenever the
+    scale is a power of two)."""
+    for name, pos in (("q_positions", q_positions),
+                      ("kv_positions", kv_positions)):
+        if pos is None:
+            continue
+        ar = torch.arange(q.shape[1], device=pos.device)
+        if pos.shape[-1] != q.shape[1] or not bool((pos == ar).all()):
+            raise NotImplementedError(
+                f"chunked_attention: {name} other than arange(s) (decode "
+                f"through this function) is not ported yet (ROADMAP.md A5)")
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

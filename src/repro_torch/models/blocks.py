@@ -1,16 +1,18 @@
-"""The decode step of one GLOBAL_ATTN + SwiGLU layer on a paged KV cache
-(``repro.models.blocks.decode_fn`` at tp=1).  Plain matrix products stay
+"""One GLOBAL_ATTN + SwiGLU layer at tp=1: the training residual parts
+(``repro.models.blocks.make_attn_part`` / ``make_mlp_part``) and the decode
+step on a paged KV cache (``decode_fn``).  Plain matrix products stay
 ``torch.matmul``, as the JAX package left them to XLA."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tmp import rms_norm
-from repro_torch.models.attention import paged_decode_attention, rope
+from repro_torch.models.attention import (chunked_attention,
+                                         paged_decode_attention, rope)
 
 
 def _qkv(cfg: ArchConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
@@ -32,11 +34,26 @@ def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
         attn.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), p["wo"])
 
 
-def _mlp(cfg: ArchConfig, p: Dict[str, torch.Tensor],
-         x: torch.Tensor) -> torch.Tensor:
+def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+             x: torch.Tensor) -> torch.Tensor:
+    """Residual delta of norm + SwiGLU (``make_mlp_part`` at tp=1)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     a = F.silu(torch.matmul(h, p["wg"])) * torch.matmul(h, p["wu"])
     return torch.matmul(a, p["wd"])
+
+
+def make_attn_part(cfg: ArchConfig) -> Callable:
+    """``part(p, x, positions) -> delta``: norm, QKV + rope, causal
+    attention, ``wo`` (``blocks.py`` ``make_attn_part`` for GLOBAL_ATTN at
+    tp=1, no post-norm)."""
+    def part(p, x, positions):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, p, h, positions)
+        o = chunked_attention(q, k, v, causal=True, window=None,
+                              softcap=cfg.attn_softcap)
+        return _attn_out(cfg, p, o)
+
+    return part
 
 
 def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -60,4 +77,4 @@ def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     o = paged_decode_attention(q, k_pool, v_pool, tables, pos,
                                softcap=cfg.attn_softcap)
     x = x + _attn_out(cfg, p, o)
-    return x + _mlp(cfg, p, x)
+    return x + mlp_part(cfg, p, x)

@@ -1,15 +1,46 @@
-"""The paged decode step of ``repro.models.lm.build_decode`` on one device:
-embed, copy-on-write, the layer loop, final norm, head, greedy token."""
+"""The model on one device: the training loss of
+``repro.models.lm.build_train_loss`` and the paged decode step of
+``build_decode`` (embed, copy-on-write, the layer loop, final norm, head,
+greedy token)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.core.tmp import greedy_token, rms_norm, vocab_parallel_embed
+from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.core.tmp import (greedy_token, rms_norm,
+                                  vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
 from repro_torch.models.params import check_supported
+
+
+def train_loss(cfg: ArchConfig, params: Dict[str, Any],
+               batch: Dict[str, torch.Tensor], hp: TrainHParams
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars:
+    the body of ``build_train_loss`` on one device.  Each layer adds its
+    attention part, then its MLP part, to the residual stream; the
+    sub-batch split of the ``oases`` schedule only cuts the batch at tp=1
+    and is not taken.  Dense models have no auxiliary loss (aux = 0)."""
+    check_supported(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    x = vocab_parallel_embed(tokens, params["embed"])
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    attn = blocks.make_attn_part(cfg)
+    per_layer = {name: t.unbind(0)
+                 for name, t in params["blocks"][0].items()}
+    for i in range(cfg.num_layers):
+        p = {name: ts[i] for name, ts in per_layer.items()}
+        x = x + attn(p, x, positions)
+        x = x + blocks.mlp_part(cfg, p, x)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    loss_sum, count = vocab_parallel_xent(
+        x, params["lm_head"], labels, chunk=hp.loss_chunk,
+        softcap=cfg.final_softcap)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss_sum / count + aux, aux
 
 
 def apply_cow(state: Dict[str, Any], cow_src: torch.Tensor,

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +73,9 @@ def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     return out
 
 
-def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Flat name -> leaf back into the weights dict (inverse of
+    :func:`flatten`)."""
     params: Dict[str, Any] = {"blocks": [{}]}
     for key, t in flat.items():
         if key.startswith("['blocks'][0]"):
@@ -83,13 +85,20 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return params
 
 
-def _flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flat name -> leaf, in the JAX tree's flatten order."""
     flat = {}
-    for name, t in params["blocks"][0].items():
-        flat[f"['blocks'][0]['{name}']"] = t
+    for name in sorted(params["blocks"][0]):
+        flat[f"['blocks'][0]['{name}']"] = params["blocks"][0][name]
     for name in ("embed", "final_ln", "lm_head"):
         flat[f"['{name}']"] = params[name]
     return flat
+
+
+def flat_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """The weights as a list in the JAX tree's flatten order (the order of
+    ``jax.tree_util.tree_leaves`` and of :func:`model_specs`)."""
+    return list(flatten(params).values())
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
@@ -107,7 +116,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         if s.scale:
             t.normal_(0.0, s.scale, generator=gen)
         flat[key] = t
-    return _unflatten(flat)
+    return unflatten(flat)
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -137,14 +146,14 @@ def from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
                              f"{s.shape}")
         out[key] = _to_torch(arr).to(
             device=device, dtype=torch.float32 if s.f32 else wdt)
-    return _unflatten(out)
+    return unflatten(out)
 
 
 def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """Inverse of :func:`from_flat`: flat name -> host array (bf16 leaves
     come back as f32, which holds every bf16 value exactly)."""
     return {k: (t.float() if t.dtype == torch.bfloat16 else t)
-            .detach().cpu().numpy() for k, t in _flatten(params).items()}
+            .detach().cpu().numpy() for k, t in flatten(params).items()}
 
 
 def cache_shape(cfg: ArchConfig, pages: int,

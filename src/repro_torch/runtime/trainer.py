@@ -1,0 +1,112 @@
+"""Training loop on one device (the core of ``repro.runtime.trainer``):
+weights, optimizer state, the step loop over ``make_batch`` and straggler
+detection.  Checkpointing, heartbeats, failure injection and elastic
+re-meshing are not ported yet (ROADMAP.md A4, A11)."""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.core.device import resolve_device
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import params as prm
+from repro_torch.optim import adamw
+
+
+@dataclass
+class StragglerDetector:
+    alpha: float = 0.1
+    z_threshold: float = 3.0
+    mean: float = 0.0
+    var: float = 0.0
+    n: int = 0
+    warmup: int = 5                  # steps before the z-test arms
+    slow_steps: list = field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        if self.n >= self.warmup:
+            sd = math.sqrt(self.var) if self.var > 0 else 1e-9
+            z = (dt - self.mean) / sd
+            slow = z > self.z_threshold
+        else:
+            slow = False
+        delta = dt - self.mean
+        self.mean += self.alpha * delta
+        self.var = (1 - self.alpha) * (self.var + self.alpha * delta * delta)
+        self.n += 1
+        if slow:
+            self.slow_steps.append((step, dt))
+        return slow
+
+
+class Trainer:
+    """``Trainer(cfg, hp, global_batch=, seq_len=)`` on the card (default;
+    raises without one) or ``device="cpu"``.  ``params`` (for example JAX
+    weights through :func:`repro_torch.models.params.from_flat`) are moved
+    to the device; without them :meth:`train` draws weights from its
+    seed."""
+
+    def __init__(self, cfg: ArchConfig, hp: TrainHParams, *,
+                 global_batch: int, seq_len: int,
+                 device: Optional[Union[str, torch.device]] = None,
+                 params: Optional[Dict[str, Any]] = None,
+                 log_fn: Optional[Callable[[str], None]] = print):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.global_batch = global_batch
+        self.seq_len = seq_len
+        self.log = log_fn
+        self.straggler = StragglerDetector()
+        self.step_fn = steps_mod.build_train_step(
+            cfg, hp, global_batch=global_batch, seq_len=seq_len)
+        self.hp = self.step_fn.hp
+        self.params = None if params is None else self._own(params)
+        self.opt_state: Optional[Dict[str, Any]] = None
+
+    def _own(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The weights on this trainer's device, as trainable leaves."""
+        return prm.unflatten({k: t.detach().to(self.device).requires_grad_()
+                              for k, t in prm.flatten(params).items()})
+
+    def batch(self, dcfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in make_batch(dcfg, step).items()}
+
+    def train(self, total_steps: int, *, seed: int = 0) -> Dict:
+        """Run steps ``[done, total_steps)``; returns ``final_step``, the
+        per-step ``losses`` and ``step_times`` (s, host clock around a step
+        that ends when its loss reaches the host) and ``slow_steps``."""
+        if self.params is None:
+            self.params = self._own(
+                prm.init_params(self.cfg, seed=seed, device=self.device))
+        if self.opt_state is None:
+            self.opt_state = adamw.init_opt_state(self.params)
+        dcfg = DataConfig(global_batch=self.global_batch,
+                          seq_len=self.seq_len,
+                          vocab_size=self.cfg.vocab_size,
+                          microbatch=self.hp.microbatch)
+        losses, step_times = [], []
+        step = start = self.opt_state["step"]
+        for step in range(start, total_steps):
+            batch = self.batch(dcfg, step)
+            t0 = time.perf_counter()
+            metrics = self.step_fn(self.params, self.opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            if self.straggler.observe(step, dt) and self.log:
+                self.log(f"[straggler] step {step} took {dt:.2f}s "
+                         f"(ewma {self.straggler.mean:.2f}s)")
+            losses.append(loss)
+            step_times.append(dt)
+            if step % 10 == 0 and self.log:
+                self.log(f"[trainer] step {step} loss {loss:.4f} "
+                         f"{dt * 1e3:.0f} ms")
+        return {"final_step": self.opt_state["step"], "losses": losses,
+                "slow_steps": self.straggler.slow_steps,
+                "step_times": step_times}

@@ -27,7 +27,9 @@ def test_port_has_the_slice_modules():
                  "kernels.ref", "kernels.rmsnorm", "kernels.flash_attention",
                  "kernels._build", "models.params", "models.attention",
                  "models.blocks", "models.lm", "serving.paged_cache",
-                 "serving.engine", "launch.serve"):
+                 "serving.engine", "launch.serve", "optim.adamw",
+                 "data.pipeline", "launch.steps", "launch.train",
+                 "runtime.trainer"):
         assert f"repro_torch.{name}" in mods, name
 
 
