@@ -38,6 +38,32 @@ Phases (any failure raises and the script exits non-zero):
    launches of steps x 2 x 24 (flash forward and backward) and
    steps x 2 x 49 (RMSNorm forward and backward); step time, tokens/s,
    MFU, peak memory and a ``torch.profiler`` window of one step.
+   Phases 6 and 7 run the ``megatron`` schedule without recomputation,
+   the one-device configuration of the second slice.
+8. Tensor-parallel kernels against their plain versions on the card:
+   the tile matmul at the ``gpt-h2048`` tp=2 ring-step shapes (``wo``
+   [2048, 1024] @ [1024, 2048], ``wd`` [2048, 4096] @ [4096, 2048]) and a
+   ragged one, f32 and bf16, timed beside its bound, its plain version and
+   ``torch.matmul`` (cuBLAS); then, with 2 and 4 rank processes sharing the
+   card over ``PeerComm``, the fused matmul -> reduce-scatter ring at both
+   exits and the peer all-reduce and all-gather, every rank's result held
+   against the plain version computed from all ranks' inputs.
+9. Tensor-parallel consistency: ``gpt-h2048`` at full width, 2 layers,
+   f32, batch 2 x 256, fine recomputation, tp=2 on the card under
+   ``megatron``, ``oases`` and ``fused``, against phase 6's tp=1 card run
+   on the same weights: loss within 1e-5 relative, gathered gradients
+   within ``grads_err`` 1e-4.
+10. Tensor-parallel training: ``gpt-h2048`` at full width and depth in
+   bf16, tp=2 (two rank processes on the card), batch 8 x 1024 in 2
+   microbatches, fine recomputation, 4 AdamW steps under each of
+   ``megatron``, ``oases`` and ``fused``: finite losses, first losses
+   across schedules within the bf16 tolerance, every leaf's gradient
+   present and finite after step 1 on every rank, launches per step
+   (``fused``: 96 ring launches a rank, none replayed), step times, peak
+   memory per rank and a one-step profile per schedule.
+
+``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
+the kernels line then lists what ran).
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -45,7 +71,9 @@ The line before the last is the kernels JSON; the last line is
 """
 from __future__ import annotations
 
+import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,11 +82,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
-
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# flop/s by input type (bf16 on the tensor cores; f32 outside them)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 ARCH = "gpt-serve-h4096"
 PAGED_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
@@ -75,9 +98,13 @@ FLASH_TOL = {"float32": {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-5),
 # terms in another order (f32 in both dtypes)
 RMS_BWD_TOL = {"float32": {"dx": (1e-5, 1e-5), "dscale": (1e-3, 1e-5)},
                "bfloat16": {"dx": (1e-5, 2 ** -7), "dscale": (1e-3, 1e-5)}}
-# kernels that serving (no autograd) must never launch
+# kernels that serving (no autograd, tp=1) must never launch
 SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
-              "flash_attention_bwd": 0}
+              "flash_attention_bwd": 0, "tile_matmul": 0,
+              "ring_matmul_rs": 0, "peer_all_reduce": 0,
+              "peer_all_gather": 0}
+# the one-device training configuration of phases 6 and 7 (slice 2)
+TP1_SCHEDULE = dict(schedule="megatron", remat=False)
 TRAIN_ARCH = "gpt-h2048"
 LOSS_RTOL = 1e-5         # f32 loss, card vs CPU, 2 layers
 GRADS_TOL = 1e-4         # grads_err, card vs CPU
@@ -85,6 +112,8 @@ H100_BF16_FLOPS = 989e12  # MFU denominator (dense bf16 peak)
 # the serve phase is profiled after this many steps: all 8 slots are then
 # active, at positions up to ~470 (mean ~330; the run's longest is 528)
 PROFILE_AT = 470
+# phase 6's tp=1 card loss and gradients, for phase 9
+TP1_REF = ROOT / "build" / "chip_smoke" / "tp1_train_consistency.pt"
 
 
 class SmokeFailure(RuntimeError):
@@ -183,9 +212,7 @@ def _paged_bound_ms(q, kp, tables, pos, page, dtype_name):
     nbytes = (2 * distinct * kvh * hd * elt + 2 * q.numel() * elt
               + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * positions * h * hd
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations"), distinct
+    return (*_bound(nbytes, flops, dtype_name), distinct)
 
 
 def phase_kernels():
@@ -516,9 +543,10 @@ def _visible_pairs(s, causal, window):
 
 
 def _bound(nbytes, flops, dname):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """(ms, "bytes" or "operations"): the H100's least time for the work
+    (``repro_torch.kernels.bounds``, the data sheet's peaks)."""
+    from repro_torch.kernels.bounds import bound
+    return bound(nbytes, flops, dname)
 
 
 def _check_all(name, pairs, tol):
@@ -693,7 +721,8 @@ def phase_train_consistency():
         tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         _build.reset_launches()
         t0 = time.perf_counter()
-        loss, _ = lm.train_loss(cfg, params, tb, TrainHParams())
+        loss, _ = lm.train_loss(cfg, params, tb,
+                                TrainHParams(**TP1_SCHEDULE))
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -703,7 +732,7 @@ def phase_train_consistency():
                                 prm.flatten(params).items()})
     g, c = runs["cuda"], runs["cpu"]
     n = cfg.num_layers
-    want = {"paged_decode": 0, "rmsnorm": 2 * n + 1,
+    want = {**SERVE_ONLY, "paged_decode": 0, "rmsnorm": 2 * n + 1,
             "rmsnorm_bwd": 2 * n + 1, "flash_attention": n,
             "flash_attention_bwd": n}
     require(g["launches"] == want,
@@ -723,6 +752,9 @@ def phase_train_consistency():
     require(loss_rel <= LOSS_RTOL,
             f"loss card {g['loss']} vs CPU {c['loss']}: rel {loss_rel}")
     require(gerr <= GRADS_TOL, f"grads_err {gerr} > {GRADS_TOL}")
+    # phase 9 holds the tp=2 runs against this card run
+    TP1_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"loss": g["loss"], "grads": g["grads"]}, TP1_REF)
     return out
 
 
@@ -751,7 +783,8 @@ def phase_train():
     cfg = get_config(TRAIN_ARCH)
     steps, batch, seq, micro = 8, 8, 1024, 2
     hp = TrainHParams(learning_rate=3e-4, total_steps=steps,
-                      warmup_steps=max(steps // 20, 1), microbatch=micro)
+                      warmup_steps=max(steps // 20, 1), microbatch=micro,
+                      **TP1_SCHEDULE)
     tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None)
     require(tr.device.type == "cuda", f"trainer chose {tr.device}")
     _build.reset_launches()
@@ -769,7 +802,7 @@ def phase_train():
     require(len(losses) == steps and all(np.isfinite(losses)),
             f"losses {losses}")
     n, passes = cfg.num_layers, steps * micro
-    want = {"paged_decode": 0, "rmsnorm": passes * (2 * n + 1),
+    want = {**SERVE_ONLY, "paged_decode": 0, "rmsnorm": passes * (2 * n + 1),
             "rmsnorm_bwd": passes * (2 * n + 1),
             "flash_attention": passes * n, "flash_attention_bwd": passes * n}
     require(launches == want, f"train launched {launches}, expected {want}")
@@ -829,7 +862,484 @@ def _profile_train_step(tr):
              for k in kernels[:16]])
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# tensor model parallelism (phases 8-10): rank processes share the card
+# ---------------------------------------------------------------------------
+TILE_SHAPES = [("wo", 2048, 1024, 2048), ("wd", 2048, 4096, 2048),
+               ("ragged", 999, 1001, 997)]
+# ring exits of gpt-h2048 at microbatch 4 x 1024: rows, whole K, d
+RING_EXITS = [("wo", 4096, 2048, 2048), ("wd", 4096, 8192, 2048)]
+COLL_SHAPE = (4, 1024, 2048)      # an exit's all-reduce at microbatch 4
+TP_SCHEDULES = ("megatron", "oases", "fused")
+TP_STEPS = 4
+# first losses of the three schedules, bf16, 24 layers (absolute, on a
+# loss of ~10.9): each of the 48 exits of a pass may round its residual
+# delta differently (one bf16 ulp, 2**-8 relative: fused keeps f32
+# partials, megatron rounds each rank's product to bf16 before the f32
+# sum), and the per-row products may take other cuBLAS algorithms at
+# oases's half batch; such perturbations move the mean loss by far less
+# than 2e-2
+TP_LOSS_ATOL = 2e-2
+
+
+def _mm_tol(k: int, dname: str):
+    """(atol, rtol) of a length-k f32-accumulated product of O(1) values
+    against the same in another order: ~sqrt(k) rounding steps of 2**-24
+    of partial sums up to ~sqrt(k), bounded by 1e-4 sqrt(k); bf16 results
+    are cast once from f32 in both, so one bf16 ulp on top."""
+    return 1e-4 * k ** 0.5, (0.0 if dname == "float32" else 2 ** -7)
+
+
+def _mm_bound(m, k, n, elt, dname):
+    return _bound((m * k + k * n + m * n) * elt, 2 * m * k * n, dname)
+
+
+def phase_tmp_kernels():
+    import torch
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels.collective_matmul import tile_matmul
+    from repro_torch.launch.ranks import run_ranks
+
+    results = {"tile_matmul": [], "ring_matmul_rs": [], "peer_all_reduce": [],
+               "peer_all_gather": []}
+    for case, m, k, n in TILE_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(k, n, generator=gen, device="cuda")
+                 / k ** 0.5).to(dtype)
+            out = tile_matmul(x, w)
+            want = ref.tile_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            atol, rtol = _mm_tol(k, dname)
+            err, ok = max_err(out, want, atol, rtol)
+            bound = _mm_bound(m, k, n, x.element_size(), dname)
+            row = dict(case=case, m=m, k=k, n=n, dtype=dname,
+                       blocks=autotune.tuned_blocks(m, k, n, dtype, x.device),
+                       max_abs_err=err, atol=atol, rtol=rtol,
+                       ms=time_ms(lambda: tile_matmul(x, w)),
+                       plain_ms=time_ms(lambda: ref.tile_matmul_ref(x, w)),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=time_ms(lambda: torch.matmul(x, w)))
+            print(f"[tile_matmul] {json.dumps(row)}")
+            require(ok, f"tile_matmul {case} {dname}: max abs err {err} "
+                        f"beyond atol {atol} + rtol {rtol}")
+            results["tile_matmul"].append(row)
+    torch.cuda.empty_cache()
+    for tp in (2, 4):
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_tmp_kernels_rank, tp, timeout=600)
+        wall = time.perf_counter() - t0
+        for kind in ("ring_matmul_rs", "peer_all_reduce", "peer_all_gather"):
+            for i, row in enumerate(per_rank[0][kind]):
+                errs = [r[kind][i]["max_abs_err"] for r in per_rank]
+                oks = [r[kind][i]["ok"] for r in per_rank]
+                row = dict(row, tp=tp, max_abs_err=max(errs),
+                           rank_errs=errs, rank_ms=[r[kind][i]["ms"]
+                                                    for r in per_rank])
+                row.pop("ok")
+                print(f"[{kind}] {json.dumps(row)}")
+                require(all(oks), f"{kind} tp={tp} {row['case']} "
+                                  f"{row['dtype']}: rank errors {errs} "
+                                  f"beyond atol {row['atol']} + rtol "
+                                  f"{row['rtol']}")
+                results[kind].append(row)
+        print(f"[tmp_kernels] tp={tp} ranks done in {wall:.1f} s")
+    return results
+
+
+def _tmp_kernels_rank(comm, device):
+    """One rank of phase 8: the ring kernel at both exits and the peer
+    collectives, f32 and bf16, against the plain versions computed from
+    every rank's inputs (every rank draws all ranks' inputs from one
+    seed)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.collective_matmul import matmul_reducescatter
+
+    n, rank = comm.size, comm.rank
+    out = {"ring_matmul_rs": [], "peer_all_reduce": [], "peer_all_gather": []}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for case, rows, kfull, d in RING_EXITS:
+            k = kfull // n
+            gen = torch.Generator(device=device).manual_seed(5)
+            xs = [torch.randn(rows, k, generator=gen, device=device)
+                  .to(dtype) for _ in range(n)]
+            ws = [(torch.randn(k, d, generator=gen, device=device)
+                   / kfull ** 0.5).to(dtype) for _ in range(n)]
+            got = matmul_reducescatter(xs[rank], ws[rank], comm, 0)
+            want = ref.matmul_reducescatter_ref(xs, ws, n, rank)
+            torch.cuda.synchronize(device)
+            atol, rtol = _mm_tol(kfull, dname)
+            err, ok = max_err(got, want, atol, rtol)
+            bound = _bound((rows * k + k * d + rows // n * d)
+                           * xs[0].element_size(), 2 * rows * k * d, dname)
+            out["ring_matmul_rs"].append(dict(
+                case=case, dtype=dname, rows=rows, k_local=k, d=d,
+                chunk=rows // n, max_abs_err=err, ok=ok, atol=atol,
+                rtol=rtol,
+                ms=time_ms(lambda: matmul_reducescatter(xs[rank], ws[rank],
+                                                        comm, 0)),
+                plain_ms=time_ms(lambda: ref.matmul_reducescatter_ref(
+                    xs, ws, n, rank), iters=10),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                cublas_same_product_ms=time_ms(
+                    lambda: torch.matmul(xs[rank], ws[rank]))))
+            del xs, ws, got, want
+        gen = torch.Generator(device=device).manual_seed(8)
+        xs = [torch.randn(*COLL_SHAPE, generator=gen, device=device)
+              .to(dtype) for _ in range(n)]
+        elt, numel = xs[0].element_size(), xs[0].numel()
+        for kind, run, plain, nbytes in (
+                ("peer_all_reduce", lambda: comm.all_reduce(xs[rank]),
+                 lambda: ref.all_reduce_ref(xs), (n + 1) * numel * elt),
+                ("peer_all_gather", lambda: comm.all_gather(xs[rank], 0),
+                 lambda: ref.all_gather_ref(xs, 0), 2 * n * numel * elt)):
+            got, want = run(), plain()
+            torch.cuda.synchronize(device)
+            # the same f32 sum in the same rank order, cast once: exact
+            err, ok = max_err(got, want, 0.0, 0.0)
+            bound = _bound(nbytes, (n - 1) * numel
+                           if kind == "peer_all_reduce" else 0, dname)
+            out[kind].append(dict(
+                case="exit", dtype=dname, shape=list(COLL_SHAPE),
+                max_abs_err=err, ok=ok, atol=0.0, rtol=0.0,
+                ms=time_ms(run), plain_ms=time_ms(plain),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+        del xs
+    comm.check()
+    return out
+
+
+def phase_tp_consistency():
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    ref = torch.load(TP1_REF)
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_tp_consistency_rank, 2, args=(TP_SCHEDULES,),
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    out = {"tp": 2, "layers": 2, "dtype": "float32", "batch": 2, "seq": 256,
+           "loss_tp1": ref["loss"], "wall_s": wall, "schedules": {}}
+    for sched in TP_SCHEDULES:
+        rs = [r[sched] for r in per_rank]
+        leaf_err = {k: max(r["leaf"][k][0] for r in rs)
+                    / (max(r["leaf"][k][1] for r in rs) + 1e-8)
+                    for k in rs[0]["leaf"]}
+        gerr = max(leaf_err.values())
+        loss_rel = max(abs(r["loss"] - ref["loss"]) for r in rs) \
+            / abs(ref["loss"])
+        row = dict(losses=[r["loss"] for r in rs], loss_rel_err=loss_rel,
+                   grads_err=gerr, worst_leaf=max(leaf_err,
+                                                  key=leaf_err.get),
+                   launches=rs[0]["launches"], counts=rs[0]["counts"],
+                   rank_s=[r["s"] for r in rs])
+        out["schedules"][sched] = row
+        print(f"[tp_consistency] {sched} {json.dumps(row)}")
+        require(loss_rel <= LOSS_RTOL,
+                f"tp=2 {sched} loss {row['losses']} vs tp=1 {ref['loss']}: "
+                f"rel {loss_rel}")
+        require(gerr <= GRADS_TOL, f"tp=2 {sched} grads_err {gerr} > "
+                                   f"{GRADS_TOL}")
+        rings = rs[0]["launches"]["ring_matmul_rs"]
+        want = 2 * 2 if sched == "fused" else 0
+        require(rings == want, f"tp=2 {sched}: {rings} ring launches, "
+                               f"expected {want}")
+    return out
+
+
+def _tp_consistency_rank(comm, device, schedules):
+    """One rank of phase 9: this rank's shard of phase 6's weights, loss
+    and gradients per schedule, each leaf's max difference from phase 6's
+    tp=1 card gradient (the same shard of it) beside that shard's max."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import TmpCtx
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, rank = comm.size, comm.rank
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=2, seq_len=256,
+                                  vocab_size=cfg.vocab_size), 0)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ref = torch.load(TP1_REF)["grads"]
+    dims = prm.shard_dims(cfg, n)
+    want = {k: (g if dims[k] is None else g.chunk(n, dims[k])[rank])
+            for k, g in ref.items()}
+    out = {}
+    for sched in schedules:
+        shard = prm.shard_params(cfg, base, rank, n)
+        params = prm.unflatten({k: t.to(device).requires_grad_()
+                                for k, t in prm.flatten(shard).items()})
+        _build.reset_launches()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        loss, _ = lm.train_loss(cfg, params, tb, TrainHParams(schedule=sched),
+                                TmpCtx(comm, schedule=sched))
+        loss.backward()
+        torch.cuda.synchronize(device)
+        leaf = {}
+        for k, t in prm.flatten(params).items():
+            g = t.grad.detach().cpu()
+            leaf[k] = (float((g - want[k]).abs().max()),
+                       float(want[k].abs().max()))
+        out[sched] = dict(loss=loss.item(), leaf=leaf,
+                          s=time.perf_counter() - t0,
+                          launches=dict(_build.LAUNCHES),
+                          counts=dict(comm.counts))
+        del params, shard, loss
+    return out
+
+
+def phase_tp_train():
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    torch.cuda.empty_cache()
+    steps, batch, seq, micro = TP_STEPS, 8, 1024, 2
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_tp_train_rank, 2, timeout=900,
+                         args=(TP_SCHEDULES, steps, batch, seq, micro))
+    wall = time.perf_counter() - t0
+    out = {"arch": TRAIN_ARCH, "tp": 2, "dtype": "bfloat16", "layers": 24,
+           "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
+           "wall_s": wall, "schedules": {}}
+    firsts = {}
+    for sched in TP_SCHEDULES:
+        rs = [r[sched] for r in per_rank]
+        r0 = rs[0]
+        row = dict(r0, peak_mem_gb=[r["peak_mem_gb"] for r in rs],
+                   step_ms_median=[r["step_ms_median"] for r in rs])
+        out["schedules"][sched] = row
+        brief = {k: v for k, v in row.items() if k != "profile"}
+        print(f"[tp_train] {sched} {json.dumps(brief)}")
+        print(f"[tp_train_profile] {sched} {json.dumps(r0['profile'])}")
+        for r in rs:
+            require(len(r["losses"]) == steps
+                    and all(math.isfinite(v) for v in r["losses"]),
+                    f"tp=2 {sched}: losses {r['losses']}")
+            require(not r["bad_grads"], f"tp=2 {sched}: missing or "
+                                        f"non-finite gradients after step 1: "
+                                        f"{r['bad_grads']}")
+            require(r["losses"] == r0["losses"],
+                    f"tp=2 {sched}: ranks report different losses "
+                    f"{[x['losses'] for x in rs]}")
+        rings = r0["launches_per_step"]["ring_matmul_rs"]
+        want = 2 * 24 * micro if sched == "fused" else 0
+        require(rings == want, f"tp=2 {sched}: {rings} ring launches a "
+                               f"step, expected {want}")
+        firsts[sched] = r0["losses"][0]
+    spread = max(firsts.values()) - min(firsts.values())
+    out["first_loss_spread"] = spread
+    out["first_loss_atol"] = TP_LOSS_ATOL
+    require(spread <= TP_LOSS_ATOL, f"tp=2 first losses {firsts}: spread "
+                                    f"{spread} > {TP_LOSS_ATOL}")
+    return out
+
+
+def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
+    """One rank of phase 10: the port's Trainer on this rank's shard, per
+    schedule; a one-step profile on rank 0 (rank 1 runs the same step)."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config(TRAIN_ARCH)
+    out = {}
+    for sched in schedules:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        hp = TrainHParams(schedule=sched, learning_rate=3e-4,
+                          total_steps=steps, warmup_steps=1,
+                          microbatch=micro)
+        tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None,
+                     device=device, comm=comm)
+        _build.reset_launches()
+        first = tr.train(1, seed=0)
+        bad = [k for k, t in prm.flatten(tr.params).items()
+               if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+        rest = tr.train(steps, seed=0)
+        torch.cuda.synchronize(device)
+        launches = dict(_build.LAUNCHES)
+        times = first["step_times"] + rest["step_times"]
+        prof = _profile_tp_step(tr, comm)
+        out[sched] = dict(
+            losses=first["losses"] + rest["losses"], bad_grads=bad,
+            step_ms=[1e3 * t for t in times],
+            step_ms_median=statistics.median(1e3 * t for t in times[1:]),
+            launches_per_step={k: v / steps for k, v in launches.items()},
+            peak_mem_gb=(torch.cuda.max_memory_allocated(device)
+                         + 4 * comm.ws.slot_bytes) / 1e9,
+            profile=prof)
+        del tr, first, rest
+    return out
+
+
+def _profile_tp_step(tr, comm):
+    """One more step (not counted above): rank 0 under ``torch.profiler``
+    (its own process's kernels), the other ranks plainly.  Device busy
+    time, idle share against the step's wall, and the time in the
+    collective kernels (the peer collectives and the ring)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig
+    dcfg = DataConfig(global_batch=tr.global_batch, seq_len=tr.seq_len,
+                      vocab_size=tr.cfg.vocab_size,
+                      microbatch=tr.hp.microbatch)
+    batch = tr.batch(dcfg, tr.opt_state["step"])
+    torch.cuda.synchronize()
+    if comm.rank != 0:
+        tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step_fn(tr.params, tr.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels.append((us, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    coll = [k for k in kernels
+            if "collective_kernel" in k[2] or "ring_mm_rs" in k[2]]
+    return dict(
+        wall_ms_profiled=wall_ms,
+        device_ms=device_ms if kernels else "not measured",
+        idle_share=(1 - device_ms / wall_ms) if kernels else "not measured",
+        collective_ms=sum(k[0] for k in coll) / 1e3 if kernels
+        else "not measured",
+        collective_calls=sum(k[1] for k in coll),
+        kernel_launches=sum(k[1] for k in kernels),
+        top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
+             for k in kernels[:16]])
+
+
+
+
+def _kernels_line(report) -> dict:
+    """The kernels JSON: every kernel of the paths that ran, with its
+    launches on its main path (serve: phase 4; one-device training:
+    phase 7; tensor-parallel training: phase 10, rank 0, all schedules)
+    and its main case's numbers."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = []
+
+    def pick(rows_, **want):
+        return next(r for r in rows_
+                    if all(r[k] == v for k, v in want.items()))
+
+    if "kernels" in report and "serve" in report:
+        launches = report["serve"]["launches"]
+        rows.append(dict(
+            name="paged_decode", route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="src/repro/kernels/flash_attention.py:146",
+            launches=launches["paged_decode"],
+            **{k: pick(report["kernels"]["paged_decode"], case="main",
+                       dtype="bfloat16")[k] for k in keys}))
+    if "train_kernels" in report and "train" in report:
+        tk, tl = report["train_kernels"], report["train"]["launches"]
+        serve_rms = (report["serve"]["launches"]["rmsnorm"]
+                     if "serve" in report else 0)
+        rms = (pick(report["kernels"]["rmsnorm"], rows=8, dtype="bfloat16")
+               if "kernels" in report else pick(tk["rmsnorm"],
+                                                dtype="bfloat16"))
+        train_rms = pick(tk["rmsnorm"], dtype="bfloat16")
+        rows.append(dict(
+            name="rmsnorm", route="cuda",
+            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:16",
+            launches=serve_rms + tl["rmsnorm"],
+            launches_by_path={"serve": serve_rms, "train": tl["rmsnorm"]},
+            **{k: rms[k] for k in keys},
+            at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys}))
+        for name, src, replaces, case in (
+                ("rmsnorm_bwd", "rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:16", {}),
+                ("flash_attention", "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:30", {"case": "main"}),
+                ("flash_attention_bwd", "flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:30",
+                 {"case": "main"})):
+            row = pick(tk[name], dtype="bfloat16", **case)
+            rows.append(dict(name=name, route="cuda",
+                             source=f"src/repro_torch/kernels/csrc/{src}",
+                             replaces=replaces, launches=tl[name],
+                             **{k: row[k] for k in keys}))
+    if "tmp_kernels" in report:
+        tmpk = report["tmp_kernels"]
+        tp_launch = {}
+        if "tp_train" in report:
+            for sched, r in report["tp_train"]["schedules"].items():
+                for k, v in r["launches_per_step"].items():
+                    tp_launch[k] = tp_launch.get(k, 0) + v * TP_STEPS
+        for name, src, replaces, case in (
+                ("tile_matmul", "tile_matmul.cu",
+                 "src/repro/kernels/collective_matmul.py:230",
+                 {"case": "wd"}),
+                ("ring_matmul_rs", "ring_matmul_rs.cu",
+                 "src/repro/kernels/collective_matmul.py:297",
+                 {"case": "wd", "tp": 2}),
+                ("peer_all_reduce", "peer_comm.cu",
+                 "none (XLA's psum, src/repro/core/tmp.py:72)", {"tp": 2}),
+                ("peer_all_gather", "peer_comm.cu",
+                 "none (XLA's all_gather, src/repro/kernels/"
+                 "collective_matmul.py:206)", {"tp": 2})):
+            row = pick(tmpk[name], dtype="bfloat16", **case)
+            extra = ({"cublas_same_product_ms":
+                      row["cublas_same_product_ms"]}
+                     if name == "ring_matmul_rs" else {})
+            rows.append(dict(name=name, route="cuda",
+                             source=f"src/repro_torch/kernels/csrc/{src}",
+                             replaces=replaces,
+                             launches=int(tp_launch.get(name, 0)),
+                             **{k: row[k] for k in keys}, **extra))
+    return {"kernels": rows}
+
+
+PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
+          3: ("consistency", phase_consistency), 4: ("serve", phase_serve),
+          5: ("train_kernels", phase_train_kernels),
+          6: ("train_consistency", phase_train_consistency),
+          7: ("train", phase_train), 8: ("tmp_kernels", phase_tmp_kernels),
+          9: ("tp_consistency", phase_tp_consistency),
+          10: ("tp_train", phase_tp_train)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma-separated phase numbers (default: all)")
+    args = ap.parse_args(argv)
+    phases = sorted({int(p) for p in args.phases.split(",")} | {1})
+    if 9 in phases and 6 not in phases:
+        phases = sorted(set(phases) | {6})
     try:
         import torch
     except ImportError:
@@ -850,62 +1360,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
-              "device_name": torch.cuda.get_device_name(0)}
-    report["build"] = phase_build()
-    report["kernels"] = phase_kernels()
-    report["consistency"] = phase_consistency()
-    report["serve"] = phase_serve()
-    report["train_kernels"] = phase_train_kernels()
-    report["train_consistency"] = phase_train_consistency()
-    report["train"] = phase_train()
+              "device_name": torch.cuda.get_device_name(0), "phases": {}}
+    for p in phases:
+        name, fn = PHASES[p]
+        tp = time.perf_counter()
+        report[name] = fn()
+        report["phases"][name] = time.perf_counter() - tp
+        print(f"[phase {p}] {name} done in {report['phases'][name]:.1f} s",
+              flush=True)
     report["total_s"] = time.perf_counter() - t0
 
-    main_paged = next(r for r in report["kernels"]["paged_decode"]
-                      if r["case"] == "main" and r["dtype"] == "bfloat16")
-    main_rms = next(r for r in report["kernels"]["rmsnorm"]
-                    if r["rows"] == 8 and r["dtype"] == "bfloat16")
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    launches = report["serve"]["launches"]
-    train_launches = report["train"]["launches"]
-
-    def main_case(kernel, **want):
-        return next(r for r in report["train_kernels"][kernel]
-                    if all(r[k] == v for k, v in want.items()))
-
-    train_rms = main_case("rmsnorm", dtype="bfloat16")
-
-    train_rows = [
-        ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16",
-         main_case("rmsnorm_bwd", dtype="bfloat16")),
-        ("flash_attention", "flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:30",
-         main_case("flash_attention", case="main", dtype="bfloat16")),
-        ("flash_attention_bwd", "flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:30",
-         main_case("flash_attention_bwd", case="main", dtype="bfloat16")),
-    ]
-    line = {"kernels": [
-        dict(name="paged_decode", route="cuda",
-             source="src/repro_torch/kernels/csrc/paged_decode.cu",
-             replaces="src/repro/kernels/flash_attention.py:146",
-             launches=launches["paged_decode"],
-             **{k: main_paged[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "bound_by",
-                                           "library_ms")}),
-        dict(name="rmsnorm", route="cuda",
-             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-             replaces="src/repro/kernels/rmsnorm.py:16",
-             launches=launches["rmsnorm"] + train_launches["rmsnorm"],
-             launches_by_path={"serve": launches["rmsnorm"],
-                               "train": train_launches["rmsnorm"]},
-             **{k: main_rms[k] for k in keys},
-             at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys}),
-    ] + [dict(name=name, route="cuda",
-              source=f"src/repro_torch/kernels/csrc/{src}",
-              replaces=replaces, launches=train_launches[name],
-              **{k: row[k] for k in keys})
-         for name, src, replaces, row in train_rows]}
+    line = _kernels_line(report)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"[total] {report['total_s']:.1f} s")

@@ -8,5 +8,8 @@ it.  The first slice is the paged-KV serving path: the decode step of
 decode attention and RMSNorm.  The second is training on one device:
 ``build_train_loss`` at tp=1, AdamW and the trainer, with hand-written
 CUDA kernels for flash attention forward and backward and the RMSNorm
-backward.
+backward.  The third is 1-D tensor model parallelism: the paper's
+schedules and recomputation over a communicator of rank processes, with
+hand-written kernels for the tile matmul, the fused matmul ->
+reduce-scatter ring and the collectives between the ranks.
 """

@@ -69,9 +69,13 @@ class ArchConfig:
 @dataclass(frozen=True)
 class TrainHParams:
     """The port's copy of the fields of ``repro.configs.base.TrainHParams``
-    that its one-device training path honours, with JAX's defaults.
-    Schedules, remat, ZeRO, gradient compression and sequence parallelism
-    are not offered yet (ROADMAP.md A2-A4)."""
+    that its 1-D tensor-parallel training path honours, with JAX's
+    defaults.  ZeRO, gradient compression, sequence parallelism, the 2-D
+    layout and pipelines are not offered yet (ROADMAP.md A2-A4, A7)."""
+    schedule: str = "oases"          # megatron | wang | merak | oases | fused
+    remat: bool = True
+    fine_remat: bool = True          # §3.2 fine-grained recomputation
+    split: int = 2                   # sub-batch split factor (paper: 2)
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     warmup_steps: int = 100
@@ -79,3 +83,8 @@ class TrainHParams:
     grad_clip: float = 1.0
     microbatch: int = 0               # 0 = auto; > 1 = gradient accumulation
     loss_chunk: int = 512             # tokens per chunk of the cross entropy
+
+    def __post_init__(self):
+        # an unknown schedule is rejected at construction, as in JAX
+        from repro_torch.core.schedule import validate_schedule
+        validate_schedule(self.schedule)

@@ -1,0 +1,287 @@
+"""The tensor-parallel communicator: the port's counterpart of a mesh
+axis plus ``lax.psum`` / ``psum_scatter`` / ``all_gather`` / ``ppermute``
+as ``repro.core.tmp`` and ``repro.kernels.collective_matmul`` call them.
+
+A :class:`Comm` has a ``rank`` and a ``size`` and offers ``all_reduce``
+(sum or max; also asynchronously, returning a handle), ``reduce_scatter``,
+``all_gather`` and ``ring_shift`` (send to ``rank + 1``, receive from
+``rank - 1``).  Every call adds one to ``counts[kind]``; the remat tests
+read them.  The ops carry no gradient: ``repro_torch.core.tmp`` wraps them
+in autograd Functions.
+
+Replicated activations must come out bitwise identical on every rank, or
+the norm inputs of the replicas drift apart: every all-reduce therefore
+sums in f32 in one fixed rank order (0, 1, ..., n-1) and casts once, on
+every rank.
+
+* :class:`SoloComm` — tp=1: every call is the identity.
+* :class:`DistComm` — over ``torch.distributed`` (gloo on the CPU; the
+  tests' transport): all-reduce and reduce-scatter are an all-gather then
+  the rank-order sum, ring_shift is an isend/irecv pair.
+* :class:`PeerComm` — on CUDA: the port's own kernels over peer
+  workspaces shared through CUDA IPC (``kernels/peer_comm.py``), all on
+  one communication stream.  On one card the ranks are processes sharing
+  ``cuda:0``; NCCL refuses two ranks on one device.
+"""
+from __future__ import annotations
+
+import json
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+KINDS = ("all_reduce", "reduce_scatter", "all_gather", "ring_shift")
+
+
+class Pending:
+    """The handle of an asynchronous all-reduce: ``result`` is allocated at
+    the start and holds the sum once :meth:`wait` has returned."""
+
+    def __init__(self, result: torch.Tensor, finish: Callable[[], None]):
+        self.result = result
+        self._finish = finish
+
+    def wait(self) -> torch.Tensor:
+        if self._finish is not None:
+            self._finish()
+            self._finish = None
+        return self.result
+
+
+class Comm:
+    """Base class: counting and the synchronous forms of the ops."""
+
+    rank: int = 0
+    size: int = 1
+
+    def __init__(self):
+        self.counts: Dict[str, int] = dict.fromkeys(KINDS, 0)
+
+    def reset_counts(self):
+        for k in self.counts:
+            self.counts[k] = 0
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return self.all_reduce_async(x, op).wait()
+
+    def all_reduce_async(self, x: torch.Tensor, op: str = "sum") -> Pending:
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r} (sum or max)")
+        self.counts["all_reduce"] += 1
+        return self._all_reduce_async(x, op)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over ranks of x, cut into ``size`` chunks along ``dim``;
+        this rank's chunk.  ``x.shape[dim]`` must divide evenly."""
+        if x.shape[dim] % self.size:
+            raise ValueError(
+                f"reduce_scatter: dim {dim} of size {x.shape[dim]} is not "
+                f"divisible by the group size {self.size}")
+        self.counts["reduce_scatter"] += 1
+        full = self._all_reduce_async(x, "sum").wait()
+        return full.chunk(self.size, dim)[self.rank].contiguous()
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's x concatenated along ``dim`` in rank order."""
+        self.counts["all_gather"] += 1
+        return self._all_gather(x, dim)
+
+    def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
+        """Send x to rank + 1; return what rank - 1 sent."""
+        self.counts["ring_shift"] += 1
+        return self._ring_shift(x)
+
+    def agree(self, key: str, choose: Callable[[], object]):
+        """A value every rank uses alike (rank 0's ``choose()``), such as
+        the ring kernel's block sizes, whose tiles must match across
+        ranks."""
+        return choose()
+
+    def check(self):
+        """Raise if the transport recorded a failure (PeerComm)."""
+
+    def close(self):
+        """Release the transport's resources."""
+
+    # implementations
+    def _all_reduce_async(self, x, op) -> Pending:
+        raise NotImplementedError
+
+    def _all_gather(self, x, dim) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _ring_shift(self, x) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class SoloComm(Comm):
+    """tp=1: one rank, every op is the identity (returns x itself)."""
+
+    def _all_reduce_async(self, x, op):
+        return Pending(x, None)
+
+    def _all_gather(self, x, dim):
+        return x
+
+    def _ring_shift(self, x):
+        return x
+
+
+def _rank_order(parts: List[torch.Tensor], op: str) -> torch.Tensor:
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = torch.maximum(acc, p.float()) if op == "max" else acc + p.float()
+    return acc.to(parts[0].dtype)
+
+
+class DistComm(Comm):
+    """Over the default ``torch.distributed`` process group (gloo for CPU
+    tensors)."""
+
+    def __init__(self):
+        super().__init__()
+        import torch.distributed as dist
+        self._dist = dist
+        self.rank = dist.get_rank()
+        self.size = dist.get_world_size()
+
+    def _gather_list(self, x, async_op):
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        work = self._dist.all_gather(parts, x.contiguous(),
+                                     async_op=async_op)
+        return parts, work
+
+    def _all_reduce_async(self, x, op):
+        if self.size == 1:
+            return Pending(x, None)
+        parts, work = self._gather_list(x, True)
+        out = torch.empty_like(x)
+
+        def finish():
+            work.wait()
+            with torch.no_grad():
+                out.copy_(_rank_order(parts, op))
+        return Pending(out, finish)
+
+    def _all_gather(self, x, dim):
+        if self.size == 1:
+            return x
+        parts, _ = self._gather_list(x, False)
+        return torch.cat(parts, dim=dim)
+
+    def _ring_shift(self, x):
+        if self.size == 1:
+            return x
+        out = torch.empty_like(x)
+        reqs = [self._dist.isend(x.contiguous(), (self.rank + 1) % self.size),
+                self._dist.irecv(out, (self.rank - 1) % self.size)]
+        for r in reqs:
+            r.wait()
+        return out
+
+
+class PeerComm(Comm):
+    """On CUDA: the port's collective kernels over peer workspaces.
+
+    ``store`` is a ``torch.distributed`` store shared by the ranks (the
+    IPC handles travel through it); ``prefix`` keeps the keys of one group
+    apart from another's.  ``slot_bytes`` sizes each landing and
+    collective slot: a collective larger than a slot runs in pieces, and
+    the ring matmul's f32 output chunk must fit one.
+
+    Every op runs on the communicator's own stream, after the work already
+    queued on the caller's stream; a synchronous op makes the caller's
+    stream wait for it, an asynchronous one at :meth:`Pending.wait`.  So
+    the peer kernels of a rank run one at a time in program order, which
+    the workspace protocol relies on."""
+
+    def __init__(self, rank: int, size: int, store, *, prefix: str = "peer",
+                 slot_bytes: int = 64 << 20,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        from repro_torch.kernels import peer_comm
+        self._pc = peer_comm
+        self.rank, self.size = rank, size
+        self.device = torch.device(device or "cuda")
+        self.ws = peer_comm.Workspace(rank, size, store, prefix, slot_bytes,
+                                      self.device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.epoch = 0                # collective calls so far
+        self.ring_base = 0            # ring matmul tags so far
+        self._store, self._prefix = store, prefix
+        self._agreed: Dict[str, object] = {}
+
+    def agree(self, key, choose):
+        if key not in self._agreed:
+            skey = f"{self._prefix}/agree/{key}"
+            if self.rank == 0:
+                self._store.set(skey, json.dumps(choose()))
+            self._agreed[key] = json.loads(self._store.get(skey))
+        return self._agreed[key]
+
+    def begin(self) -> torch.cuda.Stream:
+        """Order the comm stream after the caller's queued work."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self.stream
+
+    def end(self, *tensors: torch.Tensor) -> torch.cuda.Event:
+        """Keep ``tensors`` alive for the comm stream; the done event."""
+        for t in tensors:
+            t.record_stream(self.stream)
+        return self.stream.record_event()
+
+    def _launch(self, x: torch.Tensor, out: torch.Tensor, mode: str):
+        """x [count] -> out [count] (sum, max) or [size, count] (gather),
+        in pieces of at most a slot.  Runs on the comm stream."""
+        self.ws.check()
+        piece = self._pc.piece_elems(self.ws, x.dtype)
+        for lo in range(0, x.numel(), piece):
+            hi = min(lo + piece, x.numel())
+            self.epoch += 1
+            dst = out[..., lo:hi]
+            if not dst.is_contiguous():          # a gather in pieces
+                dst = torch.empty_like(dst)
+            self._pc.collective(self.ws, x[lo:hi], dst, mode, self.epoch,
+                                self.stream)
+            if dst.data_ptr() != out[..., lo:hi].data_ptr():
+                out[..., lo:hi].copy_(dst)
+
+    def _all_reduce_async(self, x, op):
+        if self.size == 1:
+            return Pending(x, None)
+        xf = x.contiguous().view(-1)
+        out = torch.empty_like(xf)
+        with torch.cuda.stream(self.begin()):
+            self._launch(xf, out, op)
+        done = self.end(xf, out)
+        result = out.view(x.shape)
+
+        def finish():
+            torch.cuda.current_stream(self.device).wait_event(done)
+        return Pending(result, finish)
+
+    def _all_gather(self, x, dim):
+        if self.size == 1:
+            return x
+        xf = x.contiguous().view(-1)
+        out = torch.empty(self.size, xf.numel(), dtype=x.dtype,
+                          device=x.device)
+        with torch.cuda.stream(self.begin()):
+            self._launch(xf, out, "gather")
+        torch.cuda.current_stream(self.device).wait_event(self.end(xf, out))
+        parts = out.view(self.size, *x.shape).unbind(0)
+        return torch.cat(parts, dim=dim)
+
+    def _ring_shift(self, x):
+        """Through the all-gather (the ring decomposition is the CPU path;
+        on the card ``fused`` runs the ring kernel)."""
+        if self.size == 1:
+            return x
+        return self._all_gather(x.unsqueeze(0), 0)[(self.rank - 1)
+                                                   % self.size]
+
+    def check(self):
+        self.ws.check()
+
+    def close(self):
+        self.ws.close()

@@ -1,14 +1,107 @@
-"""Tensor-model-parallel primitives of ``repro.core.tmp`` at tp=1 (the
-port runs one device): the norm, the embedding, the chunked cross
-entropy and greedy sampling."""
+"""Tensor-model-parallel primitives of ``repro.core.tmp`` over a
+:class:`~repro_torch.core.comm.Comm`: the TMP all-reduce, the norm, the
+vocab-parallel embedding and cross entropy, and greedy sampling.  At
+tp=1 the communicator is a :class:`~repro_torch.core.comm.SoloComm` and
+every collective is the identity, on the same code path.
+
+Gradient convention: Megatron's f/g pair.  :func:`copy_to_tmp` (f) is the
+identity forward and an all-reduce backward, at every column-parallel
+entry; :func:`reduce_from_tmp` (g) is an all-reduce forward and the
+identity backward, at every row-parallel exit.  A layer issues 2
+collectives forward and 2 backward, as in JAX, whose ``shard_map``
+transpose instead uses partial cotangents (``psum`` transposes to
+``psum``).  Under f/g the activation cotangents of replicated tensors are
+whole on every rank, so replicated leaves (the norm scales) get the same
+whole gradient on every rank and sharded leaves their shard's: gathered,
+they equal JAX's.  The outputs of g are the residuals that fine
+recomputation keeps (``repro_torch.core.remat``): Eq. (1) of the paper
+makes their gradient the identity, so g saves nothing and its backward
+runs no collective.
+"""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.comm import Comm, Pending, SoloComm
 from repro_torch.kernels.rmsnorm import rmsnorm
+
+
+def axes_index(comm: Comm) -> int:
+    """This shard's index in the model group."""
+    return comm.rank
+
+
+def axes_size(comm: Comm) -> int:
+    return comm.size
+
+
+class _CopyToTmp(torch.autograd.Function):
+    """f: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous()), None
+
+
+class _ReduceFromTmp(torch.autograd.Function):
+    """g: all-reduce forward, identity backward.  ``box`` (a list) receives
+    the :class:`Pending` of the all-reduce: the output holds the sum once
+    it has been waited for."""
+
+    @staticmethod
+    def forward(ctx, x, comm, box):
+        p = comm.all_reduce_async(x.contiguous())
+        box.append(p)
+        return p.result
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_tmp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Megatron f at a column-parallel entry."""
+    if comm.size == 1:
+        return x
+    return _CopyToTmp.apply(x, comm)
+
+
+def reduce_from_tmp_async(x: torch.Tensor, comm: Comm) -> Pending:
+    """Megatron g, started: the returned handle's ``wait()`` gives the
+    all-reduced tensor (differentiable, identity backward)."""
+    if comm.size == 1:
+        return Pending(x, None)
+    box: List[Pending] = []
+    y = _ReduceFromTmp.apply(x, comm, box)
+    return Pending(y, box[0].wait)
+
+
+def reduce_from_tmp(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Megatron g: the TMP all-reduce of a row-parallel exit."""
+    return reduce_from_tmp_async(x, comm).wait()
+
+
+def tmp_reduce(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``repro.core.tmp.tmp_reduce``: the all-reduce whose output fine
+    recomputation keeps.  JAX tags it with ``checkpoint_name``; here the
+    recomputed segments end before it (``repro_torch.core.remat``)."""
+    return reduce_from_tmp(x, comm)
+
+
+def pass_barrier(x: torch.Tensor) -> torch.Tensor:
+    """The identity.  JAX puts an optimization_barrier on the gradient to
+    emulate Merak's inter-pass barriers in the compiled program; eager
+    PyTorch runs the program in the order it is written and reorders
+    nothing, so there is nothing to hold back."""
+    return x
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -19,54 +112,74 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return rmsnorm(x, scale, eps=eps)
 
 
-def vocab_parallel_embed(tokens: torch.Tensor,
-                         embed: torch.Tensor) -> torch.Tensor:
-    """tokens [...] -> [..., D].  At tp=1 the vocab shard is the whole
-    table and the completing AllReduce is the identity."""
-    return embed[tokens.long()]
+def vocab_parallel_embed(tokens: torch.Tensor, embed_local: torch.Tensor,
+                         comm: Optional[Comm] = None) -> torch.Tensor:
+    """tokens [...] (replicated); embed_local [V/tp, D] -> [..., D]: look up
+    the tokens of this rank's vocab shard, zeros elsewhere, and all-reduce
+    (``comm`` None: tp=1)."""
+    v_local = embed_local.shape[0]
+    if comm is None or comm.size == 1:
+        return embed_local[tokens.long()]
+    local = tokens.long() - axes_index(comm) * v_local
+    in_shard = (local >= 0) & (local < v_local)
+    out = embed_local[local.clamp(0, v_local - 1)]
+    out = out * in_shard[..., None].to(out.dtype)
+    return tmp_reduce(out, comm)
 
 
 def _xent_chunk(x: torch.Tensor, head32: torch.Tensor,
-                labels: torch.Tensor, softcap: float) -> torch.Tensor:
-    """x [t, D]; head32 [D, V] f32; labels [t] -> summed nll (f32 scalar).
-    ``_xent_chunk`` of ``repro.core.tmp`` with the whole vocab local."""
+                labels: torch.Tensor, softcap: float,
+                comm: Comm) -> torch.Tensor:
+    """x [t, D]; head32 [D, V/tp] f32; labels [t] -> summed nll (f32
+    scalar), ``_xent_chunk`` of ``repro.core.tmp``: the max, the sum of
+    exponentials and the label logit all-reduced over the vocab shards."""
     logits = torch.matmul(x.float(), head32)
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
+    v_local = logits.shape[-1]
     m = logits.amax(dim=-1).detach()      # stability only, no gradient
-    z = torch.exp(logits - m[:, None]).sum(dim=-1)
-    lab = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    if comm.size > 1:
+        m = comm.all_reduce(m, op="max")
+    z = reduce_from_tmp(torch.exp(logits - m[:, None]).sum(dim=-1), comm)
+    local = labels.long() - axes_index(comm) * v_local
+    in_shard = (local >= 0) & (local < v_local)
+    lab = torch.gather(logits, 1, local.clamp(0, v_local - 1)[:, None])[:, 0]
+    lab = reduce_from_tmp(lab * in_shard.to(lab.dtype), comm)
     return (torch.log(z) + m - lab).sum()
 
 
-def vocab_parallel_xent(x: torch.Tensor, head: torch.Tensor,
+def vocab_parallel_xent(x: torch.Tensor, head_local: torch.Tensor,
                         labels: torch.Tensor, *, chunk: int = 512,
-                        softcap: float = 0.0
+                        softcap: float = 0.0, comm: Optional[Comm] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked cross entropy (``repro.core.tmp.vocab_parallel_xent`` at
-    tp=1, no mask): x [b, s, D]; head [D, V]; labels [b, s] ->
-    (loss_sum, count), both f32 scalars.
+    """Chunked vocab-parallel cross entropy
+    (``repro.core.tmp.vocab_parallel_xent``, no mask): x [b, s, D]
+    (replicated); head_local [D, V/tp]; labels [b, s] -> (loss_sum, count),
+    f32 scalars, the same on every rank.
 
     Logits are f32, ``chunk`` tokens at a time plus the remainder; each
     full chunk runs under ``checkpoint`` (the ``@jax.checkpoint`` of the
-    JAX scan step), so only one chunk's [chunk, V] logits are live in the
-    backward.  The head is cast to f32 once per call rather than once per
-    chunk, so its gradient sums over the chunks in f32."""
+    JAX scan step, which recomputes the chunk's collectives too), so only
+    one chunk's [chunk, V/tp] logits are live in the backward.  x enters
+    through f (its cotangent sums the shards' contributions).  The head is
+    cast to f32 once per call rather than once per chunk, so its gradient
+    sums over the chunks in f32.  ``comm`` None: tp=1."""
+    comm = comm or SoloComm()
     b, s, d = x.shape
     t = b * s
-    xf = x.reshape(t, d)
+    xf = copy_to_tmp(x, comm).reshape(t, d)
     lf = labels.reshape(t)
-    head32 = head.float()
+    head32 = head_local.float()
     chunk = min(chunk, t)
     n = t // chunk
     loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         loss = loss + checkpoint(_xent_chunk, xf[sl], head32, lf[sl],
-                                 softcap, use_reentrant=False)
+                                 softcap, comm, use_reentrant=False)
     if n * chunk < t:
         loss = loss + _xent_chunk(xf[n * chunk:], head32, lf[n * chunk:],
-                                  softcap)
+                                  softcap, comm)
     return loss, torch.tensor(float(t), device=x.device)
 
 

@@ -6,6 +6,8 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for
 root and loaded with :mod:`ctypes`.  The build runs at the first kernel
 launch, never at import, and is redone when a source is newer than the
 library.  Sources include no PyTorch headers, so a build takes seconds.
+The lock covers the threads of one process only: a program that spawns
+rank processes builds once in the parent first (:func:`build`).
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else (a backward entry point
@@ -36,7 +38,9 @@ DTYPE_BF16 = 1
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0,
                             "rmsnorm_bwd": 0, "flash_attention": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0, "tile_matmul": 0,
+                            "ring_matmul_rs": 0, "peer_all_reduce": 0,
+                            "peer_all_gather": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -45,6 +49,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _P],
@@ -62,6 +67,26 @@ _SIGNATURES = {
     # window, scale, softcap, dtype, stream
     "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _F, _F, _I, _P],
+    # x, w, out, m, k, n, bm, bn, bk, dtype, stream
+    "repro_tile_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ws, rank, n, slot, x, w, out, chunk, k, d, bm, bn, bk, base, dtype,
+    # err, stream
+    "repro_ring_matmul_rs": [_P, _I, _I, _L, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _U, _I, _P, _P],
+    # ws, rank, n, slot, x, out, count, dtype, mode, epoch, err, stream
+    "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _I, _I, _U, _P,
+                              _P],
+    # slot, &ptr
+    "repro_peer_alloc": [_L, _P],
+    "repro_peer_free": [_P],
+    # ptr, handle (64 bytes)
+    "repro_peer_export": [_P, _P],
+    # handle (64 bytes), &ptr
+    "repro_peer_open": [_P, _P],
+    "repro_peer_close": [_P],
+    # &host, &dev
+    "repro_peer_error_word": [_P, _P],
+    "repro_peer_error_word_free": [_P],
 }
 
 

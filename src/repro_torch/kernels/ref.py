@@ -187,3 +187,46 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         dv += torch.matmul(p.transpose(-1, -2), doc).sum(dim=2)
     return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def tile_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[m, k] @ [k, n]`` with f32 products and sums, cast once to x's
+    dtype (``_mm_tile_kernel``'s f32 accumulator)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def matmul_reducescatter_ref(xs, ws, n: int, rank=None):
+    """Every rank's chunk of the fused matmul -> reduce-scatter, from every
+    rank's inputs: xs[r] [n * chunk, k_local], ws[r] [k_local, d] ->
+    [chunk_0, ..., chunk_{n-1}], chunk_i = sum over r of (xs[r] @ ws[r])
+    rows [i * chunk, (i + 1) * chunk); only chunk ``rank`` when given.
+    f32 products, partials summed in f32 in the ring's order (rank i + 1
+    first, rank i last) and cast once, as the ring kernel does."""
+    rows = xs[0].shape[0]
+    if rows % n:
+        raise ValueError(f"rows {rows} not divisible by {n}")
+    chunk = rows // n
+    out = []
+    for i in range(n) if rank is None else (rank,):
+        acc = None
+        for step in range(n):
+            r = (i + 1 + step) % n
+            p = torch.matmul(xs[r][i * chunk:(i + 1) * chunk].float(),
+                             ws[r].float())
+            acc = p if acc is None else acc + p
+        out.append(acc.to(xs[0].dtype))
+    return out if rank is None else out[0]
+
+
+def all_reduce_ref(xs, op: str = "sum") -> torch.Tensor:
+    """The all-reduce of every rank's tensor: f32, in rank order, cast once
+    (the PeerComm kernel's order, so every rank gets the same bits)."""
+    acc = xs[0].float()
+    for x in xs[1:]:
+        acc = torch.maximum(acc, x.float()) if op == "max" else acc + x.float()
+    return acc.to(xs[0].dtype)
+
+
+def all_gather_ref(xs, dim: int = 0) -> torch.Tensor:
+    """The all-gather of every rank's tensor along ``dim``, in rank order."""
+    return torch.cat(list(xs), dim=dim)

@@ -1,0 +1,124 @@
+"""Run one function on every rank of a 1-D model group, each rank its own
+process (``torch.multiprocessing`` with ``spawn``: CUDA cannot fork).
+
+``run_ranks(fn, tp, device=...)`` starts tp processes; each joins a
+``torch.distributed`` TCP store on ``localhost``, builds its communicator
+and calls ``fn(comm, device, *args)``; the results come back in rank
+order.  On the CPU the communicator is a
+:class:`~repro_torch.core.comm.DistComm` over gloo; on CUDA it is a
+:class:`~repro_torch.core.comm.PeerComm` on ``cuda:(rank % cards)``, so
+with one card visible every rank shares ``cuda:0``.  The kernel library is
+built once in the calling process before the ranks start (its build lock
+covers the threads of one process only).
+
+A rank that raises, a rank that dies, and a group that outlives
+``timeout`` all make :func:`run_ranks` terminate every rank and raise: a
+hung collective fails instead of hanging its caller.
+"""
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import socket
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
+                fn: Callable, args: Sequence, out_q):
+    import torch.distributed as dist
+
+    from repro_torch.core.comm import DistComm, PeerComm
+    comm = None
+    try:
+        store = dist.TCPStore("127.0.0.1", port, tp, rank == 0,
+                              timeout=timedelta(seconds=300))
+        if device == "cpu":
+            torch.set_num_threads(threads)
+            dist.init_process_group("gloo", store=store, rank=rank,
+                                    world_size=tp)
+            comm = DistComm()
+            dev = torch.device("cpu")
+        else:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            comm = PeerComm(rank, tp, store, prefix="tp", device=dev)
+        result = fn(comm, dev, *args)
+        comm.check()
+        comm.close()
+        out_q.put((rank, True, result))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, tp: int, *, device: Optional[str] = None,
+              args: Sequence = (), timeout: float = 600.0,
+              threads: Optional[int] = None) -> List[Any]:
+    """``[fn(comm_r, device_r, *args) for r in range(tp)]``, each in its own
+    process.  ``device``: ``"cpu"`` or CUDA (None).  ``fn`` and ``args``
+    must pickle (``fn`` by its import path).  ``threads``: torch threads a
+    CPU rank uses (default: the cores shared out)."""
+    import torch.multiprocessing as mp
+    device = "cpu" if device == "cpu" else "cuda"
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("run_ranks: no CUDA device available; pass "
+                               "device='cpu' for gloo ranks on the CPU")
+        from repro_torch.kernels import _build
+        _build.build()
+    threads = threads or max(1, (os.cpu_count() or 1) // tp)
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, tp, port, device, threads, fn,
+                               tuple(args), out_q), daemon=True)
+             for r in range(tp)]
+    for p in procs:
+        p.start()
+    results: List[Any] = [None] * tp
+    got, deadline = 0, time.monotonic() + timeout
+    try:
+        while got < tp:
+            try:
+                rank, ok, payload = out_q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"run_ranks: {tp - got} of {tp} ranks gave no result "
+                        f"within {timeout} s")
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and p.exitcode not in (0, None)
+                        and results[r] is None]
+                if dead:
+                    raise RuntimeError(f"run_ranks: rank(s) {dead} died "
+                                       f"(exit codes "
+                                       f"{[procs[r].exitcode for r in dead]})")
+                continue
+            if not ok:
+                raise RuntimeError(f"run_ranks: rank {rank} failed:\n"
+                                   f"{payload}")
+            results[rank] = payload
+            got += 1
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return results

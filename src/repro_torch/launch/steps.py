@@ -1,16 +1,19 @@
 """The training step of ``repro.launch.steps.build_train_step`` on one
-device: forward and backward of :func:`repro_torch.models.lm.train_loss`
-(with gradient accumulation over microbatches), then AdamW."""
+rank of a 1-D model group: forward and backward of
+:func:`repro_torch.models.lm.train_loss` (with gradient accumulation over
+microbatches), then AdamW with the gradient norm spanning the group."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.core.comm import Comm, SoloComm
+from repro_torch.core.schedule import TmpCtx
 from repro_torch.models import lm
-from repro_torch.models.params import flat_leaves
+from repro_torch.models.params import flat_leaves, shard_dims
 from repro_torch.optim import adamw
 
 
@@ -40,7 +43,8 @@ def resolve_hp(hp: TrainHParams, global_batch: int, *, seq_len: int,
 
 
 def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
-                     global_batch: int, seq_len: int
+                     global_batch: int, seq_len: int,
+                     comm: Optional[Comm] = None
                      ) -> Callable[..., Dict[str, torch.Tensor]]:
     """-> ``train_step(params, opt_state, batch) -> {"loss", "grad_norm"}``
     (0-d f32 tensors), updating ``params`` and ``opt_state`` in place.
@@ -50,7 +54,9 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
     to f32 and summed, then divided by n, and the loss is the mean of the
     microbatch losses.  The last microbatch's gradients stay on the
     parameters' ``.grad``.  The resolved hyper-parameters are the step's
-    ``hp`` attribute."""
+    ``hp`` attribute.  ``comm``: the model group (None: tp=1); ``params``
+    are then this rank's shards, and every rank runs the step on the
+    whole batch."""
     hp = resolve_hp(hp, global_batch, seq_len=seq_len, d_model=cfg.d_model,
                     num_layers=cfg.num_layers)
     n = hp.microbatch if hp.microbatch > 1 else 1
@@ -58,6 +64,8 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
         learning_rate=hp.learning_rate, weight_decay=hp.weight_decay,
         warmup_steps=hp.warmup_steps, total_steps=hp.total_steps,
         grad_clip=hp.grad_clip)
+    ctx = TmpCtx(comm or SoloComm(), schedule=hp.schedule)
+    sharded = [d is not None for d in shard_dims(cfg, ctx.tp).values()]
 
     def train_step(params: Dict[str, Any], opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -68,7 +76,7 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
         for mb in micro:
             for w in leaves:
                 w.grad = None
-            loss, _ = lm.train_loss(cfg, params, mb, hp)
+            loss, _ = lm.train_loss(cfg, params, mb, hp, ctx)
             loss.backward()
             if grads is None:
                 grads = [w.grad.float() for w in leaves]
@@ -79,7 +87,8 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
         if n > 1:
             for acc in grads:
                 acc.div_(n)
-        gnorm = adamw.apply_updates(params, grads, opt_state, ocfg)
+        gnorm = adamw.apply_updates(params, grads, opt_state, ocfg,
+                                    comm=ctx.comm, sharded=sharded)
         return {"loss": loss_sum / n, "grad_norm": gnorm}
 
     train_step.hp = hp

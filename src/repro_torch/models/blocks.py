@@ -1,30 +1,23 @@
-"""One GLOBAL_ATTN + SwiGLU layer at tp=1: the training residual parts
-(``repro.models.blocks.make_attn_part`` / ``make_mlp_part``) and the decode
-step on a paged KV cache (``decode_fn``).  Plain matrix products stay
+"""One GLOBAL_ATTN + SwiGLU layer: the training residual parts of
+``repro.models.blocks`` over a :class:`~repro_torch.core.schedule.TmpCtx`
+(each rank runs its ``h_local`` heads and ``d_ff / tp`` columns; the
+exits go through ``ctx.row_matmul``), and the decode step on a paged KV
+cache (``decode_fn``, tp=1).  Plain matrix products stay
 ``torch.matmul``, as the JAX package left them to XLA."""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tmp as tmpc
+from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
 from repro_torch.models.attention import (chunked_attention,
                                          paged_decode_attention, rope)
-
-
-def _qkv(cfg: ArchConfig, p: Dict[str, torch.Tensor], h: torch.Tensor,
-         positions: torch.Tensor):
-    """h [b, s, d] -> q [b, s, H, hd], k, v [b, s, KV, hd]; rope on q, k."""
-    b, s, _ = h.shape
-    hd = cfg.resolved_head_dim
-    q = torch.matmul(h, p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = torch.matmul(h, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = torch.matmul(h, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+from repro_torch.models.params import attn_plan
 
 
 def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -36,24 +29,62 @@ def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
              x: torch.Tensor) -> torch.Tensor:
-    """Residual delta of norm + SwiGLU (``make_mlp_part`` at tp=1)."""
+    """Residual delta of norm + SwiGLU at tp=1 (the decode step's)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     a = F.silu(torch.matmul(h, p["wg"])) * torch.matmul(h, p["wu"])
     return torch.matmul(a, p["wd"])
 
 
-def make_attn_part(cfg: ArchConfig) -> Callable:
-    """``part(p, x, positions) -> delta``: norm, QKV + rope, causal
-    attention, ``wo`` (``blocks.py`` ``make_attn_part`` for GLOBAL_ATTN at
-    tp=1, no post-norm)."""
-    def part(p, x, positions):
+def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
+         h: torch.Tensor, positions: torch.Tensor):
+    """h [b, s, d] (replicated) -> this rank's q [b, s, h_local, hd] and
+    k, v [b, s, kv_local, hd], rope on q and k (``blocks.py`` ``_qkv``, 1-D).
+    KV weights the group does not divide are replicated: every rank
+    projects the kv-head group its q heads need, and the weights pass
+    through f so that their gradient sums the ranks' shares."""
+    plan = attn_plan(cfg, ctx.tp)
+    hd = cfg.resolved_head_dim
+    b, s, _ = h.shape
+    wk, wv = p["wk"], p["wv"]
+    if plan.sharded and not plan.kv_sharded \
+            and plan.kv_slice < cfg.num_kv_heads:
+        group = cfg.num_heads // cfg.num_kv_heads
+        start = (tmpc.axes_index(ctx.comm) * plan.h_local) // group
+        cols = slice(start * hd, (start + plan.kv_slice) * hd)
+        wk = tmpc.copy_to_tmp(wk, ctx.comm)[:, cols]
+        wv = tmpc.copy_to_tmp(wv, ctx.comm)[:, cols]
+    elif plan.sharded and not plan.kv_sharded:
+        raise NotImplementedError(
+            f"{cfg.name}: tp={ctx.tp} with {cfg.num_heads} q / "
+            f"{cfg.num_kv_heads} kv heads needs the non-aligned GQA "
+            f"fallback, not ported (ROADMAP.md A2)")
+    q, k, v = ctx.gather_matmul(h, (p["wq"], wk, wv))
+    q = q.reshape(b, s, plan.h_local, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
+    """The layer's two residual parts (``blocks.py`` ``make_attn_part`` for
+    GLOBAL_ATTN and ``make_mlp_part``, 1-D, no post-norms).  A part's body
+    runs from its input to its exit product's input; the schedule runs the
+    exit (``wo``, ``wd``) and its all-reduce."""
+    def attn_body(p, x, positions):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, p, h, positions)
+        q, k, v = _qkv(cfg, ctx, p, h, positions)
         o = chunked_attention(q, k, v, causal=True, window=None,
                               softcap=cfg.attn_softcap)
-        return _attn_out(cfg, p, o)
+        b, s = o.shape[:2]
+        return o.reshape(b, s, -1)
 
-    return part
+    def mlp_body(p, x, positions):
+        g, u = ctx.gather_matmul(rms_norm(x, p["ln2"], cfg.norm_eps),
+                                 (p["wg"], p["wu"]))
+        return F.silu(g) * u
+
+    return [Part(attn_body, "wo"), Part(mlp_body, "wd")]
 
 
 def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -67,7 +98,7 @@ def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     the null page 0, which every reader masks by position."""
     b = x.shape[0]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h, pos[:, None])
+    q, k, v = _qkv(cfg, TmpCtx(), p, h, pos[:, None])
     page = k_pool.shape[1]
     pos_l = pos.long()
     phys = tables.long()[torch.arange(b, device=x.device), pos_l // page]

@@ -1,7 +1,7 @@
-"""The model on one device: the training loss of
-``repro.models.lm.build_train_loss`` and the paged decode step of
-``build_decode`` (embed, copy-on-write, the layer loop, final norm, head,
-greedy token)."""
+"""The model: the training loss of ``repro.models.lm.build_train_loss``
+on a 1-D tensor-parallel group, and the paged decode step of
+``build_decode`` on one device (embed, copy-on-write, the layer loop,
+final norm, head, greedy token)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -9,36 +9,65 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.core import remat
+from repro_torch.core.comm import SoloComm
+from repro_torch.core.schedule import (TmpCtx, apply_layer, effective_split,
+                                       merge_tree, split_tree)
 from repro_torch.core.tmp import (greedy_token, rms_norm,
                                   vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
-from repro_torch.models.params import check_supported
+from repro_torch.models.params import check_supported, check_tp
 
 
 def train_loss(cfg: ArchConfig, params: Dict[str, Any],
-               batch: Dict[str, torch.Tensor], hp: TrainHParams
+               batch: Dict[str, torch.Tensor], hp: TrainHParams,
+               ctx: Optional[TmpCtx] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars:
-    the body of ``build_train_loss`` on one device.  Each layer adds its
-    attention part, then its MLP part, to the residual stream; the
-    sub-batch split of the ``oases`` schedule only cuts the batch at tp=1
-    and is not taken.  Dense models have no auxiliary loss (aux = 0)."""
+    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars,
+    the same on every rank: the body of ``build_train_loss`` on a 1-D
+    model group (``ctx``; None: tp=1 under ``hp.schedule``).  ``params``
+    are this rank's shards (:func:`~repro_torch.models.params.shard_params`).
+
+    The vocab-parallel embedding, the batch cut into
+    :func:`~repro_torch.core.schedule.effective_split` sub-batches, the
+    layer loop through :func:`~repro_torch.core.schedule.apply_layer` under
+    the recomputation policy of ``hp`` (``repro_torch.core.remat``), the
+    merge, the final norm and the vocab-parallel cross entropy.  Dense
+    models have no auxiliary loss (aux = 0)."""
     check_supported(cfg)
+    ctx = ctx or TmpCtx(SoloComm(), schedule=hp.schedule)
+    if ctx.schedule != hp.schedule:
+        raise ValueError(f"TmpCtx schedule {ctx.schedule!r} != hp.schedule "
+                         f"{hp.schedule!r}")
+    check_tp(cfg, ctx.tp)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
-    x = vocab_parallel_embed(tokens, params["embed"])
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    attn = blocks.make_attn_part(cfg)
+    x = vocab_parallel_embed(tokens, params["embed"], ctx.comm)
+    split = effective_split(hp.schedule, hp.split, b)
+    xs = split_tree(x, split)
+    positions = [torch.arange(s, device=tokens.device)[None, :]
+                 .expand(t.shape[0], s) for t in xs]
+    parts = blocks.train_parts(cfg, ctx)
+    pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
+    body_wrap = remat.checkpoint_body if pol == "fine" else None
+
+    def layer(p, *xs_in):
+        return tuple(apply_layer(parts, p, list(xs_in), positions, ctx,
+                                 body_wrap=body_wrap))
+
     per_layer = {name: t.unbind(0)
                  for name, t in params["blocks"][0].items()}
     for i in range(cfg.num_layers):
         p = {name: ts[i] for name, ts in per_layer.items()}
-        x = x + attn(p, x, positions)
-        x = x + blocks.mlp_part(cfg, p, x)
+        if pol == "coarse":
+            xs = list(remat.checkpoint_layer(layer, p, *xs))
+        else:
+            xs = list(layer(p, *xs))
+    x = merge_tree(xs)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(
         x, params["lm_head"], labels, chunk=hp.loss_chunk,
-        softcap=cfg.final_softcap)
+        softcap=cfg.final_softcap, comm=ctx.comm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss_sum / count + aux, aux
 

@@ -1,7 +1,9 @@
 """Parameter and paged-cache shapes, init, and the bridge to the JAX
 package's flat checkpoint view.
 
-The port's weights are a plain dict with the JAX tree's structure at tp=1:
+The port's weights are a plain dict with the JAX tree's structure (at
+tp > 1 each rank holds its shard of every sharded leaf, see
+:func:`shard_params`):
 ``{"embed", "final_ln", "lm_head", "blocks": [{...}]}`` where every block
 leaf carries the stacked ``[n, ...]`` leading dim of
 ``repro.models.params``.  Flat names are the JAX ``keystr`` paths
@@ -41,6 +43,106 @@ def check_supported(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not run {', '.join(unsupported)} "
             f"yet (ROADMAP.md queue A, other model families)")
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """``repro.models.params.AttnPlan`` of the 1-D layout."""
+    sharded: bool          # q/o projections sharded over the model group
+    h_local: int           # q heads per shard
+    kv_sharded: bool       # kv projections sharded
+    kv_slice: int          # kv heads each shard keeps after slicing
+
+
+def attn_plan(cfg: ArchConfig, tp: int) -> AttnPlan:
+    """KV heads shard when tp divides them; otherwise every shard holds
+    all KV heads and slices the group its contiguous q heads need
+    (``params.py`` ``attn_plan``)."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if tp <= 1 or H % tp != 0:
+        return AttnPlan(False, H, False, KV)
+    h_local = H // tp
+    if KV % tp == 0:
+        return AttnPlan(True, h_local, True, KV // tp)
+    group = H // KV
+    if group % h_local == 0:
+        kv_slice = 1
+    elif h_local % group == 0:
+        kv_slice = h_local // group
+    else:
+        kv_slice = KV
+    return AttnPlan(True, h_local, False, kv_slice)
+
+
+def check_tp(cfg: ArchConfig, tp: int):
+    """The 1-D layout the port runs: heads and d_ff divide by tp (JAX
+    falls back to replicated projections otherwise; the port does not
+    take that path yet)."""
+    bad = [what for what, n in (("num_heads", cfg.num_heads),
+                                ("d_ff", cfg.d_ff),
+                                ("padded vocab", cfg.padded_vocab()))
+           if n % tp]
+    if tp < 1 or bad:
+        raise NotImplementedError(
+            f"{cfg.name}: tp={tp} does not divide {', '.join(bad) or 'it'}; "
+            f"replicated fallbacks are not ported (ROADMAP.md A2)")
+
+
+def shard_dims(cfg: ArchConfig, tp: int) -> Dict[str, Optional[int]]:
+    """Flat name -> the dim each rank holds 1/tp of (None: replicated), in
+    the 1-D layout of ``model_specs``: wq/wk/wv/wg/wu by output column,
+    wo/wd by input row, embed and lm_head by vocabulary, norm scales
+    replicated; wk/wv replicated when tp does not divide the KV heads."""
+    plan = attn_plan(cfg, tp)
+    col, row = -1, -2
+    layer = {"ln": None, "ln2": None, "wq": col, "wo": row, "wg": col,
+             "wu": col, "wd": row,
+             "wk": col if plan.kv_sharded else None,
+             "wv": col if plan.kv_sharded else None}
+    out: Dict[str, Optional[int]] = {}
+    for key in model_specs(cfg):
+        if key.startswith("['blocks'][0]"):
+            d = layer[key[len("['blocks'][0]['"):-2]]
+        else:
+            d = {"['embed']": 0, "['final_ln']": None,
+                 "['lm_head']": -1}[key]
+        out[key] = d if tp > 1 else None
+    return out
+
+
+def shard_params(cfg: ArchConfig, params: Dict[str, Any], rank: int,
+                 tp: int) -> Dict[str, Any]:
+    """One rank's weights of the full ``params`` (for example JAX's,
+    through :func:`from_flat`): each sharded leaf cut into tp equal parts
+    along its :func:`shard_dims` dim, this rank's part copied; replicated
+    leaves copied whole."""
+    check_tp(cfg, tp)
+    dims = shard_dims(cfg, tp)
+    out = {}
+    for key, t in flatten(params).items():
+        d = dims[key]
+        part = t if d is None else t.chunk(tp, dim=d)[rank]
+        out[key] = part.detach().clone()
+    return unflatten(out)
+
+
+def gather_grads(cfg: ArchConfig, per_rank: List[Dict[str, Any]]
+                 ) -> Dict[str, Any]:
+    """Flat name -> the whole gradient, from every rank's flat gradients
+    (rank order): sharded leaves concatenated along their dim, replicated
+    leaves taken from rank 0 (every rank holds the same whole gradient)."""
+    tp = len(per_rank)
+    dims = shard_dims(cfg, tp)
+    out = {}
+    for key, d in dims.items():
+        parts = [g[key] for g in per_rank]
+        if d is None:
+            out[key] = parts[0]
+        elif isinstance(parts[0], np.ndarray):
+            out[key] = np.concatenate(parts, axis=d)
+        else:
+            out[key] = torch.cat(parts, dim=d)
+    return out
 
 
 def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:

@@ -1,21 +1,23 @@
-"""AdamW on one device (``repro.optim.adamw`` at dp=1): f32 master
-weights, m and v; global-norm clipping; linear warmup and cosine decay to
-10%; weight decay on leaves with more than one dimension.
+"""AdamW (``repro.optim.adamw`` at dp=1) on each rank's shards: f32
+master weights, m and v; global-norm clipping, the norm spanning the
+tensor-parallel group; linear warmup and cosine decay to 10%; weight
+decay on leaves with more than one dimension.
 
 Unlike the JAX version, which returns new trees, :func:`apply_updates`
 updates the master weights, m, v and the model parameters IN PLACE, and
 walks each leaf in slices so that its f32 temporaries stay small.
-ZeRO-1 sharding needs more than one device (ROADMAP.md A2/A4) and int8
-gradient compression is not ported (A4).
+ZeRO-1 sharding of the optimizer state over data-parallel ranks and int8
+gradient compression are not ported (ROADMAP.md A4).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.core.comm import Comm
 from repro_torch.models.params import flat_leaves
 
 # elements per slice of a leaf in apply_updates (f32 temporaries of
@@ -57,21 +59,38 @@ def init_opt_state(params: Dict[str, Any]) -> Dict[str, Any]:
             "step": 0}
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def _sq(g: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.square(g.float()))
+
+
+def global_norm(grads: List[torch.Tensor], comm: Optional[Comm] = None,
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The norm of the whole model's gradient.  Over a model group
+    (``comm`` of size > 1) the squares of the sharded leaves are summed
+    over the ranks and the replicated leaves, whose gradient every rank
+    holds whole, count once, so every rank clips by the same factor."""
+    if comm is None or comm.size == 1:
+        return torch.sqrt(sum(_sq(g) for g in grads))
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    local = sum((_sq(g) for g, s in zip(grads, sharded) if s), zero)
+    rep = sum((_sq(g) for g, s in zip(grads, sharded) if not s), zero)
+    return torch.sqrt(comm.all_reduce(local.reshape(1))[0] + rep)
 
 
 def apply_updates(params: Dict[str, Any], grads: List[torch.Tensor],
                   opt_state: Dict[str, Any], cfg: AdamWConfig, *,
-                  compress: bool = False) -> torch.Tensor:
+                  compress: bool = False, comm: Optional[Comm] = None,
+                  sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """One AdamW step, in place; ``grads`` in :func:`flat_leaves` order
-    (any float dtype).  Returns the global norm of the unclipped grads."""
+    (any float dtype).  Returns the global norm of the unclipped grads.
+    Over a model group, ``sharded`` marks the leaves each rank holds a
+    shard of (:func:`~repro_torch.models.params.shard_dims`)."""
     if compress:
         raise NotImplementedError(
             "int8 gradient compression is not ported yet (ROADMAP.md A4)")
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, comm, sharded)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - b1 ** step

@@ -1,7 +1,8 @@
-"""Training loop on one device (the core of ``repro.runtime.trainer``):
-weights, optimizer state, the step loop over ``make_batch`` and straggler
-detection.  Checkpointing, heartbeats, failure injection and elastic
-re-meshing are not ported yet (ROADMAP.md A4, A11)."""
+"""Training loop on one rank of a 1-D model group (the core of
+``repro.runtime.trainer``): weights, optimizer state, the step loop over
+``make_batch`` and straggler detection.  Checkpointing, heartbeats,
+failure injection and elastic re-meshing are not ported yet (ROADMAP.md
+A4, A11)."""
 from __future__ import annotations
 
 import math
@@ -12,6 +13,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.core.comm import Comm, SoloComm
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import steps as steps_mod
@@ -47,30 +49,39 @@ class StragglerDetector:
 
 class Trainer:
     """``Trainer(cfg, hp, global_batch=, seq_len=)`` on the card (default;
-    raises without one) or ``device="cpu"``.  ``params`` (for example JAX
-    weights through :func:`repro_torch.models.params.from_flat`) are moved
-    to the device; without them :meth:`train` draws weights from its
-    seed."""
+    raises without one) or ``device="cpu"``.  ``params`` (whole weights,
+    for example JAX's through :func:`repro_torch.models.params.from_flat`)
+    are moved to the device; without them :meth:`train` draws whole
+    weights from its seed.  ``comm``: the model group this rank belongs to
+    (None: tp=1); the trainer keeps this rank's shard of the weights, and
+    only rank 0 logs."""
 
     def __init__(self, cfg: ArchConfig, hp: TrainHParams, *,
                  global_batch: int, seq_len: int,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Dict[str, Any]] = None,
-                 log_fn: Optional[Callable[[str], None]] = print):
+                 log_fn: Optional[Callable[[str], None]] = print,
+                 comm: Optional[Comm] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.comm = comm or SoloComm()
         self.global_batch = global_batch
         self.seq_len = seq_len
-        self.log = log_fn
+        self.log = log_fn if self.comm.rank == 0 else None
         self.straggler = StragglerDetector()
         self.step_fn = steps_mod.build_train_step(
-            cfg, hp, global_batch=global_batch, seq_len=seq_len)
+            cfg, hp, global_batch=global_batch, seq_len=seq_len,
+            comm=self.comm)
         self.hp = self.step_fn.hp
         self.params = None if params is None else self._own(params)
         self.opt_state: Optional[Dict[str, Any]] = None
 
     def _own(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """The weights on this trainer's device, as trainable leaves."""
+        """This rank's shard of the whole weights on this trainer's device,
+        as trainable leaves."""
+        if self.comm.size > 1:
+            params = prm.shard_params(self.cfg, params, self.comm.rank,
+                                      self.comm.size)
         return prm.unflatten({k: t.detach().to(self.device).requires_grad_()
                               for k, t in prm.flatten(params).items()})
 
@@ -99,6 +110,7 @@ class Trainer:
             metrics = self.step_fn(self.params, self.opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            self.comm.check()
             if self.straggler.observe(step, dt) and self.log:
                 self.log(f"[straggler] step {step} took {dt:.2f}s "
                          f"(ewma {self.straggler.mean:.2f}s)")

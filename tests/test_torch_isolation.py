@@ -29,7 +29,9 @@ def test_port_has_the_slice_modules():
                  "models.blocks", "models.lm", "serving.paged_cache",
                  "serving.engine", "launch.serve", "optim.adamw",
                  "data.pipeline", "launch.steps", "launch.train",
-                 "runtime.trainer"):
+                 "runtime.trainer", "core.comm",
+                 "core.schedule", "core.remat", "kernels.collective_matmul",
+                 "kernels.autotune", "kernels.peer_comm", "launch.ranks"):
         assert f"repro_torch.{name}" in mods, name
 
 
