@@ -42,17 +42,20 @@ Phases (any failure raises and the script exits non-zero):
    the one-device configuration of the second slice.
 8. Tensor-parallel kernels against their plain versions on the card:
    the tile matmul at the ``gpt-h2048`` tp=2 ring-step shapes (``wo``
-   [2048, 1024] @ [1024, 2048], ``wd`` [2048, 4096] @ [4096, 2048]) and a
-   ragged one, f32 and bf16, timed beside its bound, its plain version and
-   ``torch.matmul`` (cuBLAS); then, with 2 and 4 rank processes sharing the
+   [2048, 1024] @ [1024, 2048], ``wd`` [2048, 4096] @ [4096, 2048], the
+   only shapes at which training runs its code: as the ring kernel's
+   per-step product, never launched alone) and a ragged one, f32 and
+   bf16, timed beside its bound, its plain version and ``torch.matmul``
+   (cuBLAS); then, with 2 and 4 rank processes sharing the
    card over ``PeerComm``, the fused matmul -> reduce-scatter ring at both
    exits and the peer all-reduce and all-gather, every rank's result held
    against the plain version computed from all ranks' inputs.
 9. Tensor-parallel consistency: ``gpt-h2048`` at full width, 2 layers,
-   f32, batch 2 x 256, fine recomputation, tp=2 on the card under
-   ``megatron``, ``oases`` and ``fused``, against phase 6's tp=1 card run
-   on the same weights: loss within 1e-5 relative, gathered gradients
-   within ``grads_err`` 1e-4.
+   f32, batch 2 x 256, tp=2 on the card under ``megatron``, ``oases`` and
+   ``fused`` with fine recomputation and ``oases`` without and with
+   coarse recomputation, against phase 6's tp=1 card run on the same
+   weights: loss within 1e-5 relative, gathered gradients within
+   ``grads_err`` 1e-4; the memory each forward keeps for its backward.
 10. Tensor-parallel training: ``gpt-h2048`` at full width and depth in
    bf16, tp=2 (two rank processes on the card), batch 8 x 1024 in 2
    microbatches, fine recomputation, 4 AdamW steps under each of
@@ -871,6 +874,10 @@ TILE_SHAPES = [("wo", 2048, 1024, 2048), ("wd", 2048, 4096, 2048),
 RING_EXITS = [("wo", 4096, 2048, 2048), ("wd", 4096, 8192, 2048)]
 COLL_SHAPE = (4, 1024, 2048)      # an exit's all-reduce at microbatch 4
 TP_SCHEDULES = ("megatron", "oases", "fused")
+# phase 9: (schedule, remat, fine_remat); fine under the three schedules,
+# then oases without recomputation and with coarse recomputation
+TP_VARIANTS = [(s, True, True) for s in TP_SCHEDULES] + [
+    ("oases", False, True), ("oases", True, False)]
 TP_STEPS = 4
 # first losses of the three schedules, bf16, 24 layers (absolute, on a
 # loss of ~10.9): each of the 48 exits of a pass may round its residual
@@ -970,7 +977,7 @@ def _tmp_kernels_rank(comm, device):
             ws = [(torch.randn(k, d, generator=gen, device=device)
                    / kfull ** 0.5).to(dtype) for _ in range(n)]
             got = matmul_reducescatter(xs[rank], ws[rank], comm, 0)
-            want = ref.matmul_reducescatter_ref(xs, ws, n, rank)
+            want = ref.matmul_reducescatter_all_ranks_ref(xs, ws, n, rank)
             torch.cuda.synchronize(device)
             atol, rtol = _mm_tol(kfull, dname)
             err, ok = max_err(got, want, atol, rtol)
@@ -982,8 +989,9 @@ def _tmp_kernels_rank(comm, device):
                 rtol=rtol,
                 ms=time_ms(lambda: matmul_reducescatter(xs[rank], ws[rank],
                                                         comm, 0)),
-                plain_ms=time_ms(lambda: ref.matmul_reducescatter_ref(
-                    xs, ws, n, rank), iters=10),
+                plain_ms=time_ms(
+                    lambda: ref.matmul_reducescatter_all_ranks_ref(
+                        xs, ws, n, rank), iters=10),
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                 cublas_same_product_ms=time_ms(
                     lambda: torch.matmul(xs[rank], ws[rank]))))
@@ -1019,13 +1027,14 @@ def phase_tp_consistency():
 
     ref = torch.load(TP1_REF)
     t0 = time.perf_counter()
-    per_rank = run_ranks(_tp_consistency_rank, 2, args=(TP_SCHEDULES,),
+    per_rank = run_ranks(_tp_consistency_rank, 2, args=(TP_VARIANTS,),
                          timeout=600)
     wall = time.perf_counter() - t0
     out = {"tp": 2, "layers": 2, "dtype": "float32", "batch": 2, "seq": 256,
            "loss_tp1": ref["loss"], "wall_s": wall, "schedules": {}}
-    for sched in TP_SCHEDULES:
-        rs = [r[sched] for r in per_rank]
+    for sched, remat, fine in TP_VARIANTS:
+        name = _variant_name(sched, remat, fine)
+        rs = [r[name] for r in per_rank]
         leaf_err = {k: max(r["leaf"][k][0] for r in rs)
                     / (max(r["leaf"][k][1] for r in rs) + 1e-8)
                     for k in rs[0]["leaf"]}
@@ -1035,26 +1044,45 @@ def phase_tp_consistency():
         row = dict(losses=[r["loss"] for r in rs], loss_rel_err=loss_rel,
                    grads_err=gerr, worst_leaf=max(leaf_err,
                                                   key=leaf_err.get),
+                   fwd_kept_mb=[r["fwd_kept_mb"] for r in rs],
                    launches=rs[0]["launches"], counts=rs[0]["counts"],
                    rank_s=[r["s"] for r in rs])
-        out["schedules"][sched] = row
-        print(f"[tp_consistency] {sched} {json.dumps(row)}")
+        out["schedules"][name] = row
+        print(f"[tp_consistency] {name} {json.dumps(row)}")
         require(loss_rel <= LOSS_RTOL,
-                f"tp=2 {sched} loss {row['losses']} vs tp=1 {ref['loss']}: "
+                f"tp=2 {name} loss {row['losses']} vs tp=1 {ref['loss']}: "
                 f"rel {loss_rel}")
-        require(gerr <= GRADS_TOL, f"tp=2 {sched} grads_err {gerr} > "
+        require(gerr <= GRADS_TOL, f"tp=2 {name} grads_err {gerr} > "
                                    f"{GRADS_TOL}")
         rings = rs[0]["launches"]["ring_matmul_rs"]
         want = 2 * 2 if sched == "fused" else 0
-        require(rings == want, f"tp=2 {sched}: {rings} ring launches, "
+        require(rings == want, f"tp=2 {name}: {rings} ring launches, "
                                f"expected {want}")
     return out
 
 
-def _tp_consistency_rank(comm, device, schedules):
+def _variant_name(sched, remat, fine):
+    from repro_torch.core.remat import policy
+    pol = policy(sched, remat=remat, fine=fine)
+    return sched if pol == "fine" else f"{sched}/{pol}"
+
+
+def _settled_allocated(device) -> int:
+    """Bytes allocated once the card is idle and the allocator has
+    released the blocks whose last use was on the communicator's stream
+    (``record_stream`` defers their free to the next allocation)."""
+    import torch
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(device)
+
+
+def _tp_consistency_rank(comm, device, variants):
     """One rank of phase 9: this rank's shard of phase 6's weights, loss
-    and gradients per schedule, each leaf's max difference from phase 6's
-    tp=1 card gradient (the same shard of it) beside that shard's max."""
+    and gradients per (schedule, remat, fine_remat) variant, each leaf's
+    max difference from phase 6's tp=1 card gradient (the same shard of
+    it) beside that shard's max, and the memory the forward leaves
+    allocated for the backward (the loss's graph: saved activations)."""
     import torch
     from repro_torch.configs.base import TrainHParams
     from repro_torch.configs.registry import get_config
@@ -1075,16 +1103,24 @@ def _tp_consistency_rank(comm, device, schedules):
     dims = prm.shard_dims(cfg, n)
     want = {k: (g if dims[k] is None else g.chunk(n, dims[k])[rank])
             for k, g in ref.items()}
+    # the process's first product allocates cuBLAS's workspace (32 MiB)
+    # from the caching allocator: before the first reading, not inside it
+    torch.matmul(torch.ones(8, 8, device=device),
+                 torch.ones(8, 8, device=device))
     out = {}
-    for sched in schedules:
+    for sched, remat, fine in variants:
         shard = prm.shard_params(cfg, base, rank, n)
         params = prm.unflatten({k: t.to(device).requires_grad_()
                                 for k, t in prm.flatten(shard).items()})
         _build.reset_launches()
         comm.reset_counts()
+        before = _settled_allocated(device)
         t0 = time.perf_counter()
-        loss, _ = lm.train_loss(cfg, params, tb, TrainHParams(schedule=sched),
-                                TmpCtx(comm, schedule=sched))
+        loss, _ = lm.train_loss(
+            cfg, params, tb,
+            TrainHParams(schedule=sched, remat=remat, fine_remat=fine),
+            TmpCtx(comm, schedule=sched))
+        kept = _settled_allocated(device) - before
         loss.backward()
         torch.cuda.synchronize(device)
         leaf = {}
@@ -1092,10 +1128,10 @@ def _tp_consistency_rank(comm, device, schedules):
             g = t.grad.detach().cpu()
             leaf[k] = (float((g - want[k]).abs().max()),
                        float(want[k].abs().max()))
-        out[sched] = dict(loss=loss.item(), leaf=leaf,
-                          s=time.perf_counter() - t0,
-                          launches=dict(_build.LAUNCHES),
-                          counts=dict(comm.counts))
+        out[_variant_name(sched, remat, fine)] = dict(
+            loss=loss.item(), leaf=leaf, fwd_kept_mb=kept / 1e6,
+            s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
+            counts=dict(comm.counts))
         del params, shard, loss
     return out
 
@@ -1245,7 +1281,10 @@ def _kernels_line(report) -> dict:
     """The kernels JSON: every kernel of the paths that ran, with its
     launches on its main path (serve: phase 4; one-device training:
     phase 7; tensor-parallel training: phase 10, rank 0, all schedules)
-    and its main case's numbers."""
+    and its main case's numbers.  The tile matmul runs on the main path
+    only inside the ring kernel (as ``_mm_tile_kernel`` does in JAX), so
+    its own launches there are 0; ``ring_step_products`` counts the
+    per-step products the ring launches ran (tp per launch)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
@@ -1315,6 +1354,12 @@ def _kernels_line(report) -> dict:
             extra = ({"cublas_same_product_ms":
                       row["cublas_same_product_ms"]}
                      if name == "ring_matmul_rs" else {})
+            if name == "tile_matmul":
+                extra = {"runs_inside": "ring_matmul_rs",
+                         "ring_step_products": report["tp_train"]["tp"]
+                         * int(tp_launch["ring_matmul_rs"])
+                         if "tp_train" in report else 0,
+                         "shape": [row["m"], row["k"], row["n"]]}
             rows.append(dict(name=name, route="cuda",
                              source=f"src/repro_torch/kernels/csrc/{src}",
                              replaces=replaces,

@@ -5,14 +5,14 @@ PyTorch.
   checkpoint, so its backward replays the layer's forward, **the TMP
   collectives included** (2 all-reduces per sub-batch).  Early stopping of
   the replay is off, so the replay is the whole layer, as in the paper.
-* ``fine``   — Oases: only the compute between collectives is
-  checkpointed (each part's body, from its input up to the exit matmul's
-  input); the exit product and its all-reduce run outside, so their
-  outputs are kept and the replay contains no collective.  JAX gets the
-  same from ``save_only_these_names`` on the collective outputs.  The
-  exit product's input is kept as well (its gradient needs it, and under
-  ``fused`` and ``wang`` the product is interleaved with the collective);
-  JAX recomputes it.
+* ``fine``   — Oases: each part (its body and its row-parallel exit)
+  runs under a checkpoint whose replay stops short of the exit: the exit
+  (:meth:`~repro_torch.core.schedule.TmpCtx.row_matmul`) saves only its
+  input and weight, so the replay recomputes the body and skips the exit
+  product and its collective.  What is kept is each part's input (the
+  residual stream; the collective's output only feeds the residual add
+  after it), and the replay contains no collective.  JAX gets the same
+  from ``save_only_these_names`` on the collective outputs.
 * ``none``   — nothing is recomputed.
 
 ``merak`` always takes ``coarse`` (Fig. 3b); the other schedules take
@@ -21,9 +21,11 @@ otherwise.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List
 
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+from repro_torch.core.comm import Pending
 
 
 def policy(schedule: str, *, remat: bool, fine: bool) -> str:
@@ -36,9 +38,28 @@ def policy(schedule: str, *, remat: bool, fine: bool) -> str:
     return "fine"
 
 
-def checkpoint_body(body: Callable, *args):
-    """Run a part's body under a checkpoint (fine recomputation)."""
-    return checkpoint(body, *args, use_reentrant=False)
+def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
+    """Fine recomputation of one part: ``run(replay, *args)`` returns the
+    part's exit handle (:meth:`~repro_torch.core.schedule.TmpCtx.
+    row_matmul`).  It runs once with ``replay=False`` under a checkpoint,
+    and the backward replays it with ``replay=True``, which skips the exit
+    product and its collective.  The handle waits for the first run's
+    collective.  The replay closure lives until the backward, so it keeps
+    a flag and no tensor: holding the first run's handle would keep the
+    collective's output alive."""
+    ran: List[bool] = []
+    box: List[Pending] = []
+
+    def once(*a):
+        replay = bool(ran)
+        pend = run(replay, *a)
+        if not replay:
+            ran.append(True)
+            box.append(pend)
+        return pend.result
+
+    y = checkpoint(once, *args, use_reentrant=False)
+    return Pending(y, box.pop().wait)
 
 
 def checkpoint_layer(layer: Callable, *args):

@@ -26,11 +26,13 @@ ring attention, the 2-D layout and the Pallas switch (ROADMAP.md A2, A7).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, List, Sequence
 
 import torch
 
+from repro_torch.core import remat
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.comm import Comm, Pending, SoloComm
 
@@ -74,28 +76,36 @@ class TmpCtx:
         return preferred
 
     def row_matmul(self, x: torch.Tensor, w: torch.Tensor,
-                   seq_dim: int = 1) -> Pending:
+                   seq_dim: int = 1, *, replay: bool = False) -> Pending:
         """x [..., K_local] @ w [K_local, D] followed by the all-reduce, as
         a handle whose ``wait()`` gives the reduced product.  Only
-        ``oases`` leaves the all-reduce running past the return."""
+        ``oases`` leaves the all-reduce running past the return.  One
+        differentiable op (:func:`~repro_torch.core.tmp.row_exit`) that
+        saves x and w; under ``replay`` (fine recomputation replaying the
+        part) it computes and communicates nothing, and the handle's
+        tensor is left unset: the replay needs only what is saved."""
+        return tmpc.row_exit(x, w, lambda x, w: self._exit(x, w, seq_dim,
+                                                          replay))
+
+    def _exit(self, x, w, seq_dim, replay) -> Pending:
+        if replay:
+            return Pending(x.new_empty(x.shape[:-1] + w.shape[1:]), None)
         if self.schedule == "fused" and self.tp > 1 and x.dim() >= 2:
             from repro_torch.kernels import collective_matmul as cm
-            y = cm.fused_matmul_allreduce(
+            return Pending(cm.matmul_allreduce(
                 x, w, self.comm,
-                scatter_dim=self._ring_dim(x, min(seq_dim, x.dim() - 2)))
-            return Pending(y, None)
+                scatter_dim=self._ring_dim(x, min(seq_dim, x.dim() - 2))),
+                None)
         if self.schedule == "wang" and x.dim() >= 2:
             n, dim = self.wang_chunks, x.dim() - 2
             if x.shape[dim] % n == 0 and x.shape[dim] >= n:
-                pend = [tmpc.reduce_from_tmp_async(torch.matmul(c, w),
-                                                   self.comm)
+                pend = [self.comm.all_reduce_async(torch.matmul(c, w))
                         for c in x.chunk(n, dim=dim)]
-                outs = [p.wait() for p in pend]
-                return Pending(torch.cat(outs, dim=dim), None)
-        y = torch.matmul(x, w)
-        if self.schedule == "oases":
-            return tmpc.reduce_from_tmp_async(y, self.comm)
-        return Pending(self.reduce(y), None)
+                return Pending(torch.cat([p.wait() for p in pend], dim=dim),
+                               None)
+        pend = self.comm.all_reduce_async(torch.matmul(x, w))
+        return pend if self.schedule == "oases" else Pending(pend.wait(),
+                                                             None)
 
     def gather_matmul(self, x: torch.Tensor,
                       ws: Sequence[torch.Tensor]) -> tuple:
@@ -138,16 +148,22 @@ class Part:
 
 def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
                 positions: List[torch.Tensor], ctx: TmpCtx, *,
-                body_wrap: Callable = None) -> List[torch.Tensor]:
+                fine: bool = False) -> List[torch.Tensor]:
     """Run one layer's residual parts over the sub-batches in Alg. 1's
     program order: for each part, (compute_j, collective_j) for every
     sub-batch j, then the residual adds.  Under ``oases`` collective_j is
     started and waited for only at sub-batch j's residual add, so it is
-    independent of compute_{j+1}.  ``body_wrap(body, p, x, pos)`` runs a
-    body (fine recomputation checkpoints it there)."""
-    run = body_wrap or (lambda body, *args: body(*args))
+    independent of compute_{j+1}.  ``fine`` runs each part's body and exit
+    under a checkpoint whose replay skips the exit
+    (:func:`repro_torch.core.remat.checkpoint_part`)."""
+    def part_exit(part, replay, p, x, pos):
+        return ctx.row_matmul(part.body(p, x, pos), p[part.exit],
+                              replay=replay)
+
     for part in parts:
-        pend = [ctx.row_matmul(run(part.body, p, x, pos), p[part.exit])
+        run = functools.partial(part_exit, part)
+        pend = [remat.checkpoint_part(run, p, x, pos) if fine
+                else run(False, p, x, pos)
                 for x, pos in zip(xs, positions)]
         xs = [x + d.wait() for x, d in zip(xs, pend)]
     if ctx.schedule == "merak":

@@ -16,7 +16,8 @@ whole gradient on every rank and sharded leaves their shard's: gathered,
 they equal JAX's.  The outputs of g are the residuals that fine
 recomputation keeps (``repro_torch.core.remat``): Eq. (1) of the paper
 makes their gradient the identity, so g saves nothing and its backward
-runs no collective.
+runs no collective.  A row-parallel exit is the product and g in one
+op (:func:`row_exit`), whose backward is the product's alone.
 """
 from __future__ import annotations
 
@@ -65,6 +66,40 @@ class _ReduceFromTmp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _RowExit(torch.autograd.Function):
+    """A row-parallel exit: ``x @ w`` and its all-reduce (g after the
+    product), computed by ``run(x, w) -> Pending``.  Under f/g the
+    output's cotangent is whole on every rank, so the backward is local
+    (``dx = dy @ w.T``, ``dw = x.T @ dy``) whatever ``run`` did.  ``box``
+    receives the handle, as for :class:`_ReduceFromTmp`."""
+
+    @staticmethod
+    def forward(ctx, x, w, run, box):
+        ctx.save_for_backward(x, w)
+        p = run(x, w)
+        box.append(p)
+        return p.result
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = torch.matmul(dy, w.t())
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                          dy.reshape(-1, dy.shape[-1]))
+        return dx, dw, None, None
+
+
+def row_exit(x: torch.Tensor, w: torch.Tensor, run) -> Pending:
+    """The exit product ``x @ w`` and its all-reduce as one differentiable
+    op: ``run(x, w)`` computes them (a schedule's way) and returns a
+    :class:`Pending`; the gradient is that of g after ``x @ w``.  Only x
+    and w are saved, so fine recomputation can replay an exit without its
+    product or collective (``repro_torch.core.remat``)."""
+    box: List[Pending] = []
+    y = _RowExit.apply(x, w, run, box)
+    return Pending(y, box[0].wait)
 
 
 def copy_to_tmp(x: torch.Tensor, comm: Comm) -> torch.Tensor:

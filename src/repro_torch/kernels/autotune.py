@@ -10,6 +10,9 @@ ring kernel's per-step product (``csrc/ring_matmul_rs.cu``), per shape:
   warm-up, then the least of ``repeats`` timed runs).
 * Off the card the clipped default is returned without timing and cached,
   as JAX does off the TPU.
+* Rank processes sharing a card time nothing of their own: the ring's
+  blocks are rank 0's choice (``Comm.agree``), since the others' time
+  slices would be in the timings and every rank must tile alike.
 
 The structure is JAX's (a default, a candidate grid per axis, clipping to
 the problem, a fast-memory budget); the values are the card's.  The TPU's
@@ -41,12 +44,13 @@ SMEM_BUDGET_BYTES = 227 * 1024
 _MEM_CACHE: Dict[Tuple[str, str], Blocks] = {}
 
 
+# resolved once: every wrapper call looks its blocks up through this path
+_DEFAULT_CACHE = str(Path(__file__).resolve().parents[3] / "build"
+                     / "autotune" / "tile_blocks.json")
+
+
 def cache_path() -> str:
-    env = os.environ.get("REPRO_TORCH_TUNE_CACHE")
-    if env:
-        return env
-    return str(Path(__file__).resolve().parents[3] / "build" / "autotune"
-               / "tile_blocks.json")
+    return os.environ.get("REPRO_TORCH_TUNE_CACHE") or _DEFAULT_CACHE
 
 
 def platform_of(device: torch.device) -> str:
@@ -167,6 +171,7 @@ def tuned_blocks(m: int, k: int, n: int, dtype: torch.dtype = torch.float32,
                  for c in candidates(m, k, n, itemsize=itemsize)]
         blocks = min(timed)[1]
     _MEM_CACHE[mem_key] = blocks
+    disk = _load_disk()           # what other processes stored meanwhile
     disk[key] = list(blocks)
     _store_disk(disk)
     return blocks

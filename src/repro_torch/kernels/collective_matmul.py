@@ -19,14 +19,16 @@ by :func:`backend` as in JAX:
   ever takes the decomposition.
 
 :func:`tile_matmul` is the port of ``pallas_tile_matmul``
-(``csrc/tile_matmul.cu``), the ring's per-step product, callable alone.
+(``csrc/tile_matmul.cu``): the ring kernel's per-step product, callable
+alone, as in JAX for the autotuner and the checks; no model path launches
+it by itself.
 
-Gradient: ``fused_matmul_allreduce`` is a ``torch.autograd.Function``
-under Megatron's f/g convention (``repro_torch.core.tmp``): the output is
+Gradient: ``fused_matmul_allreduce`` is differentiable under Megatron's
+f/g convention (``repro_torch.core.tmp.row_exit``): the output is
 replicated and its cotangent whole on every rank, so the backward is local
-(``dx = dy @ w.T``, ``dw = x.T @ dy``), the same as ``megatron``'s exit.
-Both backward products run through :func:`tile_matmul` (on the card the
-tile matmul kernel, on the CPU its plain version).
+(``dx = dy @ w.T``, ``dw = x.T @ dy``, plain products), the same as
+``megatron``'s exit and JAX's (XLA dots).  :func:`matmul_allreduce` is its
+forward alone, which the schedules call inside their exit op.
 The sequence-parallel pair (``fused_matmul_reducescatter``,
 ``fused_allgather_matmul``) waits for sequence parallelism (ROADMAP.md A2).
 """
@@ -36,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Pending
+from repro_torch.core.tmp import row_exit
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tile_matmul_ref
 
@@ -214,7 +217,11 @@ def _dispatch_rs(x, w, comm: Comm, scatter_dim: int):
     return matmul_reducescatter(x, w, comm, scatter_dim)
 
 
-def _allreduce_forward(x, w, comm: Comm, scatter_dim: int):
+def matmul_allreduce(x: torch.Tensor, w: torch.Tensor, comm: Comm,
+                     scatter_dim: int = 1) -> torch.Tensor:
+    """The forward of :func:`fused_matmul_allreduce` (no autograd): the
+    reference path, the ring decomposition on CPU tensors, or the ring
+    kernel and the peer all-gather on CUDA tensors."""
     if comm.size <= 1:
         return torch.matmul(x, w)
     if backend(comm, x.shape[scatter_dim]) == "ref":
@@ -225,24 +232,10 @@ def _allreduce_forward(x, w, comm: Comm, scatter_dim: int):
     return comm.all_gather(y_chunk, scatter_dim)
 
 
-class _FusedMatmulAllReduce(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, comm, scatter_dim):
-        ctx.save_for_backward(x, w)
-        return _allreduce_forward(x, w, comm, scatter_dim)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dy2 = dy.reshape(-1, dy.shape[-1]).contiguous()
-        dx = tile_matmul(dy2, w.t().contiguous())
-        dw = tile_matmul(x.reshape(-1, x.shape[-1]).t().contiguous(), dy2)
-        return dx.reshape(x.shape), dw, None, None
-
-
 def fused_matmul_allreduce(x: torch.Tensor, w: torch.Tensor, comm: Comm, *,
                            scatter_dim: int = 1) -> torch.Tensor:
     """Row-parallel ``x @ w`` + all-reduce as a reduce-scatter ring and an
     all-gather (JAX's ``fused_matmul_allreduce``), differentiable with the
     local backward of Megatron's g."""
-    return _FusedMatmulAllReduce.apply(x, w, comm, scatter_dim)
+    return row_exit(x, w, lambda x, w: Pending(
+        matmul_allreduce(x, w, comm, scatter_dim), None)).wait()

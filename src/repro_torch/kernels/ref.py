@@ -195,7 +195,7 @@ def tile_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
-def matmul_reducescatter_ref(xs, ws, n: int, rank=None):
+def matmul_reducescatter_all_ranks_ref(xs, ws, n: int, rank=None):
     """Every rank's chunk of the fused matmul -> reduce-scatter, from every
     rank's inputs: xs[r] [n * chunk, k_local], ws[r] [k_local, d] ->
     [chunk_0, ..., chunk_{n-1}], chunk_i = sum over r of (xs[r] @ ws[r])

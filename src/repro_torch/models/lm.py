@@ -49,11 +49,10 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                  .expand(t.shape[0], s) for t in xs]
     parts = blocks.train_parts(cfg, ctx)
     pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
-    body_wrap = remat.checkpoint_body if pol == "fine" else None
 
     def layer(p, *xs_in):
         return tuple(apply_layer(parts, p, list(xs_in), positions, ctx,
-                                 body_wrap=body_wrap))
+                                 fine=pol == "fine"))
 
     per_layer = {name: t.unbind(0)
                  for name, t in params["blocks"][0].items()}

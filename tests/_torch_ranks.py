@@ -80,7 +80,7 @@ def collective_cases(comm, device, cases):
             # the kernel wrapper on CPU tensors (the ring decomposition)
             # against the plain version from every rank's inputs
             xs, ws = zip(*[_shards(xf, wf, i, n) for i in range(n)])
-            plain = ref.matmul_reducescatter_ref(
+            plain = ref.matmul_reducescatter_all_ranks_ref(
                 [t.transpose(0, 1).reshape(-1, t.shape[-1]) for t in xs],
                 list(ws), n)[comm.rank].reshape(s // n, b, d)
             r["rs_plain"] = _err(cm.matmul_reducescatter(x, w, comm, 1),

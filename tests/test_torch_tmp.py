@@ -20,7 +20,9 @@ arithmetic, replayed); rings against references 2e-5 f32 and 3e-2 bf16
 (``fused_equivalence.py``); tile matmul 1e-5 f32 and one bf16 ulp (its
 f32 sums in another order, cast once); Trainer losses 1e-4 relative.
 """
+import gc
 import json
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -37,12 +39,14 @@ from repro.models import params as jprm
 from repro.runtime import Trainer as JTrainer
 from repro_torch.configs.base import TrainHParams
 from repro_torch.configs.registry import get_config
-from repro_torch.core.schedule import SCHEDULES
+from repro_torch.core.comm import SoloComm
+from repro_torch.core.schedule import SCHEDULES, TmpCtx
 from repro_torch.kernels import autotune
 from repro_torch.kernels import collective_matmul as tcm
 from repro_torch.kernels.ref import tile_matmul_ref
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.ranks import run_ranks
+from repro_torch.models import lm as tlm
 from repro_torch.models import params as tprm
 
 import _torch_ranks
@@ -51,7 +55,9 @@ ARCH = "internlm2-1.8b"
 B, S = 4, 64
 TIMEOUT = 240
 VARIANTS = ([(s, True, True) for s in SCHEDULES]
-            + [("oases", False, True), ("oases", True, False)])
+            + [("oases", False, True), ("oases", True, False),
+               ("wang", False, True), ("fused", False, True),
+               ("fused", True, False)])
 CM_CASES = [("float32", 2, 32, 64, 48), ("bfloat16", 2, 32, 64, 48),
             ("float32", 3, 16, 104, 72),        # uneven K_local
             ("float32", 2, 30, 64, 48),         # 30 rows: n=4 indivisible
@@ -182,6 +188,78 @@ def test_remat_policies_and_replayed_collectives(ranks, tp):
         assert m[fine]["bwd"] == m[off]["bwd"]
         assert (m[coarse]["bwd"]["all_reduce"]
                 - m[off]["bwd"]["all_reduce"]) == layer_ar
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("schedule", ["wang", "fused"])
+def test_fine_remat_replays_no_exit(ranks, tp, schedule):
+    """The replay of fine recomputation skips the exit product and its
+    collective for the other exit styles too: ``wang``'s chunked
+    all-reduces and ``fused``'s ring.  Fine gives the loss and grads of no
+    recomputation (1e-6) with the same collectives forward and backward;
+    under ``fused``, coarse replays each exit's ring, 2 (tp - 1)
+    ring shifts (reduce-scatter and all-gather) for each of a layer's 2
+    exits."""
+    res = ranks[tp]
+    cfg = get_config(ARCH).reduced()
+    off, fine = (schedule, False, True), (schedule, True, True)
+    for r in res:
+        m = r["model"]
+        assert abs(m[fine]["loss"] - m[off]["loss"]) <= 1e-6
+        assert grads_err(m[off]["grads"], m[fine]["grads"]) <= 1e-6
+        assert m[fine]["fwd"] == m[off]["fwd"]
+        assert m[fine]["bwd"] == m[off]["bwd"]
+        if schedule == "fused":
+            coarse = m[("fused", True, False)]
+            assert m[off]["fwd"]["ring_shift"] \
+                == cfg.num_layers * 2 * 2 * (tp - 1)
+            assert coarse["bwd"]["ring_shift"] - m[off]["bwd"]["ring_shift"] \
+                == cfg.num_layers * 2 * 2 * (tp - 1)
+
+
+@pytest.mark.parametrize("schedule", ["megatron", "oases"])
+def test_fine_remat_keeps_no_exit_tensor(schedule):
+    """What fine recomputation keeps: after the forward, neither an exit
+    product's input (JAX recomputes it) nor a collective's output (the
+    residual add consumed it) is alive, while without recomputation the
+    exit inputs are kept for the backward; both give the same loss and
+    gradients (1e-6).  tp=1, so the exit's all-reduce is the identity
+    (``oases`` still goes through its asynchronous handle)."""
+    cfg = get_config(ARCH).reduced().replace(dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    base = tprm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    refs = []
+
+    class Spy(TmpCtx):
+        def row_matmul(self, x, w, seq_dim=1, *, replay=False):
+            pend = super().row_matmul(x, w, seq_dim, replay=replay)
+            if not replay:
+                refs.append((weakref.ref(x), weakref.ref(pend.result)))
+            return pend
+
+    out = {}
+    for remat in (False, True):
+        refs.clear()
+        params = tprm.unflatten({k: t.clone().requires_grad_()
+                                 for k, t in tprm.flatten(base).items()})
+        loss, _ = tlm.train_loss(
+            cfg, params, batch,
+            TrainHParams(schedule=schedule, remat=remat, fine_remat=True),
+            Spy(SoloComm(), schedule=schedule))
+        gc.collect()
+        n_exits = 2 * cfg.num_layers * (2 if schedule == "oases" else 1)
+        assert len(refs) == n_exits
+        inputs_alive = sum(a() is not None for a, _ in refs)
+        assert inputs_alive == (0 if remat else n_exits)
+        assert all(y() is None for _, y in refs)
+        loss.backward()
+        out[remat] = (loss.item(), {k: t.grad.numpy().copy() for k, t
+                                    in tprm.flatten(params).items()})
+    assert abs(out[True][0] - out[False][0]) <= 1e-6
+    assert grads_err(out[False][1], out[True][1]) <= 1e-6
 
 
 @pytest.mark.parametrize("tp", [2, 4])
