@@ -64,6 +64,32 @@ Phases (any failure raises and the script exits non-zero):
    present and finite after step 1 on every rank, launches per step
    (``fused``: 96 ring launches a rank, none replayed), step times, peak
    memory per rank and a one-step profile per schedule.
+11. Ring attention against its plain version on the card, with 2 and 4
+   rank processes sharing the card over ``PeerComm``: the kernel's out and
+   lse on every rank against the plain version computed from all ranks'
+   inputs, in f32 (TF32 off) and bf16, at the slice's shape
+   (``internlm2-1.8b``, b 2, s 4096, 16 q / 8 kv heads of 128, causal),
+   at ``gpt-h2048``'s MHA heads (hd 64) and with GQA, window 256 and
+   softcap 30; each timed beside its bound, the plain version and SDPA of
+   the local q against the gathered K/V with the offset causal mask (a
+   yardstick only; the port never calls it).
+12. Sequence-parallel consistency: ``internlm2-1.8b`` at full width, 2
+   layers, f32, batch 2 x 512, tp=2 on the card: SP under ``megatron`` and
+   ``fused``, ring attention (``seq_shard`` 2) under ``oases`` and
+   ``fused`` with fine recomputation and under ``oases`` with coarse,
+   against a tp=1 card run of the same weights: loss within 1e-5
+   relative, gathered gradients within ``grads_err`` 1e-4; the ring kernel
+   launches once per layer and sub-batch (none in the fine replay), the
+   ring matmul only under ``fused``; the memory each forward keeps for its
+   backward.
+13. Ring-attention training: ``internlm2-1.8b`` at full width and depth in
+   bf16, tp=2, ``seq_shard`` 2, batch 4 x 4096 in 2 microbatches, fine
+   recomputation, 3 AdamW steps under ``oases`` and ``fused``: finite
+   losses equal on both ranks, first losses across the schedules within
+   the bf16 tolerance, every leaf's gradient present and finite after step
+   1, launches a step (ring attention 24 x microbatches x sub-batches, the
+   ring matmul 48 under ``fused``), step time, tokens/s, peak memory per
+   rank and a one-step profile per schedule.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -105,7 +131,7 @@ RMS_BWD_TOL = {"float32": {"dx": (1e-5, 1e-5), "dscale": (1e-3, 1e-5)},
 SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
               "flash_attention_bwd": 0, "tile_matmul": 0,
               "ring_matmul_rs": 0, "peer_all_reduce": 0,
-              "peer_all_gather": 0}
+              "peer_all_gather": 0, "ring_attention": 0}
 # the one-device training configuration of phases 6 and 7 (slice 2)
 TP1_SCHEDULE = dict(schedule="megatron", remat=False)
 TRAIN_ARCH = "gpt-h2048"
@@ -1219,8 +1245,7 @@ def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
             step_ms=[1e3 * t for t in times],
             step_ms_median=statistics.median(1e3 * t for t in times[1:]),
             launches_per_step={k: v / steps for k, v in launches.items()},
-            peak_mem_gb=(torch.cuda.max_memory_allocated(device)
-                         + 4 * comm.ws.slot_bytes) / 1e9,
+            peak_mem_gb=_peak_gb(comm, device),
             profile=prof)
         del tr, first, rest
     return out
@@ -1228,9 +1253,11 @@ def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
 
 def _profile_tp_step(tr, comm):
     """One more step (not counted above): rank 0 under ``torch.profiler``
-    (its own process's kernels), the other ranks plainly.  Device busy
-    time, idle share against the step's wall, and the time in the
-    collective kernels (the peer collectives and the ring)."""
+    (its own process's kernels), the other ranks plainly; they meet at a
+    host barrier once rank 0 has read its trace.  Device busy time, idle
+    share against the step's wall, and the time in the collective kernels
+    (the peer collectives and the ring matmul) and in the ring-attention
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1244,6 +1271,7 @@ def _profile_tp_step(tr, comm):
     if comm.rank != 0:
         tr.step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
+        comm.barrier()
         return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1260,9 +1288,15 @@ def _profile_tp_step(tr, comm):
             us = evt.self_cuda_time_total
         kernels.append((us, evt.count, evt.key))
     kernels.sort(reverse=True)
+    # reading the trace kept this rank off the card for long: the other
+    # ranks waited at the barrier, not inside a peer kernel
+    comm.barrier()
     device_ms = sum(k[0] for k in kernels) / 1e3
     coll = [k for k in kernels
             if "collective_kernel" in k[2] or "ring_mm_rs" in k[2]]
+    ring = [k for k in kernels if any(
+        name in k[2] for name in ("ring_attn_kernel", "publish_kernel",
+                                  "done_kernel"))]
     return dict(
         wall_ms_profiled=wall_ms,
         device_ms=device_ms if kernels else "not measured",
@@ -1270,6 +1304,9 @@ def _profile_tp_step(tr, comm):
         collective_ms=sum(k[0] for k in coll) / 1e3 if kernels
         else "not measured",
         collective_calls=sum(k[1] for k in coll),
+        ring_attention_ms=sum(k[0] for k in ring) / 1e3 if kernels
+        else "not measured",
+        ring_attention_calls=sum(k[1] for k in ring),
         kernel_launches=sum(k[1] for k in kernels),
         top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
              for k in kernels[:16]])
@@ -1277,47 +1314,456 @@ def _profile_tp_step(tr, comm):
 
 
 
+def _peak_gb(comm, device) -> float:
+    """Peak device memory of a rank: PyTorch's allocator's peak plus the
+    peer workspace (allocated outside it)."""
+    import torch
+    from repro_torch.kernels.peer_comm import SLOTS
+    return (torch.cuda.max_memory_allocated(device)
+            + SLOTS * comm.ws.slot_bytes) / 1e9
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism and ring attention (phases 11-13)
+# ---------------------------------------------------------------------------
+SP_ARCH = "internlm2-1.8b"
+# phase 11: ring attention over the whole sequence s, split over the ranks
+RING_CASES = [
+    # the slice's shape: internlm2-1.8b, b 2, s 4096 (16 q / 8 kv heads)
+    dict(case="slice", b=2, s=4096, h=16, kvh=8, hd=128),
+    # gpt-h2048's heads (MHA, hd 64) at phase 5's batch
+    dict(case="mha", b=4, s=1024, h=32, kvh=32, hd=64),
+    dict(case="gqa_window_softcap", b=2, s=2048, h=16, kvh=8, hd=128,
+         window=256, softcap=30.0),
+]
+# phase 12: (schedule, remat, fine_remat, seq_parallel, ring); SP under
+# megatron and fused, ring attention (seq_shard = tp) under oases and
+# fused, and oases's ring with coarse recomputation
+SP_VARIANTS = [("megatron", True, True, True, False),
+               ("fused", True, True, True, False),
+               ("oases", True, True, True, True),
+               ("fused", True, True, True, True),
+               ("oases", True, False, True, True)]
+SP_SCHEDULES = ("oases", "fused")
+SP_STEPS = 3
+# phase 12's tp=1 card loss and gradients
+SP_REF = ROOT / "build" / "chip_smoke" / "sp_tp1_consistency.pt"
+
+
+def _ring_pairs(rank: int, sq: int, window) -> int:
+    """(query, key) pairs a rank's q shard sees over the whole sequence:
+    queries at rank * sq + i, keys at every earlier position (within the
+    window)."""
+    import numpy as np
+    qpos = rank * sq + np.arange(sq)
+    lo = np.zeros(sq, np.int64) if window is None else np.maximum(
+        qpos - window + 1, 0)
+    return int((qpos + 1 - lo).sum())
+
+
+def phase_ring_kernels():
+    from repro_torch.launch.ranks import run_ranks
+
+    results = {"ring_attention": []}
+    for tp in (2, 4):
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_ring_kernels_rank, tp, timeout=600)
+        wall = time.perf_counter() - t0
+        for i, first in enumerate(per_rank[0]):
+            rows = [r[i] for r in per_rank]
+            # the last rank sees every shard: its numbers are the case's
+            row = dict(rows[-1], tp=tp, rank=tp - 1,
+                       max_abs_err=max(r["max_abs_err"] for r in rows),
+                       rank_errs=[r["errs"] for r in rows],
+                       rank_ms=[r["ms"] for r in rows],
+                       rank_bound_ms=[r["bound_ms"] for r in rows])
+            row.pop("ok")
+            print(f"[ring_attention] {json.dumps(row)}")
+            require(all(r["ok"] for r in rows),
+                    f"ring_attention tp={tp} {row['case']} {row['dtype']}: "
+                    f"rank errors {row['rank_errs']} beyond {row['tol']}")
+            results["ring_attention"].append(row)
+        print(f"[ring_kernels] tp={tp} ranks done in {wall:.1f} s")
+    return results
+
+
+def _ring_kernels_rank(comm, device):
+    """One rank of phase 11: the ring-attention kernel on this rank's
+    shard of each case, against the plain version computed from every
+    rank's inputs (every rank draws all ranks' inputs from one seed),
+    timed beside its bound, the plain version and SDPA of the local q
+    against the gathered K/V with the offset causal mask (a yardstick;
+    none under a softcap, which SDPA does not take)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring_attention import ring_forward_kernel
+
+    n, rank = comm.size, comm.rank
+    out = []
+    for case in RING_CASES:
+        b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
+        window, softcap = case.get("window"), case.get("softcap", 0.0)
+        sq = s_ // n
+        kw = dict(causal=True, window=window, softcap=softcap,
+                  scale=hd ** -0.5)
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            gen = torch.Generator(device=device).manual_seed(12)
+            qs = [torch.randn(b, sq, h, hd, generator=gen, device=device)
+                  .to(dtype) for _ in range(n)]
+            ks, vs = ([torch.randn(b, sq, kvh, hd, generator=gen,
+                                   device=device).to(dtype)
+                       for _ in range(n)] for _ in range(2))
+
+            def kernel():
+                return ring_forward_kernel(qs[rank], ks[rank], vs[rank],
+                                           comm, **kw)
+
+            def plain():
+                return ref.ring_attention_all_ranks_ref(qs, ks, vs, rank,
+                                                        **kw)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize(device)
+            tol = FLASH_TOL[dname]
+            e_out, ok_out = max_err(got[0], want[0], *tol["out"])
+            e_lse, ok_lse = max_err(got[1], want[1], *tol["lse"])
+            elt = qs[0].element_size()
+            pairs = _ring_pairs(rank, sq, window) * b * h
+            # reads q and every rank's K/V shard; writes out and lse
+            bound = _bound(2 * b * sq * h * hd * elt + b * h * sq * 4
+                           + n * 2 * b * sq * kvh * hd * elt,
+                           4 * hd * pairs, dname)
+            row = dict(case=case["case"], dtype=dname, b=b, s=s_, sq=sq,
+                       h=h, kvh=kvh, hd=hd, window=window, softcap=softcap,
+                       visible_pairs=pairs,
+                       errs={"out": e_out, "lse": e_lse},
+                       max_abs_err=max(e_out, e_lse), ok=ok_out and ok_lse,
+                       tol={"out": tol["out"], "lse": tol["lse"]},
+                       ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=None)
+            del got, want
+            if not softcap:
+                qt = qs[rank].transpose(1, 2)
+                kt = torch.cat(ks, 1).transpose(1, 2)
+                vt = torch.cat(vs, 1).transpose(1, 2)
+                qi = rank * sq + torch.arange(sq, device=device)[:, None]
+                kj = torch.arange(s_, device=device)[None, :]
+                mask = kj <= qi
+                if window is not None:
+                    mask &= kj > qi - window
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                        enable_gqa=kvh != h))
+                del qt, kt, vt, mask
+            out.append(row)
+            del qs, ks, vs
+            torch.cuda.empty_cache()
+    comm.check()
+    return out
+
+
+def _sp_name(sched, remat, fine, ring):
+    from repro_torch.core.remat import policy
+    pol = policy(sched, remat=remat, fine=fine)
+    name = f"{sched}/{'ring' if ring else 'sp'}"
+    return name if pol == "fine" else f"{name}/{pol}"
+
+
+def phase_sp_consistency():
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+
+    cfg = get_config(SP_ARCH).replace(num_layers=2, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=2, seq_len=512,
+                                  vocab_size=cfg.vocab_size), 0)
+    params = prm.unflatten({k: t.to("cuda").requires_grad_()
+                            for k, t in prm.flatten(base).items()})
+    tb = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    t0 = time.perf_counter()
+    loss, _ = lm.train_loss(cfg, params, tb, TrainHParams(**TP1_SCHEDULE))
+    loss.backward()
+    torch.cuda.synchronize()
+    tp1_s = time.perf_counter() - t0
+    SP_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"loss": loss.item(),
+                "grads": {k: t.grad.detach().cpu()
+                          for k, t in prm.flatten(params).items()}}, SP_REF)
+    ref_loss = loss.item()
+    del params, loss, base
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_sp_consistency_rank, 2, args=(SP_VARIANTS,),
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    out = {"arch": SP_ARCH, "tp": 2, "layers": 2, "dtype": "float32",
+           "batch": 2, "seq": 512, "loss_tp1": ref_loss, "tp1_s": tp1_s,
+           "wall_s": wall, "variants": {}}
+    for sched, remat, fine, sp, ring in SP_VARIANTS:
+        name = _sp_name(sched, remat, fine, ring)
+        rs = [r[name] for r in per_rank]
+        leaf_err = {k: max(r["leaf"][k][0] for r in rs)
+                    / (max(r["leaf"][k][1] for r in rs) + 1e-8)
+                    for k in rs[0]["leaf"]}
+        gerr = max(leaf_err.values())
+        loss_rel = max(abs(r["loss"] - ref_loss) for r in rs) / abs(ref_loss)
+        row = dict(losses=[r["loss"] for r in rs], loss_rel_err=loss_rel,
+                   grads_err=gerr,
+                   worst_leaf=max(leaf_err, key=leaf_err.get),
+                   fwd_kept_mb=[r["fwd_kept_mb"] for r in rs],
+                   launches=[r["launches"] for r in rs],
+                   counts=rs[0]["counts"], rank_s=[r["s"] for r in rs])
+        out["variants"][name] = row
+        print(f"[sp_consistency] {name} {json.dumps(row)}")
+        require(loss_rel <= LOSS_RTOL,
+                f"tp=2 {name} loss {row['losses']} vs tp=1 {ref_loss}: "
+                f"rel {loss_rel}")
+        require(gerr <= GRADS_TOL, f"tp=2 {name} grads_err {gerr} > "
+                                   f"{GRADS_TOL}")
+        split = 2 if sched == "oases" else 1
+        want_ring = (cfg.num_layers * split * (1 if fine else 2)
+                     if ring else 0)
+        want_rs = (cfg.num_layers * (1 if ring else 2)
+                   if sched == "fused" else 0)
+        for r in rs:
+            got = (r["launches"]["ring_attention"],
+                   r["launches"]["ring_matmul_rs"])
+            require(got == (want_ring, want_rs),
+                    f"tp=2 {name}: (ring_attention, ring_matmul_rs) "
+                    f"launches {got}, expected {(want_ring, want_rs)}")
+    return out
+
+
+def _sp_consistency_rank(comm, device, variants):
+    """One rank of phase 12: this rank's shard of the weights, loss and
+    gradients per variant (the partial leaves summed over the ranks by the
+    training step's own all-reduce), each leaf's max difference from the
+    tp=1 card gradient (the same shard of it) beside that shard's max, and
+    the memory the forward leaves allocated for the backward."""
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import reduce_partial_grads
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, rank = comm.size, comm.rank
+    cfg = get_config(SP_ARCH).replace(num_layers=2, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=2, seq_len=512,
+                                  vocab_size=cfg.vocab_size), 0)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ref = torch.load(SP_REF)["grads"]
+    # cuBLAS's workspace comes with the process's first product
+    torch.matmul(torch.ones(8, 8, device=device),
+                 torch.ones(8, 8, device=device))
+    out = {}
+    for sched, remat, fine, sp, ring in variants:
+        shard = n if ring else 1
+        hp = TrainHParams(schedule=sched, remat=remat, fine_remat=fine,
+                          seq_parallel=sp, seq_shard=shard)
+        dims = prm.shard_dims(cfg, n, shard)
+        params = prm.unflatten({
+            k: t.to(device).requires_grad_() for k, t in prm.flatten(
+                prm.shard_params(cfg, base, rank, n, seq_shard=shard))
+            .items()})
+        ctx = lm.train_ctx(cfg, hp, comm, 512)
+        _build.reset_launches()
+        comm.reset_counts()
+        before = _settled_allocated(device)
+        t0 = time.perf_counter()
+        loss, _ = lm.train_loss(cfg, params, tb, hp, ctx)
+        kept = _settled_allocated(device) - before
+        loss.backward()
+        torch.cuda.synchronize(device)
+        launches, counts = dict(_build.LAUNCHES), dict(comm.counts)
+        flat = prm.flatten(params)
+        grads = [t.grad for t in flat.values()]
+        partial = prm.partial_grad_leaves(cfg, seq_parallel=ctx.sp,
+                                          seq_shard=ctx.seq_shard)
+        reduce_partial_grads(grads, [k in partial for k in flat], comm)
+        leaf = {}
+        for k, g in zip(flat, grads):
+            want = ref[k] if dims[k] is None else ref[k].chunk(n,
+                                                              dims[k])[rank]
+            g = g.detach().cpu()
+            leaf[k] = (float((g - want).abs().max()),
+                       float(want.abs().max()))
+        out[_sp_name(sched, remat, fine, ring)] = dict(
+            loss=loss.item(), leaf=leaf, s=time.perf_counter() - t0,
+            fwd_kept_mb=kept / 1e6, launches=launches, counts=counts)
+        del params, loss, grads, flat
+    return out
+
+
+def phase_sp_train():
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    torch.cuda.empty_cache()
+    steps, batch, seq, micro = SP_STEPS, 4, 4096, 2
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_sp_train_rank, 2, timeout=900,
+                         args=(SP_SCHEDULES, steps, batch, seq, micro))
+    wall = time.perf_counter() - t0
+    out = {"arch": SP_ARCH, "tp": 2, "seq_shard": 2, "dtype": "bfloat16",
+           "layers": 24, "batch": batch, "seq": seq, "microbatch": micro,
+           "steps": steps, "wall_s": wall, "schedules": {}}
+    firsts = {}
+    for sched in SP_SCHEDULES:
+        rs = [r[sched] for r in per_rank]
+        r0 = rs[0]
+        row = dict(r0, peak_mem_gb=[r["peak_mem_gb"] for r in rs],
+                   step_ms_median=[r["step_ms_median"] for r in rs],
+                   launches_per_step_by_rank=[r["launches_per_step"]
+                                              for r in rs])
+        row["tokens_per_s"] = batch * seq / (max(row["step_ms_median"])
+                                             / 1e3)
+        out["schedules"][sched] = row
+        brief = {k: v for k, v in row.items() if k != "profile"}
+        print(f"[sp_train] {sched} {json.dumps(brief)}")
+        print(f"[sp_train_profile] {sched} {json.dumps(r0['profile'])}")
+        split = 2 if sched == "oases" else 1
+        want = {"ring_attention": 24 * micro * split,
+                "ring_matmul_rs": 24 * micro if sched == "fused" else 0}
+        for r in rs:
+            require(len(r["losses"]) == steps
+                    and all(math.isfinite(v) for v in r["losses"]),
+                    f"sp {sched}: losses {r['losses']}")
+            require(not r["bad_grads"], f"sp {sched}: missing or non-finite "
+                                        f"gradients after step 1: "
+                                        f"{r['bad_grads']}")
+            require(r["losses"] == r0["losses"],
+                    f"sp {sched}: ranks report different losses "
+                    f"{[x['losses'] for x in rs]}")
+            got = {k: r["launches_per_step"][k] for k in want}
+            require(got == want, f"sp {sched}: launches a step {got}, "
+                                 f"expected {want}")
+        firsts[sched] = r0["losses"][0]
+    spread = max(firsts.values()) - min(firsts.values())
+    out["first_loss_spread"] = spread
+    out["first_loss_atol"] = TP_LOSS_ATOL
+    require(spread <= TP_LOSS_ATOL, f"sp first losses {firsts}: spread "
+                                    f"{spread} > {TP_LOSS_ATOL}")
+    return out
+
+
+def _sp_train_rank(comm, device, schedules, steps, batch, seq, micro):
+    """One rank of phase 13: the port's Trainer with ring attention
+    (seq_shard = 2) on this rank's shard, per schedule; a one-step profile
+    on rank 0 (rank 1 runs the same step)."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config(SP_ARCH)
+    out = {}
+    for sched in schedules:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        hp = TrainHParams(schedule=sched, learning_rate=3e-4,
+                          total_steps=steps, warmup_steps=1,
+                          microbatch=micro, seq_shard=comm.size)
+        tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None,
+                     device=device, comm=comm)
+        _build.reset_launches()
+        first = tr.train(1, seed=0)
+        bad = [k for k, t in prm.flatten(tr.params).items()
+               if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+        rest = tr.train(steps, seed=0)
+        torch.cuda.synchronize(device)
+        launches = dict(_build.LAUNCHES)
+        times = first["step_times"] + rest["step_times"]
+        peak = _peak_gb(comm, device)
+        prof = _profile_tp_step(tr, comm)
+        out[sched] = dict(
+            losses=first["losses"] + rest["losses"], bad_grads=bad,
+            step_ms=[1e3 * t for t in times],
+            step_ms_median=statistics.median(1e3 * t for t in times[1:]),
+            launches_per_step={k: v / steps for k, v in launches.items()},
+            params_per_rank=sum(t.numel() for t in
+                                prm.flat_leaves(tr.params)),
+            peak_mem_gb=peak, profile=prof)
+        del tr, first, rest
+    return out
+
+
+def _path_launches(report) -> dict:
+    """Each main path's launches per kernel, counted from 0 over the path's
+    run: serve (phase 4), one-device training (phase 7), tensor-parallel
+    training (phase 10) and ring-attention training (phase 13), rank 0
+    over all schedules and steps for the last two."""
+    paths = {}
+    if "serve" in report:
+        paths["serve"] = report["serve"]["launches"]
+    if "train" in report:
+        paths["train"] = report["train"]["launches"]
+    for path, key, steps in (("tp_train", "tp_train", TP_STEPS),
+                             ("sp_train", "sp_train", SP_STEPS)):
+        if key in report:
+            tot = {}
+            for r in report[key]["schedules"].values():
+                for k, v in r["launches_per_step"].items():
+                    tot[k] = tot.get(k, 0) + int(round(v * steps))
+            paths[path] = tot
+    return paths
+
+
 def _kernels_line(report) -> dict:
     """The kernels JSON: every kernel of the paths that ran, with its
-    launches on its main path (serve: phase 4; one-device training:
-    phase 7; tensor-parallel training: phase 10, rank 0, all schedules)
-    and its main case's numbers.  The tile matmul runs on the main path
-    only inside the ring kernel (as ``_mm_tile_kernel`` does in JAX), so
-    its own launches there are 0; ``ring_step_products`` counts the
-    per-step products the ring launches ran (tp per launch)."""
+    launches on the main paths (``launches_by_path``, see
+    :func:`_path_launches`) and its main case's numbers.  The tile matmul
+    runs on the main path only inside the ring kernel (as
+    ``_mm_tile_kernel`` does in JAX), so its own launches there are 0;
+    ``ring_step_products`` counts the per-step products the ring launches
+    ran (tp per launch)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    paths = _path_launches(report)
     rows = []
 
     def pick(rows_, **want):
         return next(r for r in rows_
                     if all(r[k] == v for k, v in want.items()))
 
-    if "kernels" in report and "serve" in report:
-        launches = report["serve"]["launches"]
-        rows.append(dict(
-            name="paged_decode", route="cuda",
-            source="src/repro_torch/kernels/csrc/paged_decode.cu",
-            replaces="src/repro/kernels/flash_attention.py:146",
-            launches=launches["paged_decode"],
-            **{k: pick(report["kernels"]["paged_decode"], case="main",
-                       dtype="bfloat16")[k] for k in keys}))
-    if "train_kernels" in report and "train" in report:
-        tk, tl = report["train_kernels"], report["train"]["launches"]
-        serve_rms = (report["serve"]["launches"]["rmsnorm"]
-                     if "serve" in report else 0)
-        rms = (pick(report["kernels"]["rmsnorm"], rows=8, dtype="bfloat16")
-               if "kernels" in report else pick(tk["rmsnorm"],
-                                                dtype="bfloat16"))
+    def add(name, src, replaces, row, **extra):
+        by_path = {p: c.get(name, 0) for p, c in paths.items()
+                   if c.get(name, 0)}
+        rows.append(dict(name=name, route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{src}",
+                         replaces=replaces, launches=sum(by_path.values()),
+                         launches_by_path=by_path,
+                         **{k: row[k] for k in keys}, **extra))
+
+    if "kernels" in report:
+        add("paged_decode", "paged_decode.cu",
+            "src/repro/kernels/flash_attention.py:146",
+            pick(report["kernels"]["paged_decode"], case="main",
+                 dtype="bfloat16"))
+    if "train_kernels" in report:
+        tk = report["train_kernels"]
         train_rms = pick(tk["rmsnorm"], dtype="bfloat16")
-        rows.append(dict(
-            name="rmsnorm", route="cuda",
-            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm.py:16",
-            launches=serve_rms + tl["rmsnorm"],
-            launches_by_path={"serve": serve_rms, "train": tl["rmsnorm"]},
-            **{k: rms[k] for k in keys},
-            at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys}))
+        rms = (pick(report["kernels"]["rmsnorm"], rows=8, dtype="bfloat16")
+               if "kernels" in report else train_rms)
+        add("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16", rms,
+            at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys})
         for name, src, replaces, case in (
                 ("rmsnorm_bwd", "rmsnorm.cu",
                  "src/repro/kernels/rmsnorm.py:16", {}),
@@ -1326,18 +1772,10 @@ def _kernels_line(report) -> dict:
                 ("flash_attention_bwd", "flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:30",
                  {"case": "main"})):
-            row = pick(tk[name], dtype="bfloat16", **case)
-            rows.append(dict(name=name, route="cuda",
-                             source=f"src/repro_torch/kernels/csrc/{src}",
-                             replaces=replaces, launches=tl[name],
-                             **{k: row[k] for k in keys}))
+            add(name, src, replaces, pick(tk[name], dtype="bfloat16", **case))
     if "tmp_kernels" in report:
         tmpk = report["tmp_kernels"]
-        tp_launch = {}
-        if "tp_train" in report:
-            for sched, r in report["tp_train"]["schedules"].items():
-                for k, v in r["launches_per_step"].items():
-                    tp_launch[k] = tp_launch.get(k, 0) + v * TP_STEPS
+        rings = sum(c.get("ring_matmul_rs", 0) for c in paths.values())
         for name, src, replaces, case in (
                 ("tile_matmul", "tile_matmul.cu",
                  "src/repro/kernels/collective_matmul.py:230",
@@ -1356,15 +1794,16 @@ def _kernels_line(report) -> dict:
                      if name == "ring_matmul_rs" else {})
             if name == "tile_matmul":
                 extra = {"runs_inside": "ring_matmul_rs",
-                         "ring_step_products": report["tp_train"]["tp"]
-                         * int(tp_launch["ring_matmul_rs"])
-                         if "tp_train" in report else 0,
+                         "ring_step_products": 2 * rings,
                          "shape": [row["m"], row["k"], row["n"]]}
-            rows.append(dict(name=name, route="cuda",
-                             source=f"src/repro_torch/kernels/csrc/{src}",
-                             replaces=replaces,
-                             launches=int(tp_launch.get(name, 0)),
-                             **{k: row[k] for k in keys}, **extra))
+            add(name, src, replaces, row, **extra)
+    if "ring_kernels" in report:
+        row = pick(report["ring_kernels"]["ring_attention"], case="slice",
+                   dtype="bfloat16", tp=2)
+        add("ring_attention", "ring_attention.cu",
+            "src/repro/kernels/ring_attention.py:218", row,
+            shape={k: row[k] for k in ("b", "s", "sq", "h", "kvh", "hd")},
+            rank=row["rank"])
     return {"kernels": rows}
 
 
@@ -1374,7 +1813,10 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           6: ("train_consistency", phase_train_consistency),
           7: ("train", phase_train), 8: ("tmp_kernels", phase_tmp_kernels),
           9: ("tp_consistency", phase_tp_consistency),
-          10: ("tp_train", phase_tp_train)}
+          10: ("tp_train", phase_tp_train),
+          11: ("ring_kernels", phase_ring_kernels),
+          12: ("sp_consistency", phase_sp_consistency),
+          13: ("sp_train", phase_sp_train)}
 
 
 def main(argv=None) -> int:

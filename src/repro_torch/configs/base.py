@@ -70,8 +70,8 @@ class ArchConfig:
 class TrainHParams:
     """The port's copy of the fields of ``repro.configs.base.TrainHParams``
     that its 1-D tensor-parallel training path honours, with JAX's
-    defaults.  ZeRO, gradient compression, sequence parallelism, the 2-D
-    layout and pipelines are not offered yet (ROADMAP.md A2-A4, A7)."""
+    defaults.  ZeRO, gradient compression, the 2-D layout and pipelines
+    are not offered yet (ROADMAP.md A2-A4, A7)."""
     schedule: str = "oases"          # megatron | wang | merak | oases | fused
     remat: bool = True
     fine_remat: bool = True          # §3.2 fine-grained recomputation
@@ -83,8 +83,17 @@ class TrainHParams:
     grad_clip: float = 1.0
     microbatch: int = 0               # 0 = auto; > 1 = gradient accumulation
     loss_chunk: int = 512             # tokens per chunk of the cross entropy
+    seq_parallel: bool = False       # Megatron-SP: AG/RS instead of AR
+    seq_shard: int = 1               # ring-attention sequence shards (1 = off)
 
     def __post_init__(self):
-        # an unknown schedule is rejected at construction, as in JAX
+        # an unknown schedule or shard factor is rejected at construction,
+        # as in JAX
         from repro_torch.core.schedule import validate_schedule
         validate_schedule(self.schedule)
+        s = self.seq_shard
+        if not isinstance(s, int) or isinstance(s, bool) or s < 1 \
+                or s & (s - 1):
+            raise ValueError(
+                f"bad seq_shard {s!r}: ring-attention sequence shards "
+                f"must be a positive power-of-two int (1 = off)")

@@ -97,6 +97,12 @@ class Comm:
         ranks."""
         return choose()
 
+    def barrier(self):
+        """Block the host until every rank has reached this call (no
+        device work): a rank that will be busy on the host for long, such
+        as one post-processing a profile, meets the others here first, so
+        that no peer kernel of theirs waits on it past its timeout."""
+
     def check(self):
         """Raise if the transport recorded a failure (PeerComm)."""
 
@@ -169,6 +175,9 @@ class DistComm(Comm):
         parts, _ = self._gather_list(x, False)
         return torch.cat(parts, dim=dim)
 
+    def barrier(self):
+        self._dist.barrier()
+
     def _ring_shift(self, x):
         if self.size == 1:
             return x
@@ -185,9 +194,10 @@ class PeerComm(Comm):
 
     ``store`` is a ``torch.distributed`` store shared by the ranks (the
     IPC handles travel through it); ``prefix`` keeps the keys of one group
-    apart from another's.  ``slot_bytes`` sizes each landing and
-    collective slot: a collective larger than a slot runs in pieces, and
-    the ring matmul's f32 output chunk must fit one.
+    apart from another's.  ``slot_bytes`` sizes each landing, collective
+    and attention slot: a collective larger than a slot runs in pieces,
+    the ring matmul's f32 output chunk must fit one, and so must a ring
+    attention call's K/V shard.
 
     Every op runs on the communicator's own stream, after the work already
     queued on the caller's stream; a synchronous op makes the caller's
@@ -208,8 +218,10 @@ class PeerComm(Comm):
         self.stream = torch.cuda.Stream(self.device)
         self.epoch = 0                # collective calls so far
         self.ring_base = 0            # ring matmul tags so far
+        self.attn_epoch = 0           # ring attention calls so far
         self._store, self._prefix = store, prefix
         self._agreed: Dict[str, object] = {}
+        self._barriers = 0
 
     def agree(self, key, choose):
         if key not in self._agreed:
@@ -279,6 +291,12 @@ class PeerComm(Comm):
             return x
         return self._all_gather(x.unsqueeze(0), 0)[(self.rank - 1)
                                                    % self.size]
+
+    def barrier(self):
+        self._barriers += 1
+        self._pc.store_barrier(self._store,
+                               f"{self._prefix}/barrier/{self._barriers}",
+                               self.size)
 
     def check(self):
         self.ws.check()

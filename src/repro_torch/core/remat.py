@@ -21,8 +21,9 @@ otherwise.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional, Tuple
 
+import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core.comm import Pending
@@ -38,23 +39,44 @@ def policy(schedule: str, *, remat: bool, fine: bool) -> str:
     return "fine"
 
 
-def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
-    """Fine recomputation of one part: ``run(replay, *args)`` returns the
-    part's exit handle (:meth:`~repro_torch.core.schedule.TmpCtx.
-    row_matmul`).  It runs once with ``replay=False`` under a checkpoint,
-    and the backward replays it with ``replay=True``, which skips the exit
-    product and its collective.  The handle waits for the first run's
-    collective.  The replay closure lives until the backward, so it keeps
-    a flag and no tensor: holding the first run's handle would keep the
+class Keep:
+    """The state one checkpointed part shares between its first run and
+    its replay: ``replay`` is False in the first run and True in the
+    replay, and :meth:`value` hands an op's result from the first to the
+    second.  The part's closure lives until the backward, so it keeps only
+    what the replay must not recompute (ring attention's out and lse), and
+    never the first run's collective handle: that would keep the
     collective's output alive."""
-    ran: List[bool] = []
+
+    def __init__(self):
+        self.replay = False
+        self._kept: Optional[Tuple[torch.Tensor, ...]] = None
+
+    def value(self, compute: Callable[[], Tuple[torch.Tensor, ...]]
+              ) -> Tuple[torch.Tensor, ...]:
+        """``compute()`` in the first run, kept (detached); the kept
+        tensors in the replay, which computes nothing."""
+        if self.replay:
+            return self._kept
+        out = compute()
+        self._kept = tuple(t.detach() for t in out)
+        return out
+
+
+def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
+    """Fine recomputation of one part: ``run(keep, *args)`` returns the
+    part's exit handle (:meth:`~repro_torch.core.schedule.TmpCtx.
+    row_matmul`).  It runs once under a checkpoint, and the backward
+    replays it with ``keep.replay`` set, which skips the exit product and
+    its collective (and hands kept values to the ops that asked).  The
+    handle waits for the first run's collective."""
+    keep = Keep()
     box: List[Pending] = []
 
     def once(*a):
-        replay = bool(ran)
-        pend = run(replay, *a)
-        if not replay:
-            ran.append(True)
+        pend = run(keep, *a)
+        if not keep.replay:
+            keep.replay = True
             box.append(pend)
         return pend.result
 

@@ -17,12 +17,21 @@ Fig. 3, Alg. 1-2), 1-D, as eager program order.
   peer all-gather; the ``ring_shift`` decomposition of the same ring is
   the CPU path.
 
+Sequence parallelism (``seq_parallel``, Megatron-SP): the residual stream
+stays cut along the sequence; each block entry all-gathers it (``fused``:
+one all-gather feeding every entry product) and each exit reduce-scatters
+(``fused``: the ring kernel's scatter alone, no all-gather after it;
+``wang`` does not chunk).  Ring attention (``seq_shard`` = the group
+size) keeps the attention part sequence-local with replicated weights and
+the KV shards circulating (:mod:`repro_torch.kernels.ring_attention`);
+the MLP part runs SP.
+
 What overlaps: on a box of several cards the structure above lets a
 collective run beside the next compute (the communication stream of
 ``PeerComm``, gloo's background thread).  On one card shared by the rank
 processes, the processes are time-sliced and nothing overlaps; the
-structure is there all the same.  Not taken yet: sequence parallelism,
-ring attention, the 2-D layout and the Pallas switch (ROADMAP.md A2, A7).
+structure is there all the same.  Not taken yet: the 2-D layout and the
+Pallas switch (ROADMAP.md A2, A7).
 """
 from __future__ import annotations
 
@@ -47,11 +56,14 @@ def validate_schedule(schedule: str):
 
 @dataclass(frozen=True)
 class TmpCtx:
-    """Per-layer TMP context: the model group's communicator and the
-    schedule."""
+    """Per-layer TMP context: the model group's communicator, the schedule,
+    and the sequence layout (``seq_parallel``; ``seq_shard`` > 1: ring
+    attention over the group)."""
     comm: Comm = field(default_factory=SoloComm)
     schedule: str = "oases"
     wang_chunks: int = 4
+    seq_parallel: bool = False
+    seq_shard: int = 1
 
     def __post_init__(self):
         validate_schedule(self.schedule)
@@ -60,8 +72,30 @@ class TmpCtx:
     def tp(self) -> int:
         return self.comm.size
 
-    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism is on (and the group has more than one
+        rank)."""
+        return self.seq_parallel and self.tp > 1
+
+    def reduce(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """The exit collective alone: a reduce-scatter along the sequence
+        under SP, else the all-reduce."""
+        if self.sp:
+            return tmpc.sp_reduce_scatter(x, self.comm, seq_dim)
         return tmpc.tmp_reduce(x, self.comm)
+
+    def gather_seq(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """Block entry under SP: reassemble the whole sequence."""
+        if self.sp:
+            return tmpc.sp_all_gather(x, self.comm, seq_dim)
+        return x
+
+    def shard_seq(self, x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+        """Under SP, this rank's sequence chunk of a replicated tensor."""
+        if self.sp:
+            return tmpc.batch_split(x, self.comm, seq_dim)
+        return x
 
     def _ring_dim(self, x: torch.Tensor, preferred: int) -> int:
         """Chunking dim of the fused all-reduce ring: the sequence, or at
@@ -77,19 +111,40 @@ class TmpCtx:
 
     def row_matmul(self, x: torch.Tensor, w: torch.Tensor,
                    seq_dim: int = 1, *, replay: bool = False) -> Pending:
-        """x [..., K_local] @ w [K_local, D] followed by the all-reduce, as
-        a handle whose ``wait()`` gives the reduced product.  Only
-        ``oases`` leaves the all-reduce running past the return.  One
-        differentiable op (:func:`~repro_torch.core.tmp.row_exit`) that
-        saves x and w; under ``replay`` (fine recomputation replaying the
-        part) it computes and communicates nothing, and the handle's
-        tensor is left unset: the replay needs only what is saved."""
+        """x [..., K_local] @ w [K_local, D] followed by the all-reduce (a
+        reduce-scatter along ``seq_dim`` under SP), as a handle whose
+        ``wait()`` gives the result.  Only ``oases`` without SP leaves the
+        collective running past the return.  One differentiable op
+        (:func:`~repro_torch.core.tmp.row_exit`) that saves x and w; under
+        ``replay`` (fine recomputation replaying the part) it computes and
+        communicates nothing, and the handle's tensor is left unset: the
+        replay needs only what is saved."""
+        if self.sp:
+            return tmpc.row_exit(
+                x, w, lambda x, w: self._sp_exit(x, w, seq_dim, replay),
+                comm=self.comm, gather_dim=seq_dim)
         return tmpc.row_exit(x, w, lambda x, w: self._exit(x, w, seq_dim,
                                                           replay))
 
+    def local_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
+                     replay: bool = False) -> Pending:
+        """The exit of the ring-attention part: ``x @ w`` with replicated
+        weights and no collective, as one op that saves x and w (so fine
+        recomputation's replay skips it, as :meth:`row_matmul`'s)."""
+        return tmpc.row_exit(x, w, lambda x, w: Pending(
+            self._placeholder(x, w, None) if replay else torch.matmul(x, w),
+            None))
+
+    def _placeholder(self, x, w, scatter_dim) -> torch.Tensor:
+        """The unset output of a replayed exit, of the exit's shape."""
+        shape = list(x.shape[:-1]) + [w.shape[1]]
+        if scatter_dim is not None:
+            shape[scatter_dim] //= self.tp
+        return x.new_empty(shape)
+
     def _exit(self, x, w, seq_dim, replay) -> Pending:
         if replay:
-            return Pending(x.new_empty(x.shape[:-1] + w.shape[1:]), None)
+            return Pending(self._placeholder(x, w, None), None)
         if self.schedule == "fused" and self.tp > 1 and x.dim() >= 2:
             from repro_torch.kernels import collective_matmul as cm
             return Pending(cm.matmul_allreduce(
@@ -107,11 +162,31 @@ class TmpCtx:
         return pend if self.schedule == "oases" else Pending(pend.wait(),
                                                              None)
 
-    def gather_matmul(self, x: torch.Tensor,
-                      ws: Sequence[torch.Tensor]) -> tuple:
-        """Column-parallel block entry: ``x`` through f, then one plain
-        product per weight (no sequence parallelism)."""
-        h = tmpc.copy_to_tmp(x, self.comm)
+    def _sp_exit(self, x, w, seq_dim, replay) -> Pending:
+        """The SP exit's forward: ``fused`` runs the matmul ->
+        reduce-scatter ring (the ring kernel on the card), every other
+        schedule the product and the reduce-scatter."""
+        if replay:
+            return Pending(self._placeholder(x, w, seq_dim), None)
+        if self.schedule == "fused":
+            from repro_torch.kernels import collective_matmul as cm
+            return Pending(cm.matmul_reducescatter_fwd(x, w, self.comm,
+                                                       seq_dim), None)
+        return Pending(self.comm.reduce_scatter(torch.matmul(x, w),
+                                                seq_dim), None)
+
+    def gather_matmul(self, x: torch.Tensor, ws: Sequence[torch.Tensor],
+                      seq_dim: int = 1) -> tuple:
+        """Column-parallel block entry: one product per weight.  ``x``
+        passes through f; under SP its sequence is gathered first
+        (``fused``: one all-gather feeds every product)."""
+        if self.sp:
+            if self.schedule == "fused":
+                from repro_torch.kernels import collective_matmul as cm
+                return cm.fused_allgather_matmul(x, ws, self.comm, seq_dim)
+            h = self.gather_seq(x, seq_dim)
+        else:
+            h = tmpc.copy_to_tmp(x, self.comm)
         return tuple(torch.matmul(h, w) for w in ws)
 
 
@@ -138,12 +213,17 @@ def effective_split(schedule: str, split: int, local_batch: int) -> int:
 
 @dataclass(frozen=True)
 class Part:
-    """One residual part of a layer: ``body(p, x, positions) -> a``, the
-    compute from the part's input up to the row-parallel exit's input,
-    and ``exit``, the name of the exit weight (``a @ p[exit]`` is
-    all-reduced by the schedule)."""
+    """One residual part of a layer: ``body(p, x, positions, keep) -> a``,
+    the compute from the part's input up to the exit product's input, and
+    ``exit``, the name of the exit weight (``a @ p[exit]``, followed by the
+    schedule's collective unless ``collective`` is False).  ``keep`` is the
+    fine-recomputation state of the call
+    (:class:`~repro_torch.core.remat.Keep`, None outside it): a body that
+    holds an op whose replay must not run again (ring attention) passes it
+    to that op."""
     body: Callable
     exit: str
+    collective: bool = True
 
 
 def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
@@ -156,14 +236,15 @@ def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
     independent of compute_{j+1}.  ``fine`` runs each part's body and exit
     under a checkpoint whose replay skips the exit
     (:func:`repro_torch.core.remat.checkpoint_part`)."""
-    def part_exit(part, replay, p, x, pos):
-        return ctx.row_matmul(part.body(p, x, pos), p[part.exit],
-                              replay=replay)
+    def part_exit(part, keep, p, x, pos):
+        exit_op = ctx.row_matmul if part.collective else ctx.local_matmul
+        return exit_op(part.body(p, x, pos, keep), p[part.exit],
+                       replay=keep is not None and keep.replay)
 
     for part in parts:
         run = functools.partial(part_exit, part)
         pend = [remat.checkpoint_part(run, p, x, pos) if fine
-                else run(False, p, x, pos)
+                else run(None, p, x, pos)
                 for x, pos in zip(xs, positions)]
         xs = [x + d.wait() for x, d in zip(xs, pend)]
     if ctx.schedule == "merak":

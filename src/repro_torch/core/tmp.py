@@ -18,6 +18,23 @@ recomputation keeps (``repro_torch.core.remat``): Eq. (1) of the paper
 makes their gradient the identity, so g saves nothing and its backward
 runs no collective.  A row-parallel exit is the product and g in one
 op (:func:`row_exit`), whose backward is the product's alone.
+
+Sequence parallelism (Megatron-SP) keeps the residual stream cut along
+the sequence, each rank holding its chunk, and replaces the pair: the
+column-parallel entry gathers the sequence (:func:`sp_all_gather`:
+all-gather forward, reduce-scatter backward, in place of f) and the
+row-parallel exit scatters it (:func:`sp_reduce_scatter`: reduce-scatter
+forward, all-gather backward, in place of g; the exit op's SP form).  The
+rule that makes this consistent with f/g: the cotangent of a tensor cut
+along the sequence is whole for this rank's chunk, and the cotangent of
+a gathered tensor that feeds per-rank partial products is partial (the
+reduce-scatter sums it).  :func:`batch_split` (a slice of a replicated
+tensor) therefore all-gathers its cotangent, so the replicated input's
+cotangent is whole on every rank, as f/g wants.  A leaf whose forward sees
+only this rank's chunk of the sequence (the norm scales under SP; the
+replicated attention weights under ring attention) gets a gradient that
+is partial per rank: the training step all-reduces those
+(``repro_torch.launch.steps``), where JAX's ``shard_map`` boundary psums.
 """
 from __future__ import annotations
 
@@ -69,15 +86,18 @@ class _ReduceFromTmp(torch.autograd.Function):
 
 
 class _RowExit(torch.autograd.Function):
-    """A row-parallel exit: ``x @ w`` and its all-reduce (g after the
-    product), computed by ``run(x, w) -> Pending``.  Under f/g the
-    output's cotangent is whole on every rank, so the backward is local
-    (``dx = dy @ w.T``, ``dw = x.T @ dy``) whatever ``run`` did.  ``box``
-    receives the handle, as for :class:`_ReduceFromTmp`."""
+    """A row-parallel exit: ``x @ w`` and its collective, computed by
+    ``run(x, w) -> Pending``.  Under f/g the output's cotangent is whole on
+    every rank, so the backward is local (``dx = dy @ w.T``,
+    ``dw = x.T @ dy``) whatever ``run`` did.  The SP form (``gather_dim``
+    set: ``run`` reduce-scatters along it) first all-gathers ``dy`` along
+    that dim over ``comm`` (JAX's ``_rs_bwd``).  ``box`` receives the
+    handle, as for :class:`_ReduceFromTmp`."""
 
     @staticmethod
-    def forward(ctx, x, w, run, box):
+    def forward(ctx, x, w, run, box, comm, gather_dim):
         ctx.save_for_backward(x, w)
+        ctx.comm, ctx.gather_dim = comm, gather_dim
         p = run(x, w)
         box.append(p)
         return p.result
@@ -85,20 +105,26 @@ class _RowExit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        if ctx.gather_dim is not None:
+            dy = ctx.comm.all_gather(dy.contiguous(), ctx.gather_dim)
         dx = torch.matmul(dy, w.t())
         dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
                           dy.reshape(-1, dy.shape[-1]))
-        return dx, dw, None, None
+        return dx, dw, None, None, None, None
 
 
-def row_exit(x: torch.Tensor, w: torch.Tensor, run) -> Pending:
-    """The exit product ``x @ w`` and its all-reduce as one differentiable
+def row_exit(x: torch.Tensor, w: torch.Tensor, run, *,
+             comm: Optional[Comm] = None,
+             gather_dim: Optional[int] = None) -> Pending:
+    """The exit product ``x @ w`` and its collective as one differentiable
     op: ``run(x, w)`` computes them (a schedule's way) and returns a
-    :class:`Pending`; the gradient is that of g after ``x @ w``.  Only x
-    and w are saved, so fine recomputation can replay an exit without its
-    product or collective (``repro_torch.core.remat``)."""
+    :class:`Pending`; the gradient is that of g after ``x @ w``, or under
+    SP (``gather_dim``: ``run`` reduce-scatters along it over ``comm``)
+    that of the reduce-scatter.  Only x and w are saved, so fine
+    recomputation can replay an exit without its product or collective
+    (``repro_torch.core.remat``)."""
     box: List[Pending] = []
-    y = _RowExit.apply(x, w, run, box)
+    y = _RowExit.apply(x, w, run, box, comm, gather_dim)
     return Pending(y, box[0].wait)
 
 
@@ -131,6 +157,74 @@ def tmp_reduce(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     return reduce_from_tmp(x, comm)
 
 
+class _SpAllGather(torch.autograd.Function):
+    """All-gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+class _SpReduceScatter(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+class _BatchSplit(torch.autograd.Function):
+    """This rank's chunk of a replicated tensor forward, the all-gather of
+    the chunks' cotangents backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return x.chunk(comm.size, dim)[comm.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+def sp_all_gather(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
+    """``repro.core.tmp.sp_all_gather``: every rank's chunk of x along
+    ``dim``, concatenated in rank order (the SP block entry)."""
+    if comm.size == 1:
+        return x
+    return _SpAllGather.apply(x, comm, dim)
+
+
+def sp_reduce_scatter(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
+    """``repro.core.tmp.sp_reduce_scatter``: the sum over ranks of x, cut
+    along ``dim``; this rank's chunk (the SP block exit)."""
+    if comm.size == 1:
+        return x
+    return _SpReduceScatter.apply(x, comm, dim)
+
+
+def batch_split(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
+    """``repro.core.tmp.batch_split``: this rank's chunk of the replicated
+    x along ``dim`` (a free slice; the backward all-gathers, see the
+    module docstring for why not JAX's zero-padded chunk)."""
+    if comm.size == 1:
+        return x
+    if x.shape[dim] % comm.size:
+        raise ValueError(f"batch_split: dim {dim} of size {x.shape[dim]} "
+                         f"is not divisible by the group size {comm.size}")
+    return _BatchSplit.apply(x, comm, dim)
+
+
 def pass_barrier(x: torch.Tensor) -> torch.Tensor:
     """The identity.  JAX puts an optimization_barrier on the gradient to
     emulate Merak's inter-pass barriers in the compiled program; eager
@@ -148,10 +242,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def vocab_parallel_embed(tokens: torch.Tensor, embed_local: torch.Tensor,
-                         comm: Optional[Comm] = None) -> torch.Tensor:
+                         comm: Optional[Comm] = None, *,
+                         sp_seq_dim: Optional[int] = None) -> torch.Tensor:
     """tokens [...] (replicated); embed_local [V/tp, D] -> [..., D]: look up
     the tokens of this rank's vocab shard, zeros elsewhere, and all-reduce
-    (``comm`` None: tp=1)."""
+    (``comm`` None: tp=1).  ``sp_seq_dim``: sequence parallelism, the
+    completing collective is a reduce-scatter along that dim."""
     v_local = embed_local.shape[0]
     if comm is None or comm.size == 1:
         return embed_local[tokens.long()]
@@ -159,6 +255,8 @@ def vocab_parallel_embed(tokens: torch.Tensor, embed_local: torch.Tensor,
     in_shard = (local >= 0) & (local < v_local)
     out = embed_local[local.clamp(0, v_local - 1)]
     out = out * in_shard[..., None].to(out.dtype)
+    if sp_seq_dim is not None:
+        return sp_reduce_scatter(out, comm, sp_seq_dim)
     return tmp_reduce(out, comm)
 
 
@@ -185,7 +283,8 @@ def _xent_chunk(x: torch.Tensor, head32: torch.Tensor,
 
 def vocab_parallel_xent(x: torch.Tensor, head_local: torch.Tensor,
                         labels: torch.Tensor, *, chunk: int = 512,
-                        softcap: float = 0.0, comm: Optional[Comm] = None
+                        softcap: float = 0.0, comm: Optional[Comm] = None,
+                        sp: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked vocab-parallel cross entropy
     (``repro.core.tmp.vocab_parallel_xent``, no mask): x [b, s, D]
@@ -196,13 +295,16 @@ def vocab_parallel_xent(x: torch.Tensor, head_local: torch.Tensor,
     full chunk runs under ``checkpoint`` (the ``@jax.checkpoint`` of the
     JAX scan step, which recomputes the chunk's collectives too), so only
     one chunk's [chunk, V/tp] logits are live in the backward.  x enters
-    through f (its cotangent sums the shards' contributions).  The head is
+    through f (its cotangent sums the shards' contributions), except under
+    sequence parallelism (``sp``): x then comes from the sequence
+    all-gather, whose backward reduce-scatters the partial cotangent, so it
+    takes the place of f (as at every SP block entry).  The head is
     cast to f32 once per call rather than once per chunk, so its gradient
     sums over the chunks in f32.  ``comm`` None: tp=1."""
     comm = comm or SoloComm()
     b, s, d = x.shape
     t = b * s
-    xf = copy_to_tmp(x, comm).reshape(t, d)
+    xf = (x if sp else copy_to_tmp(x, comm)).reshape(t, d)
     lf = labels.reshape(t)
     head32 = head_local.float()
     chunk = min(chunk, t)

@@ -11,7 +11,8 @@ rank processes builds once in the parent first (:func:`build`).
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else (a backward entry point
-that runs two or three CUDA kernels counts as one call).
+that runs two or three CUDA kernels counts as one call, as does the ring
+attention's publish, attention and done launches).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0,
                             "rmsnorm_bwd": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "tile_matmul": 0,
                             "ring_matmul_rs": 0, "peer_all_reduce": 0,
-                            "peer_all_gather": 0}
+                            "peer_all_gather": 0, "ring_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -73,6 +74,10 @@ _SIGNATURES = {
     # err, stream
     "repro_ring_matmul_rs": [_P, _I, _I, _L, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _U, _I, _P, _P],
+    # ws, rank, n, slot, q, k, v, out, lse, b, sq, sk, h, kvh, hd, causal,
+    # window, scale, softcap, epoch, dtype, err, stream
+    "repro_ring_attention": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _F, _U, _I, _P, _P],
     # ws, rank, n, slot, x, out, count, dtype, mode, epoch, err, stream
     "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _I, _I, _U, _P,
                               _P],

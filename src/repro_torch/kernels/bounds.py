@@ -3,9 +3,10 @@ the bytes it must move (each input read once, each output written once)
 over the card's memory rate and its operations over the peak rate for
 their type (NVIDIA's data sheet, H100 SXM, dense, at 700 W).
 
-``python -m repro_torch.kernels.bounds`` prints the bounds of the TPU
-kernels not ported yet (PERF.md rows 6-9), each at a named shape of a
-configuration that would run it, worked out from the Pallas kernel's code.
+``python -m repro_torch.kernels.bounds`` prints the bounds of the ring
+attention kernel (PERF.md row 6) and of the TPU kernels not ported yet
+(rows 7-9), each at a named shape of a configuration that runs or would
+run it, worked out from the Pallas kernel's code.
 """
 from __future__ import annotations
 
@@ -24,20 +25,33 @@ def bound(nbytes: float, flops: float, dtype: str) -> Tuple[float, str]:
                                        else "operations")
 
 
-def ring_attention() -> Dict:
-    """``ring_attention.py:218`` ``_ring_attn_kernel`` (forward), one
-    device of 8: internlm2-1.8b (16 q / 8 kv heads of 128), the 32k
-    prefill shape at batch 1, causal, seq_shard 8 (q and each KV shard
-    4,096 positions).  The last device sees all 8 KV shards (7 whole, the
-    diagonal one half): q.k and p.v, 4 hd flops a visible pair and head;
-    reads q and the 8 KV shards, writes out and lse.  bf16."""
-    h, kvh, hd, n, blk = 16, 8, 128, 8, 4096
+def _ring_row(label: str, b: int, s: int, n: int) -> Dict:
+    """``ring_attention.py:218`` ``_ring_attn_kernel`` (forward) on the
+    last device of n: internlm2-1.8b (16 q / 8 kv heads of 128), causal,
+    q and each KV shard s / n positions.  The last device sees all n KV
+    shards (n - 1 whole, the diagonal one half): q.k and p.v, 4 hd flops
+    a visible pair and head; reads q and the n KV shards, writes out and
+    lse.  bf16."""
+    h, kvh, hd = 16, 8, 128
+    blk = s // n
     pairs = (n - 1) * blk * blk + blk * (blk + 1) // 2
-    flops = 4 * hd * pairs * h
-    nbytes = (2 * blk * h * hd * 2 + blk * h * 4
-              + n * 2 * blk * kvh * hd * 2)
-    return _row("ring_attention", "internlm2-1.8b, s 32768, seq_shard 8, "
-                "last device", nbytes, flops, "bfloat16")
+    flops = 4 * hd * pairs * h * b
+    nbytes = b * (2 * blk * h * hd * 2 + h * blk * 4
+                  + n * 2 * blk * kvh * hd * 2)
+    return _row("ring_attention", label, nbytes, flops, "bfloat16")
+
+
+def ring_attention() -> Dict:
+    """The 32k prefill shape at batch 1, seq_shard 8 (one device of 8)."""
+    return _ring_row("internlm2-1.8b, s 32768, seq_shard 8, last device",
+                     1, 32768, 8)
+
+
+def ring_attention_slice() -> Dict:
+    """The training slice's shape: batch 2, seq 4096, tp = seq_shard 2,
+    the last rank (``chip_smoke.py`` phases 11 and 13)."""
+    return _ring_row("internlm2-1.8b, b 2, s 4096, seq_shard 2, last rank",
+                     2, 4096, 2)
 
 
 def moe_gmm() -> Dict:
@@ -88,5 +102,5 @@ def _row(name, shape, nbytes, flops, dtype) -> Dict:
 
 
 if __name__ == "__main__":
-    for fn in (ring_attention, moe_gmm, ssd, rglru):
+    for fn in (ring_attention, ring_attention_slice, moe_gmm, ssd, rglru):
         print(json.dumps(fn()))

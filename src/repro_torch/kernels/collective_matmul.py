@@ -29,8 +29,21 @@ replicated and its cotangent whole on every rank, so the backward is local
 (``dx = dy @ w.T``, ``dw = x.T @ dy``, plain products), the same as
 ``megatron``'s exit and JAX's (XLA dots).  :func:`matmul_allreduce` is its
 forward alone, which the schedules call inside their exit op.
-The sequence-parallel pair (``fused_matmul_reducescatter``,
-``fused_allgather_matmul``) waits for sequence parallelism (ROADMAP.md A2).
+
+The sequence-parallel pair (JAX ``collective_matmul.py:459-546``):
+
+* :func:`fused_matmul_reducescatter` — the SP exit: the matmul ->
+  reduce-scatter ring scattering along the sequence with no all-gather
+  after it (the ring kernel on CUDA tensors, as JAX's ``pallas`` backend
+  runs ``_rs_ring_kernel``; :func:`ring_matmul_reducescatter` on the CPU).
+  Backward: all-gather the cotangent, then plain products.
+* :func:`fused_allgather_matmul` — the SP entry: the sequence all-gather
+  feeding every weight's product (on CUDA tensors the peer all-gather and
+  ``torch.matmul``; JAX has no Pallas AG-matmul either,
+  ``collective_matmul.py:453``; on the CPU the ring over ``ring_shift``,
+  :func:`ring_allgather_matmul`).  Backward: a reduce-scatter of
+  ``sum_k g_k @ w_k.T`` and each ``dw_k`` against the re-gathered x, so
+  only the 1/tp input is saved.
 """
 from __future__ import annotations
 
@@ -99,6 +112,23 @@ def ring_allgather(y_chunk, comm: Comm, dim: int):
         if s < n - 1:
             cur = comm.ring_shift(cur)
     return torch.cat(parts, dim=dim)
+
+
+def ring_allgather_matmul(x, ws, comm: Comm, gather_dim: int):
+    """Column-parallel SP entry over the ring: the shards of x arrive one
+    hop at a time (after s hops rank i holds shard ``(i - s) mod n``) and
+    each is multiplied by every weight as it arrives -> one output per
+    weight, the whole sequence along ``gather_dim``."""
+    n, idx = comm.size, comm.rank
+    parts = [[None] * n for _ in ws]
+    cur = x
+    for s in range(n):
+        src = (idx - s) % n
+        for k, w in enumerate(ws):
+            parts[k][src] = torch.matmul(cur, w)
+        if s < n - 1:
+            cur = comm.ring_shift(cur)
+    return tuple(torch.cat(p, dim=gather_dim) for p in parts)
 
 
 def ring_matmul_allreduce(x, w, comm: Comm, scatter_dim: int):
@@ -215,6 +245,70 @@ def _dispatch_rs(x, w, comm: Comm, scatter_dim: int):
     if backend(comm, x.shape[scatter_dim]) == "ref":
         return matmul_reducescatter_ref(x, w, comm, scatter_dim)
     return matmul_reducescatter(x, w, comm, scatter_dim)
+
+
+def matmul_reducescatter_fwd(x: torch.Tensor, w: torch.Tensor, comm: Comm,
+                             scatter_dim: int = 1) -> torch.Tensor:
+    """The forward of :func:`fused_matmul_reducescatter` (no autograd):
+    the product at tp=1; else the ring decomposition on CPU tensors or the
+    ring kernel on CUDA tensors.  An indivisible scatter dim raises."""
+    if comm.size <= 1:
+        return torch.matmul(x, w)
+    return _dispatch_rs(x, w, comm, scatter_dim)
+
+
+def fused_matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, comm: Comm,
+                               scatter_dim: int = 1) -> torch.Tensor:
+    """Row-parallel ``x @ w`` + ring reduce-scatter along ``scatter_dim``
+    (JAX's ``fused_matmul_reducescatter``, the SP exit), differentiable:
+    the backward all-gathers the cotangent along ``scatter_dim`` and takes
+    plain products (JAX's ``_rs_bwd``)."""
+    return row_exit(x, w, lambda x, w: Pending(
+        matmul_reducescatter_fwd(x, w, comm, scatter_dim), None),
+        comm=comm, gather_dim=scatter_dim).wait()
+
+
+class _AllGatherMatmul(torch.autograd.Function):
+    """Forward: the sequence all-gather of x and one product per weight.
+    Backward: the reduce-scatter of ``sum_k g_k @ w_k.T`` and
+    ``dw_k = AG(x).T @ g_k`` against the re-gathered x (plain products;
+    only x, the 1/tp shard, is saved)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, gather_dim, *ws):
+        ctx.save_for_backward(x, *ws)
+        ctx.comm, ctx.gather_dim = comm, gather_dim
+        if comm.size <= 1:
+            return tuple(torch.matmul(x, w) for w in ws)
+        if x.device.type == "cpu":
+            return ring_allgather_matmul(x, ws, comm, gather_dim)
+        h = comm.all_gather(x.contiguous(), gather_dim)
+        return tuple(torch.matmul(h, w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        comm, dim = ctx.comm, ctx.gather_dim
+        dx = None
+        for g, w in zip(gs, ws):
+            t = torch.matmul(g, w.t())
+            dx = t if dx is None else dx + t
+        xf = x
+        if comm.size > 1:
+            dx = comm.reduce_scatter(dx.contiguous(), dim)
+            xf = comm.all_gather(x.contiguous(), dim)
+        x2 = xf.reshape(-1, xf.shape[-1]).t()
+        dws = tuple(torch.matmul(x2, g.reshape(-1, g.shape[-1]))
+                    for g in gs)
+        return (dx, None, None, *dws)
+
+
+def fused_allgather_matmul(x: torch.Tensor, ws, comm: Comm,
+                           gather_dim: int = 1) -> tuple:
+    """Column-parallel SP entry (JAX's ``fused_allgather_matmul``): the
+    all-gather of x along ``gather_dim`` feeding every weight in ``ws``;
+    one output per weight, differentiable."""
+    return _AllGatherMatmul.apply(x, comm, gather_dim, *ws)
 
 
 def matmul_allreduce(x: torch.Tensor, w: torch.Tensor, comm: Comm,

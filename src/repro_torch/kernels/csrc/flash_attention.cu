@@ -35,70 +35,34 @@
 // output tile; row reductions are shuffles within a half-warp.  Tiles
 // are staged in shared memory as f32 (q pre-scaled, as the TPU kernel
 // scales q in f32), rows padded by one word against bank conflicts.
-// Moving the products onto wgmma is later work.
+// The forward's tile loop lives in flash_fwd.cuh, shared with the
+// ring-attention kernel.  Moving the products onto wgmma is later work.
 #include <cstdint>
 
 #include "common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kPLD = kTile + 4; // row stride of the score tiles in smem
-constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
+using namespace repro::flash;
 
 struct Params {
   int b, s, h, kvh, g;
   int causal, window;  // window 0: none
   float scale, softcap;
+
+  // positions arange(s) for queries and keys
+  __device__ __forceinline__ Mask mask() const {
+    return Mask{0, s, 0, s, causal, window, softcap};
+  }
 };
 
-// key kj visible from query qi (positions arange(s))
 __device__ __forceinline__ bool visible(int qi, int kj, const Params& p) {
-  if (qi >= p.s || kj >= p.s) return false;
-  if (p.causal && kj > qi) return false;
-  if (p.window > 0 && kj <= qi - p.window) return false;
-  return true;
+  return repro::flash::visible(qi, kj, p.mask());
 }
 
-// some key of tile [k0, k0 + 64) is visible from some query of [q0, q0 + 64)
-// (the TPU kernel's `run` predicate)
 __device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& p) {
-  if (p.causal && k0 > q0 + kTile - 1) return false;
-  if (p.window > 0 && k0 + kTile - 1 <= q0 - p.window) return false;
-  return true;
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [r0, r0 + 64) of head `hh` of a [b, s, nh, HD] tensor -> smem f32
-// [64][HD + 1], times `mul`; rows >= s are zero
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int bi, int r0, int hh, int nh,
-                                          int s, float mul) {
-  constexpr int LD = HD + 1;
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
-    const int r = idx / HD;
-    const int d = idx % HD;
-    const int row = r0 + r;
-    float v = 0.f;
-    if (row < s)
-      v = repro::to_float(
-              src[((static_cast<int64_t>(bi) * s + row) * nh + hh) * HD + d]) *
-          mul;
-    dst[r * LD + d] = v;
-  }
+  return repro::flash::tile_runs(q0, k0, p.mask());
 }
 
 // rows [r0, r0 + 64) of a [b, h, s] f32 row statistic -> smem; 0 past s
@@ -108,11 +72,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
     const int row = r0 + r;
     dst[r] = row < s ? src[(static_cast<int64_t>(bi) * h + hi) * s + row] : 0.f;
   }
-}
-
-template <int HD>
-constexpr size_t fwd_smem() {
-  return (3 * kTile * (HD + 1) + kTile * kPLD) * sizeof(float);
 }
 
 template <int HD>
@@ -126,7 +85,6 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, Params p) {
   constexpr int LD = HD + 1;
-  constexpr int NC = HD / 16;  // output columns per thread: tx + 16 * c
   extern __shared__ float smem[];
   float* qs = smem;                // [64][LD]  q * scale
   float* ks = qs + kTile * LD;     // [64][LD]
@@ -136,105 +94,13 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kTile;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
-  const int kh = hi / p.g;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
 
   load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nk = (p.s + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    if (p.causal && k0 > q0 + kTile - 1) break;
-    if (!tile_runs(q0, k0, p)) continue;
-    __syncthreads();  // the previous tile's ks/vs/ps are consumed
-    load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-    load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = sc[i][j];
-        if (p.softcap != 0.f) x = p.softcap * tanhf(x / p.softcap);
-        ok[j] = visible(qi, k0 + tx + 16 * j, p);
-        sc[i][j] = x;
-        if (ok[j]) mx = fmaxf(mx, x);
-      }
-      mx = half_warp_max(mx);
-      const float corr = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pv = ok[j] ? expf(sc[i][j] - mx) : 0.f;
-        ps[(ty * 4 + i) * kPLD + tx + 16 * j] = pv;
-        rs += pv;
-      }
-      rs = half_warp_sum(rs);
-      l[i] = l[i] * corr + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pr[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * kPLD + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= p.s) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
-    const int64_t o = ((static_cast<int64_t>(bi) * p.s + qi) * p.h + hi) * HD;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      out[o + tx + 16 * c] = repro::from_float<T>(acc[i][c] / lf);
-    if (tx == 0)
-      lse[(static_cast<int64_t>(bi) * p.h + hi) * p.s + qi] = m[i] + logf(lf);
-  }
+  Carry<HD> c;
+  c.init();
+  fold_keys<T, HD>(qs, ks, vs, ps, k, v, bi, hi / p.g, p.kvh, q0, p.mask(),
+                   c);
+  store_rows<T, HD>(c, out, lse, bi, hi, p.h, p.s, q0);
 }
 
 // delta[b, h, s] = rowsum(dout * out) in f32; one warp per (b, s, h) row

@@ -12,6 +12,8 @@
 //   [0, kFlagBytes)         flag words (uint32), see the offsets below
 //   ring landing slot 0/1   2 x slot bytes, f32 partial sums of the ring
 //   collective slot 0/1     2 x slot bytes, each rank's published input
+//   attention slot 0/1      2 x slot bytes, each rank's published K/V shard
+//                           (ring_attention.cu)
 //
 // Flags only ever grow: each is compared against a tag that the host
 // counts up call by call (epoch tagging), so back-to-back calls need no
@@ -38,7 +40,13 @@ constexpr int kRingReady = 0;                                  // [2][T]
 constexpr int kRingAck = kRingReady + 2 * kMaxRingTiles;       // [2][T]
 constexpr int kRingStarted = kRingAck + 2 * kMaxRingTiles;     // [1]
 constexpr int kCollFlags = kRingStarted + 64;                  // [2][R][T]
-constexpr int kFlagWords = kCollFlags + 2 * kMaxRanks * kMaxCollTiles;
+// ring attention: kAttnReady[slot][src] = the call whose K/V rank src has
+// published in its attention slot; kAttnDone[r] = the last call for which
+// rank r has finished reading every peer's attention slot.  Each is
+// written by the rank it names into every peer's workspace.
+constexpr int kAttnReady = kCollFlags + 2 * kMaxRanks * kMaxCollTiles;
+constexpr int kAttnDone = kAttnReady + 2 * kMaxRanks;          // [R]
+constexpr int kFlagWords = kAttnDone + kMaxRanks;
 constexpr size_t kFlagBytes = ((kFlagWords * 4 + 4095) / 4096) * 4096;
 
 constexpr long long kTimeoutNs = 30LL * 1000 * 1000 * 1000;   // 30 s
@@ -46,15 +54,19 @@ constexpr long long kTimeoutNs = 30LL * 1000 * 1000 * 1000;   // 30 s
 // error codes written to the host-mapped error word
 constexpr int kErrRingTimeout = 1;
 constexpr int kErrCollTimeout = 2;
+constexpr int kErrAttnTimeout = 3;
 
 __host__ __device__ inline size_t workspace_bytes(size_t slot) {
-  return kFlagBytes + 4 * slot;
+  return kFlagBytes + 6 * slot;
 }
 __host__ __device__ inline char* ring_slot(char* ws, size_t slot, int j) {
   return ws + kFlagBytes + static_cast<size_t>(j) * slot;
 }
 __host__ __device__ inline char* coll_slot(char* ws, size_t slot, int j) {
   return ws + kFlagBytes + (2 + static_cast<size_t>(j)) * slot;
+}
+__host__ __device__ inline char* attn_slot(char* ws, size_t slot, int j) {
+  return ws + kFlagBytes + (4 + static_cast<size_t>(j)) * slot;
 }
 __host__ __device__ inline uint32_t* flags(char* ws) {
   return reinterpret_cast<uint32_t*>(ws);

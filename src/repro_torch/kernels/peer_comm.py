@@ -31,7 +31,11 @@ COLL_TILE = 8192
 MAX_COLL_TILES = 4096
 MAX_RANKS = 8
 ERRORS = {1: "a ring matmul flag wait timed out",
-          2: "a collective flag wait timed out"}
+          2: "a collective flag wait timed out",
+          3: "a ring attention flag wait timed out"}
+# csrc/peer.cuh: slots of slot_bytes in a workspace (ring landing,
+# collective, attention; two each)
+SLOTS = 6
 
 
 def store_barrier(store, key: str, size: int, timeout_s: float = 300.0):
@@ -50,7 +54,8 @@ class Workspace:
 
     ``ptrs`` is the device table of every rank's workspace base pointer (own
     included), which the kernels take.  ``slot_bytes`` sizes each of the
-    two ring landing slots and the two collective slots."""
+    two ring landing slots, the two collective slots and the two
+    ring-attention slots."""
 
     def __init__(self, rank: int, size: int, store, prefix: str,
                  slot_bytes: int, device: torch.device):

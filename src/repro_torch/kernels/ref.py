@@ -110,11 +110,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q [b, s, h, hd]; k, v [b, s, kvh, hd] -> (out [b, s, h, hd] in q's
     dtype, lse [b, h, s] f32 with ``lse = m + log(l)``)."""
+    return _attention_ref(q, k, v, 0, causal=causal, window=window,
+                          softcap=softcap, scale=scale)
+
+
+def _attention_ref(q, k, v, q_off: int, *, causal, window, softcap, scale):
+    """:func:`flash_attention_ref` for queries at positions ``q_off +
+    arange(sq)`` against keys at ``arange(sk)``."""
     b, s, h, hd = q.shape
-    kvh = k.shape[2]
+    kvh, sk = k.shape[2], k.shape[1]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, sk, hd]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     out = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
@@ -122,10 +129,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q1 = min(q0 + Q_CHUNK, s)
         qc = (q[:, q0:q1].float() * scale).reshape(b, q1 - q0, kvh, g, hd)
         qc = qc.permute(0, 2, 3, 1, 4)                     # [b, kvh, g, c, hd]
-        sc = torch.matmul(qc, kf.transpose(-1, -2))        # [b, kvh, g, c, s]
+        sc = torch.matmul(qc, kf.transpose(-1, -2))        # [b, kvh, g, c, sk]
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
-        valid = _attn_mask(q0, q1, s, causal, window, q.device)
+        valid = _attn_mask(q_off + q0, q_off + q1, sk, causal, window,
+                           q.device)
         sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
         m = sc.amax(dim=-1, keepdim=True)
         p = torch.exp(sc - m)
@@ -135,6 +143,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, q1 - q0, h, hd).to(q.dtype)
         lse[:, :, q0:q1] = (m + torch.log(l)).reshape(b, h, q1 - q0)
     return out, lse
+
+
+def ring_attention_all_ranks_ref(qs, ks, vs, rank: int, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 softcap: float = 0.0,
+                                 scale: Optional[float] = None):
+    """One rank's (out [b, sq, h, hd], lse [b, h, sq] f32) of ring
+    attention over contiguous shards, from every rank's inputs: q of
+    ``rank`` (positions ``rank * sq + arange(sq)``) against every rank's
+    K/V concatenated in rank order, in f32 with the kernel's arithmetic
+    (:func:`flash_attention_ref`'s)."""
+    k, v = torch.cat(list(ks), dim=1), torch.cat(list(vs), dim=1)
+    q = qs[rank]
+    return _attention_ref(q, k, v, rank * q.shape[1], causal=causal,
+                          window=window, softcap=softcap, scale=scale)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,

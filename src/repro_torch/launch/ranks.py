@@ -58,7 +58,13 @@ def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
         comm.close()
         out_q.put((rank, True, result))
     except BaseException:
-        out_q.put((rank, False, traceback.format_exc()))
+        msg = traceback.format_exc()
+        if comm is not None:
+            try:                  # a kernel's recorded flag timeout
+                comm.check()
+            except RuntimeError as e:
+                msg += f"\n{e}"
+        out_q.put((rank, False, msg))
         raise
     finally:
         if dist.is_initialized():

@@ -1,7 +1,9 @@
 """The training step of ``repro.launch.steps.build_train_step`` on one
 rank of a 1-D model group: forward and backward of
 :func:`repro_torch.models.lm.train_loss` (with gradient accumulation over
-microbatches), then AdamW with the gradient norm spanning the group."""
+microbatches), the all-reduce of the gradients that are partial per rank
+under sequence parallelism and ring attention, then AdamW with the
+gradient norm spanning the group."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +13,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
 from repro_torch.core.comm import Comm, SoloComm
-from repro_torch.core.schedule import TmpCtx
 from repro_torch.models import lm
-from repro_torch.models.params import flat_leaves, shard_dims
+from repro_torch.models.params import (flat_leaves, flatten,
+                                       partial_grad_leaves, shard_dims)
 from repro_torch.optim import adamw
 
 
@@ -54,9 +56,15 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
     to f32 and summed, then divided by n, and the loss is the mean of the
     microbatch losses.  The last microbatch's gradients stay on the
     parameters' ``.grad``.  The resolved hyper-parameters are the step's
-    ``hp`` attribute.  ``comm``: the model group (None: tp=1); ``params``
-    are then this rank's shards, and every rank runs the step on the
-    whole batch."""
+    ``hp`` attribute and its TMP context (:func:`~repro_torch.models.lm.
+    train_ctx`) its ``ctx``.  ``comm``: the model group (None: tp=1);
+    ``params`` are then this rank's shards, and every rank runs the step
+    on the whole batch.  The leaves whose gradient is partial per rank
+    (:func:`~repro_torch.models.params.partial_grad_leaves`: the norm
+    scales under SP, also the attention weights under ring attention) are
+    all-reduced over the group after the microbatch loop, in one bucket,
+    where JAX's ``shard_map`` boundary psums them; the norm then counts
+    them once, as every replicated leaf."""
     hp = resolve_hp(hp, global_batch, seq_len=seq_len, d_model=cfg.d_model,
                     num_layers=cfg.num_layers)
     n = hp.microbatch if hp.microbatch > 1 else 1
@@ -64,8 +72,11 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
         learning_rate=hp.learning_rate, weight_decay=hp.weight_decay,
         warmup_steps=hp.warmup_steps, total_steps=hp.total_steps,
         grad_clip=hp.grad_clip)
-    ctx = TmpCtx(comm or SoloComm(), schedule=hp.schedule)
-    sharded = [d is not None for d in shard_dims(cfg, ctx.tp).values()]
+    ctx = lm.train_ctx(cfg, hp, comm or SoloComm(), seq_len)
+    sharded = [d is not None
+               for d in shard_dims(cfg, ctx.tp, ctx.seq_shard).values()]
+    partial = set(partial_grad_leaves(cfg, seq_parallel=ctx.sp,
+                                      seq_shard=ctx.seq_shard))
 
     def train_step(params: Dict[str, Any], opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -87,9 +98,24 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
         if n > 1:
             for acc in grads:
                 acc.div_(n)
+        reduce_partial_grads(grads, [k in partial for k in flatten(params)],
+                             ctx.comm)
         gnorm = adamw.apply_updates(params, grads, opt_state, ocfg,
                                     comm=ctx.comm, sharded=sharded)
         return {"loss": loss_sum / n, "grad_norm": gnorm}
 
     train_step.hp = hp
+    train_step.ctx = ctx
     return train_step
+
+
+def reduce_partial_grads(grads, partial, comm: Comm):
+    """Sum the gradients marked in ``partial`` over the group, in place in
+    the list: one all-reduce of their f32 concatenation (one bucket)."""
+    idx = [i for i, p in enumerate(partial) if p]
+    if not idx or comm.size == 1:
+        return
+    total = comm.all_reduce(torch.cat([grads[i].float().reshape(-1)
+                                       for i in idx]))
+    for i, part in zip(idx, total.split([grads[i].numel() for i in idx])):
+        grads[i] = part.view(grads[i].shape)

@@ -10,6 +10,10 @@ CPU.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
         --tp 2 --schedule fused --steps 4 --batch 8 --seq 1024 --microbatch 2
 
+    # ring attention over two ranks (sequence sharded; implies SP)
+    PYTHONPATH=src python -m repro_torch.launch.train --tp 2 --seq-shard 2 \\
+        --steps 3 --batch 4 --seq 4096 --microbatch 2
+
     # CPU smoke with the plain PyTorch versions of the kernels
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 2 --tp 2 --schedule oases
@@ -18,8 +22,10 @@ With ``--tp`` N > 1 the launcher spawns N rank processes
 (:mod:`repro_torch.launch.ranks`): gloo on the CPU, the port's peer
 collectives on the card.  Prints the JSON of ``repro.launch.train``
 (``final_step``, ``first_loss``, ``last_loss``, ``slow_steps``), from
-rank 0.  Data parallelism, the planner, checkpoints, telemetry and fault
-injection are not offered yet.
+rank 0.  Sequence parallelism without ring attention is reachable
+through ``TrainHParams(seq_parallel=True)`` (JAX's CLI has no flag for
+it either).  Data parallelism, the planner, checkpoints, telemetry and
+fault injection are not offered yet.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def _train(comm, device, args) -> dict:
                       fine_remat=not args.coarse_remat,
                       learning_rate=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 1),
-                      microbatch=args.microbatch)
+                      microbatch=args.microbatch, seq_shard=args.seq_shard)
     trainer = Trainer(cfg, hp, global_batch=args.batch, seq_len=args.seq,
                       device=device, comm=comm)
     res = trainer.train(args.steps, seed=args.seed)
@@ -68,6 +74,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatch", type=int, default=0,
                     help="gradient-accumulation steps (0 = auto)")
+    ap.add_argument("--seq-shard", type=int, default=1,
+                    help="ring-attention sequence shards per attention "
+                         "layer (power of two; must equal --tp)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")

@@ -1,9 +1,11 @@
 """One GLOBAL_ATTN + SwiGLU layer: the training residual parts of
 ``repro.models.blocks`` over a :class:`~repro_torch.core.schedule.TmpCtx`
 (each rank runs its ``h_local`` heads and ``d_ff / tp`` columns; the
-exits go through ``ctx.row_matmul``), and the decode step on a paged KV
-cache (``decode_fn``, tp=1).  Plain matrix products stay
-``torch.matmul``, as the JAX package left them to XLA."""
+entries go through ``ctx.gather_matmul`` and the exits through
+``ctx.row_matmul``, which take the sequence-parallel forms under SP; with
+``seq_shard`` > 1 the attention part is the ring part), and the decode
+step on a paged KV cache (``decode_fn``, tp=1).  Plain matrix products
+stay ``torch.matmul``, as the JAX package left them to XLA."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -15,6 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
+from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.models.attention import (chunked_attention,
                                          paged_decode_attention, rope)
 from repro_torch.models.params import attn_plan
@@ -37,14 +40,16 @@ def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
          h: torch.Tensor, positions: torch.Tensor):
-    """h [b, s, d] (replicated) -> this rank's q [b, s, h_local, hd] and
-    k, v [b, s, kv_local, hd], rope on q and k (``blocks.py`` ``_qkv``, 1-D).
-    KV weights the group does not divide are replicated: every rank
-    projects the kv-head group its q heads need, and the weights pass
-    through f so that their gradient sums the ranks' shares."""
+    """h [b, s, d] (replicated; under SP this rank's sequence chunk, which
+    the entry gathers) -> this rank's q [b, s, h_local, hd] and k, v
+    [b, s, kv_local, hd] over the whole sequence, rope on q and k
+    (``blocks.py`` ``_qkv``, 1-D).  KV weights the group does not divide
+    are replicated: every rank projects the kv-head group its q heads
+    need, and the weights pass through f so that their gradient sums the
+    ranks' shares."""
     plan = attn_plan(cfg, ctx.tp)
     hd = cfg.resolved_head_dim
-    b, s, _ = h.shape
+    b = h.shape[0]
     wk, wv = p["wk"], p["wv"]
     if plan.sharded and not plan.kv_sharded \
             and plan.kv_slice < cfg.num_kv_heads:
@@ -59,6 +64,7 @@ def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
             f"{cfg.num_kv_heads} kv heads needs the non-aligned GQA "
             f"fallback, not ported (ROADMAP.md A2)")
     q, k, v = ctx.gather_matmul(h, (p["wq"], wk, wv))
+    s = q.shape[1]
     q = q.reshape(b, s, plan.h_local, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
@@ -70,8 +76,11 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
     """The layer's two residual parts (``blocks.py`` ``make_attn_part`` for
     GLOBAL_ATTN and ``make_mlp_part``, 1-D, no post-norms).  A part's body
     runs from its input to its exit product's input; the schedule runs the
-    exit (``wo``, ``wd``) and its all-reduce."""
-    def attn_body(p, x, positions):
+    exit (``wo``, ``wd``) and its collective.  Under SP a part's input is
+    this rank's sequence chunk: the entry gathers the sequence and the
+    exit scatters it.  With ``seq_shard`` > 1 the attention part is
+    :func:`ring_part`'s."""
+    def attn_body(p, x, positions, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         q, k, v = _qkv(cfg, ctx, p, h, positions)
         o = chunked_attention(q, k, v, causal=True, window=None,
@@ -79,12 +88,41 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
         b, s = o.shape[:2]
         return o.reshape(b, s, -1)
 
-    def mlp_body(p, x, positions):
+    def mlp_body(p, x, positions, keep):
         g, u = ctx.gather_matmul(rms_norm(x, p["ln2"], cfg.norm_eps),
                                  (p["wg"], p["wu"]))
         return F.silu(g) * u
 
-    return [Part(attn_body, "wo"), Part(mlp_body, "wd")]
+    attn = (ring_part(cfg, ctx) if ctx.seq_shard > 1
+            else Part(attn_body, "wo"))
+    return [attn, Part(mlp_body, "wd")]
+
+
+def ring_part(cfg: ArchConfig, ctx: TmpCtx) -> Part:
+    """The ring-attention part (``blocks.py:107-137``): x stays this
+    rank's sequence chunk through the mixer; the attention weights are
+    replicated (whole heads on every rank; their gradients are partial per
+    rank and summed by the training step); rope at the chunk's absolute
+    positions ``rank * s_loc + arange(s_loc)`` (``positions``), ring
+    attention over the group, and a local ``wo`` exit with no collective.
+    The ring op keeps its out and lse for fine recomputation's replay
+    (``keep``)."""
+    def ring_body(p, x, positions, keep):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        b, s_loc, _ = h.shape
+        hd = cfg.resolved_head_dim
+        q = rope(torch.matmul(h, p["wq"]).reshape(b, s_loc, cfg.num_heads,
+                                                  hd),
+                 positions, cfg.rope_theta)
+        k = rope(torch.matmul(h, p["wk"]).reshape(b, s_loc,
+                                                  cfg.num_kv_heads, hd),
+                 positions, cfg.rope_theta)
+        v = torch.matmul(h, p["wv"]).reshape(b, s_loc, cfg.num_kv_heads, hd)
+        o = ring_attention(q, k, v, comm=ctx.comm, causal=True,
+                           softcap=cfg.attn_softcap, keep=keep)
+        return o.reshape(b, s_loc, -1)
+
+    return Part(ring_body, "wo", collective=False)
 
 
 def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,

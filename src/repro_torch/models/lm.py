@@ -1,16 +1,18 @@
 """The model: the training loss of ``repro.models.lm.build_train_loss``
-on a 1-D tensor-parallel group, and the paged decode step of
+on a 1-D tensor-parallel group (with sequence parallelism and ring
+attention), and the paged decode step of
 ``build_decode`` on one device (embed, copy-on-write, the layer loop,
 final norm, head, greedy token)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
 from repro_torch.core import remat
-from repro_torch.core.comm import SoloComm
+from repro_torch.core.comm import Comm, SoloComm
 from repro_torch.core.schedule import (TmpCtx, apply_layer, effective_split,
                                        merge_tree, split_tree)
 from repro_torch.core.tmp import (greedy_token, rms_norm,
@@ -19,34 +21,78 @@ from repro_torch.models import blocks
 from repro_torch.models.params import check_supported, check_tp
 
 
+def train_layout(cfg: ArchConfig, hp: TrainHParams, tp: int,
+                 seq_len: int) -> Tuple[bool, int, List[str]]:
+    """(seq_parallel, seq_shard, blockers) of a run, as JAX's
+    ``build_train_loss`` decides them (``lm.py:330-375``): ring attention
+    (``hp.seq_shard`` > 1) that cannot run raises (``check_tp``) and
+    implies SP; ``hp.seq_parallel`` with a blocker (a group of one, a
+    sequence the group does not divide) runs without SP, and ``blockers``
+    names why."""
+    check_tp(cfg, tp, seq_shard=hp.seq_shard, seq_len=seq_len)
+    blockers = []
+    if tp <= 1:
+        blockers.append("the mesh has no model axes (tp=1)")
+    if seq_len % max(tp, 1):
+        blockers.append(f"seq_len {seq_len} is not divisible by the model "
+                        f"group size {tp}")
+    sp = bool((hp.seq_parallel or hp.seq_shard > 1) and not blockers)
+    return sp, hp.seq_shard, blockers
+
+
+def train_ctx(cfg: ArchConfig, hp: TrainHParams, comm: Comm,
+              seq_len: int) -> TmpCtx:
+    """The :class:`~repro_torch.core.schedule.TmpCtx` of a run: ``hp``'s
+    schedule and sequence layout (:func:`train_layout`) over ``comm``.
+    SP that a blocker turns off warns, as JAX's ``_sp_degraded`` does."""
+    sp, shard, blockers = train_layout(cfg, hp, comm.size, seq_len)
+    if hp.seq_parallel and not sp:
+        warnings.warn(f"seq_parallel degraded: {'; '.join(blockers)}",
+                      RuntimeWarning, stacklevel=2)
+    return TmpCtx(comm, schedule=hp.schedule, seq_parallel=sp,
+                  seq_shard=shard)
+
+
 def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                batch: Dict[str, torch.Tensor], hp: TrainHParams,
                ctx: Optional[TmpCtx] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars,
     the same on every rank: the body of ``build_train_loss`` on a 1-D
-    model group (``ctx``; None: tp=1 under ``hp.schedule``).  ``params``
-    are this rank's shards (:func:`~repro_torch.models.params.shard_params`).
+    model group (``ctx``, as :func:`train_ctx` makes it; None: tp=1).
+    ``params`` are this rank's shards
+    (:func:`~repro_torch.models.params.shard_params`).
 
-    The vocab-parallel embedding, the batch cut into
-    :func:`~repro_torch.core.schedule.effective_split` sub-batches, the
-    layer loop through :func:`~repro_torch.core.schedule.apply_layer` under
-    the recomputation policy of ``hp`` (``repro_torch.core.remat``), the
-    merge, the final norm and the vocab-parallel cross entropy.  Dense
-    models have no auxiliary loss (aux = 0)."""
+    The vocab-parallel embedding (under SP completed by a reduce-scatter
+    along the sequence, so the residual stream is this rank's chunk), the
+    batch cut into :func:`~repro_torch.core.schedule.effective_split`
+    sub-batches, the layer loop through
+    :func:`~repro_torch.core.schedule.apply_layer` under the recomputation
+    policy of ``hp`` (``repro_torch.core.remat``), the merge, the SP
+    all-gather of the sequence, the final norm and the vocab-parallel
+    cross entropy.  Dense models have no auxiliary loss (aux = 0)."""
     check_supported(cfg)
-    ctx = ctx or TmpCtx(SoloComm(), schedule=hp.schedule)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    if ctx is None:
+        ctx = train_ctx(cfg, hp, SoloComm(), s)
     if ctx.schedule != hp.schedule:
         raise ValueError(f"TmpCtx schedule {ctx.schedule!r} != hp.schedule "
                          f"{hp.schedule!r}")
-    check_tp(cfg, ctx.tp)
-    tokens, labels = batch["tokens"], batch["labels"]
-    b, s = tokens.shape
-    x = vocab_parallel_embed(tokens, params["embed"], ctx.comm)
+    sp, shard, _ = train_layout(cfg, hp, ctx.tp, s)
+    if (ctx.sp, ctx.seq_shard) != (sp, shard):
+        raise ValueError(
+            f"TmpCtx (seq_parallel={ctx.sp}, seq_shard={ctx.seq_shard}) "
+            f"does not match hp's layout (seq_parallel={sp}, "
+            f"seq_shard={shard}) at seq {s}: build it with train_ctx")
+    x = vocab_parallel_embed(tokens, params["embed"], ctx.comm,
+                             sp_seq_dim=1 if ctx.sp else None)
     split = effective_split(hp.schedule, hp.split, b)
     xs = split_tree(x, split)
-    positions = [torch.arange(s, device=tokens.device)[None, :]
-                 .expand(t.shape[0], s) for t in xs]
+    pos = torch.arange(s, device=tokens.device)
+    if ctx.seq_shard > 1:         # the ring part's chunk of the sequence
+        pos = pos.chunk(ctx.tp)[ctx.comm.rank]
+    positions = [pos[None, :].expand(t.shape[0], -1) for t in xs]
     parts = blocks.train_parts(cfg, ctx)
     pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
 
@@ -62,11 +108,11 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
             xs = list(remat.checkpoint_layer(layer, p, *xs))
         else:
             xs = list(layer(p, *xs))
-    x = merge_tree(xs)
+    x = ctx.gather_seq(merge_tree(xs))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(
         x, params["lm_head"], labels, chunk=hp.loss_chunk,
-        softcap=cfg.final_softcap, comm=ctx.comm)
+        softcap=cfg.final_softcap, comm=ctx.comm, sp=ctx.sp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss_sum / count + aux, aux
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,11 +74,16 @@ def attn_plan(cfg: ArchConfig, tp: int) -> AttnPlan:
     return AttnPlan(True, h_local, False, kv_slice)
 
 
-def check_tp(cfg: ArchConfig, tp: int):
-    """The 1-D layout the port runs: heads and d_ff divide by tp (JAX
-    falls back to replicated projections otherwise; the port does not
-    take that path yet)."""
-    bad = [what for what, n in (("num_heads", cfg.num_heads),
+def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
+             seq_len: Optional[int] = None):
+    """The 1-D layout the port runs: heads (unless ring attention
+    replicates the attention weights), d_ff and the padded vocab divide by
+    tp (JAX falls back to replicated projections otherwise; the port does
+    not take that path yet).  Ring attention (``seq_shard`` > 1) raises
+    where JAX's ``build_train_loss`` raises (``models/lm.py:345-363``),
+    with its messages; the sequence checks need ``seq_len``."""
+    bad = [what for what, n in (("num_heads",
+                                 cfg.num_heads if seq_shard == 1 else tp),
                                 ("d_ff", cfg.d_ff),
                                 ("padded vocab", cfg.padded_vocab()))
            if n % tp]
@@ -86,19 +91,45 @@ def check_tp(cfg: ArchConfig, tp: int):
         raise NotImplementedError(
             f"{cfg.name}: tp={tp} does not divide {', '.join(bad) or 'it'}; "
             f"replicated fallbacks are not ported (ROADMAP.md A2)")
+    if seq_shard == 1:
+        return
+    blockers = []
+    if tp <= 1:
+        blockers.append("the mesh has no model axes (tp=1)")
+    if seq_len is not None and seq_len % tp:
+        blockers.append(f"seq_len {seq_len} is not divisible by the model "
+                        f"group size {tp}")
+    if tp > 1 and seq_shard != tp:
+        blockers.append(
+            f"seq_shard {seq_shard} != model group size {tp} (the KV ring "
+            f"spans exactly the group the heads would have sharded over)")
+    if seq_len is not None and seq_len % seq_shard:
+        blockers.append(f"seq_len {seq_len} is not divisible by seq_shard "
+                        f"{seq_shard}")
+    if blockers:
+        raise ValueError("seq_shard (ring attention) cannot run here: "
+                         + "; ".join(blockers))
 
 
-def shard_dims(cfg: ArchConfig, tp: int) -> Dict[str, Optional[int]]:
+RING_REPLICATED = ("wq", "wk", "wv", "wo")
+
+
+def shard_dims(cfg: ArchConfig, tp: int,
+               seq_shard: int = 1) -> Dict[str, Optional[int]]:
     """Flat name -> the dim each rank holds 1/tp of (None: replicated), in
     the 1-D layout of ``model_specs``: wq/wk/wv/wg/wu by output column,
     wo/wd by input row, embed and lm_head by vocabulary, norm scales
-    replicated; wk/wv replicated when tp does not divide the KV heads."""
+    replicated; wk/wv replicated when tp does not divide the KV heads;
+    wq/wk/wv/wo replicated under ring attention (``seq_shard`` > 1, JAX
+    ``params.py:98-113``)."""
     plan = attn_plan(cfg, tp)
     col, row = -1, -2
     layer = {"ln": None, "ln2": None, "wq": col, "wo": row, "wg": col,
              "wu": col, "wd": row,
              "wk": col if plan.kv_sharded else None,
              "wv": col if plan.kv_sharded else None}
+    if seq_shard > 1:
+        layer.update(dict.fromkeys(RING_REPLICATED))
     out: Dict[str, Optional[int]] = {}
     for key in model_specs(cfg):
         if key.startswith("['blocks'][0]"):
@@ -110,14 +141,28 @@ def shard_dims(cfg: ArchConfig, tp: int) -> Dict[str, Optional[int]]:
     return out
 
 
+def partial_grad_leaves(cfg: ArchConfig, *, seq_parallel: bool,
+                        seq_shard: int = 1) -> List[str]:
+    """Flat names of the leaves whose gradient each rank computes only in
+    part (``repro_torch.core.tmp``'s SP rule): under sequence parallelism
+    the norm scales (``ln`` and ``ln2`` see this rank's sequence chunk;
+    ``final_ln``'s cotangent is the vocab shard's partial one), under ring
+    attention also the replicated attention weights.  Their sum over the
+    ranks is the whole gradient (JAX's ``shard_map`` boundary psum)."""
+    if not seq_parallel and seq_shard == 1:
+        return []
+    names = ["ln", "ln2"] + (list(RING_REPLICATED) if seq_shard > 1 else [])
+    return ([f"['blocks'][0]['{n}']" for n in names] + ["['final_ln']"])
+
+
 def shard_params(cfg: ArchConfig, params: Dict[str, Any], rank: int,
-                 tp: int) -> Dict[str, Any]:
+                 tp: int, *, seq_shard: int = 1) -> Dict[str, Any]:
     """One rank's weights of the full ``params`` (for example JAX's,
     through :func:`from_flat`): each sharded leaf cut into tp equal parts
     along its :func:`shard_dims` dim, this rank's part copied; replicated
     leaves copied whole."""
-    check_tp(cfg, tp)
-    dims = shard_dims(cfg, tp)
+    check_tp(cfg, tp, seq_shard=seq_shard)
+    dims = shard_dims(cfg, tp, seq_shard)
     out = {}
     for key, t in flatten(params).items():
         d = dims[key]
@@ -126,17 +171,25 @@ def shard_params(cfg: ArchConfig, params: Dict[str, Any], rank: int,
     return unflatten(out)
 
 
-def gather_grads(cfg: ArchConfig, per_rank: List[Dict[str, Any]]
+def gather_grads(cfg: ArchConfig, per_rank: List[Dict[str, Any]], *,
+                 seq_shard: int = 1, partial: Sequence[str] = ()
                  ) -> Dict[str, Any]:
     """Flat name -> the whole gradient, from every rank's flat gradients
     (rank order): sharded leaves concatenated along their dim, replicated
-    leaves taken from rank 0 (every rank holds the same whole gradient)."""
+    leaves taken from rank 0 (every rank holds the same whole gradient),
+    the ``partial`` ones (:func:`partial_grad_leaves`, before the step's
+    all-reduce) summed over the ranks in rank order."""
     tp = len(per_rank)
-    dims = shard_dims(cfg, tp)
+    dims = shard_dims(cfg, tp, seq_shard)
     out = {}
     for key, d in dims.items():
         parts = [g[key] for g in per_rank]
-        if d is None:
+        if key in partial:
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = acc + p
+            out[key] = acc
+        elif d is None:
             out[key] = parts[0]
         elif isinstance(parts[0], np.ndarray):
             out[key] = np.concatenate(parts, axis=d)

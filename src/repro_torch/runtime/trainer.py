@@ -53,7 +53,8 @@ class Trainer:
     for example JAX's through :func:`repro_torch.models.params.from_flat`)
     are moved to the device; without them :meth:`train` draws whole
     weights from its seed.  ``comm``: the model group this rank belongs to
-    (None: tp=1); the trainer keeps this rank's shard of the weights, and
+    (None: tp=1); the trainer keeps this rank's shard of the weights (the
+    attention weights whole under ring attention, ``hp.seq_shard``), and
     only rank 0 logs."""
 
     def __init__(self, cfg: ArchConfig, hp: TrainHParams, *,
@@ -81,7 +82,8 @@ class Trainer:
         as trainable leaves."""
         if self.comm.size > 1:
             params = prm.shard_params(self.cfg, params, self.comm.rank,
-                                      self.comm.size)
+                                      self.comm.size,
+                                      seq_shard=self.step_fn.ctx.seq_shard)
         return prm.unflatten({k: t.detach().to(self.device).requires_grad_()
                               for k, t in prm.flatten(params).items()})
 

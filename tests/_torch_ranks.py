@@ -1,7 +1,9 @@
-"""Rank bodies of ``tests/test_torch_tmp.py``: each runs inside one rank
-process of ``repro_torch.launch.ranks.run_ranks`` (gloo on the CPU) and
-returns numpy results to the test.  No JAX here: the ranks import the
-port only."""
+"""Rank bodies of ``tests/test_torch_tmp.py`` and
+``tests/test_torch_sp.py``: each runs inside one rank process of
+``repro_torch.launch.ranks.run_ranks`` (gloo on the CPU) and returns numpy
+results to the test.  No JAX here: the ranks import the port only."""
+import time
+
 import numpy as np
 import torch
 
@@ -9,6 +11,7 @@ from repro_torch.configs.base import TrainHParams
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import collective_matmul as cm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring_attention as ra
 from repro_torch.models import lm
 from repro_torch.models import params as prm
 from repro_torch.core import tmp as tmpc
@@ -124,6 +127,168 @@ def trainer_losses(comm, device, arch, flat, kw, steps):
              for t in prm.flat_leaves(tr.params))
     return dict(losses=res["losses"], grads_ok=ok,
                 final_step=res["final_step"])
+
+
+def _np(t):
+    return t.detach().float().numpy().copy()
+
+
+def ring_cases(comm, device, cases, arrays):
+    """The port's ring attention (the plain ring) on this rank's sequence
+    shard of each case: out, lse and the gradients of ``sum(out * do)``."""
+    n, r = comm.size, comm.rank
+    out = {}
+    for name, opts in cases.items():
+        dtype = getattr(torch, opts["dtype"])
+        s = arrays[f"{name}/q"].shape[1]
+        sl = slice(r * s // n, (r + 1) * s // n)
+        q, k, v, do = (torch.from_numpy(arrays[f"{name}/{t}"][:, sl]).to(dtype)
+                       for t in ("q", "k", "v", "do"))
+        pos = torch.from_numpy(arrays[f"{name}/pos"][:, sl])
+        kw = dict(causal=True, window=opts["window"], softcap=opts["softcap"])
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = ra.ring_attention(qg, kg, vg, comm=comm, q_positions=pos,
+                              kv_positions=pos, **kw)
+        (o.float() * do.float()).sum().backward()
+        _, lse = ra.ring_forward(q, k, v, comm, q_positions=pos,
+                                 kv_positions=pos,
+                                 scale=q.shape[-1] ** -0.5, **kw)
+        out[name] = dict(out=_np(o), lse=_np(lse), dq=_np(qg.grad),
+                         dk=_np(kg.grad), dv=_np(vg.grad))
+    return out
+
+
+def _grads(fn, *xs):
+    """(outputs, grads of ``sum(tanh(out))`` summed over the outputs)."""
+    xs = [x.detach().clone().requires_grad_() for x in xs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum(torch.tanh(o.float()).sum() for o in outs).backward()
+    return [o.detach() for o in outs], [x.grad for x in xs]
+
+
+def sp_collective_cases(comm, device, cases):
+    """The SP collectives and the SP pair of the fused collective-matmul
+    against their reference paths, forward and gradients, per (dtype, b,
+    s, k, d) case; every rank draws every rank's inputs from one seed.
+    Losses are ``sum(tanh(y))`` on every rank (the group's loss is their
+    sum)."""
+    n, r = comm.size, comm.rank
+    ctx = TmpCtx(comm, seq_parallel=True)
+    out = {}
+    for dname, b, s, k, d in cases:
+        dtype = getattr(torch, dname)
+        rng = np.random.default_rng(9)
+
+        def draw(*shape, scale=1.0):
+            return torch.from_numpy((scale * rng.standard_normal(shape))
+                                    .astype(np.float32)).to(dtype)
+        xs = [draw(b, s // n, k) for _ in range(n)]     # sequence chunks
+        ps = [draw(b, s, k) for _ in range(n)]          # partial products
+        xfull = draw(b, s, k)                           # replicated
+        xk = [draw(b, s, k // n) for _ in range(n)]     # K-sharded inputs
+        w1 = [draw(k, d // n, scale=0.1) for _ in range(n)]
+        w2 = [draw(k, d // n, scale=0.1) for _ in range(n)]
+        wr = [draw(k // n, d, scale=0.1) for _ in range(n)]
+        res = {}
+
+        # the SP entry (sp_all_gather) + a column-parallel product: the
+        # gathered x's cotangent sums every rank's partial one
+        def ag(x):
+            return torch.matmul(ctx.gather_seq(x), w1[r])
+        (y,), (g,) = _grads(ag, xs[r])
+        full = torch.cat(xs, 1).requires_grad_()
+        sum(torch.tanh(torch.matmul(full, w).float()).sum()
+            for w in w1).backward()
+        res["ag"] = max(_err(y, torch.matmul(full.detach(), w1[r])),
+                        _err(g, full.grad.chunk(n, 1)[r]))
+
+        # the SP exit's collective (sp_reduce_scatter) of partial sums:
+        # this rank's chunk of the sum
+        (y,), (g,) = _grads(ctx.reduce, ps[r])
+        tot = torch.stack([p.float() for p in ps]).requires_grad_()
+        chunks = tot.sum(0).to(dtype).chunk(n, 1)
+        sum(torch.tanh(c.float()).sum() for c in chunks).backward()
+        res["rs"] = max(_err(y, chunks[r].detach()), _err(g, tot.grad[r]))
+
+        # batch_split of a replicated tensor (shard_seq): whole cotangent
+        # on every rank
+        (y,), (g,) = _grads(ctx.shard_seq, xfull)
+        want = 1 - torch.tanh(xfull.float()) ** 2
+        res["split"] = max(_err(y, xfull.chunk(n, 1)[r]), _err(g, want))
+
+        # fused matmul -> reduce-scatter against the product and
+        # sp_reduce_scatter (the reference path), forward and gradients
+        (yf,), gf = _grads(lambda x, w: cm.fused_matmul_reducescatter(
+            x, w, comm, 1), xk[r], wr[r])
+        (yr,), gr = _grads(lambda x, w: tmpc.sp_reduce_scatter(
+            torch.matmul(x, w), comm, 1), xk[r], wr[r])
+        res["fused_rs"] = max([_err(yf, yr)] + [_err(a, c)
+                                                for a, c in zip(gf, gr)])
+
+        # all-gather -> matmul, two weights on one gather, against
+        # sp_all_gather and plain products
+        yf, gf = _grads(lambda x, a, c: cm.fused_allgather_matmul(
+            x, (a, c), comm, 1), xs[r], w1[r], w2[r])
+        yr, gr = _grads(lambda x, a, c: tuple(
+            torch.matmul(tmpc.sp_all_gather(x, comm, 1), w)
+            for w in (a, c)), xs[r], w1[r], w2[r])
+        res["fused_ag"] = max([_err(a, c) for a, c in zip(yf, yr)]
+                              + [_err(a, c) for a, c in zip(gf, gr)])
+        out[(dname, b, s, k, d)] = res
+    return out
+
+
+def sp_model_variants(comm, device, arch, flat, batch, variants):
+    """Loss, this rank's flat gradients (before the step's all-reduce of
+    the partial leaves), the comm counts of the forward and the backward
+    and the ring forward's calls in each, per variant (schedule, remat,
+    fine_remat, seq_parallel, seq_shard)."""
+    cfg = reduced(arch)
+    full = prm.from_flat(cfg, flat)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    calls = [0]
+    ring_forward = ra.ring_forward
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return ring_forward(*a, **kw)
+    ra.ring_forward = counted
+    out = {}
+    try:
+        for sched, remat, fine, sp, shard in variants:
+            hp = TrainHParams(schedule=sched, remat=remat, fine_remat=fine,
+                              seq_parallel=sp, seq_shard=shard)
+            params = prm.shard_params(cfg, full, comm.rank, comm.size,
+                                      seq_shard=shard)
+            for t in prm.flat_leaves(params):
+                t.requires_grad_()
+            ctx = lm.train_ctx(cfg, hp, comm, tb["tokens"].shape[1])
+            comm.reset_counts()
+            calls[0] = 0
+            loss, _ = lm.train_loss(cfg, params, tb, hp, ctx)
+            fwd, fwd_calls = dict(comm.counts), calls[0]
+            comm.reset_counts()
+            calls[0] = 0
+            loss.backward()
+            out[(sched, remat, fine, sp, shard)] = dict(
+                loss=loss.item(), fwd=fwd, bwd=dict(comm.counts),
+                ring_calls=(fwd_calls, calls[0]),
+                grads={k: t.grad.numpy().copy()
+                       for k, t in prm.flatten(params).items()})
+    finally:
+        ra.ring_forward = ring_forward
+    return out
+
+
+def barrier_wait(comm, device, delay_s):
+    """Seconds this rank spent in ``comm.barrier()`` when the last rank
+    arrives ``delay_s`` late."""
+    if comm.rank == comm.size - 1:
+        time.sleep(delay_s)
+    t0 = time.perf_counter()
+    comm.barrier()
+    return time.perf_counter() - t0
 
 
 def everything(comm, device, jobs):

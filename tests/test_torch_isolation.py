@@ -31,7 +31,8 @@ def test_port_has_the_slice_modules():
                  "data.pipeline", "launch.steps", "launch.train",
                  "runtime.trainer", "core.comm",
                  "core.schedule", "core.remat", "kernels.collective_matmul",
-                 "kernels.autotune", "kernels.peer_comm", "launch.ranks"):
+                 "kernels.autotune", "kernels.peer_comm", "launch.ranks",
+                 "kernels.ring_attention", "kernels.bounds"):
         assert f"repro_torch.{name}" in mods, name
 
 
