@@ -24,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
 5. Training kernels against their plain versions on the card, in f32
    (TF32 off) and bf16: flash attention forward (out, lse) and backward
    (dq, dk, dv) at the training shapes (b 4, s 1024, 32 heads of 64;
-   GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000) and
+   GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000;
+   granite's 24/8 heads of 64, a group of 3) and
    the RMSNorm forward and backward at 4096 x 2048, each timed with its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call (a yardstick only).
@@ -91,6 +92,43 @@ Phases (any failure raises and the script exits non-zero):
    ring matmul 48 under ``fused``), step time, tokens/s, peak memory per
    rank and a one-step profile per schedule.
 
+14. Family kernels against their plain versions on the card, f32 (TF32
+   off) and bf16: the SSD kernel at ``mamba2-130m``'s mixer (24 heads of
+   64, state 128) at b 1 x s 4096 (the slice's shape), at s 96 (one
+   chunk shorter than 128) and at b 4 x s 1024; the grouped matmul's
+   forward and both backward products at ``granite-moe-3b-a800m``'s
+   expert shapes (40 experts, capacity 1,024: [1024, 1536] @ [1536, 512]
+   and [1024, 512] @ [512, 1536]) and at a capacity of 250 (no tile
+   multiple); granite's flash forward and backward (group 3; phase 5's
+   rows when phase 5 ran).  Each timed
+   beside its bound, its plain version and, for the grouped matmul,
+   ``torch.bmm`` of the same product (a yardstick only; the port never
+   calls it; no PyTorch call computes the SSD).
+15. Family consistency: ``mamba2-130m`` and ``granite-moe-3b-a800m`` at
+   full width and 2 layers in f32, batch 2 x 256, under ``megatron``
+   without recomputation and under the training default, ``oases`` (split
+   2: each sub-batch routes alone) with fine recomputation, on the card
+   (kernels) and on the CPU (plain versions) from the same weights:
+   granite's routing (experts and kept mask of every token, every MoE
+   call, the replays included) identical, with any token that differs
+   reported beside its gap between the k-th and (k+1)-th probability;
+   loss within 1e-5 relative, aux within 1e-6, every gradient leaf
+   present, finite and within ``grads_err`` 1e-4; launches exactly the
+   count of the code's path.
+16. Family training through the port's ``Trainer`` in bf16, ``megatron``
+   without recomputation, 8 AdamW steps: ``mamba2-130m`` at full size
+   (batch 4 x 4096 in 4 microbatches) and ``granite-moe-3b-a800m`` at
+   full width and 8 of its 32 layers (batch 8 x 1024 in 2
+   microbatches): finite losses, every leaf's gradient present and
+   finite after step 1, launches a step exactly as worked out from the
+   code (SSD 24 x 4, grouped matmul 9 x 8 x 2), step time, tokens/s,
+   peak memory and a one-step profile; then each family through the
+   launcher (``launch/train.py``) with its defaults (``oases``, split 2,
+   fine recomputation) at full depth for 2 steps: ``mamba2-130m`` at
+   batch 4 x 4096 in 2 microbatches, all 32 layers of
+   ``granite-moe-3b-a800m`` at batch 2 x 1024; finite losses, exact
+   launches, peak memory.
+
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
 
@@ -131,7 +169,8 @@ RMS_BWD_TOL = {"float32": {"dx": (1e-5, 1e-5), "dscale": (1e-3, 1e-5)},
 SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
               "flash_attention_bwd": 0, "tile_matmul": 0,
               "ring_matmul_rs": 0, "peer_all_reduce": 0,
-              "peer_all_gather": 0, "ring_attention": 0}
+              "peer_all_gather": 0, "ring_attention": 0, "ssd": 0,
+              "moe_gmm": 0}
 # the one-device training configuration of phases 6 and 7 (slice 2)
 TP1_SCHEDULE = dict(schedule="megatron", remat=False)
 TRAIN_ARCH = "gpt-h2048"
@@ -589,104 +628,129 @@ def _check_all(name, pairs, tol):
     return errs
 
 
-def phase_train_kernels():
+FLASH_CASES = [
+    dict(name="main", b=4, s=1024, h=32, kvh=32, hd=64),
+    dict(name="gqa", b=4, s=1024, h=16, kvh=8, hd=128),
+    dict(name="softcap_window", b=4, s=1024, h=32, kvh=32, hd=64,
+         softcap=30.0, window=256),
+    dict(name="ragged", b=4, s=1000, h=32, kvh=32, hd=64),
+    # granite-moe-3b-a800m's heads: 24 q / 8 kv of 64, a group of 3
+    dict(name="gqa3", b=4, s=1024, h=24, kvh=8, hd=64),
+]
+
+
+# (case name, dtype) -> the rows of _flash_rows, so a case that two phases
+# report (granite's group 3: phases 5 and 14) is checked and timed once
+_FLASH_ROWS = {}
+
+
+def _flash_rows(case, dname):
+    """The flash forward and backward kernels at one case and dtype against
+    their plain versions, timed beside their bounds, the plain versions
+    and (without softcap or window) SDPA: -> (forward row, backward row).
+    A case already run in this process returns its rows."""
+    if (case["name"], dname) in _FLASH_ROWS:
+        return _FLASH_ROWS[case["name"], dname]
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
+
+    b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
+    kw = dict(causal=True, window=case.get("window"),
+              softcap=case.get("softcap", 0.0))
+    plain_lib = not kw["softcap"] and kw["window"] is None
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, dout = (torch.randn(b, s_, h, hd, generator=gen,
+                           device="cuda").to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, s_, kvh, hd, generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    out, lse = flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want_grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                             **kw)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dname]
+    ferr = _check_all(f"flash {case['name']} {dname}",
+                      {"out": (out, want_out),
+                       "lse": (lse, want_lse)},
+                      {"out": tol["out"], "lse": tol["lse"]})
+    berr = _check_all(f"flash_bwd {case['name']} {dname}",
+                      dict(zip(("dq", "dk", "dv"),
+                               zip(grads, want_grads))),
+                      {g: tol["grad"] for g in ("dq", "dk", "dv")})
+    elt = q.element_size()
+    pairs = _visible_pairs(s_, True, kw["window"]) * b * h
+    lse_bytes = b * h * s_ * 4
+    # reads q, k, v; writes out and lse; q.k and p.v per visible pair
+    fwd_bound = _bound(2 * (q.numel() + k.numel()) * elt + lse_bytes,
+                       4 * hd * pairs, dname)
+    # reads q, k, v, out, dout and lse; writes dq, dk, dv.  The
+    # four products the gradient needs (dP, dV, dQ, dK): the
+    # recomputation of S is this design's choice, not the work's
+    bwd_bound = _bound(4 * (q.numel() + k.numel()) * elt + lse_bytes,
+                       8 * hd * pairs, dname)
+    common = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h,
+                  kvh=kvh, hd=hd, window=kw["window"],
+                  softcap=kw["softcap"], visible_pairs=pairs)
+    frow = dict(common, max_abs_err=max(ferr.values()), errs=ferr,
+                tol=tol["out"],
+                ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, **kw), iters=10),
+                bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                library_ms=None)
+    brow = dict(common, max_abs_err=max(berr.values()), errs=berr,
+                tol=tol["grad"],
+                ms=time_ms(lambda: flash_attention_bwd(
+                    q, k, v, out, lse, dout, **kw)),
+                plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, out, lse, dout, **kw), iters=10),
+                bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                library_ms=None)
+    if plain_lib:
+        # yardstick: SDPA in its own [b, h, s, hd] layout
+        # (transposes untimed); backward alone via retain_graph
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, dout))
+        sdpa = dict(is_causal=True, enable_gqa=kvh != h)
+        frow["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   **sdpa))
+        qg, kg, vg = (t.detach().requires_grad_()
+                      for t in (qt, kt, vt))
+        lo = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
+        frow["library_err"] = float(
+            (lo.detach().transpose(1, 2).float()
+             - want_out.float()).abs().max())
+        brow["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lo, (qg, kg, vg), dot, retain_graph=True))
+        del qt, kt, vt, dot, qg, kg, vg, lo
+    print(f"[flash_attention] {json.dumps(frow)}")
+    print(f"[flash_attention_bwd] {json.dumps(brow)}")
+    del q, k, v, dout, out, lse, want_out, want_lse, grads, want_grads
+    torch.cuda.empty_cache()
+    _FLASH_ROWS[case["name"], dname] = frow, brow
+    return frow, brow
+
+
+def phase_train_kernels():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
     results = {"flash_attention": [], "flash_attention_bwd": [],
                "rmsnorm": [], "rmsnorm_bwd": []}
-    cases = [
-        dict(name="main", b=4, s=1024, h=32, kvh=32, hd=64),
-        dict(name="gqa", b=4, s=1024, h=16, kvh=8, hd=128),
-        dict(name="softcap_window", b=4, s=1024, h=32, kvh=32, hd=64,
-             softcap=30.0, window=256),
-        dict(name="ragged", b=4, s=1000, h=32, kvh=32, hd=64),
-    ]
-    for case in cases:
-        b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
-        kw = dict(causal=True, window=case.get("window"),
-                  softcap=case.get("softcap", 0.0))
-        plain_lib = not kw["softcap"] and kw["window"] is None
+    for case in FLASH_CASES:
         for dname in ("float32", "bfloat16"):
-            dtype = getattr(torch, dname)
-            gen = torch.Generator(device="cuda").manual_seed(3)
-            q, dout = (torch.randn(b, s_, h, hd, generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(2))
-            k, v = (torch.randn(b, s_, kvh, hd, generator=gen,
-                                device="cuda").to(dtype) for _ in range(2))
-            out, lse = flash_attention_fwd(q, k, v, **kw)
-            want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
-            grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
-            want_grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
-                                                     **kw)
-            torch.cuda.synchronize()
-            tol = FLASH_TOL[dname]
-            ferr = _check_all(f"flash {case['name']} {dname}",
-                              {"out": (out, want_out),
-                               "lse": (lse, want_lse)},
-                              {"out": tol["out"], "lse": tol["lse"]})
-            berr = _check_all(f"flash_bwd {case['name']} {dname}",
-                              dict(zip(("dq", "dk", "dv"),
-                                       zip(grads, want_grads))),
-                              {g: tol["grad"] for g in ("dq", "dk", "dv")})
-            elt = q.element_size()
-            pairs = _visible_pairs(s_, True, kw["window"]) * b * h
-            lse_bytes = b * h * s_ * 4
-            # reads q, k, v; writes out and lse; q.k and p.v per visible pair
-            fwd_bound = _bound(2 * (q.numel() + k.numel()) * elt + lse_bytes,
-                               4 * hd * pairs, dname)
-            # reads q, k, v, out, dout and lse; writes dq, dk, dv.  The
-            # four products the gradient needs (dP, dV, dQ, dK): the
-            # recomputation of S is this design's choice, not the work's
-            bwd_bound = _bound(4 * (q.numel() + k.numel()) * elt + lse_bytes,
-                               8 * hd * pairs, dname)
-            common = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h,
-                          kvh=kvh, hd=hd, window=kw["window"],
-                          softcap=kw["softcap"], visible_pairs=pairs)
-            frow = dict(common, max_abs_err=max(ferr.values()), errs=ferr,
-                        tol=tol["out"],
-                        ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
-                        plain_ms=time_ms(lambda: ref.flash_attention_ref(
-                            q, k, v, **kw), iters=10),
-                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-                        library_ms=None)
-            brow = dict(common, max_abs_err=max(berr.values()), errs=berr,
-                        tol=tol["grad"],
-                        ms=time_ms(lambda: flash_attention_bwd(
-                            q, k, v, out, lse, dout, **kw)),
-                        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
-                            q, k, v, out, lse, dout, **kw), iters=10),
-                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-                        library_ms=None)
-            if plain_lib:
-                # yardstick: SDPA in its own [b, h, s, hd] layout
-                # (transposes untimed); backward alone via retain_graph
-                qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
-                                   for t in (q, k, v, dout))
-                sdpa = dict(is_causal=True, enable_gqa=kvh != h)
-                frow["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           **sdpa))
-                qg, kg, vg = (t.detach().requires_grad_()
-                              for t in (qt, kt, vt))
-                lo = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
-                frow["library_err"] = float(
-                    (lo.detach().transpose(1, 2).float()
-                     - want_out.float()).abs().max())
-                brow["library_ms"] = time_ms(lambda: torch.autograd.grad(
-                    lo, (qg, kg, vg), dot, retain_graph=True))
-                del qt, kt, vt, dot, qg, kg, vg, lo
-            print(f"[flash_attention] {json.dumps(frow)}")
-            print(f"[flash_attention_bwd] {json.dumps(brow)}")
+            frow, brow = _flash_rows(case, dname)
             results["flash_attention"].append(frow)
             results["flash_attention_bwd"].append(brow)
-            del q, k, v, dout, out, lse, want_out, want_lse, grads, want_grads
-            torch.cuda.empty_cache()
 
     # the training path's norms: x [b*s, d] = [4096, 2048], forward and
     # backward
@@ -1705,11 +1769,451 @@ def _sp_train_rank(comm, device, schedules, steps, batch, seq, micro):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE and SSD families at tp=1 (phases 14-16)
+# ---------------------------------------------------------------------------
+SSD_ARCH = "mamba2-130m"
+MOE_ARCH = "granite-moe-3b-a800m"
+# phase 14: SSD kernel cases: mamba2-130m's mixer (24 heads of 64, state
+# 128) at the slice's batch 1 x seq 4096, at a sequence shorter than a
+# chunk (the model's chunk is min(128, s)) and at batch 4
+SSD_CASES = [dict(name="slice", b=1, s=4096, h=24, p=64, n=128),
+             dict(name="short", b=2, s=96, h=24, p=64, n=128),
+             dict(name="batch", b=4, s=1024, h=24, p=64, n=128)]
+# phase 14: granite's expert products (tokens, D, F): w1/w3 and w2 at
+# 4,096 tokens (capacity 1,024), and w1 at 1,000 tokens (capacity 250, no
+# tile multiple)
+GMM_CASES = [("w1", 4096, 1536, 512), ("w2", 4096, 512, 1536),
+             ("ragged", 1000, 1536, 512)]
+# kernel vs plain version of both kernels: the plain version repeats the
+# f32 arithmetic in another order, so f32 agrees within 1e-5 of the
+# largest |value| (atol = FAMILY_TOL x max |want|); bf16 results are cast
+# once from f32 in both, so one bf16 ulp on top (rtol 2**-7)
+FAMILY_TOL = 1e-5
+FAMILY_RTOL = {"float32": 0.0, "bfloat16": 2 ** -7}
+# phase 15: the schedules each family is held to, card vs CPU: the
+# families' megatron without recomputation (phase 16's Trainer) and the
+# training default, oases (split 2: each sub-batch routes alone) with fine
+# recomputation (the MoE FFN and the SSD mixer replayed in the backward)
+FAMILY_SCHEDULES = {"megatron": dict(schedule="megatron", remat=False),
+                    "oases_fine": dict(schedule="oases", remat=True,
+                                       fine_remat=True)}
+# phase 16: the Trainer at each family's shape: (layers or None for all,
+# global batch, seq, microbatches); granite keeps 8 of its 32 layers (all
+# 32 are 3.37 B parameters at 20 bytes each, ~67 GB: bf16 weights and
+# gradients, the step's f32 gradients, f32 master weights and AdamW
+# moments; too much beside this batch's activations without
+# recomputation)
+FAMILY_TRAIN = {SSD_ARCH: (None, 4, 4096, 4), MOE_ARCH: (8, 8, 1024, 2)}
+FAMILY_STEPS = 8
+# phase 16: ``launch/train.py`` at each family's full depth with its
+# default schedule (oases, split 2, fine recomputation): (global batch,
+# seq, microbatches), each microbatch 2 sequences so both sub-batches run;
+# granite's 32 layers at a batch small enough beside its ~67 GB of state
+FAMILY_LAUNCH = {SSD_ARCH: (4, 4096, 2), MOE_ARCH: (2, 1024, 1)}
+FAMILY_LAUNCH_STEPS = 2
+
+
+def _family_check(name, got, want, dname):
+    """max |got - want| and its check against the family tolerance."""
+    atol = FAMILY_TOL * float(want.float().abs().max())
+    rtol = FAMILY_RTOL[dname]
+    err, ok = max_err(got, want, atol, rtol)
+    require(ok, f"{name}: max abs err {err} beyond atol {atol} + rtol "
+                f"{rtol}")
+    return err, atol
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, seed=5):
+    """Inputs at the mixer's scales: x ~ 0.5 N(0, 1), dt = softplus(N(0, 1)
+    - 2) (~0.13, so a chunk of 128 decays by ~e^-6 and the carried state
+    matters), A_log ~ -1, B and C ~ 0.3 N(0, 1), D ~ 1."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = (0.5 * rnd(b, s, h, p)).to(dtype)
+    dt = F.softplus(rnd(b, s, h) - 2.0)
+    A_log = -1.0 + 0.1 * rnd(h)
+    B, C = ((0.3 * rnd(b, s, n)).to(dtype) for _ in range(2))
+    D = 1.0 + 0.1 * rnd(h)
+    return x, dt, A_log, B, C, D
+
+
+def phase_family_kernels():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import moe_gmm_work, ssd_work
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.ssd import ssd_fwd
+    from repro_torch.models.moe import capacity
+
+    results = {"ssd": [], "moe_gmm": [], "flash_attention": [],
+               "flash_attention_bwd": []}
+    for case in SSD_CASES:
+        b, s_, h, p, n = (case[k] for k in ("b", "s", "h", "p", "n"))
+        q = min(128, s_)
+        for dname in ("float32", "bfloat16"):
+            ins = _ssd_inputs(b, s_, h, p, n, getattr(torch, dname))
+            got = ssd_fwd(*ins, chunk=q)
+            want = ref.ssd_ref(*ins, chunk=q)
+            torch.cuda.synchronize()
+            err, atol = _family_check(f"ssd {case['name']} {dname}", got,
+                                      want, dname)
+            nbytes, flops = ssd_work(b, s_, h, p, n, q,
+                                     ins[0].element_size())
+            bound = _bound(nbytes, flops, "float32")
+            row = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h, p=p,
+                       n=n, chunk=q, max_abs_err=err, atol=atol,
+                       rtol=FAMILY_RTOL[dname],
+                       ms=time_ms(lambda: ssd_fwd(*ins, chunk=q)),
+                       plain_ms=time_ms(lambda: ref.ssd_ref(*ins, chunk=q),
+                                        iters=10),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       bytes=nbytes, flops=flops, library_ms=None)
+            print(f"[ssd] {json.dumps(row)}")
+            results["ssd"].append(row)
+            del ins, got, want
+    e, k = 40, 8
+    for name, tokens, d, f in GMM_CASES:
+        c = capacity(tokens, k, e, 1.25)
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            x = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype)
+            w = (0.05 * torch.randn(e, d, f, generator=gen, device="cuda")
+                 ).to(dtype)
+            dy = torch.randn(e, c, f, generator=gen, device="cuda").to(dtype)
+            wt = w.transpose(1, 2).contiguous()
+            xt = x.transpose(1, 2).contiguous()
+            # the forward and the backward's two products (dx = dy w^T,
+            # dw = x^T dy), each one launch on its operands
+            for prod, (a, bmat) in (("fwd", (x, w)), ("dx", (dy, wt)),
+                                    ("dw", (xt, dy))):
+                got = moe_gmm(a, bmat)
+                want = ref.moe_gmm_ref(a, bmat)
+                torch.cuda.synchronize()
+                err, atol = _family_check(
+                    f"moe_gmm {name} {prod} {dname}", got, want, dname)
+                ee, cc, dd = a.shape
+                ff = bmat.shape[2]
+                nbytes, flops = moe_gmm_work(ee, cc, dd, ff, x.element_size())
+                bound = _bound(nbytes, flops, dname)
+                row = dict(case=name, product=prod, dtype=dname, e=ee, c=cc,
+                           d=dd, f=ff, tokens=tokens, max_abs_err=err,
+                           atol=atol, rtol=FAMILY_RTOL[dname],
+                           ms=time_ms(lambda: moe_gmm(a, bmat)),
+                           plain_ms=time_ms(lambda: ref.moe_gmm_ref(a, bmat)),
+                           bound_ms=bound[0], bound_by=bound[1],
+                           library_ms=time_ms(lambda: torch.bmm(a, bmat)))
+                print(f"[moe_gmm] {json.dumps(row)}")
+                results["moe_gmm"].append(row)
+                del got, want
+            del x, w, dy, wt, xt
+            torch.cuda.empty_cache()
+    # granite's attention: 24 q / 8 kv heads of 64 (a group of 3) at its
+    # training call's shape, b 4 x 1024: phase 5's case (its rows when
+    # phase 5 ran)
+    case = next(c for c in FLASH_CASES if c["name"] == "gqa3")
+    for dname in ("float32", "bfloat16"):
+        frow, brow = _flash_rows(case, dname)
+        results["flash_attention"].append(frow)
+        results["flash_attention_bwd"].append(brow)
+    return results
+
+
+def _record_routing(moe_mod, log):
+    """Wrap ``moe.route`` and ``moe.dispatch_positions`` so that each MoE
+    call appends its experts, kept mask and the gap between the k-th and
+    (k+1)-th routing probability of every token to ``log``; returns the
+    function that restores them."""
+    import torch
+    route, dispatch = moe_mod.route, moe_mod.dispatch_positions
+
+    def rec_route(x2d, router_w, top_k):
+        w, e, aux = route(x2d, router_w, top_k)
+        with torch.no_grad():
+            probs = torch.softmax(torch.matmul(x2d.float(),
+                                               router_w.float()), dim=-1)
+            top = probs.topk(top_k + 1, dim=-1).values
+        log.append(dict(experts=e.detach().cpu(),
+                        gap=(top[:, top_k - 1] - top[:, top_k]).cpu()))
+        return w, e, aux
+
+    def rec_dispatch(experts_flat, num_experts, cap):
+        posf, keep = dispatch(experts_flat, num_experts, cap)
+        log[-1]["keep"] = keep.detach().cpu()
+        return posf, keep
+
+    moe_mod.route, moe_mod.dispatch_positions = rec_route, rec_dispatch
+
+    def restore():
+        moe_mod.route, moe_mod.dispatch_positions = route, dispatch
+    return restore
+
+
+def _family_launches(cfg, passes: int, *, split: int = 1,
+                     remat: bool = False) -> dict:
+    """Kernel launches of ``passes`` forward + backward passes over
+    ``split`` sub-batches: per layer and sub-batch the norms (``ln`` and,
+    in attention layers, ``ln2``; in SSD layers the gated ``norm_g``)
+    forward and backward, SSD layers one SSD launch (its backward replays
+    the plain version), attention layers the flash forward and backward,
+    MoE FFNs 3 expert products forward and 2 each backward; ``final_ln``
+    once a pass on the merged batch.  Recomputation (fine or coarse: both
+    replay every forward kernel of the layer, since each one's output is
+    saved by the op after it) runs each layer's forward kernels twice."""
+    from repro_torch.configs.base import SSD
+    n, fwd = cfg.num_layers * split, 2 if remat else 1
+    want = {**SERVE_ONLY, "paged_decode": 0,
+            "rmsnorm": passes * (2 * n * fwd + 1),
+            "rmsnorm_bwd": passes * (2 * n + 1)}
+    if cfg.layer_pattern[0] == SSD:
+        want["ssd"] = passes * n * fwd
+    else:
+        want["flash_attention"] = passes * n * fwd
+        want["flash_attention_bwd"] = passes * n
+        if cfg.moe is not None:
+            want["moe_gmm"] = passes * n * (3 * fwd + 6)
+    return want
+
+
+def phase_family_consistency():
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import effective_split
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import params as prm
+
+    out = {}
+    batch_size, seq = 2, 256
+    for arch in (SSD_ARCH, MOE_ARCH):
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+        base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+        batch = make_batch(DataConfig(global_batch=batch_size, seq_len=seq,
+                                      vocab_size=cfg.vocab_size), 0)
+        for sched, hkw in FAMILY_SCHEDULES.items():
+            hp = TrainHParams(**hkw)
+            split = effective_split(hp.schedule, hp.split, batch_size)
+            out[f"{arch}/{sched}"] = _family_pair(
+                cfg, base, batch, hp, split, arch, sched)
+        del base
+    return out
+
+
+def _family_pair(cfg, base, batch, hp, split, arch, sched):
+    """One f32 forward + backward of ``lm.train_loss`` on the card and on
+    the CPU from the same weights and batch: routing token by token (every
+    MoE call, recomputations included), loss, aux, gradients and the card's
+    exact launches."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import params as prm
+
+    name = f"{arch} {sched}"
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        # a new leaf on each device (``to`` returns base's own tensor on
+        # the CPU, whose grad the next schedule would add to)
+        params = prm.unflatten({k: t.detach().to(dev).requires_grad_()
+                                for k, t in prm.flatten(base).items()})
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        log = []
+        restore = _record_routing(moe_mod, log)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            loss, aux = lm.train_loss(cfg, params, tb, hp)
+            loss.backward()
+        finally:
+            restore()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(
+            loss=loss.item(), aux=aux.item(), s=time.perf_counter() - t0,
+            launches=dict(_build.LAUNCHES), routing=log,
+            grads={k: None if t.grad is None else t.grad.detach().cpu()
+                   for k, t in prm.flatten(params).items()})
+    g, c = runs["cuda"], runs["cpu"]
+    bad = [k for k, t in g["grads"].items()
+           if t is None or not bool(torch.isfinite(t).all())]
+    require(not bad, f"{name}: missing or non-finite card gradients {bad}")
+    want = _family_launches(cfg, 1, split=split, remat=hp.remat)
+    require(g["launches"] == want,
+            f"{name}: card pass launched {g['launches']}, expected {want}")
+    require(not any(c["launches"].values()),
+            f"{name}: CPU pass launched kernels: {c['launches']}")
+    routing = None
+    if cfg.moe is not None:
+        # each layer routes once a sub-batch, and again in its replay
+        calls = cfg.num_layers * split * (2 if hp.remat else 1)
+        diffs = []
+        for call, (rg, rc) in enumerate(zip(g["routing"], c["routing"])):
+            tok = ((rg["experts"] != rc["experts"]).any(dim=1)
+                   | (rg["keep"] != rc["keep"]).reshape(
+                       rg["experts"].shape).any(dim=1))
+            for t in tok.nonzero()[:, 0].tolist():
+                diffs.append(dict(call=call, token=t,
+                                  card=rg["experts"][t].tolist(),
+                                  cpu=rc["experts"][t].tolist(),
+                                  gap_cpu=float(rc["gap"][t])))
+        routing = dict(calls=len(g["routing"]),
+                       tokens=int(g["routing"][0]["experts"].shape[0]),
+                       differing=diffs[:20], n_differing=len(diffs),
+                       min_gap=min(float(r["gap"].min())
+                                   for r in c["routing"]))
+        print(f"[family_routing] {name} {json.dumps(routing)}")
+        require(len(g["routing"]) == len(c["routing"]) == calls,
+                f"{name}: routed {len(g['routing'])} / "
+                f"{len(c['routing'])} times, expected {calls}")
+        require(not diffs, f"{name}: routing differs card vs CPU at "
+                           f"{len(diffs)} tokens (see above)")
+    loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    gerr = grads_err(c["grads"], g["grads"])
+    res = dict(arch=arch, schedule=hp.schedule, remat=hp.remat,
+               fine_remat=hp.fine_remat, split=split, layers=cfg.num_layers,
+               d_model=cfg.d_model, dtype="float32",
+               batch=int(batch["tokens"].shape[0]),
+               seq=int(batch["tokens"].shape[1]), loss_card=g["loss"],
+               loss_cpu=c["loss"], aux_card=g["aux"], aux_cpu=c["aux"],
+               loss_rel_err=loss_rel, loss_rtol=LOSS_RTOL,
+               grads_err=gerr, grads_tol=GRADS_TOL,
+               worst_leaf=max(c["grads"], key=lambda k: grads_err(
+                   {k: c["grads"][k]}, {k: g["grads"][k]})),
+               launches=g["launches"], routing=routing,
+               card_s=g["s"], cpu_s=c["s"])
+    print(f"[family_consistency] {json.dumps(res)}")
+    require(loss_rel <= LOSS_RTOL,
+            f"{name}: loss card {g['loss']} vs CPU {c['loss']}: rel "
+            f"{loss_rel}")
+    require(abs(g["aux"] - c["aux"]) <= 1e-6,
+            f"{name}: aux card {g['aux']} vs CPU {c['aux']}")
+    require(gerr <= GRADS_TOL, f"{name}: grads_err {gerr} > {GRADS_TOL}")
+    return res
+
+
+def phase_family_train():
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.runtime import Trainer
+
+    out = {}
+    for arch, (layers, batch, seq, micro) in FAMILY_TRAIN.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        steps = FAMILY_STEPS
+        hp = TrainHParams(learning_rate=3e-4, total_steps=steps,
+                          warmup_steps=max(steps // 20, 1),
+                          microbatch=micro, **TP1_SCHEDULE)
+        tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None)
+        require(tr.device.type == "cuda", f"trainer chose {tr.device}")
+        _build.reset_launches()
+        first = tr.train(1, seed=0)
+        leaves = prm.flatten(tr.params)
+        bad = [k for k, t in leaves.items()
+               if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+        require(not bad, f"{arch}: missing or non-finite gradients after "
+                         f"step 1: {bad}")
+        rest = tr.train(steps, seed=0)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = first["losses"] + rest["losses"]
+        times = first["step_times"] + rest["step_times"]
+        require(len(losses) == steps and all(np.isfinite(losses)),
+                f"{arch}: losses {losses}")
+        want = _family_launches(cfg, steps * micro)
+        require(launches == want,
+                f"{arch}: train launched {launches}, expected {want}")
+        med = statistics.median(1e3 * t for t in times[2:])
+        res = dict(arch=arch, dtype=cfg.dtype, layers=cfg.num_layers,
+                   d_model=cfg.d_model,
+                   params=sum(t.numel() for t in leaves.values()),
+                   batch=batch, seq=seq, microbatch=micro, steps=steps,
+                   losses=losses, step_ms=[1e3 * t for t in times],
+                   step_ms_median=med,
+                   tokens_per_s=batch * seq / (med / 1e3),
+                   peak_mem_gb=peak / 1e9, launches=launches,
+                   launches_per_step={k: v / steps for k, v in
+                                      launches.items() if v})
+        print(f"[family_train] {json.dumps(res)}")
+        res["profile"] = _profile_train_step(tr)
+        print(f"[family_train_profile] {arch} {json.dumps(res['profile'])}")
+        del tr, first, rest, leaves
+        torch.cuda.empty_cache()
+        res["launcher"] = _family_launcher(arch)
+        out[arch] = res
+    return out
+
+
+def _family_launcher(arch) -> dict:
+    """``launch/train.py --arch <arch>`` with its defaults (oases, split
+    2, fine recomputation) at the family's full depth and FAMILY_LAUNCH's
+    batch: finite losses and the exact launches of its steps."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import effective_split
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launcher
+
+    batch, seq, micro = FAMILY_LAUNCH[arch]
+    steps = FAMILY_LAUNCH_STEPS
+    cfg = get_config(arch)
+    hp = TrainHParams()
+    split = effective_split(hp.schedule, hp.split, batch // max(micro, 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launcher.main(["--arch", arch, "--steps", str(steps), "--batch",
+                       str(batch), "--seq", str(seq), "--microbatch",
+                       str(micro)])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    text = buf.getvalue()                   # the trainer's log, then JSON
+    res = dict(json.loads(text[text.index("{"):]), arch=arch,
+               layers=cfg.num_layers, batch=batch, seq=seq,
+               microbatch=micro, steps=steps, schedule=hp.schedule,
+               split=split, fine_remat=hp.remat and hp.fine_remat,
+               s=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    print(f"[family_launcher] {json.dumps(res)}")
+    require(np.isfinite([res["first_loss"], res["last_loss"]]).all(),
+            f"{arch}: launcher losses {res}")
+    want = _family_launches(cfg, steps * max(micro, 1), split=split,
+                            remat=hp.remat)
+    require(launches == want,
+            f"{arch}: launcher launched {launches}, expected {want}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def _path_launches(report) -> dict:
     """Each main path's launches per kernel, counted from 0 over the path's
     run: serve (phase 4), one-device training (phase 7), tensor-parallel
-    training (phase 10) and ring-attention training (phase 13), rank 0
-    over all schedules and steps for the last two."""
+    training (phase 10), ring-attention training (phase 13), rank 0
+    over all schedules and steps for the last two, and the families'
+    training (phase 16, both families' Trainer and launcher runs)."""
     paths = {}
     if "serve" in report:
         paths["serve"] = report["serve"]["launches"]
@@ -1723,6 +2227,13 @@ def _path_launches(report) -> dict:
                 for k, v in r["launches_per_step"].items():
                     tot[k] = tot.get(k, 0) + int(round(v * steps))
             paths[path] = tot
+    if "family_train" in report:
+        tot = {}
+        for r in report["family_train"].values():
+            for run in (r, r["launcher"]):
+                for k, v in run["launches"].items():
+                    tot[k] = tot.get(k, 0) + v
+        paths["families"] = tot
     return paths
 
 
@@ -1804,6 +2315,15 @@ def _kernels_line(report) -> dict:
             "src/repro/kernels/ring_attention.py:218", row,
             shape={k: row[k] for k in ("b", "s", "sq", "h", "kvh", "hd")},
             rank=row["rank"])
+    if "family_kernels" in report:
+        fk = report["family_kernels"]
+        row = pick(fk["ssd"], case="slice", dtype="bfloat16")
+        add("ssd", "ssd.cu", "src/repro/kernels/ssd.py:25", row,
+            shape={k: row[k] for k in ("b", "s", "h", "p", "n", "chunk")})
+        row = pick(fk["moe_gmm"], case="w1", product="fwd",
+                   dtype="bfloat16")
+        add("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19", row,
+            shape=[row["e"], row["c"], row["d"], row["f"]])
     return {"kernels": rows}
 
 
@@ -1816,7 +2336,10 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           10: ("tp_train", phase_tp_train),
           11: ("ring_kernels", phase_ring_kernels),
           12: ("sp_consistency", phase_sp_consistency),
-          13: ("sp_train", phase_sp_train)}
+          13: ("sp_train", phase_sp_train),
+          14: ("family_kernels", phase_family_kernels),
+          15: ("family_consistency", phase_family_consistency),
+          16: ("family_train", phase_family_train)}
 
 
 def main(argv=None) -> int:

@@ -1,17 +1,19 @@
 """Architecture and training configuration: the port's own copies of the
-part of ``repro.configs.base.ArchConfig`` that dense all-global-attention
-models use, and of the ``TrainHParams`` fields its training path honours.
-Field names and derived values match the JAX package's, so a config
-means the same model in both; the fields of the other families (MoE, SSM,
-RG-LRU, local windows, encoders) arrive with their layer kinds."""
+part of ``repro.configs.base.ArchConfig`` that its families use (dense
+all-global-attention models, MoE and the Mamba2 SSD mixer), and of the
+``TrainHParams`` fields its training path honours.  Field names and
+derived values match the JAX package's, so a config means the same model
+in both; the fields of the other families (RG-LRU, local windows,
+encoders) arrive with their layer kinds."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 # Layer kinds used in ``layer_pattern`` (repeating cycle over the stack).
 GLOBAL_ATTN = "global"      # full causal self attention
+SSD = "ssd"                 # Mamba2 state-space-duality mixer
 
 
 def _round_up(x: int, m: int) -> int:
@@ -19,9 +21,20 @@ def _round_up(x: int, m: int) -> int:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    # 'ep'  -> experts sharded over the model axis (needs E % tp == 0)
+    # 'tmp' -> all experts on every rank, expert d_ff sharded
+    sharding: str = "ep"
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | ...
+    family: str                      # dense | moe | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,6 +46,12 @@ class ArchConfig:
     attn_softcap: float = 0.0        # attention logit softcap (0 = off)
     final_softcap: float = 0.0       # final logit softcap (0 = off)
     rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
+    # SSM (mamba2) params
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
     tie_embeddings: bool = False
     post_norms: bool = False         # sandwich norms
     norm_eps: float = 1e-5
@@ -54,7 +73,7 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the values of the JAX
         package's ``ArchConfig.reduced`` for these fields)."""
-        return self.replace(
+        kw = dict(
             name=self.name + "-smoke",
             num_layers=min(self.num_layers, 2 * len(self.layer_pattern)),
             d_model=128,
@@ -63,7 +82,13 @@ class ArchConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=32,
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(self.moe, num_experts=4, top_k=2)
+            kw["d_ff"] = 64
+        return self.replace(**kw)
 
 
 @dataclass(frozen=True)

@@ -84,6 +84,14 @@ def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
     return Pending(y, box.pop().wait)
 
 
+def checkpoint_body(body: Callable, *args):
+    """Fine recomputation of an exit-less part (the MoE FFN at tp=1, whose
+    reduce is the identity): ``body(*args, None)`` runs under a checkpoint
+    and its replay recomputes the whole body, as JAX's policy, which keeps
+    only the collective outputs, does."""
+    return checkpoint(body, *args, None, use_reentrant=False)
+
+
 def checkpoint_layer(layer: Callable, *args):
     """Run a whole layer under a checkpoint whose replay is the whole
     layer, collectives included (coarse recomputation)."""

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -220,28 +220,45 @@ class Part:
     fine-recomputation state of the call
     (:class:`~repro_torch.core.remat.Keep`, None outside it): a body that
     holds an op whose replay must not run again (ring attention) passes it
-    to that op."""
+    to that op.
+
+    An exit-less part (``exit`` None) has a body that returns the residual
+    delta itself and its auxiliary loss, ``(delta, aux)``: the MoE FFN,
+    whose combine is its exit and whose reduce is the identity at tp=1."""
     body: Callable
-    exit: str
+    exit: Optional[str] = None
     collective: bool = True
 
 
 def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
                 positions: List[torch.Tensor], ctx: TmpCtx, *,
-                fine: bool = False) -> List[torch.Tensor]:
+                fine: bool = False
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Run one layer's residual parts over the sub-batches in Alg. 1's
     program order: for each part, (compute_j, collective_j) for every
     sub-batch j, then the residual adds.  Under ``oases`` collective_j is
     started and waited for only at sub-batch j's residual add, so it is
     independent of compute_{j+1}.  ``fine`` runs each part's body and exit
     under a checkpoint whose replay skips the exit
-    (:func:`repro_torch.core.remat.checkpoint_part`)."""
+    (:func:`repro_torch.core.remat.checkpoint_part`); an exit-less part's
+    replay is its whole body (:func:`repro_torch.core.remat.
+    checkpoint_body`).  -> (xs, aux): the parts' auxiliary losses summed
+    over parts and sub-batches (f32 scalar, JAX's ``aux_total``)."""
     def part_exit(part, keep, p, x, pos):
         exit_op = ctx.row_matmul if part.collective else ctx.local_matmul
         return exit_op(part.body(p, x, pos, keep), p[part.exit],
                        replay=keep is not None and keep.replay)
 
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     for part in parts:
+        if part.exit is None:
+            outs = [remat.checkpoint_body(part.body, p, x, pos) if fine
+                    else part.body(p, x, pos, None)
+                    for x, pos in zip(xs, positions)]
+            xs = [x + d for x, (d, _) in zip(xs, outs)]
+            for _, a in outs:
+                aux = aux + a
+            continue
         run = functools.partial(part_exit, part)
         pend = [remat.checkpoint_part(run, p, x, pos) if fine
                 else run(None, p, x, pos)
@@ -249,4 +266,4 @@ def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
         xs = [x + d.wait() for x, d in zip(xs, pend)]
     if ctx.schedule == "merak":
         xs = [tmpc.pass_barrier(x) for x in xs]
-    return xs
+    return xs, aux

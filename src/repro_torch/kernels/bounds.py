@@ -4,9 +4,10 @@ over the card's memory rate and its operations over the peak rate for
 their type (NVIDIA's data sheet, H100 SXM, dense, at 700 W).
 
 ``python -m repro_torch.kernels.bounds`` prints the bounds of the ring
-attention kernel (PERF.md row 6) and of the TPU kernels not ported yet
-(rows 7-9), each at a named shape of a configuration that runs or would
-run it, worked out from the Pallas kernel's code.
+attention kernel (PERF.md row 6), of the grouped matmul and the SSD
+(rows 7-8) and of the TPU kernel not ported yet (row 9), each at a named
+shape of a configuration that runs or would run it.  ``chip_smoke.py``
+computes its bounds from the same work functions at its own inputs.
 """
 from __future__ import annotations
 
@@ -54,6 +55,13 @@ def ring_attention_slice() -> Dict:
                      2, 4096, 2)
 
 
+def moe_gmm_work(e: int, c: int, d: int, f: int, elt: int
+                 ) -> Tuple[int, int]:
+    """(bytes, flops) of x [e, c, d] @ w [e, d, f] -> [e, c, f]: reads x
+    and w once, writes the output; 2 c d f flops an expert."""
+    return elt * (e * c * d + e * d * f + e * c * f), 2 * e * c * d * f
+
+
 def moe_gmm() -> Dict:
     """``moe_gmm.py:19`` ``_kernel``: granite-moe-3b-a800m (40 experts,
     top 8, d 1536, expert d_ff 512), 4,096 tokens: capacity
@@ -62,23 +70,32 @@ def moe_gmm() -> Dict:
     [40, 1536, 512], bf16."""
     e, d, f, t, k = 40, 1536, 512, 4096, 8
     c = max(8, math.ceil(t * k / e * 1.25))
-    flops = 2 * e * c * d * f
-    nbytes = 2 * (e * c * d + e * d * f + e * c * f)
+    nbytes, flops = moe_gmm_work(e, c, d, f, 2)
     return _row("moe_gmm", f"granite-moe-3b-a800m, 4096 tokens, C {c}",
                 nbytes, flops, "bfloat16")
 
 
+def ssd_work(b: int, s: int, h: int, p: int, n: int, q: int, elt: int
+             ) -> Tuple[int, int]:
+    """(bytes, flops) of the chunked SSD's y: reads x (``elt`` bytes a
+    value), dt (f32), B and C (``elt``) and A_log, D once, writes y.  The
+    least arithmetic: per (batch, chunk) C B^T over the q (q + 1) / 2 causal
+    pairs once (B and C are shared by the heads), and per head the masked
+    product with dt x over the same pairs, C S^T and the chunk state (2 q
+    n p each)."""
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    flops = b * nc * (2 * pairs * n + h * (2 * pairs * p + 4 * q * n * p))
+    nbytes = (elt * (2 * b * s * h * p + 2 * b * s * n) + 4 * b * s * h
+              + 8 * h)
+    return nbytes, flops
+
+
 def ssd() -> Dict:
     """``ssd.py:25`` ``_kernel``: mamba2-130m (d_inner 1536 = 24 heads of
-    64, state 128), batch 1, seq 4096, chunk 128.  Per (head, chunk):
-    C B^T (2 q^2 n), the masked product with dt*x (2 q^2 p), C S^T and the
-    state update (2 q n p each); f32 math.  Reads dt*x and the log-decay
-    (f32, [b, h, s, p] and [b, h, s]) and B, C (bf16 [b, s, n]); writes y
-    (bf16 [b, h, s, p])."""
-    h, p, n, s, q = 24, 64, 128, 4096, 128
-    chunks = h * (s // q)
-    flops = chunks * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
-    nbytes = 4 * (h * s * p + h * s) + 2 * 2 * s * n + 2 * h * s * p
+    64, state 128), batch 1, seq 4096, chunk 128, bf16 x, B, C and y
+    (:func:`ssd_work`); f32 math, so the f32 peak."""
+    nbytes, flops = ssd_work(1, 4096, 24, 64, 128, 128, 2)
     return _row("ssd", "mamba2-130m, batch 1, seq 4096, chunk 128",
                 nbytes, flops, "float32")
 

@@ -21,6 +21,8 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                     paged_decode_attention_ref)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
+# query heads per KV head that the paged decode kernel is compiled for;
+# the training kernels take any group at run time
 GROUPS = (1, 2, 4, 8)
 HEAD_DIMS = (32, 64, 128)
 
@@ -95,8 +97,9 @@ def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None
                   ) -> bool:
     """``_build.on_cpu`` (over ``tensors`` and ``lse``), and on CUDA what
     the kernels take: one f32 or bf16 dtype for ``tensors`` (``lse`` is
-    f32, checked by the caller), h/kvh and hd among the compiled
-    instances, contiguity."""
+    f32, checked by the caller), hd among the compiled instances (any
+    group h/kvh: ``_flash_check`` has checked that kvh divides h),
+    contiguity."""
     extra = () if lse is None else (lse,)
     if _build.on_cpu(what, *tensors, *extra):
         return True
@@ -105,12 +108,10 @@ def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None
         raise TypeError(
             "flash_attention kernels take f32 or bf16 tensors of one dtype, "
             f"got {[t.dtype for t in tensors]}")
-    b, s, h, hd = tensors[0].shape
-    kvh = tensors[1].shape[2]
-    if h // kvh not in GROUPS or hd not in HEAD_DIMS:
+    hd = tensors[0].shape[3]
+    if hd not in HEAD_DIMS:
         raise ValueError(
-            f"flash_attention kernels support h/kvh in {GROUPS} and hd in "
-            f"{HEAD_DIMS}, got h={h} kvh={kvh} hd={hd}")
+            f"flash_attention kernels support hd in {HEAD_DIMS}, got {hd}")
     if not all(t.is_contiguous() for t in (*tensors, *extra)):
         raise ValueError("flash_attention kernels take contiguous tensors")
     return False

@@ -6,7 +6,7 @@ plain version on the card.  They run on any device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -254,3 +254,111 @@ def all_reduce_ref(xs, op: str = "sum") -> torch.Tensor:
 def all_gather_ref(xs, dim: int = 0) -> torch.Tensor:
     """The all-gather of every rank's tensor along ``dim``, in rank order."""
     return torch.cat(list(xs), dim=dim)
+
+
+def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product x [E, C, D] @ w [E, D, F] -> [E, C, F] with f32
+    products and sums, cast once to x's dtype
+    (``repro.kernels.ref.moe_gmm_ref``)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+            chunk: int = 128) -> torch.Tensor:
+    """y of the chunked SSD (:func:`ssd_chunked`, the arithmetic of the TPU
+    kernel ``ssd.py:25`` with the D skip added in f32 before the one cast
+    to x's dtype): x [b, s, h, p]; dt [b, s, h]; A_log, D [h]; B, C
+    [b, s, n] -> [b, s, h, p].  The sequential oracle is
+    :func:`ssd_sequential`."""
+    return ssd_chunked(x, dt, A_log, B, C, D, chunk=chunk)[0]
+
+
+# Mamba2 SSD (``repro.models.ssd``).  JAX writes the products as
+# three-operand einsums (``ssd.py:52, 56, 73``).  ``torch.einsum``
+# contracts pairwise and may build a [b, c, i, j, h, p] intermediate
+# (6.4 GB f32 at b 4, s 2048, h 24, p 64), so each is spelled here as an
+# elementwise product followed by one batched matrix product.
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                chunk: int = 128, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [b, s, h, p]; dt [b, s, h] (post-softplus step); A_log [h];
+    B, C [b, s, n]; D [h] skip -> (y [b, s, h, p] in x's dtype, final
+    state [b, h, p, n] f32).  f32 math throughout.
+
+    Per head: ``S_t = exp(-exp(A_log) dt_t) S_{t-1} + dt_t x_t B_t^T`` and
+    ``y_t = S_t C_t + D x_t``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must divide by chunk {q}")
+    nc = s // q
+
+    xf = x.float()
+    a = -torch.exp(A_log.float())                            # [h], a < 0
+    dta = dt.float() * a                                     # [b, s, h]
+    x_c = (xf * dt.float()[..., None]).reshape(b, nc, q, h, p)
+    B_c = B.float().reshape(b, nc, q, n)
+    C_c = C.float().reshape(b, nc, q, n)
+
+    la = torch.cumsum(dta.reshape(b, nc, q, h), dim=2)       # [b,c,q,h]
+    la_last = la[:, :, -1:, :]
+
+    # intra-chunk: y_i = sum_{j<=i} (C_i . B_j) exp(la_i - la_j) dt_j x_j.
+    # The exponent is masked before exp, so the masked entries are exact
+    # zeros with zero gradient (JAX masks after exp; the same values)
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]       # [b,c,i,j,h]
+    mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = torch.exp(diff.masked_fill(~mask[:, :, None], float("-inf")))
+    cb = torch.matmul(C_c, B_c.transpose(-1, -2))            # [b,c,i,j]
+    w = (cb[..., None] * seg).permute(0, 1, 4, 2, 3)         # [b,c,h,i,j]
+    y_intra = torch.matmul(w, x_c.permute(0, 1, 3, 2, 4))    # [b,c,h,i,p]
+
+    # chunk states: S_c = sum_j exp(la_last - la_j) dt_j x_j B_j^T
+    decay_to_end = torch.exp(la_last - la)                   # [b,c,q,h]
+    xw = (decay_to_end[..., None] * x_c).permute(0, 1, 3, 4, 2)  # [b,c,h,p,j]
+    S = torch.matmul(xw, B_c[:, :, None])                    # [b,c,h,p,n]
+
+    # inter-chunk recurrence over the chunk states (the state before each)
+    chunk_decay = torch.exp(la_last[:, :, 0, :])             # [b,c,h]
+    carry = (h0.float() if h0 is not None
+             else x.new_zeros(b, h, p, n, dtype=torch.float32))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + S[:, c]
+    prev_states = torch.stack(prev, dim=1)                   # [b,c,h,p,n]
+
+    # inter-chunk: y_i += exp(la_i) C_i . S_prev
+    y_inter = torch.matmul(C_c[:, :, None],
+                           prev_states.transpose(-1, -2))    # [b,c,h,i,p]
+    y_inter = y_inter * torch.exp(la).permute(0, 1, 3, 2)[..., None]
+
+    y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
+    y = y + D.float()[:, None] * xf
+    return y.to(x.dtype), carry
+
+
+def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The O(s) recurrence, step by step (the oracle): same inputs and
+    outputs as :func:`ssd_chunked`."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    a = -torch.exp(A_log.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    S = (h0.float() if h0 is not None
+         else x.new_zeros(b, h, p, n, dtype=torch.float32))
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)                     # [b, h]
+        upd = (xf[:, t] * dtf[:, t, :, None])[..., None] \
+            * Bf[:, t, None, None, :]                        # [b, h, p, n]
+        S = S * decay[..., None, None] + upd
+        ys.append(torch.matmul(S, Cf[:, t, None, :, None])[..., 0])
+    y = torch.stack(ys, dim=1) + D.float()[:, None] * xf
+    return y.to(x.dtype), S

@@ -1,11 +1,15 @@
-"""One GLOBAL_ATTN + SwiGLU layer: the training residual parts of
-``repro.models.blocks`` over a :class:`~repro_torch.core.schedule.TmpCtx`
-(each rank runs its ``h_local`` heads and ``d_ff / tp`` columns; the
-entries go through ``ctx.gather_matmul`` and the exits through
-``ctx.row_matmul``, which take the sequence-parallel forms under SP; with
-``seq_shard`` > 1 the attention part is the ring part), and the decode
-step on a paged KV cache (``decode_fn``, tp=1).  Plain matrix products
-stay ``torch.matmul``, as the JAX package left them to XLA."""
+"""Layers: the training residual parts of ``repro.models.blocks`` over a
+:class:`~repro_torch.core.schedule.TmpCtx` and the decode step on a paged
+KV cache (``decode_fn``, tp=1, GLOBAL_ATTN + SwiGLU).
+
+A GLOBAL_ATTN layer is an attention part and an FFN part: each rank runs
+its ``h_local`` heads and ``d_ff / tp`` columns; the entries go through
+``ctx.gather_matmul`` and the exits through ``ctx.row_matmul``, which
+take the sequence-parallel forms under SP; with ``seq_shard`` > 1 the
+attention part is the ring part.  The FFN is SwiGLU or, in the MoE
+family, the MoE FFN (tp=1: an exit-less part).  An SSD layer is the Mamba2
+mixer alone (tp=1).  Plain matrix products stay ``torch.matmul``, as the
+JAX package left them to XLA."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -13,14 +17,17 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SSD, ArchConfig
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
 from repro_torch.kernels.ring_attention import ring_attention
+from repro_torch.kernels.ssd import ssd
 from repro_torch.models.attention import (chunked_attention,
                                          paged_decode_attention, rope)
-from repro_torch.models.params import attn_plan
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.params import attn_plan, ssd_dims
+from repro_torch.models.rglru import depthwise_conv1d
 
 
 def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -73,13 +80,17 @@ def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
 
 
 def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
-    """The layer's two residual parts (``blocks.py`` ``make_attn_part`` for
-    GLOBAL_ATTN and ``make_mlp_part``, 1-D, no post-norms).  A part's body
-    runs from its input to its exit product's input; the schedule runs the
-    exit (``wo``, ``wd``) and its collective.  Under SP a part's input is
-    this rank's sequence chunk: the entry gathers the sequence and the
-    exit scatters it.  With ``seq_shard`` > 1 the attention part is
-    :func:`ring_part`'s."""
+    """The layer's residual parts by kind (``blocks.py`` ``train_parts``,
+    1-D, no post-norms): GLOBAL_ATTN gives ``make_attn_part`` and
+    ``make_mlp_part`` (:func:`moe_part` for MoE configs), SSD gives
+    :func:`ssd_part` alone.  A part's body runs from its input to its exit
+    product's input; the schedule runs the exit (``wo``, ``wd``) and its
+    collective.  Under SP a part's input is this rank's sequence chunk:
+    the entry gathers the sequence and the exit scatters it.  With
+    ``seq_shard`` > 1 the attention part is :func:`ring_part`'s."""
+    if cfg.layer_pattern[0] == SSD:
+        return [ssd_part(cfg)]
+
     def attn_body(p, x, positions, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         q, k, v = _qkv(cfg, ctx, p, h, positions)
@@ -95,7 +106,53 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
 
     attn = (ring_part(cfg, ctx) if ctx.seq_shard > 1
             else Part(attn_body, "wo"))
-    return [attn, Part(mlp_body, "wd")]
+    return [attn, moe_part(cfg) if cfg.moe is not None
+            else Part(mlp_body, "wd")]
+
+
+def moe_part(cfg: ArchConfig) -> Part:
+    """The MoE FFN part (``blocks.py:181-197``) at tp=1: norm, then
+    :func:`~repro_torch.models.moe.moe_ffn`; an exit-less part whose
+    aux is the router's load-balance loss times ``router_aux_weight``."""
+    moe = cfg.moe
+
+    def moe_body(p, x, positions, keep):
+        delta, aux = moe_ffn(
+            rms_norm(x, p["ln2"], cfg.norm_eps),
+            {k: p[k] for k in ("router", "w1", "w3", "w2")},
+            num_experts=moe.num_experts, top_k=moe.top_k,
+            cap_factor=moe.capacity_factor)
+        return delta, aux * moe.router_aux_weight
+
+    return Part(moe_body)
+
+
+def ssd_part(cfg: ArchConfig) -> Part:
+    """The Mamba2 mixer (``blocks.py:244-272``) at tp=1: norm, ``in_proj``,
+    split into z, xBC and dt, causal depthwise conv and SiLU on xBC,
+    ``softplus(dt + dt_bias)``, the SSD kernel (chunk ``min(128, s)``),
+    the gated RMSNorm (``norm_g``, times SiLU(z)), then a local
+    ``out_proj`` exit with no collective, like :func:`ring_part`'s."""
+    d_inner, nheads, n = ssd_dims(cfg)
+
+    def ssd_body(p, x, positions, keep):
+        proj = torch.matmul(rms_norm(x, p["ln"], cfg.norm_eps),
+                            p["in_proj"])
+        z = proj[..., :d_inner]
+        xbc = proj[..., d_inner:2 * d_inner + 2 * n]
+        dtp = proj[..., 2 * d_inner + 2 * n:]
+        xbc = F.silu(depthwise_conv1d(xbc, p["conv"])[0])
+        b, s, _ = proj.shape
+        xh = xbc[..., :d_inner].reshape(b, s, nheads, cfg.ssm_headdim)
+        B = xbc[..., d_inner:d_inner + n]
+        C = xbc[..., d_inner + n:]
+        dt = F.softplus(dtp.float() + p["dt_bias"])
+        y = ssd(xh, dt, p["A_log"], B, C, p["Dskip"], chunk=min(128, s))
+        y = y.reshape(b, s, d_inner)
+        return rms_norm(y, p["norm_g"], cfg.norm_eps) * F.silu(
+            z.to(y.dtype))
+
+    return Part(ssd_body, "out_proj", collective=False)
 
 
 def ring_part(cfg: ArchConfig, ctx: TmpCtx) -> Part:

@@ -18,7 +18,8 @@ from repro_torch.core.schedule import (TmpCtx, apply_layer, effective_split,
 from repro_torch.core.tmp import (greedy_token, rms_norm,
                                   vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
-from repro_torch.models.params import check_supported, check_tp
+from repro_torch.models.params import (check_servable, check_supported,
+                                       check_tp, head_weight)
 
 
 def train_layout(cfg: ArchConfig, hp: TrainHParams, tp: int,
@@ -70,7 +71,10 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
     :func:`~repro_torch.core.schedule.apply_layer` under the recomputation
     policy of ``hp`` (``repro_torch.core.remat``), the merge, the SP
     all-gather of the sequence, the final norm and the vocab-parallel
-    cross entropy.  Dense models have no auxiliary loss (aux = 0)."""
+    cross entropy over the head (``embed.T`` when tied).  ``aux`` is the
+    parts' auxiliary loss (the MoE router's) summed over layers and
+    sub-batches and divided by the layer count, and is added to the
+    loss, as in JAX (``lm.py:438-440``); 0 for dense and SSD models."""
     check_supported(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     b, s = tokens.shape
@@ -97,23 +101,26 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
     pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
 
     def layer(p, *xs_in):
-        return tuple(apply_layer(parts, p, list(xs_in), positions, ctx,
-                                 fine=pol == "fine"))
+        out, aux_l = apply_layer(parts, p, list(xs_in), positions, ctx,
+                                 fine=pol == "fine")
+        return (*out, aux_l)
 
     per_layer = {name: t.unbind(0)
                  for name, t in params["blocks"][0].items()}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
         p = {name: ts[i] for name, ts in per_layer.items()}
         if pol == "coarse":
-            xs = list(remat.checkpoint_layer(layer, p, *xs))
+            *xs, aux_l = remat.checkpoint_layer(layer, p, *xs)
         else:
-            xs = list(layer(p, *xs))
+            *xs, aux_l = layer(p, *xs)
+        aux = aux + aux_l
     x = ctx.gather_seq(merge_tree(xs))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(
-        x, params["lm_head"], labels, chunk=hp.loss_chunk,
+        x, head_weight(params), labels, chunk=hp.loss_chunk,
         softcap=cfg.final_softcap, comm=ctx.comm, sp=ctx.sp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = aux / max(cfg.num_layers, 1)
     return loss_sum / count + aux, aux
 
 
@@ -135,7 +142,7 @@ def last_logits(cfg: ArchConfig, params: Dict[str, Any],
     """x_last [b, d] -> f32 logits over the padded vocab.  Like
     ``lm._last_logits`` this casts the whole head to f32 each call (a
     transient copy of the [d, V] head)."""
-    logits = torch.matmul(x_last.float(), params["lm_head"].float())
+    logits = torch.matmul(x_last.float(), head_weight(params).float())
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -150,7 +157,7 @@ def decode_step(cfg: ArchConfig, params: Dict[str, Any],
     """tokens [b] int32, pos [b] int32, tables [b, nb] int32 -> next token
     [b] int32.  ``state`` (the page pools of :func:`params.zeros_state`) is
     updated in place: copy-on-write pages first, then each layer's k/v."""
-    check_supported(cfg)
+    check_servable(cfg)
     if cow_src is not None and cow_src.numel():
         apply_cow(state, cow_src, cow_dst)
     x = vocab_parallel_embed(tokens[:, None], params["embed"])

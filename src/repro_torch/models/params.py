@@ -6,7 +6,8 @@ tp > 1 each rank holds its shard of every sharded leaf, see
 :func:`shard_params`):
 ``{"embed", "final_ln", "lm_head", "blocks": [{...}]}`` where every block
 leaf carries the stacked ``[n, ...]`` leading dim of
-``repro.models.params``.  Flat names are the JAX ``keystr`` paths
+``repro.models.params`` (no ``lm_head`` with tied embeddings: the head is
+``embed.T``).  Flat names are the JAX ``keystr`` paths
 (``"['blocks'][0]['wq']"``), so :func:`from_flat` reads
 ``repro.models.params.tree_to_flat`` output without remapping.
 """
@@ -19,7 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import GLOBAL_ATTN, ArchConfig
+from repro_torch.configs.base import GLOBAL_ATTN, SSD, ArchConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -28,21 +29,47 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class Spec:
     shape: Tuple[int, ...]
     f32: bool = False            # stored in f32 whatever the model dtype
-    scale: float = 0.02          # init stddev; 0 -> zeros
+    # init stddev; 0 -> zeros; -1 -> the constant -1 for f32 leaves and 1
+    # otherwise (JAX ``init_params``' gate/decay init)
+    scale: float = 0.02
+
+
+# the ROADMAP.md items that name what the two families of slice 5 lack
+FAMILY_TP_ITEM = ("ROADMAP.md A10, MoE and SSD at tp > 1: MoE 'tmp' and "
+                  "'ep', the replicated SSD mixer")
+FAMILY_SERVE_ITEM = "ROADMAP.md A10, MoE and SSD serving"
 
 
 def check_supported(cfg: ArchConfig):
-    """The slice runs dense all-global-attention models only."""
-    other = sorted(set(cfg.layer_pattern) - {GLOBAL_ATTN})
+    """The port trains dense all-global-attention models, the MoE family
+    (global attention with an MoE FFN) and the Mamba2 SSD family, all
+    single-kind patterns."""
+    other = sorted(set(cfg.layer_pattern) - {GLOBAL_ATTN, SSD})
     unsupported = [what for what, on in (
         (f"layer kinds {other}", other),
+        ("mixed layer patterns", len(set(cfg.layer_pattern)) > 1),
         ("post-norms", cfg.post_norms),
-        ("tied embeddings", cfg.tie_embeddings),
+        ("MoE in SSD layers",
+         cfg.moe is not None and SSD in cfg.layer_pattern),
     ) if on]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not run {', '.join(unsupported)} "
             f"yet (ROADMAP.md queue A, other model families)")
+
+
+def is_family(cfg: ArchConfig) -> bool:
+    """An MoE or SSD config (slice 5: tp=1 training only)."""
+    return cfg.moe is not None or SSD in cfg.layer_pattern
+
+
+def check_servable(cfg: ArchConfig):
+    """Serving runs the dense all-global-attention models only."""
+    check_supported(cfg)
+    if is_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not serve MoE or SSD models "
+            f"yet ({FAMILY_SERVE_ITEM})")
 
 
 @dataclass(frozen=True)
@@ -79,9 +106,14 @@ def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
     """The 1-D layout the port runs: heads (unless ring attention
     replicates the attention weights), d_ff and the padded vocab divide by
     tp (JAX falls back to replicated projections otherwise; the port does
-    not take that path yet).  Ring attention (``seq_shard`` > 1) raises
+    not take that path yet).  MoE and SSD configs run at tp=1 only.
+    Ring attention (``seq_shard`` > 1) raises
     where JAX's ``build_train_loss`` raises (``models/lm.py:345-363``),
     with its messages; the sequence checks need ``seq_len``."""
+    if tp > 1 and is_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port trains MoE and SSD models at tp=1 "
+            f"only, got tp={tp} ({FAMILY_TP_ITEM})")
     bad = [what for what, n in (("num_heads",
                                  cfg.num_heads if seq_shard == 1 else tp),
                                 ("d_ff", cfg.d_ff),
@@ -122,6 +154,8 @@ def shard_dims(cfg: ArchConfig, tp: int,
     replicated; wk/wv replicated when tp does not divide the KV heads;
     wq/wk/wv/wo replicated under ring attention (``seq_shard`` > 1, JAX
     ``params.py:98-113``)."""
+    if tp == 1:
+        return dict.fromkeys(model_specs(cfg))
     plan = attn_plan(cfg, tp)
     col, row = -1, -2
     layer = {"ln": None, "ln2": None, "wq": col, "wo": row, "wg": col,
@@ -137,7 +171,7 @@ def shard_dims(cfg: ArchConfig, tp: int,
         else:
             d = {"['embed']": 0, "['final_ln']": None,
                  "['lm_head']": -1}[key]
-        out[key] = d if tp > 1 else None
+        out[key] = d
     return out
 
 
@@ -198,22 +232,55 @@ def gather_grads(cfg: ArchConfig, per_rank: List[Dict[str, Any]], *,
     return out
 
 
+def ssd_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(d_inner, heads, state) of the SSD mixer (``params.py``
+    ``ssd_dims``)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return d_inner, d_inner // cfg.ssm_headdim, cfg.ssm_state
+
+
 def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:
-    """One GLOBAL_ATTN + SwiGLU layer at tp=1 (``params.py`` ``_attn_specs``
-    and ``_mlp_specs``)."""
+    """One layer at tp=1 (``params.py`` ``layer_specs``): GLOBAL_ATTN
+    (``_attn_specs``) with a SwiGLU (``_mlp_specs``) or MoE
+    (``_moe_specs``: an f32 router and three expert stacks) FFN, or the
+    SSD mixer alone (``_ssd_specs``)."""
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
-    return {
-        "ln": Spec((d,), f32=True, scale=0.0),
+    out = {"ln": Spec((d,), f32=True, scale=0.0)}
+    if cfg.layer_pattern[0] == SSD:
+        d_inner, nheads, n = ssd_dims(cfg)
+        out.update({
+            "in_proj": Spec((d, 2 * d_inner + 2 * n + nheads)),
+            "conv": Spec((cfg.ssm_conv, d_inner + 2 * n)),
+            "A_log": Spec((nheads,), f32=True, scale=-1.0),
+            "Dskip": Spec((nheads,), f32=True, scale=-1.0),
+            "dt_bias": Spec((nheads,), f32=True, scale=0.0),
+            "norm_g": Spec((d_inner,), f32=True, scale=0.0),
+            "out_proj": Spec((d_inner, d), scale=out_scale),
+        })
+        return out
+    out.update({
         "wq": Spec((d, cfg.num_heads * hd)),
         "wk": Spec((d, cfg.num_kv_heads * hd)),
         "wv": Spec((d, cfg.num_kv_heads * hd)),
         "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
         "ln2": Spec((d,), f32=True, scale=0.0),
-        "wg": Spec((d, f)),
-        "wu": Spec((d, f)),
-        "wd": Spec((f, d), scale=out_scale),
-    }
+    })
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        out.update({
+            "router": Spec((d, e), f32=True),
+            "w1": Spec((e, d, f)),
+            "w3": Spec((e, d, f)),
+            "w2": Spec((e, f, d), scale=out_scale),
+        })
+    else:
+        out.update({
+            "wg": Spec((d, f)),
+            "wu": Spec((d, f)),
+            "wd": Spec((f, d), scale=out_scale),
+        })
+    return out
 
 
 def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
@@ -224,8 +291,14 @@ def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
            for name, s in sorted(layer_specs(cfg).items())}
     out["['embed']"] = Spec((vp, d))
     out["['final_ln']"] = Spec((d,), f32=True, scale=0.0)
-    out["['lm_head']"] = Spec((d, vp))
+    if not cfg.tie_embeddings:
+        out["['lm_head']"] = Spec((d, vp))
     return out
+
+
+def head_weight(params: Dict[str, Any]) -> torch.Tensor:
+    """The LM head [d, V]: ``lm_head``, or ``embed.T`` when tied."""
+    return params["lm_head"] if "lm_head" in params else params["embed"].t()
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -246,7 +319,8 @@ def flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for name in sorted(params["blocks"][0]):
         flat[f"['blocks'][0]['{name}']"] = params["blocks"][0][name]
     for name in ("embed", "final_ln", "lm_head"):
-        flat[f"['{name}']"] = params[name]
+        if name in params:
+            flat[f"['{name}']"] = params[name]
     return flat
 
 
@@ -268,7 +342,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     for key, s in model_specs(cfg).items():
         t = torch.zeros(s.shape, dtype=torch.float32 if s.f32 else wdt,
                         device=device)
-        if s.scale:
+        if s.scale == -1.0:
+            t.fill_(-1.0 if s.f32 else 1.0)
+        elif s.scale:
             t.normal_(0.0, s.scale, generator=gen)
         flat[key] = t
     return unflatten(flat)

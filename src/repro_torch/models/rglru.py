@@ -1,0 +1,26 @@
+"""The causal depthwise temporal convolution of ``repro.models.rglru``,
+which the SSD mixer borrows.  The RG-LRU recurrence itself is not ported
+yet (ROADMAP.md B7)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
+                     state: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Causal depthwise conv: x [b, s, W]; w [k, W] -> (y [b, s, W] in
+    x's dtype, the last k-1 inputs [b, k-1, W] for decode).  ``state``
+    [b, k-1, W] carries the previous call's last inputs (zeros when None).
+    The taps are summed in JAX's order, in x's dtype."""
+    k = w.shape[0]
+    pad = (x.new_zeros(x.shape[0], k - 1, x.shape[2]) if state is None
+           else state)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + xp[:, i:i + s] * w[i]
+    return y, (xp[:, -(k - 1):] if k > 1 else None)

@@ -55,7 +55,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "the PyTorch port serves the paged KV cache only; the dense "
                 "cache is ROADMAP.md queue A item 'dense decode'")
-        prm.check_supported(cfg)
+        prm.check_servable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = slots

@@ -32,7 +32,10 @@ def test_port_has_the_slice_modules():
                  "runtime.trainer", "core.comm",
                  "core.schedule", "core.remat", "kernels.collective_matmul",
                  "kernels.autotune", "kernels.peer_comm", "launch.ranks",
-                 "kernels.ring_attention", "kernels.bounds"):
+                 "kernels.ring_attention", "kernels.bounds",
+                 "configs.mamba2_130m", "configs.granite_moe_3b",
+                 "models.ssd", "models.moe", "models.rglru", "kernels.ssd",
+                 "kernels.moe_gmm"):
         assert f"repro_torch.{name}" in mods, name
 
 

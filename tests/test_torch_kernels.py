@@ -210,7 +210,8 @@ def test_kernel_wrappers_refuse_non_cuda_device_mixes():
                                "rmsnorm_bwd": 0, "flash_attention": 0,
                                "flash_attention_bwd": 0, "tile_matmul": 0,
                                "ring_matmul_rs": 0, "peer_all_reduce": 0,
-                               "peer_all_gather": 0, "ring_attention": 0}
+                               "peer_all_gather": 0, "ring_attention": 0,
+                               "ssd": 0, "moe_gmm": 0}
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
