@@ -49,8 +49,10 @@ Phases (any failure raises and the script exits non-zero):
    bf16, timed beside its bound, its plain version and ``torch.matmul``
    (cuBLAS); then, with 2 and 4 rank processes sharing the
    card over ``PeerComm``, the fused matmul -> reduce-scatter ring at both
-   exits and the peer all-reduce and all-gather, every rank's result held
-   against the plain version computed from all ranks' inputs.
+   exits and the peer all-reduce, all-gather and reduce-scatter (the
+   collective kernel's scatter mode, timed beside the all-reduce and
+   slice it replaces), every rank's result held against the plain
+   version computed from all ranks' inputs.
 9. Tensor-parallel consistency: ``gpt-h2048`` at full width, 2 layers,
    f32, batch 2 x 256, tp=2 on the card under ``megatron``, ``oases`` and
    ``fused`` with fine recomputation and ``oases`` without and with
@@ -128,6 +130,34 @@ Phases (any failure raises and the script exits non-zero):
    batch 4 x 4096 in 2 microbatches, all 32 layers of
    ``granite-moe-3b-a800m`` at batch 2 x 1024; finite losses, exact
    launches, peak memory.
+17. Hybrid kernels against their plain versions on the card, f32 (TF32
+   off) and bf16: the RG-LRU forward (y and the f32 states) and backward
+   (dx and the five gate gradients, from the same states) at
+   ``recurrentgemma-9b``'s b 2 x s 4096 x w 4096 and at a ragged b 1 x
+   s 1000 x w 1000; flash forward and backward at head dim 256, 16 q
+   heads and 1 kv head, b 2 x s 4096, with the window 2048 and without;
+   each timed beside its bound, its plain version and, for flash, SDPA
+   (the window as a mask; a yardstick only, the port never calls it).
+18. Hybrid consistency: ``recurrentgemma-9b`` at full width and depth 5
+   (one block and a two-layer RG-LRU tail) in f32, batch 1 x 2304
+   (longer than the window), under ``megatron`` without recomputation and
+   ``oases`` with fine recomputation, on the card (kernels) and the CPU
+   (plain versions) from the same weights: loss within 1e-6 relative,
+   every gradient leaf within ``grads_err`` 1e-4 (the five worst leaves
+   reported), launches exactly the count of the code's path; for the
+   last local-attention and RG-LRU layers' backward, how far the card's
+   arguments and results are from the CPU's and how far the kernel is
+   from the CPU's results on the CPU's own arguments.
+19. Hybrid training through the port's ``Trainer`` in bf16:
+   ``recurrentgemma-9b`` at full width and depth 8 (2.63 B parameters),
+   batch 2 x 4096 (microbatch auto: 1), 3 AdamW steps under ``oases``
+   with fine recomputation (the launcher's default) and under
+   ``megatron`` without recomputation: finite, decreasing losses, every
+   leaf's gradient present and finite after step 1, launches a step
+   exactly as worked out from the code (``megatron``: RG-LRU 6 forward
+   and 6 backward, flash 2 and 2; ``oases``: two sub-batches, each
+   forward replayed: 24 and 12, 8 and 4), step time, tokens/s, MFU, peak
+   memory and a one-step profile.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -169,8 +199,9 @@ RMS_BWD_TOL = {"float32": {"dx": (1e-5, 1e-5), "dscale": (1e-3, 1e-5)},
 SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
               "flash_attention_bwd": 0, "tile_matmul": 0,
               "ring_matmul_rs": 0, "peer_all_reduce": 0,
-              "peer_all_gather": 0, "ring_attention": 0, "ssd": 0,
-              "moe_gmm": 0}
+              "peer_all_gather": 0, "peer_reduce_scatter": 0,
+              "ring_attention": 0, "ssd": 0, "moe_gmm": 0, "rglru": 0,
+              "rglru_bwd": 0}
 # the one-device training configuration of phases 6 and 7 (slice 2)
 TP1_SCHEDULE = dict(schedule="megatron", remat=False)
 TRAIN_ARCH = "gpt-h2048"
@@ -600,16 +631,6 @@ def _profile_steps(eng, steps: int = 4):
     ), (n0, n0 + steps)
 
 
-def _visible_pairs(s, causal, window):
-    """(query, key) pairs the mask leaves visible, per head."""
-    import numpy as np
-    i = np.arange(s)
-    lo = np.zeros(s, np.int64) if window is None else np.maximum(
-        i - window + 1, 0)
-    hi = i + 1 if causal else np.full(s, s)
-    return int((hi - lo).sum())
-
-
 def _bound(nbytes, flops, dname):
     """(ms, "bytes" or "operations"): the H100's least time for the work
     (``repro_torch.kernels.bounds``, the data sheet's peaks)."""
@@ -654,13 +675,14 @@ def _flash_rows(case, dname):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import flash_work, visible_pairs
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
 
     b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
     kw = dict(causal=True, window=case.get("window"),
               softcap=case.get("softcap", 0.0))
-    plain_lib = not kw["softcap"] and kw["window"] is None
+    plain_lib = not kw["softcap"]
     dtype = getattr(torch, dname)
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, dout = (torch.randn(b, s_, h, hd, generator=gen,
@@ -683,17 +705,12 @@ def _flash_rows(case, dname):
                       dict(zip(("dq", "dk", "dv"),
                                zip(grads, want_grads))),
                       {g: tol["grad"] for g in ("dq", "dk", "dv")})
-    elt = q.element_size()
-    pairs = _visible_pairs(s_, True, kw["window"]) * b * h
-    lse_bytes = b * h * s_ * 4
-    # reads q, k, v; writes out and lse; q.k and p.v per visible pair
-    fwd_bound = _bound(2 * (q.numel() + k.numel()) * elt + lse_bytes,
-                       4 * hd * pairs, dname)
-    # reads q, k, v, out, dout and lse; writes dq, dk, dv.  The
-    # four products the gradient needs (dP, dV, dQ, dK): the
-    # recomputation of S is this design's choice, not the work's
-    bwd_bound = _bound(4 * (q.numel() + k.numel()) * elt + lse_bytes,
-                       8 * hd * pairs, dname)
+    head_pairs = visible_pairs(s_, kw["window"])
+    pairs = head_pairs * b * h
+    fwd_work, bwd_work = flash_work(b, s_, h, kvh, hd, head_pairs,
+                                    q.element_size())
+    fwd_bound = _bound(*fwd_work, dname)
+    bwd_bound = _bound(*bwd_work, dname)
     common = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h,
                   kvh=kvh, hd=hd, window=kw["window"],
                   softcap=kw["softcap"], visible_pairs=pairs)
@@ -718,6 +735,11 @@ def _flash_rows(case, dname):
         qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
                            for t in (q, k, v, dout))
         sdpa = dict(is_causal=True, enable_gqa=kvh != h)
+        if kw["window"] is not None:      # the causal band as a mask
+            i = torch.arange(s_, device="cuda")
+            sdpa = dict(attn_mask=(i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - kw["window"]),
+                        enable_gqa=kvh != h)
         frow["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    **sdpa))
@@ -998,7 +1020,7 @@ def phase_tmp_kernels():
     from repro_torch.launch.ranks import run_ranks
 
     results = {"tile_matmul": [], "ring_matmul_rs": [], "peer_all_reduce": [],
-               "peer_all_gather": []}
+               "peer_all_gather": [], "peer_reduce_scatter": []}
     for case, m, k, n in TILE_SHAPES:
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
@@ -1028,7 +1050,8 @@ def phase_tmp_kernels():
         t0 = time.perf_counter()
         per_rank = run_ranks(_tmp_kernels_rank, tp, timeout=600)
         wall = time.perf_counter() - t0
-        for kind in ("ring_matmul_rs", "peer_all_reduce", "peer_all_gather"):
+        for kind in ("ring_matmul_rs", "peer_all_reduce", "peer_all_gather",
+                     "peer_reduce_scatter"):
             for i, row in enumerate(per_rank[0][kind]):
                 errs = [r[kind][i]["max_abs_err"] for r in per_rank]
                 oks = [r[kind][i]["ok"] for r in per_rank]
@@ -1056,7 +1079,8 @@ def _tmp_kernels_rank(comm, device):
     from repro_torch.kernels.collective_matmul import matmul_reducescatter
 
     n, rank = comm.size, comm.rank
-    out = {"ring_matmul_rs": [], "peer_all_reduce": [], "peer_all_gather": []}
+    out = {"ring_matmul_rs": [], "peer_all_reduce": [], "peer_all_gather": [],
+           "peer_reduce_scatter": []}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for case, rows, kfull, d in RING_EXITS:
@@ -1094,18 +1118,31 @@ def _tmp_kernels_rank(comm, device):
                 ("peer_all_reduce", lambda: comm.all_reduce(xs[rank]),
                  lambda: ref.all_reduce_ref(xs), (n + 1) * numel * elt),
                 ("peer_all_gather", lambda: comm.all_gather(xs[rank], 0),
-                 lambda: ref.all_gather_ref(xs, 0), 2 * n * numel * elt)):
+                 lambda: ref.all_gather_ref(xs, 0), 2 * n * numel * elt),
+                # the SP exit's reduce-scatter along the sequence: reads
+                # every rank's chunk, writes this rank's
+                ("peer_reduce_scatter", lambda: comm.reduce_scatter(
+                    xs[rank], 1),
+                 lambda: ref.all_reduce_ref(xs).chunk(n, 1)[rank],
+                 (n + 1) * numel // n * elt)):
             got, want = run(), plain()
             torch.cuda.synchronize(device)
             # the same f32 sum in the same rank order, cast once: exact
             err, ok = max_err(got, want, 0.0, 0.0)
-            bound = _bound(nbytes, (n - 1) * numel
-                           if kind == "peer_all_reduce" else 0, dname)
-            out[kind].append(dict(
+            flops = {"peer_all_reduce": (n - 1) * numel,
+                     "peer_reduce_scatter": (n - 1) * numel // n}
+            bound = _bound(nbytes, flops.get(kind, 0), dname)
+            row = dict(
                 case="exit", dtype=dname, shape=list(COLL_SHAPE),
                 max_abs_err=err, ok=ok, atol=0.0, rtol=0.0,
                 ms=time_ms(run), plain_ms=time_ms(plain),
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+            if kind == "peer_reduce_scatter":
+                # the former reduce-scatter: the all-reduce, then a slice
+                row["all_reduce_slice_ms"] = time_ms(
+                    lambda: comm.all_reduce(xs[rank]).chunk(n, 1)[rank]
+                    .contiguous())
+            out[kind].append(row)
         del xs
     comm.check()
     return out
@@ -1958,25 +1995,35 @@ def _family_launches(cfg, passes: int, *, split: int = 1,
                      remat: bool = False) -> dict:
     """Kernel launches of ``passes`` forward + backward passes over
     ``split`` sub-batches: per layer and sub-batch the norms (``ln`` and,
-    in attention layers, ``ln2``; in SSD layers the gated ``norm_g``)
-    forward and backward, SSD layers one SSD launch (its backward replays
-    the plain version), attention layers the flash forward and backward,
-    MoE FFNs 3 expert products forward and 2 each backward; ``final_ln``
-    once a pass on the merged batch.  Recomputation (fine or coarse: both
-    replay every forward kernel of the layer, since each one's output is
-    saved by the op after it) runs each layer's forward kernels twice."""
-    from repro_torch.configs.base import SSD
-    n, fwd = cfg.num_layers * split, 2 if remat else 1
+    in attention and RG-LRU layers, ``ln2``; in SSD layers the gated
+    ``norm_g``) forward and backward, SSD layers one SSD launch (its
+    backward replays the plain version), RG-LRU layers the RG-LRU forward
+    and backward, attention layers (global or local) the flash forward and
+    backward, MoE FFNs 3 expert products forward and 2 each backward;
+    ``final_ln`` once a pass on the merged batch.  Recomputation (fine or
+    coarse: both replay every forward kernel of the layer, since each
+    one's output is saved by the op after it) runs each layer's forward
+    kernels twice."""
+    from repro_torch.configs.base import RGLRU, SSD
+    from repro_torch.models.params import stack_layout
+    n_rep, pat, tail = stack_layout(cfg)
+    kinds = list(pat) * n_rep + list(tail)
+    fwd = 2 if remat else 1
+    per = passes * split               # runs of each layer
     want = {**SERVE_ONLY, "paged_decode": 0,
-            "rmsnorm": passes * (2 * n * fwd + 1),
-            "rmsnorm_bwd": passes * (2 * n + 1)}
-    if cfg.layer_pattern[0] == SSD:
-        want["ssd"] = passes * n * fwd
-    else:
-        want["flash_attention"] = passes * n * fwd
-        want["flash_attention_bwd"] = passes * n
-        if cfg.moe is not None:
-            want["moe_gmm"] = passes * n * (3 * fwd + 6)
+            "rmsnorm": passes * (2 * len(kinds) * split * fwd + 1),
+            "rmsnorm_bwd": passes * (2 * len(kinds) * split + 1)}
+    for kind in kinds:
+        if kind == SSD:
+            want["ssd"] += per * fwd
+        elif kind == RGLRU:
+            want["rglru"] += per * fwd
+            want["rglru_bwd"] += per
+        else:
+            want["flash_attention"] += per * fwd
+            want["flash_attention_bwd"] += per
+        if kind != SSD and cfg.moe is not None:
+            want["moe_gmm"] += per * (3 * fwd + 6)
     return want
 
 
@@ -2004,42 +2051,62 @@ def phase_family_consistency():
     return out
 
 
-def _family_pair(cfg, base, batch, hp, split, arch, sched):
-    """One f32 forward + backward of ``lm.train_loss`` on the card and on
-    the CPU from the same weights and batch: routing token by token (every
-    MoE call, recomputations included), loss, aux, gradients and the card's
-    exact launches."""
+def _loss_pass(cfg, base, batch, hp, dev, dtype="float32"):
+    """One forward + backward of ``lm.train_loss`` on ``dev`` from the
+    weights ``base`` (a CPU tree) cast to ``dtype`` -> loss, aux, seconds,
+    launches, the MoE routing of every call, and the gradients on the
+    CPU."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import params as prm
 
+    # a new leaf on each device (``to`` returns base's own tensor on the
+    # CPU, whose grad the next schedule would add to)
+    params = prm.unflatten({
+        k: t.detach().to(dev, getattr(torch, dtype)).requires_grad_()
+        for k, t in prm.flatten(base).items()})
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    log = []
+    restore = _record_routing(moe_mod, log)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        loss, aux = lm.train_loss(cfg, params, tb, hp)
+        loss.backward()
+    finally:
+        restore()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(
+        loss=loss.item(), aux=aux.item(), s=time.perf_counter() - t0,
+        launches=dict(_build.LAUNCHES), routing=log,
+        grads={k: None if t.grad is None else t.grad.detach().cpu()
+               for k, t in prm.flatten(params).items()})
+
+
+def _worst(errs, n=5):
+    """The ``n`` largest of a {leaf: error} dict, as (error, leaf)."""
+    return sorted(((e, k) for k, e in errs.items()), reverse=True)[:n]
+
+
+def _family_pair(cfg, base, batch, hp, split, arch, sched, *,
+                 loss_rtol=LOSS_RTOL, grads_tol=GRADS_TOL, cpu=None,
+                 witness=None):
+    """One f32 forward + backward of ``lm.train_loss`` on the card and on
+    the CPU from the same weights and batch: routing token by token (every
+    MoE call, recomputations included), loss, aux, gradients and the card's
+    exact launches, within ``loss_rtol`` and ``grads_tol`` (GRADS_TOL
+    unless the phase sets its own).  ``cpu``: a CPU pass (``_loss_pass``)
+    the phase already holds, in place of a new one.  ``witness``: the
+    gradients of an f64 pass, against which both passes are measured
+    too."""
+    import torch
+
     name = f"{arch} {sched}"
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        # a new leaf on each device (``to`` returns base's own tensor on
-        # the CPU, whose grad the next schedule would add to)
-        params = prm.unflatten({k: t.detach().to(dev).requires_grad_()
-                                for k, t in prm.flatten(base).items()})
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        log = []
-        restore = _record_routing(moe_mod, log)
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            loss, aux = lm.train_loss(cfg, params, tb, hp)
-            loss.backward()
-        finally:
-            restore()
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        runs[dev] = dict(
-            loss=loss.item(), aux=aux.item(), s=time.perf_counter() - t0,
-            launches=dict(_build.LAUNCHES), routing=log,
-            grads={k: None if t.grad is None else t.grad.detach().cpu()
-                   for k, t in prm.flatten(params).items()})
-    g, c = runs["cuda"], runs["cpu"]
+    g = _loss_pass(cfg, base, batch, hp, "cuda")
+    c = cpu if cpu is not None else _loss_pass(cfg, base, batch, hp, "cpu")
     bad = [k for k, t in g["grads"].items()
            if t is None or not bool(torch.isfinite(t).all())]
     require(not bad, f"{name}: missing or non-finite card gradients {bad}")
@@ -2074,26 +2141,35 @@ def _family_pair(cfg, base, batch, hp, split, arch, sched):
         require(not diffs, f"{name}: routing differs card vs CPU at "
                            f"{len(diffs)} tokens (see above)")
     loss_rel = abs(g["loss"] - c["loss"]) / abs(c["loss"])
-    gerr = grads_err(c["grads"], g["grads"])
+    leaf_errs = {k: grads_err({k: c["grads"][k]}, {k: g["grads"][k]})
+                 for k in c["grads"]}
+    gerr = max(leaf_errs.values())
+    wit = None
+    if witness is not None:
+        wit = {}
+        for dev, run in (("card", g), ("cpu", c)):
+            errs = {k: grads_err({k: w}, {k: run["grads"][k]})
+                    for k, w in witness.items()}
+            wit[dev] = dict(grads_err=max(errs.values()),
+                            worst_leaves=_worst(errs, 3))
     res = dict(arch=arch, schedule=hp.schedule, remat=hp.remat,
                fine_remat=hp.fine_remat, split=split, layers=cfg.num_layers,
                d_model=cfg.d_model, dtype="float32",
                batch=int(batch["tokens"].shape[0]),
                seq=int(batch["tokens"].shape[1]), loss_card=g["loss"],
                loss_cpu=c["loss"], aux_card=g["aux"], aux_cpu=c["aux"],
-               loss_rel_err=loss_rel, loss_rtol=LOSS_RTOL,
-               grads_err=gerr, grads_tol=GRADS_TOL,
-               worst_leaf=max(c["grads"], key=lambda k: grads_err(
-                   {k: c["grads"][k]}, {k: g["grads"][k]})),
+               loss_rel_err=loss_rel, loss_rtol=loss_rtol,
+               grads_err=gerr, grads_tol=grads_tol,
+               worst_leaves=_worst(leaf_errs), witness=wit,
                launches=g["launches"], routing=routing,
                card_s=g["s"], cpu_s=c["s"])
     print(f"[family_consistency] {json.dumps(res)}")
-    require(loss_rel <= LOSS_RTOL,
+    require(loss_rel <= loss_rtol,
             f"{name}: loss card {g['loss']} vs CPU {c['loss']}: rel "
             f"{loss_rel}")
     require(abs(g["aux"] - c["aux"]) <= 1e-6,
             f"{name}: aux card {g['aux']} vs CPU {c['aux']}")
-    require(gerr <= GRADS_TOL, f"{name}: grads_err {gerr} > {GRADS_TOL}")
+    require(gerr <= grads_tol, f"{name}: grads_err {gerr} > {grads_tol}")
     return res
 
 
@@ -2208,12 +2284,279 @@ def _family_launcher(arch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid at tp=1 (phases 17-19)
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "recurrentgemma-9b"
+# phase 17: RG-LRU cases: recurrentgemma-9b's width 4096 at the slice's
+# b 2 x s 4096, and a ragged one (s not a multiple of the kernel's 64-step
+# chunk, w not a multiple of its 256-channel block)
+RGLRU_CASES = [dict(name="slice", b=2, s=4096, w=4096),
+               dict(name="ragged", b=1, s=1000, w=1000)]
+# phase 17: flash at recurrentgemma-9b's local attention, 16 q heads and
+# 1 kv head of 256 (16:1 MQA), b 2 x s 4096, with its window 2048 and
+# without a window
+HD256_CASES = [dict(name="mqa256_window", b=2, s=4096, h=16, kvh=1, hd=256,
+                    window=2048),
+               dict(name="mqa256", b=2, s=4096, h=16, kvh=1, hd=256)]
+# phase 18: card vs CPU in f32 at full width and depth 5 (one (rglru,
+# rglru, local) block and a tail of two RG-LRU layers), b 1 x 2304 (longer
+# than the window 2048), under FAMILY_SCHEDULES; loss within 1e-6
+# relative.  Gradients: the same f32 arithmetic in another order, whose
+# differences over five full-width layers reach sums that cancel (the last
+# RG-LRU layer's w_a).  An f64 pass on the CPU from the same weights (the
+# witness, under megatron) measures each f32 pass's own error, and a card
+# pass with TF32 products (the control) one of a less exact pass.
+# HYBRID_GRADS_TOL sits between the largest sound reading (card vs CPU
+# 1.031e-5) and the fault readings: rope's frequencies computed on each
+# device (3.93e-5 card vs CPU) and the control, which must exceed it.
+HYBRID_CONSISTENCY = (5, 1, 2304)
+HYBRID_LOSS_RTOL = 1e-6
+HYBRID_GRADS_TOL = 2e-5
+# phase 19: the Trainer in bf16 at full width and depth 8 (two blocks and
+# a tail of two, 2.63 B parameters), batch 2 x 4096, microbatch auto (1):
+# the launcher's default (oases, split 2, fine recomputation) and megatron
+# without recomputation
+HYBRID_TRAIN = (8, 2, 4096)
+HYBRID_SCHEDULES = {"oases_fine": dict(schedule="oases", remat=True,
+                                       fine_remat=True),
+                    "megatron": dict(schedule="megatron", remat=False)}
+HYBRID_STEPS = 3
+
+
+def _rglru_inputs(b, s, w, dtype, seed=9):
+    """x ~ N(0, 1) in ``dtype``, gate vectors spreading the decay a over
+    (0, 1) (w_a, w_x ~ N(0, 1), b_a, b_x ~ 0.5 N(0, 1), a_param ~ N(0, 1)),
+    dy ~ N(0, 1) in ``dtype``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = rnd(b, s, w).to(dtype)
+    gates = (rnd(w), 0.5 * rnd(w), rnd(w), 0.5 * rnd(w), rnd(w))
+    return x, gates, rnd(b, s, w).to(dtype)
+
+
+def phase_hybrid_kernels():
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import (rglru_bwd_work,
+                                            rglru_states_bytes, rglru_work)
+    from repro_torch.kernels.rglru import rglru_bwd, rglru_fwd
+
+    results = {"rglru": [], "rglru_bwd": [], "flash_attention": [],
+               "flash_attention_bwd": []}
+    for case in RGLRU_CASES:
+        b, s_, w = case["b"], case["s"], case["w"]
+        for dname in ("float32", "bfloat16"):
+            x, gates, dy = _rglru_inputs(b, s_, w, getattr(torch, dname))
+            gd = dict(zip(ref.RGLRU_GATES, gates))
+            y, h = rglru_fwd(x, gates, states=True)
+            want_h = ref.rglru_states_ref(x, gd)
+            grads = rglru_bwd(x, gates, h, dy)
+            want_grads = ref.rglru_bwd_ref(x, gd, h, dy)
+            torch.cuda.synchronize()
+            name = f"{case['name']} {dname}"
+            ferr = dict(zip(("y", "h"), (
+                _family_check(f"rglru {name} y", y, want_h.to(x.dtype),
+                              dname)[0],
+                _family_check(f"rglru {name} h", h, want_h, "float32")[0])))
+            berr = {g: _family_check(f"rglru_bwd {name} d{g}", got, want,
+                                     dname if g == "x" else "float32")[0]
+                    for g, got, want in zip(("x",) + ref.RGLRU_GATES, grads,
+                                            want_grads)}
+            elt = x.element_size()
+            common = dict(case=case["name"], dtype=dname, b=b, s=s_, w=w,
+                          library_ms=None)
+            nbytes, flops = rglru_work(b, s_, w, elt)
+            bound = _bound(nbytes, flops, "float32")
+            frow = dict(common, max_abs_err=max(ferr.values()), errs=ferr,
+                        ms=time_ms(lambda: rglru_fwd(x, gates, states=True)),
+                        ms_stateless=time_ms(lambda: rglru_fwd(x, gates)),
+                        plain_ms=time_ms(lambda: ref.rglru_ref(x, gd),
+                                         iters=5, warmup=1),
+                        bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+                        flops=flops)
+            nbytes, flops = rglru_bwd_work(b, s_, w, elt)
+            bound = _bound(nbytes, flops, "float32")
+            brow = dict(common, max_abs_err=max(berr.values()), errs=berr,
+                        states_bytes=rglru_states_bytes(b, s_, w),
+                        ms=time_ms(lambda: rglru_bwd(x, gates, h, dy)),
+                        plain_ms=time_ms(lambda: ref.rglru_bwd_ref(
+                            x, gd, h, dy), iters=5, warmup=1),
+                        bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+                        flops=flops)
+            print(f"[rglru] {json.dumps(frow)}")
+            print(f"[rglru_bwd] {json.dumps(brow)}")
+            results["rglru"].append(frow)
+            results["rglru_bwd"].append(brow)
+            del x, gates, dy, y, h, want_h, grads, want_grads
+            torch.cuda.empty_cache()
+    for case in HD256_CASES:
+        for dname in ("float32", "bfloat16"):
+            frow, brow = _flash_rows(case, dname)
+            results["flash_attention"].append(frow)
+            results["flash_attention_bwd"].append(brow)
+    return results
+
+
+def phase_hybrid_consistency():
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import effective_split
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import params as prm
+
+    layers, batch_size, seq = HYBRID_CONSISTENCY
+    cfg = get_config(HYBRID_ARCH).replace(num_layers=layers,
+                                          dtype="float32")
+    # drawn on the card (fast), held on the CPU
+    base = prm.unflatten({k: t.cpu() for k, t in prm.flatten(
+        prm.init_params(cfg, seed=0, device=torch.device("cuda"))).items()})
+    torch.cuda.empty_cache()
+    batch = make_batch(DataConfig(global_batch=batch_size, seq_len=seq,
+                                  vocab_size=cfg.vocab_size), 0)
+    megatron = TrainHParams(**FAMILY_SCHEDULES["megatron"])
+    wit = _loss_pass(cfg, base, batch, megatron, "cpu", "float64")
+    # rounded once to f32 (6e-8 of each value) to hold less host memory
+    witness = {k: t.float() for k, t in wit["grads"].items()}
+    out = {"witness": dict(loss=wit["loss"], s=wit["s"])}
+    del wit
+    # one CPU pass for both card schedules: at batch 1 (split 1) they
+    # compute the same sums in the same order
+    cpu = _loss_pass(cfg, base, batch, megatron, "cpu")
+    for sched, hkw in FAMILY_SCHEDULES.items():
+        hp = TrainHParams(**hkw)
+        split = effective_split(hp.schedule, hp.split, batch_size)
+        out[sched] = _family_pair(
+            cfg, base, batch, hp, split, HYBRID_ARCH, sched,
+            loss_rtol=HYBRID_LOSS_RTOL, grads_tol=HYBRID_GRADS_TOL, cpu=cpu,
+            witness=witness if sched == "megatron" else None)
+        torch.cuda.empty_cache()
+    card = out["megatron"]["witness"]["card"]["grads_err"]
+    require(card <= HYBRID_GRADS_TOL,
+            f"card vs the f64 witness: grads_err {card} > "
+            f"{HYBRID_GRADS_TOL}")
+    # the control: the card pass with TF32 products
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ctl = _loss_pass(cfg, base, batch, megatron, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {k: grads_err({k: w}, {k: ctl["grads"][k]})
+            for k, w in witness.items()}
+    out["tf32_control"] = dict(grads_err=max(errs.values()),
+                               worst_leaves=_worst(errs, 3),
+                               loss=ctl["loss"])
+    print(f"[hybrid_witness] {json.dumps(out['witness'])} "
+          f"{json.dumps(out['tf32_control'])}")
+    require(out["tf32_control"]["grads_err"] > HYBRID_GRADS_TOL,
+            f"the TF32 control's grads_err "
+            f"{out['tf32_control']['grads_err']} does not exceed "
+            f"{HYBRID_GRADS_TOL}: the gate would not see it")
+    return out
+
+
+def phase_hybrid_train():
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import effective_split
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.runtime import Trainer
+
+    layers, batch, seq = HYBRID_TRAIN
+    cfg = get_config(HYBRID_ARCH).replace(num_layers=layers)
+    steps = HYBRID_STEPS
+    out = {}
+    for sched, hkw in HYBRID_SCHEDULES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hp = TrainHParams(learning_rate=3e-4, total_steps=steps,
+                          warmup_steps=max(steps // 20, 1), **hkw)
+        tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None)
+        require(tr.device.type == "cuda", f"trainer chose {tr.device}")
+        micro = max(tr.hp.microbatch, 1)
+        require(micro == 1, f"{sched}: auto microbatch {micro}, expected 1")
+        _build.reset_launches()
+        first = tr.train(1, seed=0)
+        leaves = prm.flatten(tr.params)
+        bad = [k for k, t in leaves.items()
+               if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+        require(not bad, f"{sched}: missing or non-finite gradients after "
+                         f"step 1: {bad}")
+        rest = tr.train(steps, seed=0)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = first["losses"] + rest["losses"]
+        times = first["step_times"] + rest["step_times"]
+        require(len(losses) == steps and all(np.isfinite(losses))
+                and losses[-1] < losses[0], f"{sched}: losses {losses}")
+        split = effective_split(hp.schedule, hp.split, batch)
+        want = _family_launches(cfg, steps, split=split, remat=hp.remat)
+        require(launches == want,
+                f"{sched}: train launched {launches}, expected {want}")
+        med = statistics.median(1e3 * t for t in times[1:])
+        flops = _hybrid_model_flops(cfg, batch, seq)
+        res = dict(arch=HYBRID_ARCH, schedule=hp.schedule, remat=hp.remat,
+                   fine_remat=hp.fine_remat, split=split, dtype=cfg.dtype,
+                   layers=cfg.num_layers, d_model=cfg.d_model,
+                   params=sum(t.numel() for t in leaves.values()),
+                   batch=batch, seq=seq, microbatch=micro, steps=steps,
+                   losses=losses, step_ms=[1e3 * t for t in times],
+                   step_ms_median=med,
+                   tokens_per_s=batch * seq / (med / 1e3),
+                   model_tflop_per_step=flops / 1e12,
+                   mfu=flops / (med / 1e3) / H100_BF16_FLOPS,
+                   peak_mem_gb=peak / 1e9, launches=launches,
+                   launches_per_step={k: v / steps for k, v in
+                                      launches.items() if v})
+        print(f"[hybrid_train] {json.dumps(res)}")
+        res["profile"] = _profile_train_step(tr)
+        print(f"[hybrid_train_profile] {sched} "
+              f"{json.dumps(res['profile'])}")
+        out[sched] = res
+        del tr, first, rest, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_model_flops(cfg, batch, seq):
+    """6 x matmul weights (embedding table excluded, the tied head
+    included) x tokens, plus windowed attention's 3 x 4 b hd h pairs per
+    local layer (q.k and p.v forward, twice that backward)."""
+    from repro_torch.configs.base import RGLRU
+    from repro_torch.kernels.bounds import visible_pairs
+    from repro_torch.models.params import stack_layout
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    w = cfg.rglru_width or d
+    n_rep, pat, tail = stack_layout(cfg)
+    weights, attn = d * cfg.padded_vocab(), 0
+    for kind in list(pat) * n_rep + list(tail):
+        weights += 3 * d * f
+        if kind == RGLRU:
+            weights += 3 * d * w
+        else:
+            weights += 2 * d * cfg.num_heads * hd \
+                + 2 * d * cfg.num_kv_heads * hd
+            attn += 3 * 4 * hd * cfg.num_heads * batch \
+                * visible_pairs(seq, cfg.window)
+    return 6 * weights * batch * seq + attn
+
+
 def _path_launches(report) -> dict:
     """Each main path's launches per kernel, counted from 0 over the path's
     run: serve (phase 4), one-device training (phase 7), tensor-parallel
     training (phase 10), ring-attention training (phase 13), rank 0
-    over all schedules and steps for the last two, and the families'
-    training (phase 16, both families' Trainer and launcher runs)."""
+    over all schedules and steps for the last two, the families'
+    training (phase 16, both families' Trainer and launcher runs) and the
+    RG-LRU hybrid's training (phase 19, both schedules)."""
     paths = {}
     if "serve" in report:
         paths["serve"] = report["serve"]["launches"]
@@ -2234,6 +2577,12 @@ def _path_launches(report) -> dict:
                 for k, v in run["launches"].items():
                     tot[k] = tot.get(k, 0) + v
         paths["families"] = tot
+    if "hybrid_train" in report:
+        tot = {}
+        for r in report["hybrid_train"].values():
+            for k, v in r["launches"].items():
+                tot[k] = tot.get(k, 0) + v
+        paths["hybrid"] = tot
     return paths
 
 
@@ -2283,7 +2632,15 @@ def _kernels_line(report) -> dict:
                 ("flash_attention_bwd", "flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:30",
                  {"case": "main"})):
-            add(name, src, replaces, pick(tk[name], dtype="bfloat16", **case))
+            extra = {}
+            if name != "rmsnorm_bwd" and "hybrid_kernels" in report:
+                row = pick(report["hybrid_kernels"][name],
+                           case="mqa256_window", dtype="bfloat16")
+                extra = {"at_hd256": {k: row[k] for k in
+                                      ("case", "b", "s", "h", "kvh", "hd",
+                                       "window") + keys}}
+            add(name, src, replaces, pick(tk[name], dtype="bfloat16", **case),
+                **extra)
     if "tmp_kernels" in report:
         tmpk = report["tmp_kernels"]
         rings = sum(c.get("ring_matmul_rs", 0) for c in paths.values())
@@ -2298,11 +2655,16 @@ def _kernels_line(report) -> dict:
                  "none (XLA's psum, src/repro/core/tmp.py:72)", {"tp": 2}),
                 ("peer_all_gather", "peer_comm.cu",
                  "none (XLA's all_gather, src/repro/kernels/"
-                 "collective_matmul.py:206)", {"tp": 2})):
+                 "collective_matmul.py:206)", {"tp": 2}),
+                ("peer_reduce_scatter", "peer_comm.cu",
+                 "none (XLA's psum_scatter, src/repro/core/tmp.py:96)",
+                 {"tp": 2})):
             row = pick(tmpk[name], dtype="bfloat16", **case)
             extra = ({"cublas_same_product_ms":
                       row["cublas_same_product_ms"]}
                      if name == "ring_matmul_rs" else {})
+            if name == "peer_reduce_scatter":
+                extra = {"all_reduce_slice_ms": row["all_reduce_slice_ms"]}
             if name == "tile_matmul":
                 extra = {"runs_inside": "ring_matmul_rs",
                          "ring_step_products": 2 * rings,
@@ -2324,6 +2686,14 @@ def _kernels_line(report) -> dict:
                    dtype="bfloat16")
         add("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19", row,
             shape=[row["e"], row["c"], row["d"], row["f"]])
+    if "hybrid_kernels" in report:
+        hk = report["hybrid_kernels"]
+        for name, side in (("rglru", "ms_stateless"),
+                           ("rglru_bwd", "states_bytes")):
+            row = pick(hk[name], case="slice", dtype="bfloat16")
+            add(name, "rglru.cu", "src/repro/kernels/rglru.py:23", row,
+                shape={k: row[k] for k in ("b", "s", "w")},
+                **{side: row[side]})
     return {"kernels": rows}
 
 
@@ -2339,7 +2709,10 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           13: ("sp_train", phase_sp_train),
           14: ("family_kernels", phase_family_kernels),
           15: ("family_consistency", phase_family_consistency),
-          16: ("family_train", phase_family_train)}
+          16: ("family_train", phase_family_train),
+          17: ("hybrid_kernels", phase_hybrid_kernels),
+          18: ("hybrid_consistency", phase_hybrid_consistency),
+          19: ("hybrid_train", phase_hybrid_train)}
 
 
 def main(argv=None) -> int:

@@ -11,5 +11,8 @@ CUDA kernels for flash attention forward and backward and the RMSNorm
 backward.  The third is 1-D tensor model parallelism: the paper's
 schedules and recomputation over a communicator of rank processes, with
 hand-written kernels for the tile matmul, the fused matmul ->
-reduce-scatter ring and the collectives between the ranks.
+reduce-scatter ring and the collectives between the ranks.  The fourth
+adds sequence parallelism and ring attention, the fifth the Mamba2 SSD
+and MoE families, the sixth the RG-LRU hybrid (recurrentgemma-9b), each
+with hand-written kernels for what the TPU kernels computed.
 """

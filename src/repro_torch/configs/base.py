@@ -1,10 +1,11 @@
 """Architecture and training configuration: the port's own copies of the
 part of ``repro.configs.base.ArchConfig`` that its families use (dense
-all-global-attention models, MoE and the Mamba2 SSD mixer), and of the
-``TrainHParams`` fields its training path honours.  Field names and
-derived values match the JAX package's, so a config means the same model
-in both; the fields of the other families (RG-LRU, local windows,
-encoders) arrive with their layer kinds."""
+global-attention models, MoE, the Mamba2 SSD mixer and the Griffin
+hybrid of RG-LRU and local attention), and of the ``TrainHParams``
+fields its training path honours.  Field names and derived values match
+the JAX package's, so a config means the same model in both; the fields
+of the other families (encoders, cross attention) arrive with their
+layer kinds."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,8 @@ from typing import Optional, Tuple
 
 # Layer kinds used in ``layer_pattern`` (repeating cycle over the stack).
 GLOBAL_ATTN = "global"      # full causal self attention
+LOCAL_ATTN = "local"        # sliding-window causal self attention
+RGLRU = "rglru"             # RG-LRU recurrent block (Griffin / RecurrentGemma)
 SSD = "ssd"                 # Mamba2 state-space-duality mixer
 
 
@@ -34,7 +37,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm
+    family: str                      # dense | hybrid | moe | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,6 +46,7 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
     layer_pattern: Tuple[str, ...] = (GLOBAL_ATTN,)
+    window: int = 4096               # local attention window
     attn_softcap: float = 0.0        # attention logit softcap (0 = off)
     final_softcap: float = 0.0       # final logit softcap (0 = off)
     rope_theta: float = 10000.0
@@ -52,6 +56,8 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_headdim: int = 64
     ssm_conv: int = 4
+    # RG-LRU params
+    rglru_width: int = 0             # 0 -> d_model
     tie_embeddings: bool = False
     post_norms: bool = False         # sandwich norms
     norm_eps: float = 1e-5
@@ -82,8 +88,10 @@ class ArchConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32,
+            window=64,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_headdim=32,
+            rglru_width=128 if self.rglru_width else 0,
         )
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(self.moe, num_experts=4, top_k=2)

@@ -17,15 +17,18 @@ every rank.
 * :class:`SoloComm` — tp=1: every call is the identity.
 * :class:`DistComm` — over ``torch.distributed`` (gloo on the CPU; the
   tests' transport): all-reduce and reduce-scatter are an all-gather then
-  the rank-order sum, ring_shift is an isend/irecv pair.
+  the rank-order sum (the reduce-scatter then slices this rank's chunk),
+  ring_shift is an isend/irecv pair.
 * :class:`PeerComm` — on CUDA: the port's own kernels over peer
   workspaces shared through CUDA IPC (``kernels/peer_comm.py``), all on
-  one communication stream.  On one card the ranks are processes sharing
+  one communication stream; its reduce-scatter sums and writes only this
+  rank's chunk (the kernel's scatter mode).  On one card the ranks are processes sharing
   ``cuda:0``; NCCL refuses two ranks on one device.
 """
 from __future__ import annotations
 
 import json
+import math
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -78,8 +81,7 @@ class Comm:
                 f"reduce_scatter: dim {dim} of size {x.shape[dim]} is not "
                 f"divisible by the group size {self.size}")
         self.counts["reduce_scatter"] += 1
-        full = self._all_reduce_async(x, "sum").wait()
-        return full.chunk(self.size, dim)[self.rank].contiguous()
+        return self._reduce_scatter(x, dim % x.dim())
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's x concatenated along ``dim`` in rank order."""
@@ -112,6 +114,11 @@ class Comm:
     # implementations
     def _all_reduce_async(self, x, op) -> Pending:
         raise NotImplementedError
+
+    def _reduce_scatter(self, x, dim) -> torch.Tensor:
+        """The all-reduce, then this rank's chunk (the plain version)."""
+        full = self._all_reduce_async(x, "sum").wait()
+        return full.chunk(self.size, dim)[self.rank].contiguous()
 
     def _all_gather(self, x, dim) -> torch.Tensor:
         raise NotImplementedError
@@ -242,14 +249,21 @@ class PeerComm(Comm):
             t.record_stream(self.stream)
         return self.stream.record_event()
 
-    def _launch(self, x: torch.Tensor, out: torch.Tensor, mode: str):
-        """x [count] -> out [count] (sum, max) or [size, count] (gather),
+    def _launch(self, x: torch.Tensor, out: torch.Tensor, mode: str,
+                inner: int = 1):
+        """x [count] -> out [count] (sum, max), [size, count] (gather) or
+        this rank's chunk (scatter, x seen as [outer, size, ``inner``]),
         in pieces of at most a slot.  Runs on the comm stream."""
         self.ws.check()
         piece = self._pc.piece_elems(self.ws, x.dtype)
         for lo in range(0, x.numel(), piece):
             hi = min(lo + piece, x.numel())
             self.epoch += 1
+            if mode == "scatter":          # out: this rank's whole chunk
+                self._pc.collective(self.ws, x[lo:hi], out, mode,
+                                    self.epoch, self.stream,
+                                    inner=inner, offset=lo)
+                continue
             dst = out[..., lo:hi]
             if not dst.is_contiguous():          # a gather in pieces
                 dst = torch.empty_like(dst)
@@ -271,6 +285,21 @@ class PeerComm(Comm):
         def finish():
             torch.cuda.current_stream(self.device).wait_event(done)
         return Pending(result, finish)
+
+    def _reduce_scatter(self, x, dim):
+        """The scatter mode of the collective kernel: x seen as [outer,
+        size, inner] along ``dim``; this rank sums and writes only its
+        chunk."""
+        if self.size == 1:
+            return x
+        xf = x.contiguous().view(-1)
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        with torch.cuda.stream(self.begin()):
+            self._launch(xf, out, "scatter", math.prod(shape[dim:]))
+        torch.cuda.current_stream(self.device).wait_event(self.end(xf, out))
+        return out
 
     def _all_gather(self, x, dim):
         if self.size == 1:

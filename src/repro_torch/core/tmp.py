@@ -44,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.comm import Comm, Pending, SoloComm
+from repro_torch.kernels.ref import wide
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 
@@ -263,10 +264,11 @@ def vocab_parallel_embed(tokens: torch.Tensor, embed_local: torch.Tensor,
 def _xent_chunk(x: torch.Tensor, head32: torch.Tensor,
                 labels: torch.Tensor, softcap: float,
                 comm: Comm) -> torch.Tensor:
-    """x [t, D]; head32 [D, V/tp] f32; labels [t] -> summed nll (f32
-    scalar), ``_xent_chunk`` of ``repro.core.tmp``: the max, the sum of
-    exponentials and the label logit all-reduced over the vocab shards."""
-    logits = torch.matmul(x.float(), head32)
+    """x [t, D]; head32 [D, V/tp] f32 (f64 for an f64 model: ``wide``);
+    labels [t] -> summed nll (f32 scalar), ``_xent_chunk`` of
+    ``repro.core.tmp``: the max, the sum of exponentials and the label
+    logit all-reduced over the vocab shards."""
+    logits = torch.matmul(wide(x), head32)
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     v_local = logits.shape[-1]
@@ -306,7 +308,7 @@ def vocab_parallel_xent(x: torch.Tensor, head_local: torch.Tensor,
     t = b * s
     xf = (x if sp else copy_to_tmp(x, comm)).reshape(t, d)
     lf = labels.reshape(t)
-    head32 = head_local.float()
+    head32 = wide(head_local)
     chunk = min(chunk, t)
     n = t // chunk
     loss = torch.zeros((), dtype=torch.float32, device=x.device)

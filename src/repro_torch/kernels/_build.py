@@ -12,8 +12,8 @@ rank processes builds once in the parent first (:func:`build`).
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else (a backward entry point
 that runs two or three CUDA kernels counts as one call, as does the ring
-attention's publish, attention and done launches, and the SSD's state,
-scan and output launches).
+attention's publish, attention and done launches, the SSD's state,
+scan and output launches, and the RG-LRU's chunk and step launches).
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0,
                             "flash_attention_bwd": 0, "tile_matmul": 0,
                             "ring_matmul_rs": 0, "peer_all_reduce": 0,
                             "peer_all_gather": 0, "ring_attention": 0,
-                            "ssd": 0, "moe_gmm": 0}
+                            "ssd": 0, "moe_gmm": 0, "rglru": 0,
+                            "rglru_bwd": 0, "peer_reduce_scatter": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -80,15 +81,24 @@ _SIGNATURES = {
     # window, scale, softcap, epoch, dtype, err, stream
     "repro_ring_attention": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _I, _F, _F, _U, _I, _P, _P],
-    # ws, rank, n, slot, x, out, count, dtype, mode, epoch, err, stream
-    "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _I, _I, _U, _P,
-                              _P],
+    # ws, rank, n, slot, x, out, count, inner, offset, dtype, mode, epoch,
+    # err, stream
+    "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _L, _L, _I, _I, _U,
+                              _P, _P],
     # x, w, out, e, c, d, f, bm, bn, bk, dtype, stream
     "repro_moe_gmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dt, A_log, B, C, D, y, states, decay, b, s, h, p, n, q, dtype,
     # stream
     "repro_ssd_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _P],
+    # x, w_a, b_a, w_x, b_x, a_param, y, hs, hend, aprod, b, s, w, chunk,
+    # dtype, stream
+    "repro_rglru_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P],
+    # x, w_a, b_a, w_x, b_x, a_param, hs, dy, dx, lcarry, aprod, partial,
+    # dgates, b, s, w, chunk, dtype, stream
+    "repro_rglru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P],
     # slot, &ptr
     "repro_peer_alloc": [_L, _P],
     "repro_peer_free": [_P],

@@ -5,8 +5,9 @@ their type (NVIDIA's data sheet, H100 SXM, dense, at 700 W).
 
 ``python -m repro_torch.kernels.bounds`` prints the bounds of the ring
 attention kernel (PERF.md row 6), of the grouped matmul and the SSD
-(rows 7-8) and of the TPU kernel not ported yet (row 9), each at a named
-shape of a configuration that runs or would run it.  ``chip_smoke.py``
+(rows 7-8), of the RG-LRU forward and backward (rows 9, 9b) and of flash
+attention at recurrentgemma-9b's head dim 256 (row 3), each at a named
+shape of a configuration that runs it.  ``chip_smoke.py``
 computes its bounds from the same work functions at its own inputs.
 """
 from __future__ import annotations
@@ -100,16 +101,83 @@ def ssd() -> Dict:
                 nbytes, flops, "float32")
 
 
+def rglru_work(b: int, s: int, w: int, elt: int) -> Tuple[int, int]:
+    """(bytes, flops) of the RG-LRU forward: reads x [b, s, w] (``elt``
+    bytes a value) and the five f32 [w] gate vectors once, writes y;
+    about 24 f32 operations an element (two sigmoids, a softplus-scaled
+    decay, two exps, the clamp and sqrt, the gated input, the
+    recurrence's multiply-add)."""
+    n = b * s * w
+    return 2 * elt * n + 5 * 4 * w, 24 * n
+
+
+def rglru_bwd_work(b: int, s: int, w: int, elt: int) -> Tuple[int, int]:
+    """(bytes, flops) of the RG-LRU backward: reads x and dy (``elt``
+    bytes a value) and the gates once, writes dx and the five gate
+    gradients; about 50 f32 operations an element (the gates again, the
+    reverse recurrence, the chain through q, i, r and x, five sums).  The
+    f32 states that the port's forward keeps for it are a design's choice,
+    not the work's (:func:`rglru_states_bytes`)."""
+    n = b * s * w
+    return 3 * elt * n + 10 * 4 * w, 50 * n
+
+
+def rglru_states_bytes(b: int, s: int, w: int) -> int:
+    """Bytes the port's design adds to the RG-LRU's work: the forward
+    writes the f32 states h [b, s, w] and the backward reads them."""
+    return 2 * 4 * b * s * w
+
+
 def rglru() -> Dict:
     """``rglru.py:23`` ``_kernel``: recurrentgemma-9b (RG-LRU width 4096),
-    batch 1, seq 4096: reads x (bf16 [s, w]) and the five f32 gate vectors,
-    writes y (bf16); about 20 f32 operations an element (two sigmoids, a
-    softplus, two exps, a sqrt, the recurrence)."""
-    s, w = 4096, 4096
-    flops = 20 * s * w
-    nbytes = 2 * s * w * 2 + 5 * w * 4
-    return _row("rglru", "recurrentgemma-9b, batch 1, seq 4096", nbytes,
+    the slice's batch 2 x seq 4096, bf16 x and y (:func:`rglru_work`)."""
+    nbytes, flops = rglru_work(2, 4096, 4096, 2)
+    return _row("rglru", "recurrentgemma-9b, batch 2, seq 4096", nbytes,
                 flops, "float32")
+
+
+def rglru_bwd() -> Dict:
+    """The RG-LRU's backward (port-only: XLA differentiates the scan in
+    JAX) at the same shape (:func:`rglru_bwd_work`), with the bytes of the
+    f32 states that the port's forward keeps for it beside the bound."""
+    nbytes, flops = rglru_bwd_work(2, 4096, 4096, 2)
+    return dict(_row("rglru_bwd", "recurrentgemma-9b, batch 2, seq 4096",
+                     nbytes, flops, "float32"),
+                states_bytes=rglru_states_bytes(2, 4096, 4096))
+
+
+def visible_pairs(s: int, window=None) -> int:
+    """(query, key) pairs a causal mask (with a window, if any) leaves
+    visible over a sequence of s, per head."""
+    if window is None:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_work(b: int, s: int, h: int, kvh: int, hd: int, pairs: int,
+               elt: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((bytes, flops) forward, (bytes, flops) backward) of causal flash
+    attention with ``pairs`` visible pairs a head: the forward reads q, k,
+    v and writes out and lse, q.k and p.v over the pairs; the backward
+    reads q, k, v, out, dout and lse, writes dq, dk, dv, four products
+    over the pairs (the recomputation of the scores is a design's choice,
+    not the work's)."""
+    q, kv, lse = b * s * h * hd, b * s * kvh * hd, b * h * s * 4
+    return ((2 * (q + kv) * elt + lse, 4 * hd * pairs * b * h),
+            (4 * (q + kv) * elt + lse, 8 * hd * pairs * b * h))
+
+
+def flash_hd256() -> Dict:
+    """``flash_attention.py:30`` ``_kernel`` at recurrentgemma-9b's local
+    attention: 16 q heads and 1 kv head of 256, window 2048, batch 2, seq
+    4096, bf16 (:func:`flash_work`): forward and backward."""
+    (fb, ff), (bb, bf) = flash_work(2, 4096, 16, 1, 256,
+                                    visible_pairs(4096, 2048), 2)
+    shape = "recurrentgemma-9b local attention, b 2, s 4096, window 2048"
+    return {"forward": _row("flash_attention", shape, fb, ff, "bfloat16"),
+            "backward": _row("flash_attention_bwd", shape, bb, bf,
+                             "bfloat16")}
 
 
 def _row(name, shape, nbytes, flops, dtype) -> Dict:
@@ -119,5 +187,6 @@ def _row(name, shape, nbytes, flops, dtype) -> Dict:
 
 
 if __name__ == "__main__":
-    for fn in (ring_attention, ring_attention_slice, moe_gmm, ssd, rglru):
+    for fn in (ring_attention, ring_attention_slice, moe_gmm, ssd, rglru,
+               rglru_bwd, flash_hd256):
         print(json.dumps(fn()))

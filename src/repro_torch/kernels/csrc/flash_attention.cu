@@ -21,7 +21,12 @@
 // (times 1 - tanh^2 under a softcap), and writes dK/dV once; a dQ kernel
 // runs one block per (batch, q head, q tile) and loops over key tiles.
 // No atomics: every output element is summed by one thread in a fixed
-// order, so the result is deterministic.
+// order, so the result is deterministic.  At head dim 256 four 64-row f32
+// tiles no longer fit a block's 227 KB, so both backward kernels take
+// 32-row key tiles there (KT): the dK/dV kernel holds 32 keys and the 64
+// queries of a q tile (215,296 B), the dQ kernel 64 queries and 32 keys
+// (207,104 B); the forward's three 64-row tiles take 214,784 B.  A launch
+// whose shared memory the card refuses returns the error to the caller.
 //
 // Bound on the H100: causal, the forward does about s/2 flops per element
 // it moves (256 a byte in bf16 at s 1024), just below the tensor cores'
@@ -61,9 +66,15 @@ __device__ __forceinline__ bool visible(int qi, int kj, const Params& p) {
   return repro::flash::visible(qi, kj, p.mask());
 }
 
-__device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& p) {
-  return repro::flash::tile_runs(q0, k0, p.mask());
+__device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& p,
+                                          int kt = kTile) {
+  return repro::flash::tile_runs(q0, k0, p.mask(), kt);
 }
+
+// key rows of the backward's tiles at head dim HD: four f32 tiles of 64
+// rows exceed the shared memory above hd 128
+template <int HD>
+constexpr int key_tile() { return HD > 128 ? 32 : kTile; }
 
 // rows [r0, r0 + 64) of a [b, h, s] f32 row statistic -> smem; 0 past s
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
@@ -74,9 +85,16 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-template <int HD>
-constexpr size_t bwd_smem() {  // dK/dV kernel; the dQ kernel uses less
-  return (4 * kTile * (HD + 1) + 2 * kTile * kPLD + 2 * kTile) * sizeof(float);
+template <int HD, int KT>
+constexpr size_t dkdv_smem() {
+  return (2 * KT * (HD + 1) + 2 * kTile * (HD + 1) + 2 * KT * kPLD + 2 * kTile) *
+         sizeof(float);
+}
+
+template <int HD, int KT>
+constexpr size_t dq_smem() {
+  return (2 * kTile * (HD + 1) + 2 * KT * (HD + 1) + kTile * (KT + 4) + 2 * kTile) *
+         sizeof(float);
 }
 
 template <typename T, int HD>
@@ -142,7 +160,7 @@ __device__ __forceinline__ void p_ds(float raw, float dp, float lse_q,
   if (p.softcap != 0.f) ds *= 1.f - t * t;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -150,28 +168,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     Params p) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;
+  constexpr int RK = KT / 16;        // key rows per thread
   extern __shared__ float smem[];
-  float* ks = smem;                  // [64][LD]  this block's keys
-  float* vs = ks + kTile * LD;       // [64][LD]
-  float* qs = vs + kTile * LD;       // [64][LD]  q * scale of the q tile
+  float* ks = smem;                  // [KT][LD]  this block's keys
+  float* vs = ks + KT * LD;          // [KT][LD]
+  float* qs = vs + KT * LD;          // [64][LD]  q * scale of the q tile
   float* dos = qs + kTile * LD;      // [64][LD]
-  float* ps = dos + kTile * LD;      // [64 keys][kPLD]  P^T
-  float* dss = ps + kTile * kPLD;    // [64 keys][kPLD]  dS^T
-  float* lse_s = dss + kTile * kPLD; // [64]
+  float* ps = dos + kTile * LD;      // [KT keys][kPLD]  P^T
+  float* dss = ps + KT * kPLD;       // [KT keys][kPLD]  dS^T
+  float* lse_s = dss + KT * kPLD;    // [64]
   float* delta_s = lse_s + kTile;    // [64]
 
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * KT;
   const int kh = blockIdx.y;
   const int bi = blockIdx.z;
   const int tx = threadIdx.x & 15;   // q columns tx + 16 * j
-  const int ty = threadIdx.x >> 4;   // key rows ty * 4 + i
+  const int ty = threadIdx.x >> 4;   // key rows ty * RK + i
 
-  load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-  load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<T, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<T, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
 
-  float adk[4][NC], adv[4][NC];
+  float adk[RK][NC], adv[RK][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RK; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
 
@@ -180,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const int hi = kh * p.g + gi;
     for (int qt = 0; qt < nq; ++qt) {
       const int q0 = qt * kTile;
-      if (!tile_runs(q0, k0, p)) continue;
+      if (!tile_runs(q0, k0, p, KT)) continue;
       __syncthreads();  // the previous q tile is consumed (first: ks/vs ready)
       load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
       load_tile<T, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
@@ -188,18 +207,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
       __syncthreads();
 
-      float st[4][4], dpt[4][4];
+      float st[RK][4], dpt[RK][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RK; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < HD; ++d) {
-        float kr[4], vr[4], qc[4], dc[4];
+        float kr[RK], vr[RK], qc[4], dc[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kr[i] = ks[(ty * 4 + i) * LD + d];
-          vr[i] = vs[(ty * 4 + i) * LD + d];
+        for (int i = 0; i < RK; ++i) {
+          kr[i] = ks[(ty * RK + i) * LD + d];
+          vr[i] = vs[(ty * RK + i) * LD + d];
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -207,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
           dc[j] = dos[(tx + 16 * j) * LD + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RK; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             st[i][j] = fmaf(kr[i], qc[j], st[i][j]);
@@ -215,25 +234,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RK; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qr = tx + 16 * j;
           float pv, ds;
           p_ds(st[i][j], dpt[i][j], lse_s[qr], delta_s[qr],
-               visible(q0 + qr, k0 + ty * 4 + i, p), p, pv, ds);
-          ps[(ty * 4 + i) * kPLD + qr] = pv;
-          dss[(ty * 4 + i) * kPLD + qr] = ds;
+               visible(q0 + qr, k0 + ty * RK + i, p), p, pv, ds);
+          ps[(ty * RK + i) * kPLD + qr] = pv;
+          dss[(ty * RK + i) * kPLD + qr] = ds;
         }
       __syncthreads();
 
 #pragma unroll 4
       for (int qq = 0; qq < kTile; ++qq) {
-        float pr[4], dr[4], dov[NC], qv[NC];
+        float pr[RK], dr[RK], dov[NC], qv[NC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pr[i] = ps[(ty * 4 + i) * kPLD + qq];
-          dr[i] = dss[(ty * 4 + i) * kPLD + qq];
+        for (int i = 0; i < RK; ++i) {
+          pr[i] = ps[(ty * RK + i) * kPLD + qq];
+          dr[i] = dss[(ty * RK + i) * kPLD + qq];
         }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
@@ -241,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
           qv[c] = qs[qq * LD + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RK; ++i)
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
             adv[i][c] = fmaf(pr[i], dov[c], adv[i][c]);
@@ -252,8 +271,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
+  for (int i = 0; i < RK; ++i) {
+    const int kj = k0 + ty * RK + i;
     if (kj >= p.s) continue;
     const int64_t o = ((static_cast<int64_t>(bi) * p.s + kj) * p.kvh + kh) * HD;
 #pragma unroll
@@ -264,20 +283,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int KT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, Params p) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;
+  constexpr int KC = KT / 16;        // key columns per thread
+  constexpr int SLD = KT + 4;        // row stride of dS
   extern __shared__ float smem[];
   float* qs = smem;                  // [64][LD]  q * scale
   float* dos = qs + kTile * LD;      // [64][LD]
-  float* ks = dos + kTile * LD;      // [64][LD]
-  float* vs = ks + kTile * LD;       // [64][LD]
-  float* dss = vs + kTile * LD;      // [64 queries][kPLD]
-  float* lse_s = dss + kTile * kPLD; // [64]
+  float* ks = dos + kTile * LD;      // [KT][LD]
+  float* vs = ks + KT * LD;          // [KT][LD]
+  float* dss = vs + KT * LD;         // [64 queries][SLD]
+  float* lse_s = dss + kTile * SLD;  // [64]
   float* delta_s = lse_s + kTile;    // [64]
 
   const int q0 = blockIdx.x * kTile;
@@ -298,38 +319,38 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) adq[i][c] = 0.f;
 
-  const int nk = (p.s + kTile - 1) / kTile;
+  const int nk = (p.s + KT - 1) / KT;
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * KT;
     if (p.causal && k0 > q0 + kTile - 1) break;
-    if (!tile_runs(q0, k0, p)) continue;
+    if (!tile_runs(q0, k0, p, KT)) continue;
     __syncthreads();  // the previous key tile is consumed (first: q side ready)
-    load_tile<T, HD>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-    load_tile<T, HD>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<T, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<T, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
     __syncthreads();
 
-    float sc[4][4], dp[4][4];
+    float sc[4][KC], dp[4][KC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < KC; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      float qa[4], da[4], kb[4], vb[4];
+      float qa[4], da[4], kb[KC], vb[KC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qa[i] = qs[(ty * 4 + i) * LD + d];
         da[i] = dos[(ty * 4 + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KC; ++j) {
         kb[j] = ks[(tx + 16 * j) * LD + d];
         vb[j] = vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KC; ++j) {
           sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
           dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
         }
@@ -338,20 +359,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     for (int i = 0; i < 4; ++i) {
       const int qr = ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KC; ++j) {
         float pv, ds;
         p_ds(sc[i][j], dp[i][j], lse_s[qr], delta_s[qr],
              visible(q0 + qr, k0 + tx + 16 * j, p), p, pv, ds);
-        dss[qr * kPLD + tx + 16 * j] = ds;
+        dss[qr * SLD + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
+    for (int kk = 0; kk < KT; ++kk) {
       float dr[4], kv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = dss[(ty * 4 + i) * kPLD + kk];
+      for (int i = 0; i < 4; ++i) dr[i] = dss[(ty * 4 + i) * SLD + kk];
 #pragma unroll
       for (int c = 0; c < NC; ++c) kv[c] = ks[kk * LD + tx + 16 * c];
 #pragma unroll
@@ -406,11 +427,12 @@ int bwd(const void* q, const void* k, const void* v, const void* out,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  const size_t smem = bwd_smem<HD>();
-  e = allow_smem(flash_bwd_dkdv_kernel<T, HD>, smem);
+  constexpr int KT = key_tile<HD>();
+  const size_t smem = dkdv_smem<HD, KT>();
+  e = allow_smem(flash_bwd_dkdv_kernel<T, HD, KT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 kgrid((p.s + kTile - 1) / kTile, p.kvh, p.b);
-  flash_bwd_dkdv_kernel<T, HD><<<kgrid, kThreads, smem, st>>>(
+  const dim3 kgrid((p.s + KT - 1) / KT, p.kvh, p.b);
+  flash_bwd_dkdv_kernel<T, HD, KT><<<kgrid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -418,10 +440,11 @@ int bwd(const void* q, const void* k, const void* v, const void* out,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  e = allow_smem(flash_bwd_dq_kernel<T, HD>, smem);
+  const size_t qsmem = dq_smem<HD, KT>();
+  e = allow_smem(flash_bwd_dq_kernel<T, HD, KT>, qsmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 qgrid((p.s + kTile - 1) / kTile, p.h, p.b);
-  flash_bwd_dq_kernel<T, HD><<<qgrid, kThreads, smem, st>>>(
+  flash_bwd_dq_kernel<T, HD, KT><<<qgrid, kThreads, qsmem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -457,12 +480,14 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
       case 32: return fwd<float, 32>(q, k, v, out, lse, p, st);
       case 64: return fwd<float, 64>(q, k, v, out, lse, p, st);
       case 128: return fwd<float, 128>(q, k, v, out, lse, p, st);
+      case 256: return fwd<float, 256>(q, k, v, out, lse, p, st);
     }
   } else if (dtype == repro::kBF16) {
     switch (hd) {
       case 32: return fwd<__nv_bfloat16, 32>(q, k, v, out, lse, p, st);
       case 64: return fwd<__nv_bfloat16, 64>(q, k, v, out, lse, p, st);
       case 128: return fwd<__nv_bfloat16, 128>(q, k, v, out, lse, p, st);
+      case 256: return fwd<__nv_bfloat16, 256>(q, k, v, out, lse, p, st);
     }
   }
   return cudaErrorInvalidValue;
@@ -487,12 +512,14 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
       case 32: return bwd<float, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
       case 64: return bwd<float, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
       case 128: return bwd<float, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 256: return bwd<float, 256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
     }
   } else if (dtype == repro::kBF16) {
     switch (hd) {
       case 32: return bwd<__nv_bfloat16, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
       case 64: return bwd<__nv_bfloat16, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
       case 128: return bwd<__nv_bfloat16, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 256: return bwd<__nv_bfloat16, 256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
     }
   }
   return cudaErrorInvalidValue;

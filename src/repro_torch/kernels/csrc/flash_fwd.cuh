@@ -44,12 +44,13 @@ __device__ __forceinline__ bool visible(int qi, int kj, const Mask& m) {
   return true;
 }
 
-// some key of tile [k0, k0 + 64) is visible from some query of
+// some key of tile [k0, k0 + kt) is visible from some query of
 // [q0, q0 + 64) (the TPU kernels' `run` predicate)
-__device__ __forceinline__ bool tile_runs(int q0, int k0, const Mask& m) {
+__device__ __forceinline__ bool tile_runs(int q0, int k0, const Mask& m,
+                                          int kt = kTile) {
   const int qp = m.q_off + q0, kp = m.k_off + k0;
   if (m.causal && kp > qp + kTile - 1) return false;
-  if (m.window > 0 && kp + kTile - 1 <= qp - m.window) return false;
+  if (m.window > 0 && kp + kt - 1 <= qp - m.window) return false;
   return true;
 }
 
@@ -65,14 +66,14 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// rows [r0, r0 + 64) of head `hh` of a [b, s, nh, HD] tensor -> smem f32
-// [64][HD + 1], times `mul`; rows >= s are zero
-template <typename T, int HD>
+// rows [r0, r0 + ROWS) of head `hh` of a [b, s, nh, HD] tensor -> smem
+// f32 [ROWS][HD + 1], times `mul`; rows >= s are zero
+template <typename T, int HD, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           int bi, int r0, int hh, int nh,
                                           int s, float mul) {
   constexpr int LD = HD + 1;
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
     const int r = idx / HD;
     const int d = idx % HD;
     const int row = r0 + r;

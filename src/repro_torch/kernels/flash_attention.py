@@ -18,13 +18,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                     flash_attention_ref,
-                                    paged_decode_attention_ref)
+                                    paged_decode_attention_ref, wide_dtype)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
-# query heads per KV head that the paged decode kernel is compiled for;
-# the training kernels take any group at run time
+# query heads per KV head and head dims that the paged decode kernel is
+# compiled for; the training kernels take any group at run time, and
+# their own head dims
 GROUPS = (1, 2, 4, 8)
-HEAD_DIMS = (32, 64, 128)
+PAGED_HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -53,10 +55,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(
             f"paged_flash_decode kernel takes f32 or bf16 q/k/v of one "
             f"dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if h % kvh or h // kvh not in GROUPS or hd not in HEAD_DIMS:
+    if h % kvh or h // kvh not in GROUPS or hd not in PAGED_HEAD_DIMS:
         raise ValueError(
             f"paged_flash_decode kernel supports h/kvh in {GROUPS} and hd "
-            f"in {HEAD_DIMS}, got h={h} kvh={kvh} hd={hd}")
+            f"in {PAGED_HEAD_DIMS}, got h={h} kvh={kvh} hd={hd}")
     if tables.dtype != torch.int32 or pos.dtype != torch.int32 \
             or tables.dim() != 2 or tables.shape[0] != b \
             or pos.shape != (b,):
@@ -151,11 +153,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _flash_check(q, k, v, window)
     b, s, h, hd = q.shape
     if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+            or lse.shape != (b, h, s) or lse.dtype != wide_dtype(q):
         raise ValueError(
             f"flash_attention_bwd: out {tuple(out.shape)}, dout "
             f"{tuple(dout.shape)} must be {tuple(q.shape)} and lse "
-            f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {s}) f32")
+            f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {s}) "
+            f"{wide_dtype(q)}")
     if _flash_on_cpu("flash_attention_bwd", (q, k, v, out, dout), lse):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,

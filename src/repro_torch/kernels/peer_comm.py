@@ -25,7 +25,10 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
-MODES = {"sum": 0, "max": 1, "gather": 2}
+MODES = {"sum": 0, "max": 1, "gather": 2, "scatter": 3}
+# the launch counter of each mode
+COUNTERS = {"sum": "peer_all_reduce", "max": "peer_all_reduce",
+            "gather": "peer_all_gather", "scatter": "peer_reduce_scatter"}
 # csrc/peer.cuh: elements per collective tile and tiles per launch
 COLL_TILE = 8192
 MAX_COLL_TILES = 4096
@@ -122,10 +125,14 @@ class Workspace:
 
 
 def collective(ws: Workspace, x: torch.Tensor, out: torch.Tensor, mode: str,
-               epoch: int, stream: torch.cuda.Stream):
+               epoch: int, stream: torch.cuda.Stream, *, inner: int = 1,
+               offset: int = 0):
     """One launch of the collective kernel on ``stream``: x [count]
     contiguous; out [count] (sum, max) or [size, count] (gather).  The
-    caller cuts tensors into pieces of at most :func:`piece_elems`."""
+    caller cuts tensors into pieces of at most :func:`piece_elems`.
+    ``scatter``: x is elements ``[offset, offset + count)`` of an input
+    seen as [outer, size, inner]; out is this rank's whole chunk
+    [outer, inner], of which the kernel writes the elements in x."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"peer collective takes f32 or bf16, got {x.dtype}")
     if not (x.is_contiguous() and out.is_contiguous()):
@@ -133,11 +140,10 @@ def collective(ws: Workspace, x: torch.Tensor, out: torch.Tensor, mode: str,
     lib = _build.library()
     rc = lib.repro_peer_collective(
         ws.ptrs.data_ptr(), ws.rank, ws.size, ws.slot_bytes, x.data_ptr(),
-        out.data_ptr(), x.numel(), _DTYPES[x.dtype], MODES[mode], epoch,
-        ws.err_dev, stream.cuda_stream)
+        out.data_ptr(), x.numel(), inner, offset, _DTYPES[x.dtype],
+        MODES[mode], epoch, ws.err_dev, stream.cuda_stream)
     _build.check(rc, f"peer collective ({mode}) launch")
-    _build.LAUNCHES["peer_all_gather" if mode == "gather"
-                    else "peer_all_reduce"] += 1
+    _build.LAUNCHES[COUNTERS[mode]] += 1
 
 
 def piece_elems(ws: Workspace, dtype: torch.dtype) -> int:

@@ -2,7 +2,10 @@
 
 The kernel wrappers route CPU tensors here; the tests hold these against
 the JAX package, and ``chip_smoke.py`` holds each CUDA kernel against its
-plain version on the card.  They run on any device.
+plain version on the card.  They run on any device.  Where the kernels
+compute in f32, the norm, attention and RG-LRU versions do too, and in f64
+when given f64 (:func:`wide`): the f64 witness of ``chip_smoke.py``'s
+recurrentgemma phase runs the whole model so.
 """
 from __future__ import annotations
 
@@ -13,14 +16,25 @@ import torch
 NEG_INF = -1e30
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the working precision: f64 stays f64, anything else is
+    taken in f32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def wide_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype :func:`wide` gives ``t``."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32, cast back to
     x's dtype (``repro.kernels.ref.rmsnorm_ref``)."""
-    xf = x.float()
+    xf = wide(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)
-            * (1.0 + scale.float())).to(x.dtype)
+            * (1.0 + wide(scale))).to(x.dtype)
 
 
 def gather_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -71,9 +85,9 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     ``dscale = sum_rows(dy * x * r)``, all in f32; dx in x's dtype,
     dscale f32 [d]."""
     d = x.shape[-1]
-    xf = x.float().reshape(-1, d)
-    dyf = dy.float().reshape(-1, d)
-    w = 1.0 + scale.float()
+    xf = wide(x).reshape(-1, d)
+    dyf = wide(dy).reshape(-1, d)
+    w = 1.0 + wide(scale)
     r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     wdy = w * dyf
     dot = (xf * wdy).mean(dim=-1, keepdim=True)
@@ -121,13 +135,13 @@ def _attention_ref(q, k, v, q_off: int, *, causal, window, softcap, scale):
     kvh, sk = k.shape[2], k.shape[1]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, sk, hd]
-    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    kf = wide(k).permute(0, 2, 1, 3)[:, :, None]       # [b, kvh, 1, sk, hd]
+    vf = wide(v).permute(0, 2, 1, 3)[:, :, None]
     out = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    lse = torch.empty(b, h, s, dtype=wide_dtype(q), device=q.device)
     for q0 in range(0, s, Q_CHUNK):
         q1 = min(q0 + Q_CHUNK, s)
-        qc = (q[:, q0:q1].float() * scale).reshape(b, q1 - q0, kvh, g, hd)
+        qc = (wide(q[:, q0:q1]) * scale).reshape(b, q1 - q0, kvh, g, hd)
         qc = qc.permute(0, 2, 3, 1, 4)                     # [b, kvh, g, c, hd]
         sc = torch.matmul(qc, kf.transpose(-1, -2))        # [b, kvh, g, c, sk]
         if softcap:
@@ -178,14 +192,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     kvh = k.shape[2]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    kf = k.float().permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
-    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    kf = wide(k).permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
+    vf = wide(v).permute(0, 2, 1, 3)[:, :, None]
     dq = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
-    dk = torch.zeros(b, kvh, s, hd, dtype=torch.float32, device=q.device)
-    dv = torch.zeros(b, kvh, s, hd, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(b, kvh, s, hd, dtype=wide_dtype(q), device=q.device)
+    dv = torch.zeros(b, kvh, s, hd, dtype=wide_dtype(q), device=q.device)
 
-    def heads(t, q0, q1):                                  # -> [b, kvh, g, c, hd]
-        return t[:, q0:q1].float().reshape(b, q1 - q0, kvh, g, hd) \
+    def heads(t, q0, q1):                          # -> [b, kvh, g, c, hd]
+        return wide(t[:, q0:q1]).reshape(b, q1 - q0, kvh, g, hd) \
             .permute(0, 2, 3, 1, 4)
 
     for q0 in range(0, s, Q_CHUNK):
@@ -362,3 +376,85 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         ys.append(torch.matmul(S, Cf[:, t, None, :, None])[..., 0])
     y = torch.stack(ys, dim=1) + D.float()[:, None] * xf
     return y.to(x.dtype), S
+
+
+# RG-LRU (``repro.models.rglru`` and the TPU kernel ``rglru.py:23``)
+RGLRU_C = 8.0
+RGLRU_GATES = ("w_a", "b_a", "w_x", "b_x", "a_param")
+
+
+def _rglru_terms(xf: torch.Tensor, gates) -> dict:
+    """The gates of every step, f32, as ``models/rglru.py`` ``_gates``
+    writes them: r, i, softplus(a_param), log a, a, exp(2 log a), the
+    clamp's input m = 1 - exp(2 log a), q = sqrt(max(m, 1e-6)) and the
+    gated input g = q (i x)."""
+    w_a, b_a, w_x, b_x, ap = (wide(gates[k]) for k in RGLRU_GATES)
+    r = torch.sigmoid(xf * w_a + b_a)
+    i = torch.sigmoid(xf * w_x + b_x)
+    sp = torch.nn.functional.softplus(ap)
+    log_a = -RGLRU_C * sp * r
+    e2 = torch.exp(2.0 * log_a)
+    m = 1.0 - e2
+    q = torch.sqrt(torch.clamp_min(m, 1e-6))
+    return dict(r=r, i=i, sp=sp, a=torch.exp(log_a), e2=e2, m=m, q=q,
+                g=q * (i * xf))
+
+
+def rglru_states_ref(x: torch.Tensor, gates) -> torch.Tensor:
+    """The f32 states h [b, s, w] of the recurrence ``h_t = a_t h_{t-1} +
+    g_t`` from h = 0, walked step by step in time as the TPU kernel walks
+    it.  x [b, s, w]; ``gates`` maps ``RGLRU_GATES`` to [w] vectors."""
+    t = _rglru_terms(wide(x), gates)
+    a, g = t["a"], t["g"]
+    h = torch.zeros_like(g[:, 0])
+    hs = []
+    for step in range(x.shape[1]):
+        h = a[:, step] * h + g[:, step]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rglru_ref(x: torch.Tensor, gates) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The function of ``repro.kernels.rglru.rglru``: x [b, s, w] ->
+    (y [b, s, w] in x's dtype, h_last [b, w] f32).  As in the TPU kernel,
+    ``h_last`` is ``y[:, -1]`` cast to f32, the rounded output (JAX's
+    ``rglru_scan`` returns the f32 state instead), and there is no
+    initial state."""
+    y = rglru_states_ref(x, gates).to(x.dtype)
+    return y, y[:, -1].float()
+
+
+def rglru_bwd_ref(x: torch.Tensor, gates, h: torch.Tensor,
+                  dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradient of the RG-LRU's y given the f32 states ``h``
+    (:func:`rglru_states_ref`) and dy (x's dtype, taken in f32) ->
+    (dx in x's dtype, then the f32 [w] gradients of ``RGLRU_GATES`` in
+    order).  The reverse recurrence ``dh_t = dy_t + a_{t+1} dh_{t+1}`` is
+    walked step by step; the chain through the gates is elementwise: the
+    state's ``da_t = dh_t h_{t-1}`` and ``dg_t = dh_t``, through q (no
+    gradient where the 1e-6 clamp binds), i, r and x, and the per-channel
+    sums over batch and time."""
+    xf = wide(x)
+    t = _rglru_terms(xf, gates)
+    a, r, i, q = t["a"], t["r"], t["i"], t["q"]
+    dyf = wide(dy)
+    dh = torch.empty_like(dyf)
+    nxt = torch.zeros_like(dyf[:, 0])
+    for step in reversed(range(x.shape[1])):
+        d = dyf[:, step] + nxt
+        dh[:, step] = d
+        nxt = a[:, step] * d
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), wide(h[:, :-1])], 1)
+    dq = dh * (i * xf)
+    di = dh * q * xf
+    dxf = dh * q * i
+    dm = torch.where(t["m"] > 1e-6, dq * 0.5 / q, torch.zeros_like(dq))
+    dlog_a = dh * h_prev * a - 2.0 * t["e2"] * dm
+    dza = dlog_a * (-RGLRU_C * t["sp"]) * r * (1.0 - r)
+    dzx = di * i * (1.0 - i)
+    w_a, w_x, ap = (wide(gates[k]) for k in ("w_a", "w_x", "a_param"))
+    dx = (dxf + dza * w_a + dzx * w_x).to(x.dtype)
+    dsp = (dlog_a * (-RGLRU_C) * r).sum((0, 1))
+    return (dx, (dza * xf).sum((0, 1)), dza.sum((0, 1)),
+            (dzx * xf).sum((0, 1)), dzx.sum((0, 1)),
+            dsp * torch.sigmoid(ap))

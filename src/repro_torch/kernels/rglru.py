@@ -1,0 +1,140 @@
+"""RG-LRU: the wrapper of the CUDA kernels ``csrc/rglru.cu`` (forward and
+backward) and the autograd Function of the recurrence.
+
+Counterpart of ``repro.kernels.rglru.rglru``: x [b, s, w] (the conv'd
+input branch), the five f32 [w] gate vectors ``w_a``, ``b_a``, ``w_x``,
+``b_x``, ``a_param`` -> (y [b, s, w] in x's dtype, h_last [b, w] f32,
+which is ``y[:, -1]`` cast, as in the TPU kernel).  No initial state, as
+in the TPU kernel.  A CPU tensor takes the plain versions
+(:func:`repro_torch.kernels.ref.rglru_states_ref`,
+:func:`~repro_torch.kernels.ref.rglru_bwd_ref`); a CUDA tensor launches
+the kernels or raises.
+
+JAX has no backward kernel (XLA differentiates ``rglru_scan``'s
+``associative_scan``).  The port's backward is a kernel too: the forward
+writes the f32 states h [b, s, w] (4 bytes an element, 134 MB a layer at
+b 2 x s 4096 x w 4096) when a gradient is wanted, and the backward reads
+them for ``h_{t-1}`` and recomputes the gates from x.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (RGLRU_GATES, rglru_bwd_ref,
+                                    rglru_states_ref, wide_dtype)
+
+_DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
+CHUNK = 64               # time steps a thread walks (csrc/rglru.cu)
+
+
+def _check(x: torch.Tensor, gates: Tuple[torch.Tensor, ...]):
+    if x.dim() != 3 or any(g.shape != (x.shape[2],) for g in gates):
+        raise ValueError(
+            f"rglru: x {tuple(x.shape)} and gates "
+            f"{[tuple(g.shape) for g in gates]} do not match [b, s, w] and "
+            f"five [w] vectors")
+
+
+def _cuda_check(what: str, x: torch.Tensor, gates, *more: torch.Tensor):
+    """What the kernels take: f32 or bf16 x (and ``more`` in x's dtype
+    unless f32 states), f32 gates, contiguity."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} kernel takes f32 or bf16 x, got {x.dtype}")
+    if any(g.dtype != torch.float32 for g in gates):
+        raise TypeError(f"{what} kernel takes f32 gate vectors, got "
+                        f"{[g.dtype for g in gates]}")
+    if not all(t.is_contiguous() for t in (x, *gates, *more)):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+
+
+def rglru_fwd(x: torch.Tensor, gates: Tuple[torch.Tensor, ...], *,
+              states: bool = False):
+    """-> (y [b, s, w] in x's dtype, the f32 states h [b, s, w] if
+    ``states`` else None).  ``gates``: the five [w] vectors in
+    ``RGLRU_GATES`` order.  No autograd (see :func:`rglru`)."""
+    _check(x, gates)
+    if _build.on_cpu("rglru", x, *gates):
+        h = rglru_states_ref(x, dict(zip(RGLRU_GATES, gates)))
+        return h.to(x.dtype), (h if states else None)
+    _cuda_check("rglru", x, gates)
+    b, s, w = x.shape
+    nc = -(-s // CHUNK)
+    y = torch.empty_like(x)
+    hs = (torch.empty(b, s, w, dtype=torch.float32, device=x.device)
+          if states else None)
+    hend, aprod = (torch.empty(b, nc, w, dtype=torch.float32,
+                               device=x.device) for _ in range(2))
+    rc = _build.library().repro_rglru_fwd(
+        x.data_ptr(), *(g.data_ptr() for g in gates), y.data_ptr(),
+        hs.data_ptr() if states else None, hend.data_ptr(), aprod.data_ptr(),
+        b, s, w, CHUNK, _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "rglru kernel launch")
+    _build.LAUNCHES["rglru"] += 1
+    return y, hs
+
+
+def rglru_bwd(x: torch.Tensor, gates: Tuple[torch.Tensor, ...],
+              h: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gradient of :func:`rglru_fwd`'s y given its f32 states ``h`` and dy
+    (x's dtype) -> (dx in x's dtype, then the f32 [w] gradients of the
+    five gate vectors)."""
+    _check(x, gates)
+    if h.shape != x.shape or dy.shape != x.shape \
+            or h.dtype != wide_dtype(x):
+        raise ValueError(
+            f"rglru_bwd: h {tuple(h.shape)} {h.dtype} and dy "
+            f"{tuple(dy.shape)} must be {tuple(x.shape)}, h "
+            f"{wide_dtype(x)}")
+    if _build.on_cpu("rglru_bwd", x, *gates, h, dy):
+        return rglru_bwd_ref(x, dict(zip(RGLRU_GATES, gates)), h, dy)
+    _cuda_check("rglru_bwd", x, gates, h, dy)
+    if dy.dtype != x.dtype:
+        raise TypeError(f"rglru_bwd kernel takes dy in x's dtype {x.dtype}, "
+                        f"got {dy.dtype}")
+    b, s, w = x.shape
+    nc = -(-s // CHUNK)
+    dx = torch.empty_like(x)
+    lcarry, aprod = (torch.empty(b, nc, w, dtype=torch.float32,
+                                 device=x.device) for _ in range(2))
+    partial = torch.empty(5, b, nc, w, dtype=torch.float32, device=x.device)
+    dgates = torch.empty(5, w, dtype=torch.float32, device=x.device)
+    rc = _build.library().repro_rglru_bwd(
+        x.data_ptr(), *(g.data_ptr() for g in gates), h.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), lcarry.data_ptr(), aprod.data_ptr(),
+        partial.data_ptr(), dgates.data_ptr(), b, s, w, CHUNK,
+        _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "rglru_bwd kernel launch")
+    _build.LAUNCHES["rglru_bwd"] += 1
+    return (dx, *dgates.unbind(0))
+
+
+class RGLRUFunction(torch.autograd.Function):
+    """Forward: the RG-LRU kernel (plain version on the CPU), keeping the
+    f32 states when a gradient is wanted; backward: the backward kernel
+    (plain version on the CPU).  Saves x, the gates and the states."""
+
+    @staticmethod
+    def forward(ctx, x, w_a, b_a, w_x, b_x, a_param):
+        gates = (w_a, b_a, w_x, b_x, a_param)
+        y, h = rglru_fwd(x, gates, states=any(ctx.needs_input_grad))
+        if h is not None:
+            ctx.save_for_backward(x, *gates, h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *gates, h = ctx.saved_tensors
+        return rglru_bwd(x, tuple(gates), h, dy.contiguous())
+
+
+def rglru(x: torch.Tensor, gates: Dict[str, torch.Tensor]
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable RG-LRU with ``repro.kernels.rglru.rglru``'s
+    signature: x [b, s, w]; ``gates`` a dict with the five [w] vectors ->
+    (y, h_last).  Inputs are made contiguous for the kernels."""
+    y = RGLRUFunction.apply(x.contiguous(),
+                            *(gates[k].contiguous() for k in RGLRU_GATES))
+    return y, y[:, -1].float()

@@ -7,7 +7,7 @@ gradient norm spanning the group."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -20,13 +20,15 @@ from repro_torch.optim import adamw
 
 
 def auto_microbatch(global_batch: int, seq_len: int, d_model: int,
-                    num_layers: int) -> int:
+                    num_layers: int, act_shard: int = 1) -> int:
     """Gradient-accumulation count sized so one microbatch's rematerialized
     activations (~3 [t,d] bf16 tensors per layer with the fine policy) fit
-    a 5e9-byte activation budget, floored at 1 sequence (the JAX package's
-    rule at one data-parallel rank and unsharded activations, kept so both
-    packages pick the same count)."""
-    token_budget = 5e9 / (3.0 * d_model * 2.0 * max(num_layers, 1))
+    a 5e9-byte activation budget, stretched ``act_shard``-fold where the
+    residuals are sharded, floored at 1 sequence (the JAX package's rule
+    at one data-parallel rank, kept so both packages pick the same
+    count)."""
+    token_budget = 5e9 * act_shard / (3.0 * d_model * 2.0
+                                      * max(num_layers, 1))
     seqs = max(1, min(global_batch, int(token_budget // max(seq_len, 1))))
     n = max(1, global_batch // seqs)
     while n > 1 and global_batch % n:
@@ -35,12 +37,16 @@ def auto_microbatch(global_batch: int, seq_len: int, d_model: int,
 
 
 def resolve_hp(hp: TrainHParams, global_batch: int, *, seq_len: int,
-               d_model: int, num_layers: int) -> TrainHParams:
-    """Fill the auto field of a training run (microbatch=0 -> auto)."""
+               d_model: int, num_layers: int, tp: int = 1) -> TrainHParams:
+    """Fill the auto field of a training run (microbatch=0 -> auto).
+    Sequence parallelism and ring attention (``seq_shard`` > 1) shard the
+    remat residuals over the model group of ``tp`` ranks, so the
+    activation budget stretches by tp (JAX's ``resolve_hp``)."""
     if hp.microbatch == 0:
+        shard = tp if (hp.seq_parallel or hp.seq_shard > 1) else 1
         return dataclasses.replace(
             hp, microbatch=auto_microbatch(global_batch, seq_len, d_model,
-                                           num_layers))
+                                           num_layers, act_shard=shard))
     return hp
 
 
@@ -52,10 +58,14 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
     (0-d f32 tensors), updating ``params`` and ``opt_state`` in place.
 
     With ``hp.microbatch`` n > 1 the batch arrives as [n, B/n, s]: each
-    microbatch's gradients (in the parameters' dtype, as in JAX) are cast
-    to f32 and summed, then divided by n, and the loss is the mean of the
-    microbatch losses.  The last microbatch's gradients stay on the
-    parameters' ``.grad``.  The resolved hyper-parameters are the step's
+    microbatch's gradients (in the parameters' dtype, as in JAX) are
+    summed into f32 buffers allocated at the first step and zeroed at
+    each, then divided by n, and the loss is the mean of the microbatch
+    losses; the last microbatch's gradients stay on the parameters'
+    ``.grad``.  Without accumulation the ``.grad`` tensors, in the
+    parameters' dtype, go to the update as they are: it casts each slice
+    to f32 (as JAX's ``apply_updates`` casts each leaf), so no f32 copy of
+    the gradients is made.  The resolved hyper-parameters are the step's
     ``hp`` attribute and its TMP context (:func:`~repro_torch.models.lm.
     train_ctx`) its ``ctx``.  ``comm``: the model group (None: tp=1);
     ``params`` are then this rank's shards, and every rank runs the step
@@ -65,8 +75,9 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
     all-reduced over the group after the microbatch loop, in one bucket,
     where JAX's ``shard_map`` boundary psums them; the norm then counts
     them once, as every replicated leaf."""
+    tp = comm.size if comm is not None else 1
     hp = resolve_hp(hp, global_batch, seq_len=seq_len, d_model=cfg.d_model,
-                    num_layers=cfg.num_layers)
+                    num_layers=cfg.num_layers, tp=tp)
     n = hp.microbatch if hp.microbatch > 1 else 1
     ocfg = adamw.AdamWConfig(
         learning_rate=hp.learning_rate, weight_decay=hp.weight_decay,
@@ -77,27 +88,33 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
                for d in shard_dims(cfg, ctx.tp, ctx.seq_shard).values()]
     partial = set(partial_grad_leaves(cfg, seq_parallel=ctx.sp,
                                       seq_shard=ctx.seq_shard))
+    acc: List[torch.Tensor] = []       # f32 sums of the microbatches
 
     def train_step(params: Dict[str, Any], opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         leaves = flat_leaves(params)
         micro = ([{k: t[i] for k, t in batch.items()} for i in range(n)]
                  if n > 1 else [batch])
-        grads, loss_sum = None, 0.0
+        if n > 1 and not acc:
+            acc.extend(torch.zeros(w.shape, dtype=torch.float32,
+                                   device=w.device) for w in leaves)
+        for a in acc:
+            a.zero_()
+        loss_sum = 0.0
         for mb in micro:
             for w in leaves:
                 w.grad = None
             loss, _ = lm.train_loss(cfg, params, mb, hp, ctx)
             loss.backward()
-            if grads is None:
-                grads = [w.grad.float() for w in leaves]
-            else:
-                for acc, w in zip(grads, leaves):
-                    acc.add_(w.grad)
+            for a, w in zip(acc, leaves):
+                a.add_(w.grad)
             loss_sum = loss_sum + loss.detach()
         if n > 1:
-            for acc in grads:
-                acc.div_(n)
+            for a in acc:
+                a.div_(n)
+            grads = list(acc)
+        else:
+            grads = [w.grad for w in leaves]
         reduce_partial_grads(grads, [k in partial for k in flatten(params)],
                              ctx.comm)
         gnorm = adamw.apply_updates(params, grads, opt_state, ocfg,
@@ -110,8 +127,9 @@ def build_train_step(cfg: ArchConfig, hp: TrainHParams, *,
 
 
 def reduce_partial_grads(grads, partial, comm: Comm):
-    """Sum the gradients marked in ``partial`` over the group, in place in
-    the list: one all-reduce of their f32 concatenation (one bucket)."""
+    """Sum the gradients marked in ``partial`` over the group, replacing
+    their entries of the list (the tensors themselves are not written): one
+    all-reduce of their f32 concatenation (one bucket)."""
     idx = [i for i, p in enumerate(partial) if p]
     if not idx or comm.size == 1:
         return

@@ -2,6 +2,7 @@
 (``repro.models.attention`` for the training and paged decode paths)."""
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -14,14 +15,25 @@ __all__ = ["rope", "gather_pages", "chunked_attention",
            "paged_decode_attention"]
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """``theta ** (-i / half)``, i < half, in f32, computed on the CPU and
+    copied to ``device``, so that every device rotates by the same
+    angles: an f32 ``pow`` on the card may round a frequency to the next
+    float, which a position in the thousands turns into ~1e-4 of the
+    angle."""
+    return (theta ** (-torch.arange(0, half, dtype=torch.float32)
+                      / half)).to(device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x [b, s, h, hd]; positions [b, s] (or [s]) -> x's dtype.  Angles and
     the rotation are f32, as in the JAX version."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    freqs = _rope_freqs(half, float(theta), x.device)
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs            # [b, s, half]

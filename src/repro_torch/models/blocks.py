@@ -7,9 +7,11 @@ its ``h_local`` heads and ``d_ff / tp`` columns; the entries go through
 ``ctx.gather_matmul`` and the exits through ``ctx.row_matmul``, which
 take the sequence-parallel forms under SP; with ``seq_shard`` > 1 the
 attention part is the ring part.  The FFN is SwiGLU or, in the MoE
-family, the MoE FFN (tp=1: an exit-less part).  An SSD layer is the Mamba2
-mixer alone (tp=1).  Plain matrix products stay ``torch.matmul``, as the
-JAX package left them to XLA."""
+family, the MoE FFN (tp=1: an exit-less part).  A LOCAL_ATTN layer is a
+GLOBAL_ATTN layer whose attention sees only the last ``cfg.window``
+positions; an RGLRU layer is the RG-LRU part and the FFN (tp=1).  An SSD
+layer is the Mamba2 mixer alone (tp=1).  Plain matrix products stay
+``torch.matmul``, as the JAX package left them to XLA."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -17,17 +19,19 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import SSD, ArchConfig
+from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
+                                      ArchConfig)
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
+from repro_torch.kernels.ref import RGLRU_GATES
 from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.kernels.ssd import ssd
 from repro_torch.models.attention import (chunked_attention,
                                          paged_decode_attention, rope)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import attn_plan, ssd_dims
-from repro_torch.models.rglru import depthwise_conv1d
+from repro_torch.models.rglru import depthwise_conv1d, rglru_scan
 
 
 def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -79,22 +83,26 @@ def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
             rope(k, positions, cfg.rope_theta), v)
 
 
-def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
-    """The layer's residual parts by kind (``blocks.py`` ``train_parts``,
-    1-D, no post-norms): GLOBAL_ATTN gives ``make_attn_part`` and
-    ``make_mlp_part`` (:func:`moe_part` for MoE configs), SSD gives
-    :func:`ssd_part` alone.  A part's body runs from its input to its exit
-    product's input; the schedule runs the exit (``wo``, ``wd``) and its
-    collective.  Under SP a part's input is this rank's sequence chunk:
-    the entry gathers the sequence and the exit scatters it.  With
+def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
+    """A layer's residual parts by its kind (``blocks.py`` ``train_parts``,
+    1-D, no post-norms): GLOBAL_ATTN and LOCAL_ATTN give ``make_attn_part``
+    (windowed for LOCAL_ATTN) and ``make_mlp_part`` (:func:`moe_part` for
+    MoE configs), RGLRU gives :func:`rglru_part` and the MLP part, SSD
+    gives :func:`ssd_part` alone.  A part's body runs from its input to
+    its exit product's input; the schedule runs the exit (``wo``, ``wd``)
+    and its collective.  Under SP a part's input is this rank's sequence
+    chunk: the entry gathers the sequence and the exit scatters it.  With
     ``seq_shard`` > 1 the attention part is :func:`ring_part`'s."""
-    if cfg.layer_pattern[0] == SSD:
+    if kind == SSD:
         return [ssd_part(cfg)]
+    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, RGLRU):
+        raise ValueError(kind)
+    window = cfg.window if kind == LOCAL_ATTN else None
 
     def attn_body(p, x, positions, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         q, k, v = _qkv(cfg, ctx, p, h, positions)
-        o = chunked_attention(q, k, v, causal=True, window=None,
+        o = chunked_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap)
         b, s = o.shape[:2]
         return o.reshape(b, s, -1)
@@ -104,10 +112,30 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx) -> List[Part]:
                                  (p["wg"], p["wu"]))
         return F.silu(g) * u
 
-    attn = (ring_part(cfg, ctx) if ctx.seq_shard > 1
-            else Part(attn_body, "wo"))
-    return [attn, moe_part(cfg) if cfg.moe is not None
+    if kind == RGLRU:
+        first = rglru_part(cfg)
+    elif ctx.seq_shard > 1:
+        first = ring_part(cfg, ctx)
+    else:
+        first = Part(attn_body, "wo")
+    return [first, moe_part(cfg) if cfg.moe is not None
             else Part(mlp_body, "wd")]
+
+
+def rglru_part(cfg: ArchConfig) -> Part:
+    """The RG-LRU part (``blocks.py:223-236``) at tp=1: norm, ``w_in_x``
+    and ``w_in_g``, the causal depthwise conv on the x branch, the RG-LRU
+    (the kernel on the card), ``gelu(g) * y`` with JAX's default tanh
+    form of gelu, then a local ``w_out`` exit with no collective."""
+    def rglru_body(p, x, positions, keep):
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        xb = torch.matmul(h, p["w_in_x"])
+        gb = torch.matmul(h, p["w_in_g"])
+        y = rglru_scan(depthwise_conv1d(xb, p["conv"])[0],
+                       {k: p[k] for k in RGLRU_GATES})
+        return F.gelu(gb, approximate="tanh") * y
+
+    return Part(rglru_body, "w_out", collective=False)
 
 
 def moe_part(cfg: ArchConfig) -> Part:

@@ -5,6 +5,7 @@ attention), and the paged decode step of
 final norm, head, greedy token)."""
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -19,7 +20,8 @@ from repro_torch.core.tmp import (greedy_token, rms_norm,
                                   vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
 from repro_torch.models.params import (check_servable, check_supported,
-                                       check_tp, head_weight)
+                                       check_tp, head_weight, layer_units,
+                                       stack_layout)
 
 
 def train_layout(cfg: ArchConfig, hp: TrainHParams, tp: int,
@@ -91,30 +93,33 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
             f"seq_shard={shard}) at seq {s}: build it with train_ctx")
     x = vocab_parallel_embed(tokens, params["embed"], ctx.comm,
                              sp_seq_dim=1 if ctx.sp else None)
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     split = effective_split(hp.schedule, hp.split, b)
     xs = split_tree(x, split)
     pos = torch.arange(s, device=tokens.device)
     if ctx.seq_shard > 1:         # the ring part's chunk of the sequence
         pos = pos.chunk(ctx.tp)[ctx.comm.rank]
     positions = [pos[None, :].expand(t.shape[0], -1) for t in xs]
-    parts = blocks.train_parts(cfg, ctx)
+    n, pat, tail = stack_layout(cfg)
+    parts = {k: blocks.train_parts(cfg, ctx, k) for k in set(pat) | set(tail)}
     pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
 
-    def layer(p, *xs_in):
-        out, aux_l = apply_layer(parts, p, list(xs_in), positions, ctx,
-                                 fine=pol == "fine")
-        return (*out, aux_l)
+    def unit_fn(unit, *xs_in):
+        xs_u, aux_u = list(xs_in), 0.0
+        for kind, p in unit:
+            xs_u, aux_l = apply_layer(parts[kind], p, xs_u, positions, ctx,
+                                      fine=pol == "fine")
+            aux_u = aux_u + aux_l
+        return (*xs_u, aux_u)
 
-    per_layer = {name: t.unbind(0)
-                 for name, t in params["blocks"][0].items()}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        p = {name: ts[i] for name, ts in per_layer.items()}
+    for unit in layer_units(cfg, params):
         if pol == "coarse":
-            *xs, aux_l = remat.checkpoint_layer(layer, p, *xs)
+            *xs, aux_u = remat.checkpoint_layer(unit_fn, unit, *xs)
         else:
-            *xs, aux_l = layer(p, *xs)
-        aux = aux + aux_l
+            *xs, aux_u = unit_fn(unit, *xs)
+        aux = aux + aux_u
     x = ctx.gather_seq(merge_tree(xs))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(

@@ -4,11 +4,15 @@ package's flat checkpoint view.
 The port's weights are a plain dict with the JAX tree's structure (at
 tp > 1 each rank holds its shard of every sharded leaf, see
 :func:`shard_params`):
-``{"embed", "final_ln", "lm_head", "blocks": [{...}]}`` where every block
-leaf carries the stacked ``[n, ...]`` leading dim of
-``repro.models.params`` (no ``lm_head`` with tied embeddings: the head is
-``embed.T``).  Flat names are the JAX ``keystr`` paths
-(``"['blocks'][0]['wq']"``), so :func:`from_flat` reads
+``{"blocks": [{...}, ...], "embed", "final_ln", "lm_head", "tail": [...]}``
+as ``repro.models.params.model_specs`` lays them out: ``blocks`` holds one
+dict per position of the layer pattern, each leaf with the stacked
+``[n, ...]`` leading dim of the ``n`` whole pattern repeats, and ``tail``
+one unstacked dict per layer left over (:func:`stack_layout`; a
+single-kind pattern has one block dict and no tail).  There is no
+``lm_head`` with tied embeddings: the head is ``embed.T``.  Flat names
+are the JAX ``keystr`` paths (``"['blocks'][0]['wq']"``,
+``"['tail'][1]['w_a']"``), so :func:`from_flat` reads
 ``repro.models.params.tree_to_flat`` output without remapping.
 """
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import GLOBAL_ATTN, SSD, ArchConfig
+from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
+                                      ArchConfig)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -34,20 +39,30 @@ class Spec:
     scale: float = 0.02
 
 
-# the ROADMAP.md items that name what the two families of slice 5 lack
+# the ROADMAP.md items that name what the families of slices 5-6 lack
 FAMILY_TP_ITEM = ("ROADMAP.md A10, MoE and SSD at tp > 1: MoE 'tmp' and "
                   "'ep', the replicated SSD mixer")
 FAMILY_SERVE_ITEM = "ROADMAP.md A10, MoE and SSD serving"
+HYBRID_TP_ITEM = ("ROADMAP.md A10c, RG-LRU and local attention at tp > 1: "
+                  "the width-sharded RG-LRU")
+HYBRID_SERVE_ITEM = ("ROADMAP.md A5/A10d, RG-LRU and local-attention "
+                     "serving: rglru_step, the conv state and the window "
+                     "ring cache")
+SUPPORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD)
 
 
 def check_supported(cfg: ArchConfig):
-    """The port trains dense all-global-attention models, the MoE family
-    (global attention with an MoE FFN) and the Mamba2 SSD family, all
-    single-kind patterns."""
-    other = sorted(set(cfg.layer_pattern) - {GLOBAL_ATTN, SSD})
+    """The port trains dense global-attention models, the MoE family
+    (global attention with an MoE FFN), the Mamba2 SSD family and
+    patterns that mix global attention, local attention and the RG-LRU
+    (the Griffin hybrid)."""
+    other = sorted(set(cfg.layer_pattern) - set(SUPPORTED_KINDS))
+    mixed = len(set(cfg.layer_pattern)) > 1
     unsupported = [what for what, on in (
         (f"layer kinds {other}", other),
-        ("mixed layer patterns", len(set(cfg.layer_pattern)) > 1),
+        ("SSD in mixed layer patterns", mixed and SSD in cfg.layer_pattern),
+        ("mixed layer patterns with an MoE FFN",
+         mixed and cfg.moe is not None),
         ("post-norms", cfg.post_norms),
         ("MoE in SSD layers",
          cfg.moe is not None and SSD in cfg.layer_pattern),
@@ -58,6 +73,12 @@ def check_supported(cfg: ArchConfig):
             f"yet (ROADMAP.md queue A, other model families)")
 
 
+def is_hybrid(cfg: ArchConfig) -> bool:
+    """A config with RG-LRU or local-attention layers (slice 6: tp=1
+    training only)."""
+    return bool({RGLRU, LOCAL_ATTN} & set(cfg.layer_pattern))
+
+
 def is_family(cfg: ArchConfig) -> bool:
     """An MoE or SSD config (slice 5: tp=1 training only)."""
     return cfg.moe is not None or SSD in cfg.layer_pattern
@@ -66,6 +87,10 @@ def is_family(cfg: ArchConfig) -> bool:
 def check_servable(cfg: ArchConfig):
     """Serving runs the dense all-global-attention models only."""
     check_supported(cfg)
+    if is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not serve RG-LRU or "
+            f"local-attention models yet ({HYBRID_SERVE_ITEM})")
     if is_family(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not serve MoE or SSD models "
@@ -107,9 +132,14 @@ def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
     replicates the attention weights), d_ff and the padded vocab divide by
     tp (JAX falls back to replicated projections otherwise; the port does
     not take that path yet).  MoE and SSD configs run at tp=1 only.
-    Ring attention (``seq_shard`` > 1) raises
+    RG-LRU and local-attention configs run at tp=1 only too.  Ring
+    attention (``seq_shard`` > 1) raises
     where JAX's ``build_train_loss`` raises (``models/lm.py:345-363``),
     with its messages; the sequence checks need ``seq_len``."""
+    if tp > 1 and is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port trains RG-LRU and local-attention "
+            f"models at tp=1 only, got tp={tp} ({HYBRID_TP_ITEM})")
     if tp > 1 and is_family(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port trains MoE and SSD models at tp=1 "
@@ -239,15 +269,26 @@ def ssd_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
     return d_inner, d_inner // cfg.ssm_headdim, cfg.ssm_state
 
 
-def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:
-    """One layer at tp=1 (``params.py`` ``layer_specs``): GLOBAL_ATTN
-    (``_attn_specs``) with a SwiGLU (``_mlp_specs``) or MoE
-    (``_moe_specs``: an f32 router and three expert stacks) FFN, or the
-    SSD mixer alone (``_ssd_specs``)."""
+def stack_layout(cfg: ArchConfig) -> Tuple[int, Tuple[str, ...], List[str]]:
+    """(n whole pattern repeats, the pattern, the tail's kinds): the layer
+    stack of ``params.py`` ``stack_layout``."""
+    pat = cfg.layer_pattern
+    n = cfg.num_layers // len(pat)
+    tail = [pat[i % len(pat)] for i in range(n * len(pat), cfg.num_layers)]
+    return n, pat, tail
+
+
+def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
+    """One layer of ``kind`` at tp=1 (``params.py`` ``layer_specs``):
+    GLOBAL_ATTN and LOCAL_ATTN (``_attn_specs``) and RGLRU
+    (``_rglru_specs``: the two entry projections, the [4, w] conv, the five
+    f32 gate vectors, ``w_out``), each with a SwiGLU (``_mlp_specs``) or
+    MoE (``_moe_specs``: an f32 router and three expert stacks) FFN, or
+    the SSD mixer alone (``_ssd_specs``)."""
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
     out = {"ln": Spec((d,), f32=True, scale=0.0)}
-    if cfg.layer_pattern[0] == SSD:
+    if kind == SSD:
         d_inner, nheads, n = ssd_dims(cfg)
         out.update({
             "in_proj": Spec((d, 2 * d_inner + 2 * n + nheads)),
@@ -259,13 +300,29 @@ def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:
             "out_proj": Spec((d_inner, d), scale=out_scale),
         })
         return out
-    out.update({
-        "wq": Spec((d, cfg.num_heads * hd)),
-        "wk": Spec((d, cfg.num_kv_heads * hd)),
-        "wv": Spec((d, cfg.num_kv_heads * hd)),
-        "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
-        "ln2": Spec((d,), f32=True, scale=0.0),
-    })
+    if kind == RGLRU:
+        w = cfg.rglru_width or d
+        out.update({
+            "w_in_x": Spec((d, w)),
+            "w_in_g": Spec((d, w)),
+            "conv": Spec((4, w)),
+            "w_a": Spec((w,), f32=True),
+            "b_a": Spec((w,), f32=True, scale=0.0),
+            "w_x": Spec((w,), f32=True),
+            "b_x": Spec((w,), f32=True, scale=0.0),
+            "a_param": Spec((w,), f32=True, scale=-1.0),
+            "w_out": Spec((w, d), scale=out_scale),
+        })
+    elif kind in (GLOBAL_ATTN, LOCAL_ATTN):
+        out.update({
+            "wq": Spec((d, cfg.num_heads * hd)),
+            "wk": Spec((d, cfg.num_kv_heads * hd)),
+            "wv": Spec((d, cfg.num_kv_heads * hd)),
+            "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
+        })
+    else:
+        raise ValueError(kind)
+    out["ln2"] = Spec((d,), f32=True, scale=0.0)
     if cfg.moe is not None:
         e = cfg.moe.num_experts
         out.update({
@@ -284,15 +341,24 @@ def layer_specs(cfg: ArchConfig) -> Dict[str, Spec]:
 
 
 def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
-    """Flat name -> Spec, in the JAX tree's flatten order."""
+    """Flat name -> Spec, in the JAX tree's flatten order: the stacked
+    blocks (one per pattern position), embed, final_ln, lm_head, then the
+    tail's layers."""
     check_supported(cfg)
-    d, vp, n = cfg.d_model, cfg.padded_vocab(), cfg.num_layers
-    out = {f"['blocks'][0]['{name}']": Spec((n,) + s.shape, s.f32, s.scale)
-           for name, s in sorted(layer_specs(cfg).items())}
+    d, vp = cfg.d_model, cfg.padded_vocab()
+    n, pat, tail = stack_layout(cfg)
+    out = {}
+    for j, kind in enumerate(pat if n else ()):
+        for name, s in sorted(layer_specs(cfg, kind).items()):
+            out[f"['blocks'][{j}]['{name}']"] = Spec((n,) + s.shape, s.f32,
+                                                     s.scale)
     out["['embed']"] = Spec((vp, d))
     out["['final_ln']"] = Spec((d,), f32=True, scale=0.0)
     if not cfg.tie_embeddings:
         out["['lm_head']"] = Spec((d, vp))
+    for i, kind in enumerate(tail):
+        for name, s in sorted(layer_specs(cfg, kind).items()):
+            out[f"['tail'][{i}]['{name}']"] = s
     return out
 
 
@@ -301,26 +367,42 @@ def head_weight(params: Dict[str, Any]) -> torch.Tensor:
     return params["lm_head"] if "lm_head" in params else params["embed"].t()
 
 
+def _parse(key: str) -> Tuple[str, Optional[int], str]:
+    """``"['blocks'][1]['wq']"`` -> ("blocks", 1, "wq");
+    ``"['embed']"`` -> ("embed", None, "")."""
+    parts = [p.strip("'") for p in key[1:-1].split("][")]
+    if len(parts) == 1:
+        return parts[0], None, ""
+    return parts[0], int(parts[1]), parts[2]
+
+
 def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Flat name -> leaf back into the weights dict (inverse of
     :func:`flatten`)."""
-    params: Dict[str, Any] = {"blocks": [{}]}
+    params: Dict[str, Any] = {"blocks": [], "tail": []}
     for key, t in flat.items():
-        if key.startswith("['blocks'][0]"):
-            params["blocks"][0][key[len("['blocks'][0]['"):-2]] = t
-        else:
-            params[key[2:-2]] = t
+        top, i, name = _parse(key)
+        if i is None:
+            params[top] = t
+            continue
+        while len(params[top]) <= i:
+            params[top].append({})
+        params[top][i][name] = t
     return params
 
 
 def flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flat name -> leaf, in the JAX tree's flatten order."""
     flat = {}
-    for name in sorted(params["blocks"][0]):
-        flat[f"['blocks'][0]['{name}']"] = params["blocks"][0][name]
+    for j, blk in enumerate(params["blocks"]):
+        for name in sorted(blk):
+            flat[f"['blocks'][{j}]['{name}']"] = blk[name]
     for name in ("embed", "final_ln", "lm_head"):
         if name in params:
             flat[f"['{name}']"] = params[name]
+    for i, layer in enumerate(params.get("tail", ())):
+        for name in sorted(layer):
+            flat[f"['tail'][{i}]['{name}']"] = layer[name]
     return flat
 
 
@@ -328,6 +410,19 @@ def flat_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     """The weights as a list in the JAX tree's flatten order (the order of
     ``jax.tree_util.tree_leaves`` and of :func:`model_specs`)."""
     return list(flatten(params).values())
+
+
+def layer_units(cfg: ArchConfig, params: Dict[str, Any]
+                ) -> List[List[Tuple[str, Dict[str, torch.Tensor]]]]:
+    """The stack in execution order, grouped as JAX's ``_stack_scan``
+    recomputes it: one unit per pattern repeat (its positions' layers)
+    and one per tail layer; each layer as (kind, its leaves)."""
+    n, pat, tail = stack_layout(cfg)
+    per_pos = [{name: t.unbind(0) for name, t in blk.items()}
+               for blk in params["blocks"]]
+    units = [[(kind, {name: ts[r] for name, ts in per_pos[j].items()})
+              for j, kind in enumerate(pat)] for r in range(n)]
+    return units + [[(kind, p)] for kind, p in zip(tail, params["tail"])]
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,

@@ -1,11 +1,13 @@
-"""The causal depthwise temporal convolution of ``repro.models.rglru``,
-which the SSD mixer borrows.  The RG-LRU recurrence itself is not ported
-yet (ROADMAP.md B7)."""
+"""The RG-LRU recurrence of ``repro.models.rglru`` on the training path
+(:func:`rglru_scan`, the CUDA kernel on the card) and the causal
+depthwise temporal convolution, which the SSD mixer borrows too."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.rglru import rglru
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -24,3 +26,12 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     for i in range(k):
         y = y + xp[:, i:i + s] * w[i]
     return y, (xp[:, -(k - 1):] if k > 1 else None)
+
+
+def rglru_scan(x: torch.Tensor, gates: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+    """The training path's RG-LRU over the whole sequence from h = 0
+    (``rglru_scan``'s y, without an initial state): x [b, s, W] (the conv'd
+    branch), ``gates`` the five [W] f32 vectors -> y [b, s, W] in x's
+    dtype, differentiable (:func:`repro_torch.kernels.rglru.rglru`)."""
+    return rglru(x, gates)[0]

@@ -1,5 +1,6 @@
-"""Shared harness of ``tests/test_torch_ssd.py`` and
-``tests/test_torch_moe.py``: a reduced f32 config run through JAX's
+"""Shared harness of ``tests/test_torch_ssd.py``,
+``tests/test_torch_moe.py`` and ``tests/test_torch_rglru.py``: a reduced
+f32 config (with further fields replaced where a test says so) run through JAX's
 ``build_train_loss`` (value and gradient under ``jax.jit`` on a 1x1 mesh)
 and through the port's ``train_loss`` from the same weights and batch, the
 two trainers side by side, and the launcher on the CPU."""
@@ -37,9 +38,11 @@ def mesh():
                             axis_types=compat.auto_axis_types(2))
 
 
-def cfgs(arch):
-    return (jax_get_config(arch).reduced().replace(dtype="float32"),
-            get_config(arch).reduced().replace(dtype="float32"))
+def cfgs(arch, **replace):
+    """(JAX's, the port's) reduced f32 ``arch``, ``replace`` applied."""
+    kw = dict(dtype="float32", **replace)
+    return (jax_get_config(arch).reduced().replace(**kw),
+            get_config(arch).reduced().replace(**kw))
 
 
 def jax_flat(tree):
@@ -53,11 +56,11 @@ def grads_err(g1: dict, g2: dict) -> float:
                / (float(np.max(np.abs(g1[k]))) + 1e-8) for k in g1)
 
 
-def loss_and_grads(arch, hp_kw, b=4, s=64):
+def loss_and_grads(arch, hp_kw, b=4, s=64, **replace):
     """-> (JAX (loss, aux, flat grads), port (loss, aux, flat grads)) of
-    the reduced f32 ``arch`` at batch b x s, JAX's init from key 0, tokens
-    and labels from numpy seed 42."""
-    jcfg, tcfg = cfgs(arch)
+    the reduced f32 ``arch`` (``replace`` applied) at batch b x s, JAX's
+    init from key 0, tokens and labels from numpy seed 42."""
+    jcfg, tcfg = cfgs(arch, **replace)
     loss_fn, specs, _ = jlm.build_train_loss(
         jcfg, mesh(), JTrainHParams(**hp_kw), global_batch=b, seq_len=s)
     p = jprm.init_params(specs, jax.random.PRNGKey(0))
@@ -80,10 +83,10 @@ def loss_and_grads(arch, hp_kw, b=4, s=64):
             (loss.item(), aux.item(), grads))
 
 
-def trainer_losses(arch, tmp_path, steps=3):
+def trainer_losses(arch, tmp_path, steps=3, **replace):
     """-> (JAX trainer losses, port trainer, its losses): ``steps`` steps
     from JAX's initial weights, 2 microbatches, batch 4 x 32."""
-    jcfg, tcfg = cfgs(arch)
+    jcfg, tcfg = cfgs(arch, **replace)
     kw = dict(learning_rate=1e-3, warmup_steps=1, microbatch=2)
     jtr = JTrainer(jcfg, mesh(), JTrainHParams(**kw), global_batch=4,
                    seq_len=32, ckpt_dir=str(tmp_path / "ckpt"),

@@ -302,3 +302,24 @@ def fail_on_rank_one(comm, device):
     if comm.rank == 1:
         raise ValueError("rank 1 gives up")
     return comm.all_reduce(torch.ones(4))
+
+
+def reduce_scatter_cases(comm, device, cases):
+    """``comm.reduce_scatter`` against the plain version from every rank's
+    inputs (the rank-order f32 sum, cast once, then this rank's chunk),
+    per (dtype, shape, dim) case: (max abs difference, bitwise equal).
+    Every rank draws all ranks' inputs from one seed."""
+    out = {}
+    n = comm.size
+    for dname, shape, dim in cases:
+        rng = np.random.default_rng(9)
+        xs = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(getattr(torch, dname)) for _ in range(n)]
+        before = comm.counts["reduce_scatter"]
+        got = comm.reduce_scatter(xs[comm.rank], dim)
+        want = ref.all_reduce_ref(xs).chunk(n, dim)[comm.rank]
+        out[(dname, shape, dim)] = dict(
+            err=float((got.float() - want.float()).abs().max()),
+            equal=bool(torch.equal(got, want)), shape=tuple(got.shape),
+            calls=comm.counts["reduce_scatter"] - before)
+    return out

@@ -35,7 +35,8 @@ def test_port_has_the_slice_modules():
                  "kernels.ring_attention", "kernels.bounds",
                  "configs.mamba2_130m", "configs.granite_moe_3b",
                  "models.ssd", "models.moe", "models.rglru", "kernels.ssd",
-                 "kernels.moe_gmm"):
+                 "kernels.moe_gmm", "kernels.rglru",
+                 "configs.recurrentgemma_9b"):
         assert f"repro_torch.{name}" in mods, name
 
 
