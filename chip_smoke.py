@@ -6,7 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
-   ``nvcc`` for ``sm_90a``; print the card's name and power limit.
+   ``nvcc`` for ``sm_90a``; print ptxas's registers, shared memory and
+   spill bytes of each tensor-core forward kernel and fail on a spill;
+   print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, in f32 (TF32 off) and bf16, and time kernel,
    plain version, the one PyTorch call that computes the same function
@@ -25,8 +27,9 @@ Phases (any failure raises and the script exits non-zero):
    (TF32 off) and bf16: flash attention forward (out, lse) and backward
    (dq, dk, dv) at the training shapes (b 4, s 1024, 32 heads of 64;
    GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000;
-   granite's 24/8 heads of 64, a group of 3) and
-   the RMSNorm forward and backward at 4096 x 2048, each timed with its bound, its
+   granite's 24/8 heads of 64, a group of 3; 16/4 heads of 32; ragged
+   s 1000 at hd 32 and at hd 128 with window 300; s 40 at hd 128 with
+   window 16 and softcap 30) and the RMSNorm forward and backward at 4096 x 2048, each timed with its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call (a yardstick only).
 6. Training consistency: ``gpt-h2048`` at full width and 2 layers in f32,
@@ -72,10 +75,13 @@ Phases (any failure raises and the script exits non-zero):
    lse on every rank against the plain version computed from all ranks'
    inputs, in f32 (TF32 off) and bf16, at the slice's shape
    (``internlm2-1.8b``, b 2, s 4096, 16 q / 8 kv heads of 128, causal),
-   at ``gpt-h2048``'s MHA heads (hd 64) and with GQA, window 256 and
-   softcap 30; each timed beside its bound, the plain version and SDPA of
+   at ``gpt-h2048``'s MHA heads (hd 64), with GQA, window 256 and
+   softcap 30, and with ragged shards (s 2000: sq 1000 and 500) and
+   window 700; each timed beside its bound, the plain version and SDPA of
    the local q against the gathered K/V with the offset causal mask (a
-   yardstick only; the port never calls it).
+   yardstick only; the port never calls it).  First, in this process, the
+   bf16 flash forward is timed at the slice's whole shape: the tile with
+   no peers and no time slices.
 12. Sequence-parallel consistency: ``internlm2-1.8b`` at full width, 2
    layers, f32, batch 2 x 512, tp=2 on the card: SP under ``megatron`` and
    ``fused``, ring attention (``seq_shard`` 2) under ``oases`` and
@@ -135,8 +141,8 @@ Phases (any failure raises and the script exits non-zero):
    (dx and the five gate gradients, from the same states) at
    ``recurrentgemma-9b``'s b 2 x s 4096 x w 4096 and at a ragged b 1 x
    s 1000 x w 1000; flash forward and backward at head dim 256, 16 q
-   heads and 1 kv head, b 2 x s 4096, with the window 2048 and without;
-   each timed beside its bound, its plain version and, for flash, SDPA
+   heads and 1 kv head, b 2 x s 4096, with the window 2048 and without,
+   and at the ragged edge (s 1000, window 300; s 40); each timed beside its bound, its plain version and, for flash, SDPA
    (the window as a mask; a yardstick only, the port never calls it).
 18. Hybrid consistency: ``recurrentgemma-9b`` at full width and depth 5
    (one block and a two-layer RG-LRU tail) in f32, batch 1 x 2304
@@ -264,16 +270,59 @@ def phase_build():
     build_s = time.perf_counter() - t0
     print(f"[build] {_build.LIB_NAME} from {sorted(p.name for p in _build.CSRC.glob('*.cu'))} "
           f"in {build_s:.1f} s (nvcc {_build.ARCH_FLAGS[1]})")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    tc = _tc_kernel_report(log)
+    for name, rep in sorted(tc.items()):
+        print(f"[build] {name}: {rep['spills']}; {rep['usage']}")
+    require(sorted(tc) == sorted(TC_KERNELS),
+            f"ptxas reported tensor-core kernels {sorted(tc)}, expected "
+            f"{sorted(TC_KERNELS)}")
+    spilled = [n for n, rep in tc.items()
+               if rep["spill_stores"] or rep["spill_loads"]]
+    require(not spilled, f"tensor-core kernels spill: {spilled}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    return {"build_s": build_s, "card": card}
+    return {"build_s": build_s, "card": card, "tc_kernels": tc}
+
+
+# the tensor-core forward kernels (flash_fwd_tc.cuh) by instance: the flash
+# forward at every head dim, the ring at the ring's
+TC_KERNELS = ([f"flash_fwd_tc_kernel<{hd}>" for hd in (32, 64, 128, 256)]
+              + [f"ring_attn_tc_kernel<{hd}>" for hd in (32, 64, 128)])
+
+
+def _tc_kernel_report(log: str) -> dict:
+    """ptxas's lines (``-Xptxas -v``) for each tensor-core kernel instance:
+    stack and spill bytes, registers and static shared memory."""
+    import re
+    rep, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_fwd_tc_kernel|ring_attn_tc_kernel)ILi(\d+)E",
+                          m.group(1))
+            cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+            if cur:
+                rep[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rep[cur].update(spills=line.strip(), spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        if "Used" in line and "registers" in line:
+            rep[cur]["usage"] = line.split(":", 1)[1].strip()
+            cur = None
+    return rep
 
 
 def _paged_inputs(*, b, h, kvh, hd, page, nb, dtype, pos, inactive, seed):
@@ -657,6 +706,14 @@ FLASH_CASES = [
     dict(name="ragged", b=4, s=1000, h=32, kvh=32, hd=64),
     # granite-moe-3b-a800m's heads: 24 q / 8 kv of 64, a group of 3
     dict(name="gqa3", b=4, s=1024, h=24, kvh=8, hd=64),
+    # head dim 32 (the tensor-core tile's 64-byte swizzle), a group of 4
+    dict(name="hd32", b=4, s=1024, h=16, kvh=4, hd=32),
+    # the ragged edge (s not a multiple of the 64-row tile) at the other
+    # head dims, and s under one tile with a window and a softcap
+    dict(name="ragged32", b=4, s=1000, h=16, kvh=4, hd=32),
+    dict(name="ragged128", b=4, s=1000, h=16, kvh=8, hd=128, window=300),
+    dict(name="short", b=4, s=40, h=16, kvh=8, hd=128, softcap=30.0,
+         window=16),
 ]
 
 
@@ -1396,8 +1453,8 @@ def _profile_tp_step(tr, comm):
     coll = [k for k in kernels
             if "collective_kernel" in k[2] or "ring_mm_rs" in k[2]]
     ring = [k for k in kernels if any(
-        name in k[2] for name in ("ring_attn_kernel", "publish_kernel",
-                                  "done_kernel"))]
+        name in k[2] for name in ("ring_attn_kernel", "ring_attn_tc_kernel",
+                                  "publish_kernel", "done_kernel"))]
     return dict(
         wall_ms_profiled=wall_ms,
         device_ms=device_ms if kernels else "not measured",
@@ -1436,6 +1493,9 @@ RING_CASES = [
     dict(case="mha", b=4, s=1024, h=32, kvh=32, hd=64),
     dict(case="gqa_window_softcap", b=2, s=2048, h=16, kvh=8, hd=128,
          window=256, softcap=30.0),
+    # ragged shards: sq 1000 at tp 2, 500 at tp 4 (not multiples of the
+    # 64-row tile), a window reaching over one shard
+    dict(case="ragged", b=2, s=2000, h=16, kvh=8, hd=128, window=700),
 ]
 # phase 12: (schedule, remat, fine_remat, seq_parallel, ring); SP under
 # megatron and fused, ring attention (seq_shard = tp) under oases and
@@ -1462,10 +1522,41 @@ def _ring_pairs(rank: int, sq: int, window) -> int:
     return int((qpos + 1 - lo).sum())
 
 
+def _flash_at_ring_shape() -> dict:
+    """The bf16 flash forward at the ring's whole shape (the slice case, b 2,
+    s 4096, 16 q / 8 kv heads of 128, causal) in this one process: what the
+    tile takes with no peers and no time slices, beside its bound and SDPA
+    (a yardstick only).  Timed, not checked (phase 5 checks the kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.bounds import flash_work, visible_pairs
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    case = RING_CASES[0]
+    b, s_, h, kvh, hd = (case[k] for k in ("b", "s", "h", "kvh", "hd"))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(b, s_, h, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(b, s_, kvh, hd, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    (nbytes, flops), _ = flash_work(b, s_, h, kvh, hd, visible_pairs(s_), 2)
+    bound = _bound(nbytes, flops, "bfloat16")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row = dict(case=case["case"], dtype="bfloat16", b=b, s=s_, h=h, kvh=kvh,
+               hd=hd, ms=time_ms(lambda: flash_attention_fwd(q, k, v)),
+               bound_ms=bound[0], bound_by=bound[1],
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)))
+    print(f"[flash_at_ring_shape] {json.dumps(row)}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_ring_kernels():
     from repro_torch.launch.ranks import run_ranks
 
-    results = {"ring_attention": []}
+    results = {"ring_attention": [],
+               "flash_at_ring_shape": _flash_at_ring_shape()}
     for tp in (2, 4):
         t0 = time.perf_counter()
         per_rank = run_ranks(_ring_kernels_rank, tp, timeout=600)
@@ -2298,7 +2389,11 @@ RGLRU_CASES = [dict(name="slice", b=2, s=4096, w=4096),
 # without a window
 HD256_CASES = [dict(name="mqa256_window", b=2, s=4096, h=16, kvh=1, hd=256,
                     window=2048),
-               dict(name="mqa256", b=2, s=4096, h=16, kvh=1, hd=256)]
+               dict(name="mqa256", b=2, s=4096, h=16, kvh=1, hd=256),
+               # the ragged edge at hd 256, and s under one tile
+               dict(name="mqa256_ragged", b=2, s=1000, h=16, kvh=1, hd=256,
+                    window=300),
+               dict(name="mqa256_short", b=2, s=40, h=16, kvh=1, hd=256)]
 # phase 18: card vs CPU in f32 at full width and depth 5 (one (rglru,
 # rglru, local) block and a tail of two RG-LRU layers), b 1 x 2304 (longer
 # than the window 2048), under FAMILY_SCHEDULES; loss within 1e-6

@@ -77,10 +77,10 @@ _SIGNATURES = {
     # err, stream
     "repro_ring_matmul_rs": [_P, _I, _I, _L, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _U, _I, _P, _P],
-    # ws, rank, n, slot, q, k, v, out, lse, b, sq, sk, h, kvh, hd, causal,
-    # window, scale, softcap, epoch, dtype, err, stream
-    "repro_ring_attention": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _F, _U, _I, _P, _P],
+    # ws, host_ws, rank, n, slot, q, k, v, out, lse, b, sq, sk, h, kvh, hd,
+    # causal, window, scale, softcap, epoch, dtype, err, stream
+    "repro_ring_attention": [_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F, _U, _I, _P, _P],
     # ws, rank, n, slot, x, out, count, inner, offset, dtype, mode, epoch,
     # err, stream
     "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _L, _L, _I, _I, _U,

@@ -25,27 +25,39 @@
 // tiles no longer fit a block's 227 KB, so both backward kernels take
 // 32-row key tiles there (KT): the dK/dV kernel holds 32 keys and the 64
 // queries of a q tile (215,296 B), the dQ kernel 64 queries and 32 keys
-// (207,104 B); the forward's three 64-row tiles take 214,784 B.  A launch
-// whose shared memory the card refuses returns the error to the caller.
+// (207,104 B); the f32 forward's three 64-row tiles take 214,784 B.  A
+// launch whose shared memory the card refuses returns the error to the
+// caller.
+//
+// The forward runs two tiles.  bf16 inputs take the tensor-core tile of
+// flash_fwd_tc.cuh (wgmma fed by TMA: a producer warp keeps K and V in a
+// two-stage ring, one consumer warpgroup folds each 64-key tile into the
+// block's 64 q rows; P enters the P V product as two bf16 halves, 1.5x the
+// tensor-core flops, so that out stays within one bf16 ulp of the f32
+// reference; 20-160 KB of shared memory from hd 32 to 256; the intended
+// roundings pinned on the CPU by tests/test_torch_flash_tiles.py, the
+// kernel checked on the card by chip_smoke.py phases 5 and 17).  f32
+// inputs keep the CUDA-core tile of flash_fwd.cuh: a tensor-core product
+// of f32 inputs is TF32, ~1e-3 off, where the f32 gates (card vs CPU,
+// 1e-5) need full f32 sums.
 //
 // Bound on the H100: causal, the forward does about s/2 flops per element
 // it moves (256 a byte in bf16 at s 1024), just below the tensor cores'
 // ~295 flop-per-byte balance, so the card's bound is the bytes, by a
-// little; the backward is alike.  But this first kernel runs on the CUDA
-// cores (f32 FMAs, ~1/15 of the bf16 tensor-core rate) and its inner
-// products read shared memory at one load per two FMAs, so the FMA and
-// shared-memory rates bound it in practice.  Design: 256
-// threads as 16 x 16, each owning a 4 x 4 block of the 64 x 64 score tile
-// (rows ty*4+i, columns tx+16*j) and 4 rows x hd/16 columns of the
-// output tile; row reductions are shuffles within a half-warp.  Tiles
-// are staged in shared memory as f32 (q pre-scaled, as the TPU kernel
+// little; at hd 256 with 16 q heads to one kv head it is the operations.
+// The bf16 forward's own limits are the exponentials (one a visible pair)
+// and its one load ahead; the backward is alike in bound but still runs
+// on the CUDA cores (f32 FMAs, ~1/15 of the bf16 tensor-core rate, one
+// shared-memory load per two FMAs): 256 threads as 16 x 16, each owning a
+// 4 x 4 block of the 64 x 64 score tile and 4 rows x hd/16 columns of its
+// output tile, f32 tiles in shared memory (q pre-scaled, as the TPU kernel
 // scales q in f32), rows padded by one word against bank conflicts.
-// The forward's tile loop lives in flash_fwd.cuh, shared with the
-// ring-attention kernel.  Moving the products onto wgmma is later work.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "flash_fwd.cuh"
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -97,10 +109,11 @@ constexpr size_t dq_smem() {
          sizeof(float);
 }
 
-template <typename T, int HD>
+// f32: the CUDA-core tile of flash_fwd.cuh
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, Params p) {
   constexpr int LD = HD + 1;
   extern __shared__ float smem[];
@@ -113,12 +126,45 @@ __global__ void __launch_bounds__(kThreads)
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
 
-  load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
   Carry<HD> c;
   c.init();
-  fold_keys<T, HD>(qs, ks, vs, ps, k, v, bi, hi / p.g, p.kvh, q0, p.mask(),
-                   c);
-  store_rows<T, HD>(c, out, lse, bi, hi, p.h, p.s, q0);
+  fold_keys<HD>(qs, ks, vs, ps, k, v, bi, hi / p.g, p.kvh, q0, p.mask(), c);
+  store_rows<HD>(c, out, lse, bi, hi, p.h, p.s, q0);
+}
+
+// the maps of q, k and v for the tensor-core forward
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+// flash attention folds one shard: the block's own k and v
+struct OwnShard {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  Mask mk;
+  __device__ __forceinline__ int count() const { return 1; }
+  __device__ __forceinline__ bool get(int, int, Mask& m, const CUtensorMap*& km,
+                                      const CUtensorMap*& vm) const {
+    m = mk;
+    km = k;
+    vm = v;
+    return true;
+  }
+  __device__ __forceinline__ void ready(int) const {}
+};
+
+// bf16: one block per (batch, q head, 64-row q tile), the longest
+// (latest) q tiles first
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ FwdMaps maps,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, Params p) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int hi = blockIdx.y;
+  tc_block<HD>(&maps.q, OwnShard{&maps.k, &maps.v, p.mask()}, blockIdx.z, hi,
+               hi / p.g, q0, p.scale, out, lse, p.h, p.s);
 }
 
 // delta[b, h, s] = rowsum(dout * out) in f32; one warp per (b, s, h) row
@@ -399,18 +445,39 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+template <int HD>
+int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
+           const Params& p, cudaStream_t st) {
+  FwdMaps maps;
+  int e = encode_rows(&maps.q, q, p.b, p.s, p.h, HD);
+  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.s, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.s, p.kvh, HD);
+  if (e != 0) return e;
+  const size_t smem = TcGeo<HD>::kSmem;
+  cudaError_t ce = allow_smem(flash_fwd_tc_kernel<HD>, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
+  flash_fwd_tc_kernel<HD><<<grid, kTcThreads, smem, st>>>(
+      maps, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         const Params& p, cudaStream_t st) {
-  const size_t smem = fwd_smem<HD>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, HD>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return fwd_tc<HD>(q, k, v, out, lse, p, st);
+  } else {
+    const size_t smem = fwd_smem<HD>();
+    cudaError_t e = allow_smem(flash_fwd_kernel<HD>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
+    flash_fwd_kernel<HD><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int HD>

@@ -1,6 +1,10 @@
-// The flash-attention forward's tile loop, shared by the training kernel
-// (flash_attention.cu) and the ring-attention kernel (ring_attention.cu),
-// as both TPU kernels fold key blocks into the same online-softmax carry.
+// The flash-attention forward's f32 tile loop, shared by the training
+// kernel (flash_attention.cu) and the ring-attention kernel
+// (ring_attention.cu), as both TPU kernels fold key blocks into the same
+// online-softmax carry; and the masks both tiles share.  bf16 inputs take
+// the tensor-core tile of flash_fwd_tc.cuh instead; f32 stays here on the
+// CUDA cores, because a tensor-core product of f32 inputs is TF32 (~1e-3
+// off), where the f32 gates (card vs CPU, 1e-5) need full f32 sums.
 //
 // One block owns one (batch, q head, 64-row q tile).  256 threads as
 // 16 x 16, each owning a 4 x 4 block of the 64 x 64 score tile (rows
@@ -113,10 +117,11 @@ struct Carry {
 // scaled rows are already in `qs`.  Tiles the mask hides entirely are
 // never loaded (causal: the loop stops after the diagonal tile).  `ks`,
 // `vs` [64][HD + 1] and `ps` [64][kPLD] are scratch in shared memory.
-template <typename T, int HD>
+template <int HD>
 __device__ __forceinline__ void fold_keys(const float* qs, float* ks, float* vs,
-                                          float* ps, const T* __restrict__ k,
-                                          const T* __restrict__ v, int bi,
+                                          float* ps,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v, int bi,
                                           int kh, int kvh, int q0,
                                           const Mask& mk, Carry<HD>& c) {
   constexpr int LD = HD + 1;
@@ -129,8 +134,8 @@ __device__ __forceinline__ void fold_keys(const float* qs, float* ks, float* vs,
     if (mk.causal && mk.k_off + k0 > mk.q_off + q0 + kTile - 1) break;
     if (!tile_runs(q0, k0, mk)) continue;
     __syncthreads();  // the previous tile's ks/vs/ps are consumed
-    load_tile<T, HD>(ks, k, bi, k0, kh, kvh, mk.sk, 1.f);
-    load_tile<T, HD>(vs, v, bi, k0, kh, kvh, mk.sk, 1.f);
+    load_tile<float, HD>(ks, k, bi, k0, kh, kvh, mk.sk, 1.f);
+    load_tile<float, HD>(vs, v, bi, k0, kh, kvh, mk.sk, 1.f);
     __syncthreads();
 
     float sc[4][4];
@@ -199,8 +204,9 @@ __device__ __forceinline__ void fold_keys(const float* qs, float* ks, float* vs,
 
 // out [b, s, h, HD] in T and lse [b, h, s] f32 (= m + log(l), l floored
 // at 1e-30) of the q tile at row q0 of head hi.
-template <typename T, int HD>
-__device__ __forceinline__ void store_rows(const Carry<HD>& c, T* __restrict__ out,
+template <int HD>
+__device__ __forceinline__ void store_rows(const Carry<HD>& c,
+                                           float* __restrict__ out,
                                            float* __restrict__ lse, int bi,
                                            int hi, int h, int s, int q0) {
   constexpr int NC = Carry<HD>::NC;
@@ -214,7 +220,7 @@ __device__ __forceinline__ void store_rows(const Carry<HD>& c, T* __restrict__ o
     const int64_t o = ((static_cast<int64_t>(bi) * s + qi) * h + hi) * HD;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc)
-      out[o + tx + 16 * cc] = repro::from_float<T>(c.acc[i][cc] / lf);
+      out[o + tx + 16 * cc] = c.acc[i][cc] / lf;
     if (tx == 0)
       lse[(static_cast<int64_t>(bi) * h + hi) * s + qi] = c.m[i] + logf(lf);
   }

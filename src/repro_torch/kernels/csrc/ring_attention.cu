@@ -17,8 +17,8 @@
 // rank publishes its K/V shard once into its peer workspace (peer.cuh),
 // and every block reads the tiles of shard `src` straight through the
 // peer pointer.  A block is one (batch, q head, 64-row q tile); the tile
-// loop is the flash forward's (flash_fwd.cuh).  Three launches on the
-// communicator's stream:
+// loop is the flash forward's (flash_fwd_tc.cuh for bf16, flash_fwd.cuh
+// for f32).  Three launches on the communicator's stream:
 //
 //   1. publish: wait until every peer has finished reading this rank's
 //      attention slot (call epoch) % 2 from call epoch - 2 (its done
@@ -36,15 +36,36 @@
 // back-to-back calls need no reset.  On one card the ranks are processes
 // that the card time-slices: a flag wait can cost a time slice.
 //
+// bf16 shards fold through the tensor-core tile of flash_fwd_tc.cuh
+// (wgmma fed by TMA; P as two bf16 halves, 1.5x the tensor-core flops;
+// the intended roundings pinned on the CPU by
+// tests/test_torch_flash_tiles.py, the kernel checked on the card by
+// chip_smoke.py phase 11): the block's producer thread waits for a
+// peer's ready tag itself, then starts the shard's tile loads; the
+// consumer warpgroup never waits on a flag.  Own
+// tiles come through tensor maps of this rank's k and v, a peer's
+// through maps of its attention slot of this call's parity, which the
+// host builds from the peers' mapped base addresses for every call: with
+// the parity known at launch that is two maps a rank, 2n + 1 with q's,
+// 2,176 bytes of kernel parameters at n = 8 (under the 4 KB limit that
+// CUDA before 12.1 sets), so no map lives in device memory and none needs
+// the tensormap proxy fence.  A peer's K/V were written by another
+// process's publish launch: after the acquire load of its tag the
+// producer runs the async-proxy fence before TMA reads them.  f32 shards
+// keep flash_fwd.cuh's CUDA-core loop: a tensor-core product of f32
+// inputs is TF32, ~1e-3 off the f32 reference.
+//
 // Bound on the H100: operations (q.k and p.v over the visible pairs, about
 // 1.0e11 flops for one internlm2-1.8b rank at b 2, s 4096, tp 2, against
-// ~67 MB moved).  This first kernel runs its products on the CUDA cores
-// (f32 FMAs, the flash forward's loop), so the FMA and shared-memory
-// rates bound it in practice; wgmma/TMA tiles are later work.
+// ~67 MB moved); the bf16 tile's own limits are the exponentials and its
+// one load ahead, and on one card the ranks' time slices.
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 #include "flash_fwd.cuh"
+#include "flash_fwd_tc.cuh"
 #include "peer.cuh"
 
 namespace {
@@ -86,12 +107,26 @@ __global__ void __launch_bounds__(kCopyThreads)
   __threadfence_system();
 }
 
-template <typename T, int HD>
+// shard `src`'s mask for the q tile at row q0, or false when the tile
+// sees none of the shard (skipped before any wait for it)
+__device__ __forceinline__ bool shard_mask(int src, int rank, int q0,
+                                           const RingParams& p, Mask& m) {
+  m = Mask{rank * p.sq, p.sq, src * p.sk, p.sk, p.causal, p.window,
+           p.softcap};
+  const int q_last = min(q0 + kTile, p.sq) - 1;
+  if (p.causal && m.k_off > m.q_off + q_last) return false;
+  if (p.window > 0 && m.k_off + p.sk - 1 <= m.q_off + q0 - p.window)
+    return false;
+  return true;
+}
+
+// f32: the CUDA-core tile of flash_fwd.cuh
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
     ring_attn_kernel(char* const* __restrict__ ws, int rank, int n,
-                     size_t slot, size_t v_off, const T* __restrict__ q,
-                     const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, float* __restrict__ lse,
+                     size_t slot, size_t v_off, const float* __restrict__ q,
+                     const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ out, float* __restrict__ lse,
                      RingParams p, uint32_t epoch, int* err) {
   constexpr int LD = HD + 1;
   extern __shared__ float smem[];
@@ -111,32 +146,87 @@ __global__ void __launch_bounds__(kThreads)
                epoch);
   }
 
-  load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.sq, p.scale);
+  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.sq, p.scale);
   Carry<HD> c;
   c.init();
-  const int q_last = min(q0 + kTile, p.sq) - 1;
   for (int s = 0; s < n; ++s) {
     const int src = (rank - s + n) % n;
-    const Mask mk{rank * p.sq, p.sq, src * p.sk, p.sk, p.causal, p.window,
-                  p.softcap};
-    // a shard this q tile cannot see is skipped before any wait for it
-    if (p.causal && mk.k_off > mk.q_off + q_last) continue;
-    if (p.window > 0 && mk.k_off + p.sk - 1 <= mk.q_off + q0 - p.window)
-      continue;
-    const T* kp = k;
-    const T* vp = v;
+    Mask mk;
+    if (!shard_mask(src, rank, q0, p, mk)) continue;
+    const float* kp = k;
+    const float* vp = v;
     if (src != rank) {
       if (threadIdx.x == 0)
         wait_geq(flags(ws[rank]) + kAttnReady + par * kMaxRanks + src, epoch,
                  err, kErrAttnTimeout);
       __syncthreads();
       const char* base = attn_slot(ws[src], slot, par);
-      kp = reinterpret_cast<const T*>(base);
-      vp = reinterpret_cast<const T*>(base + v_off);
+      kp = reinterpret_cast<const float*>(base);
+      vp = reinterpret_cast<const float*>(base + v_off);
     }
-    fold_keys<T, HD>(qs, ks, vs, ps, kp, vp, bi, hi / p.g, p.kvh, q0, mk, c);
+    fold_keys<HD>(qs, ks, vs, ps, kp, vp, bi, hi / p.g, p.kvh, q0, mk, c);
   }
-  store_rows<T, HD>(c, out, lse, bi, hi, p.h, p.sq, q0);
+  store_rows<HD>(c, out, lse, bi, hi, p.h, p.sq, q0);
+}
+
+// the maps of the tensor-core kernel: q, and the K and V shard of every
+// rank (this rank's own tensors; a peer's attention slot of this call)
+struct RingMaps {
+  CUtensorMap q;
+  CUtensorMap k[kMaxRanks];
+  CUtensorMap v[kMaxRanks];
+};
+
+// the ring's shards for one q tile: shard (rank - s) mod n at step s,
+// skipped where the q tile sees none of it; a peer's only after its
+// ready tag of this call
+struct RingShards {
+  const RingMaps* maps;
+  char* const* ws;
+  RingParams p;
+  int rank, n, par;
+  uint32_t epoch;
+  int* err;
+
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ bool get(int s, int q0, Mask& m,
+                                      const CUtensorMap*& km,
+                                      const CUtensorMap*& vm) const {
+    const int src = (rank - s + n) % n;
+    if (!shard_mask(src, rank, q0, p, m)) return false;
+    km = &maps->k[src];
+    vm = &maps->v[src];
+    return true;
+  }
+  __device__ __forceinline__ void ready(int s) const {
+    const int src = (rank - s + n) % n;
+    if (src == rank) return;
+    wait_geq(flags(ws[rank]) + kAttnReady + par * kMaxRanks + src, epoch, err,
+             kErrAttnTimeout);
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+  }
+};
+
+// bf16: one block per (batch, q head, 64-row q tile), the latest q tiles
+// (the most keys) first
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ring_attn_tc_kernel(char* const* __restrict__ ws, int rank, int n,
+                        const __grid_constant__ RingMaps maps,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, RingParams p,
+                        uint32_t epoch, int* err) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int hi = blockIdx.y;
+  const int par = epoch & 1;
+  // the publish launch has ended: this rank's shard is in its slot
+  if (threadIdx.x < n && threadIdx.x != rank) {
+    __threadfence_system();
+    st_release(flags(ws[threadIdx.x]) + kAttnReady + par * kMaxRanks + rank,
+               epoch);
+  }
+  tc_block<HD>(&maps.q, RingShards{&maps, ws, p, rank, n, par, epoch, err},
+               blockIdx.z, hi, hi / p.g, q0, p.scale, out, lse, p.h, p.sq);
 }
 
 // this rank has read every peer's slot of call `epoch`
@@ -146,53 +236,93 @@ __global__ void done_kernel(char* const* __restrict__ ws, int rank, int n,
   if (r < n && r != rank) st_release(flags(ws[r]) + kAttnDone + rank, epoch);
 }
 
-template <typename T, int HD>
-int attend(char* const* ws, int rank, int n, size_t slot, size_t v_off,
-           const void* q, const void* k, const void* v, void* out, void* lse,
-           const RingParams& p, uint32_t epoch, int* err, cudaStream_t st) {
-  const size_t smem = fwd_smem<HD>();
-  auto kern = ring_attn_kernel<T, HD>;
-  cudaError_t e = cudaFuncSetAttribute(
+template <int HD>
+int attend_tc(char* const* ws, const long long* host_ws, int rank, int n,
+              size_t slot, size_t v_off, const void* q, const void* k,
+              const void* v, void* out, void* lse, const RingParams& p,
+              uint32_t epoch, int* err, cudaStream_t st) {
+  RingMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  int e = encode_rows(&maps.q, q, p.b, p.sq, p.h, HD);
+  for (int r = 0; r < n && e == 0; ++r) {
+    const char* kr = static_cast<const char*>(k);
+    const char* vr = static_cast<const char*>(v);
+    if (r != rank) {
+      kr = attn_slot(reinterpret_cast<char*>(host_ws[r]), slot, epoch & 1);
+      vr = kr + v_off;
+    }
+    e = encode_rows(&maps.k[r], kr, p.b, p.sk, p.kvh, HD);
+    if (e == 0) e = encode_rows(&maps.v[r], vr, p.b, p.sk, p.kvh, HD);
+  }
+  if (e != 0) return e;
+  const size_t smem = TcGeo<HD>::kSmem;
+  auto kern = ring_attn_tc_kernel<HD>;
+  cudaError_t ce = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
-  kern<<<grid, kThreads, smem, st>>>(
-      ws, rank, n, slot, v_off, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), p, epoch, err);
+  kern<<<grid, kTcThreads, smem, st>>>(ws, rank, n, maps,
+                                       static_cast<__nv_bfloat16*>(out),
+                                       static_cast<float*>(lse), p, epoch,
+                                       err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int attend(char* const* ws, const long long* host_ws, int rank, int n,
+           size_t slot, size_t v_off, const void* q, const void* k,
+           const void* v, void* out, void* lse, const RingParams& p,
+           uint32_t epoch, int* err, cudaStream_t st) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return attend_tc<HD>(ws, host_ws, rank, n, slot, v_off, q, k, v, out,
+                         lse, p, epoch, err, st);
+  } else {
+    const size_t smem = fwd_smem<HD>();
+    auto kern = ring_attn_kernel<HD>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
+    kern<<<grid, kThreads, smem, st>>>(
+        ws, rank, n, slot, v_off, static_cast<const float*>(q),
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(out), static_cast<float*>(lse), p, epoch, err);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 template <typename T>
-int attend_hd(int hd, char* const* ws, int rank, int n, size_t slot,
-              size_t v_off, const void* q, const void* k, const void* v,
-              void* out, void* lse, const RingParams& p, uint32_t epoch,
-              int* err, cudaStream_t st) {
+int attend_hd(int hd, char* const* ws, const long long* host_ws, int rank,
+              int n, size_t slot, size_t v_off, const void* q, const void* k,
+              const void* v, void* out, void* lse, const RingParams& p,
+              uint32_t epoch, int* err, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return attend<T, 32>(ws, rank, n, slot, v_off, q, k, v, out, lse, p,
-                           epoch, err, st);
+      return attend<T, 32>(ws, host_ws, rank, n, slot, v_off, q, k, v, out,
+                           lse, p, epoch, err, st);
     case 64:
-      return attend<T, 64>(ws, rank, n, slot, v_off, q, k, v, out, lse, p,
-                           epoch, err, st);
+      return attend<T, 64>(ws, host_ws, rank, n, slot, v_off, q, k, v, out,
+                           lse, p, epoch, err, st);
     case 128:
-      return attend<T, 128>(ws, rank, n, slot, v_off, q, k, v, out, lse, p,
-                            epoch, err, st);
+      return attend<T, 128>(ws, host_ws, rank, n, slot, v_off, q, k, v, out,
+                            lse, p, epoch, err, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// ws: device array of the n ranks' workspace pointers (peer.cuh); q, out
-// [b, sq, h, hd] and k, v [b, sk, kvh, hd] contiguous of dtype code
-// `dtype`, k and v 16-byte aligned; lse [b, h, sq] f32; window 0 means
-// none.  `epoch` counts this group's ring-attention calls from 1.  K and
-// V, each rounded up to 256 bytes, must fit one slot.  Returns a
-// cudaError_t code (0 on success).
-extern "C" int repro_ring_attention(const void* ws, int rank, int n,
-                                    long long slot, const void* q,
+// ws: device array of the n ranks' workspace pointers (peer.cuh), host_ws
+// the same n pointers in host memory; q, out [b, sq, h, hd] and k, v
+// [b, sk, kvh, hd] contiguous of dtype code `dtype`, q, k and v 16-byte
+// aligned; lse [b, h, sq] f32; window 0 means none.  `epoch` counts this
+// group's ring-attention calls from 1.  K and V, each rounded up to 256
+// bytes, must fit one slot.  Returns a cudaError_t code (0 on success).
+extern "C" int repro_ring_attention(const void* ws, const void* host_ws,
+                                    int rank, int n, long long slot,
+                                    const void* q,
                                     const void* k, const void* v, void* out,
                                     void* lse, int b, int sq, int sk, int h,
                                     int kvh, int hd, int causal, int window,
@@ -207,10 +337,12 @@ extern "C" int repro_ring_attention(const void* ws, int rank, int n,
   const size_t kv_bytes = static_cast<size_t>(b) * sk * kvh * hd * elt;
   const size_t v_off = (kv_bytes + 255) / 256 * 256;
   if (kv_bytes % 16 || 2 * v_off > static_cast<size_t>(slot) ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto wsp = static_cast<char* const*>(ws);
+  auto host = static_cast<const long long*>(host_ws);
   int* errp = static_cast<int*>(err);
   if (n > 1) {
     const int64_t words = static_cast<int64_t>(kv_bytes / 16);
@@ -227,9 +359,10 @@ extern "C" int repro_ring_attention(const void* ws, int rank, int n,
                      softcap};
   const int rc =
       dtype == repro::kF32
-          ? attend_hd<float>(hd, wsp, rank, n, static_cast<size_t>(slot),
-                             v_off, q, k, v, out, lse, p, epoch, errp, st)
-          : attend_hd<__nv_bfloat16>(hd, wsp, rank, n,
+          ? attend_hd<float>(hd, wsp, host, rank, n,
+                             static_cast<size_t>(slot), v_off, q, k, v, out,
+                             lse, p, epoch, errp, st)
+          : attend_hd<__nv_bfloat16>(hd, wsp, host, rank, n,
                                      static_cast<size_t>(slot), v_off, q, k,
                                      v, out, lse, p, epoch, errp, st);
   if (rc != 0 || n == 1) return rc;

@@ -95,16 +95,24 @@ def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 1")
 
 
-def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None
-                  ) -> bool:
-    """``_build.on_cpu`` (over ``tensors`` and ``lse``), and on CUDA what
-    the kernels take: one f32 or bf16 dtype for ``tensors`` (``lse`` is
-    f32, checked by the caller), hd among the compiled instances (any
-    group h/kvh: ``_flash_check`` has checked that kvh divides h),
-    contiguity."""
+def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None,
+                  *, tma: bool = False) -> bool:
+    """``_build.on_cpu`` (over ``tensors`` and ``lse``); on CUDA,
+    :func:`_kernel_check` of them."""
     extra = () if lse is None else (lse,)
     if _build.on_cpu(what, *tensors, *extra):
         return True
+    _kernel_check(tensors, extra, tma=tma)
+    return False
+
+
+def _kernel_check(tensors, extra=(), *, tma: bool = False):
+    """What the kernels take: one f32 or bf16 dtype for ``tensors`` (an
+    ``extra`` lse is f32, checked by the caller), hd among the compiled
+    instances (any group h/kvh: ``_flash_check`` has checked that kvh
+    divides h), contiguity; with ``tma`` (the forward), bf16 q, k and v
+    (the first three) at 16-byte-aligned addresses, which the tensor-core
+    tile's tensor maps need."""
     if any(t.dtype != tensors[0].dtype for t in tensors) \
             or tensors[0].dtype not in _DTYPES:
         raise TypeError(
@@ -116,7 +124,12 @@ def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None
             f"flash_attention kernels support hd in {HEAD_DIMS}, got {hd}")
     if not all(t.is_contiguous() for t in (*tensors, *extra)):
         raise ValueError("flash_attention kernels take contiguous tensors")
-    return False
+    if tma and tensors[0].dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in tensors[:3]):
+        raise ValueError(
+            "flash_attention forward kernel takes bf16 q, k, v at 16-byte "
+            "aligned addresses (its tensor maps need them), got offsets "
+            f"{[t.data_ptr() % 16 for t in tensors[:3]]} mod 16")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,7 +139,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, s, kvh, hd] -> (out [b, s, h, hd], lse [b, h, s] f32).  No autograd
     (see :func:`flash_attention`)."""
     _flash_check(q, k, v, window)
-    if _flash_on_cpu("flash_attention", (q, k, v)):
+    if _flash_on_cpu("flash_attention", (q, k, v), tma=True):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
     b, s, h, hd = q.shape

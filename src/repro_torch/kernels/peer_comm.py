@@ -56,9 +56,9 @@ class Workspace:
     """This rank's workspace and the mapped workspaces of its peers.
 
     ``ptrs`` is the device table of every rank's workspace base pointer (own
-    included), which the kernels take.  ``slot_bytes`` sizes each of the
-    two ring landing slots, the two collective slots and the two
-    ring-attention slots."""
+    included), which the kernels take; ``host_ptrs`` the same table in
+    host memory.  ``slot_bytes`` sizes each of the two ring landing slots,
+    the two collective slots and the two ring-attention slots."""
 
     def __init__(self, rank: int, size: int, store, prefix: str,
                  slot_bytes: int, device: torch.device):
@@ -98,6 +98,9 @@ class Workspace:
                 self._opened.append(p.value)
                 ptrs.append(p.value)
             self.ptrs = torch.tensor(ptrs, dtype=torch.int64, device=device)
+            # the same table in host memory (the ring-attention kernel's
+            # tensor maps of the peers' slots are built on the host)
+            self.host_ptrs = (ctypes.c_longlong * size)(*ptrs)
         store_barrier(store, f"{prefix}/opened", size)
 
     def check(self):

@@ -31,6 +31,7 @@ shard raise there, and nothing falls back to the plain ring.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -300,10 +301,10 @@ def ring_forward_kernel(q, k, v, comm: Comm, *, causal: bool = True,
     if hd not in HEAD_DIMS:
         raise ValueError(f"ring_attention kernel supports hd in "
                          f"{HEAD_DIMS}, got {hd}")
-    if not all(t.is_contiguous() for t in (q, k, v)) \
-            or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("ring_attention kernel takes contiguous q, k, v "
-                         "(k and v 16-byte aligned)")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("ring_attention kernel takes contiguous, 16-byte "
+                         "aligned q, k, v")
     if _kv_slot_bytes(k) > comm.ws.slot_bytes:
         raise ValueError(
             f"ring_attention: a K/V shard of {_kv_slot_bytes(k)} bytes does "
@@ -314,7 +315,8 @@ def ring_forward_kernel(q, k, v, comm: Comm, *, causal: bool = True,
     comm.ws.check()
     with torch.cuda.stream(comm.begin()):
         rc = _build.library().repro_ring_attention(
-            comm.ws.ptrs.data_ptr(), comm.rank, comm.size, comm.ws.slot_bytes,
+            comm.ws.ptrs.data_ptr(), ctypes.addressof(comm.ws.host_ptrs),
+            comm.rank, comm.size, comm.ws.slot_bytes,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, sq, sk, h, kvh, hd, int(causal), window or 0,
             scale, softcap, comm.attn_epoch, _DTYPES[q.dtype],
