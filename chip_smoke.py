@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
    ``nvcc`` for ``sm_90a``; print ptxas's registers, shared memory and
-   spill bytes of each tensor-core forward kernel and fail on a spill;
+   spill bytes of each tensor-core kernel (the attention forward, the
+   flash backward's dK/dV and dQ kernels) and fail on a spill;
    print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, in f32 (TF32 off) and bf16, and time kernel,
@@ -25,7 +26,7 @@ Phases (any failure raises and the script exits non-zero):
    device time against host wall per step.
 5. Training kernels against their plain versions on the card, in f32
    (TF32 off) and bf16: flash attention forward (out, lse) and backward
-   (dq, dk, dv) at the training shapes (b 4, s 1024, 32 heads of 64;
+   (dq, dk, dv; run twice, the bits must agree) at the training shapes (b 4, s 1024, 32 heads of 64;
    GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000;
    granite's 24/8 heads of 64, a group of 3; 16/4 heads of 32; ragged
    s 1000 at hd 32 and at hd 128 with window 300; s 40 at hd 128 with
@@ -292,9 +293,13 @@ def phase_build():
     return {"build_s": build_s, "card": card, "tc_kernels": tc}
 
 
-# the tensor-core forward kernels (flash_fwd_tc.cuh) by instance: the flash
-# forward at every head dim, the ring at the ring's
-TC_KERNELS = ([f"flash_fwd_tc_kernel<{hd}>" for hd in (32, 64, 128, 256)]
+# the tensor-core kernels by instance: the flash forward (flash_fwd_tc.cuh)
+# and the flash backward's dK/dV and dQ kernels (flash_bwd_tc.cuh) at every
+# head dim, the ring at the ring's
+TC_KERNELS = ([f"{k}<{hd}>" for k in ("flash_fwd_tc_kernel",
+                                      "flash_bwd_dkdv_tc_kernel",
+                                      "flash_bwd_dq_tc_kernel")
+               for hd in (32, 64, 128, 256)]
               + [f"ring_attn_tc_kernel<{hd}>" for hd in (32, 64, 128)])
 
 
@@ -306,8 +311,9 @@ def _tc_kernel_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_fwd_tc_kernel|ring_attn_tc_kernel)ILi(\d+)E",
-                          m.group(1))
+            k = re.search(r"(flash_fwd_tc_kernel|flash_bwd_dkdv_tc_kernel|"
+                          r"flash_bwd_dq_tc_kernel|ring_attn_tc_kernel)"
+                          r"ILi(\d+)E", m.group(1))
             cur = f"{k.group(1)}<{k.group(2)}>" if k else None
             if cur:
                 rep[cur] = {}
@@ -750,9 +756,13 @@ def _flash_rows(case, dname):
     out, lse = flash_attention_fwd(q, k, v, **kw)
     want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
     grads = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     want_grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                              **kw)
     torch.cuda.synchronize()
+    # no atomics: a second run gives the same bits
+    require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+            f"flash_bwd {case['name']} {dname}: two runs differ")
     tol = FLASH_TOL[dname]
     ferr = _check_all(f"flash {case['name']} {dname}",
                       {"out": (out, want_out),
@@ -811,7 +821,7 @@ def _flash_rows(case, dname):
         del qt, kt, vt, dot, qg, kg, vg, lo
     print(f"[flash_attention] {json.dumps(frow)}")
     print(f"[flash_attention_bwd] {json.dumps(brow)}")
-    del q, k, v, dout, out, lse, want_out, want_lse, grads, want_grads
+    del q, k, v, dout, out, lse, want_out, want_lse, grads, again, want_grads
     torch.cuda.empty_cache()
     _FLASH_ROWS[case["name"], dname] = frow, brow
     return frow, brow

@@ -21,42 +21,50 @@
 // (times 1 - tanh^2 under a softcap), and writes dK/dV once; a dQ kernel
 // runs one block per (batch, q head, q tile) and loops over key tiles.
 // No atomics: every output element is summed by one thread in a fixed
-// order, so the result is deterministic.  At head dim 256 four 64-row f32
-// tiles no longer fit a block's 227 KB, so both backward kernels take
-// 32-row key tiles there (KT): the dK/dV kernel holds 32 keys and the 64
-// queries of a q tile (215,296 B), the dQ kernel 64 queries and 32 keys
-// (207,104 B); the f32 forward's three 64-row tiles take 214,784 B.  A
-// launch whose shared memory the card refuses returns the error to the
-// caller.
+// order, so the result is deterministic.
 //
-// The forward runs two tiles.  bf16 inputs take the tensor-core tile of
-// flash_fwd_tc.cuh (wgmma fed by TMA: a producer warp keeps K and V in a
-// two-stage ring, one consumer warpgroup folds each 64-key tile into the
-// block's 64 q rows; P enters the P V product as two bf16 halves, 1.5x the
-// tensor-core flops, so that out stays within one bf16 ulp of the f32
-// reference; 20-160 KB of shared memory from hd 32 to 256; the intended
-// roundings pinned on the CPU by tests/test_torch_flash_tiles.py, the
-// kernel checked on the card by chip_smoke.py phases 5 and 17).  f32
-// inputs keep the CUDA-core tile of flash_fwd.cuh: a tensor-core product
-// of f32 inputs is TF32, ~1e-3 off, where the f32 gates (card vs CPU,
-// 1e-5) need full f32 sums.
+// Both passes run two tiles, as the forward does.  bf16 inputs take the
+// tensor-core tiles: the forward's of flash_fwd_tc.cuh (wgmma fed by TMA:
+// a producer warp keeps K and V in a two-stage ring, one consumer
+// warpgroup folds each 64-key tile into the block's 64 q rows; P enters
+// the P V product as two bf16 halves, 1.5x the tensor-core flops, so that
+// out stays within one bf16 ulp of the f32 reference; 20-160 KB of shared
+// memory from hd 32 to 256) and the backward's of flash_bwd_tc.cuh (its
+// dK/dV block: two consumer warpgroups, one for S^T -> P^T -> dV and one
+// for dP^T -> dS^T -> dK, P^T passed between them in shared memory; its
+// dQ block on the forward's layout; P and dS as two bf16 halves each;
+// 2.5-4x the counted tensor-core flops; 40-208 KB of shared memory).  The
+// tiles' roundings are pinned on the CPU by tests/test_torch_flash_tiles.py
+// and tests/test_torch_flash_bwd_tiles.py, the kernels checked on the card
+// by chip_smoke.py phases 5, 14 and 17.  f32 inputs keep the CUDA-core
+// tiles (flash_fwd.cuh and the two backward kernels below): a tensor-core
+// product of f32 inputs is TF32, ~1e-3 off, where the f32 gates (card vs
+// CPU, 1e-5) need full f32 sums.
 //
 // Bound on the H100: causal, the forward does about s/2 flops per element
 // it moves (256 a byte in bf16 at s 1024), just below the tensor cores'
 // ~295 flop-per-byte balance, so the card's bound is the bytes, by a
-// little; at hd 256 with 16 q heads to one kv head it is the operations.
-// The bf16 forward's own limits are the exponentials (one a visible pair)
-// and its one load ahead; the backward is alike in bound but still runs
-// on the CUDA cores (f32 FMAs, ~1/15 of the bf16 tensor-core rate, one
-// shared-memory load per two FMAs): 256 threads as 16 x 16, each owning a
-// 4 x 4 block of the 64 x 64 score tile and 4 rows x hd/16 columns of its
-// output tile, f32 tiles in shared memory (q pre-scaled, as the TPU kernel
-// scales q in f32), rows padded by one word against bank conflicts.
+// little; at hd 256 with 16 q heads to one kv head it is the operations;
+// the backward is alike.  The bf16 tiles' own limits are the exponentials
+// (one a visible pair in each pass), the serial product, softmax, product
+// order within a warpgroup, and the split's extra products.  The f32
+// CUDA-core kernels run 256 threads as 16 x 16, each owning a 4 x 4 block
+// of the 64 x 64 score tile and 4 rows x hd/16 columns of its output
+// tile, f32 tiles in shared memory (q pre-scaled, as the TPU kernel scales
+// q in f32), rows padded by one word against bank conflicts (f32 FMAs, one
+// shared-memory load per two).  At head dim 256 four 64-row f32 tiles no
+// longer fit a block's 227 KB, so both f32 backward kernels take 32-row
+// key tiles there (KT): the dK/dV kernel holds 32 keys and the 64 queries
+// of a q tile (215,296 B), the dQ kernel 64 queries and 32 keys
+// (207,104 B); the f32 forward's three 64-row tiles take 214,784 B.  A
+// launch whose shared memory the card refuses returns the error to the
+// caller.
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
 #include "flash_fwd.cuh"
+#include "flash_bwd_tc.cuh"
 #include "flash_fwd_tc.cuh"
 
 namespace {
@@ -138,22 +146,6 @@ struct FwdMaps {
   CUtensorMap q, k, v;
 };
 
-// flash attention folds one shard: the block's own k and v
-struct OwnShard {
-  const CUtensorMap* k;
-  const CUtensorMap* v;
-  Mask mk;
-  __device__ __forceinline__ int count() const { return 1; }
-  __device__ __forceinline__ bool get(int, int, Mask& m, const CUtensorMap*& km,
-                                      const CUtensorMap*& vm) const {
-    m = mk;
-    km = k;
-    vm = v;
-    return true;
-  }
-  __device__ __forceinline__ void ready(int) const {}
-};
-
 // bf16: one block per (batch, q head, 64-row q tile), the longest
 // (latest) q tiles first
 template <int HD>
@@ -192,6 +184,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// bf16 backward: one dK/dV block per (batch, kv head and column part,
+// 64-key tile), the first (longest under the causal mask) key tiles first
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, HD <= 64 ? 2 : 1)
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ BwdMaps maps,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, Params p) {
+  constexpr int parts = bwd_kv_parts<HD>();
+  bwd_kv_block<HD>(maps, p.mask(), p.g, p.h, p.kvh, blockIdx.z,
+                   blockIdx.y / parts, blockIdx.x * kTile, blockIdx.y % parts,
+                   p.scale, lse, delta, dk, dv);
+}
+
+// bf16 backward: one dQ block per (batch, q head, 64-row q tile), the
+// longest (latest) q tiles first
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ BwdMaps maps,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, Params p) {
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int hi = blockIdx.y;
+  bwd_q_block<HD>(maps, p.mask(), blockIdx.z, hi, hi / p.g, q0, p.scale, lse,
+                  delta, dq, p.h);
+}
+
 // probability and its score gradient for one (query, key) cell
 __device__ __forceinline__ void p_ds(float raw, float dp, float lse_q,
                                      float delta_q, bool ok, const Params& p,
@@ -206,12 +227,13 @@ __device__ __forceinline__ void p_ds(float raw, float dp, float lse_q,
   if (p.softcap != 0.f) ds *= 1.f - t * t;
 }
 
-template <typename T, int HD, int KT>
+// f32 backward: the CUDA-core dK/dV and dQ kernels
+template <int HD, int KT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    Params p) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, Params p) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;
   constexpr int RK = KT / 16;        // key rows per thread
@@ -231,8 +253,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int tx = threadIdx.x & 15;   // q columns tx + 16 * j
   const int ty = threadIdx.x >> 4;   // key rows ty * RK + i
 
-  load_tile<T, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-  load_tile<T, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
 
   float adk[RK][NC], adv[RK][NC];
 #pragma unroll
@@ -247,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       const int q0 = qt * kTile;
       if (!tile_runs(q0, k0, p, KT)) continue;
       __syncthreads();  // the previous q tile is consumed (first: ks/vs ready)
-      load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
-      load_tile<T, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
+      load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+      load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
       load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
       load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
       __syncthreads();
@@ -323,17 +345,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const int64_t o = ((static_cast<int64_t>(bi) * p.s + kj) * p.kvh + kh) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[o + tx + 16 * c] = repro::from_float<T>(adk[i][c]);
-      dv[o + tx + 16 * c] = repro::from_float<T>(adv[i][c]);
+      dk[o + tx + 16 * c] = adk[i][c];
+      dv[o + tx + 16 * c] = adv[i][c];
     }
   }
 }
 
-template <typename T, int HD, int KT>
+template <int HD, int KT>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, Params p) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, Params p) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 16;
   constexpr int KC = KT / 16;        // key columns per thread
@@ -354,8 +377,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int tx = threadIdx.x & 15;   // key columns tx + 16 * j
   const int ty = threadIdx.x >> 4;   // query rows ty * 4 + i
 
-  load_tile<T, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
-  load_tile<T, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
+  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+  load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
   load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
   load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
 
@@ -371,8 +394,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     if (p.causal && k0 > q0 + kTile - 1) break;
     if (!tile_runs(q0, k0, p, KT)) continue;
     __syncthreads();  // the previous key tile is consumed (first: q side ready)
-    load_tile<T, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-    load_tile<T, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
     __syncthreads();
 
     float sc[4][KC], dp[4][KC];
@@ -435,7 +458,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const int64_t o = ((static_cast<int64_t>(bi) * p.s + qi) * p.h + hi) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      dq[o + tx + 16 * c] = repro::from_float<T>(adq[i][c] * p.scale);
+      dq[o + tx + 16 * c] = adq[i][c] * p.scale;
   }
 }
 
@@ -481,9 +504,8 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 }
 
 template <typename T, int HD>
-int bwd(const void* q, const void* k, const void* v, const void* out,
-        const void* lse, const void* dout, void* delta, void* dq, void* dk,
-        void* dv, const Params& p, cudaStream_t st) {
+int bwd_delta(const void* out, const void* dout, void* delta, const Params& p,
+              cudaStream_t st) {
   const int64_t rows = static_cast<int64_t>(p.b) * p.s * p.h;
   const int64_t warps_per_block = kThreads / 32;
   const dim3 dgrid(static_cast<unsigned>((rows + warps_per_block - 1) /
@@ -491,31 +513,79 @@ int bwd(const void* q, const void* k, const void* v, const void* out,
   flash_bwd_delta_kernel<T, HD><<<dgrid, kThreads, 0, st>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<float*>(delta), rows, p.s, p.h);
-  cudaError_t e = cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int bwd_tc(const void* q, const void* k, const void* v, const void* out,
+           const void* lse, const void* dout, void* delta, void* dq, void* dk,
+           void* dv, const Params& p, cudaStream_t st) {
+  BwdMaps maps;
+  int e = encode_rows(&maps.q, q, p.b, p.s, p.h, HD);
+  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.s, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.s, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.dout, dout, p.b, p.s, p.h, HD);
+  if (e == 0) e = bwd_delta<__nv_bfloat16, HD>(out, dout, delta, p, st);
+  if (e != 0) return e;
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  const unsigned tiles = (p.s + kTile - 1) / kTile;
+
+  const size_t kv_smem = bwd_kv_smem<HD>();
+  cudaError_t ce = allow_smem(flash_bwd_dkdv_tc_kernel<HD>, kv_smem);
+  // all of the SM's 228 KB as shared memory: two blocks an SM at hd <= 64
+  if (ce == cudaSuccess)
+    ce = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<HD>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  flash_bwd_dkdv_tc_kernel<HD><<<dim3(tiles, p.kvh * bwd_kv_parts<HD>(), p.b),
+                                 kBwdThreads, kv_smem, st>>>(
+      maps, lse_f, delta_f, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), p);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+
+  const size_t q_smem = bwd_q_smem<HD>();
+  ce = allow_smem(flash_bwd_dq_tc_kernel<HD>, q_smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  flash_bwd_dq_tc_kernel<HD><<<dim3(tiles, p.h, p.b), kTcThreads, q_smem,
+                               st>>>(maps, lse_f, delta_f,
+                                     static_cast<__nv_bfloat16*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32: the CUDA-core kernels
+template <int HD>
+int bwd_f32(const void* q, const void* k, const void* v, const void* out,
+            const void* lse, const void* dout, void* delta, void* dq,
+            void* dk, void* dv, const Params& p, cudaStream_t st) {
+  cudaError_t e =
+      static_cast<cudaError_t>(bwd_delta<float, HD>(out, dout, delta, p, st));
   if (e != cudaSuccess) return static_cast<int>(e);
 
   constexpr int KT = key_tile<HD>();
   const size_t smem = dkdv_smem<HD, KT>();
-  e = allow_smem(flash_bwd_dkdv_kernel<T, HD, KT>, smem);
+  e = allow_smem(flash_bwd_dkdv_kernel<HD, KT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 kgrid((p.s + KT - 1) / KT, p.kvh, p.b);
-  flash_bwd_dkdv_kernel<T, HD, KT><<<kgrid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkdv_kernel<HD, KT><<<kgrid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), p);
+      static_cast<float*>(dk), static_cast<float*>(dv), p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
   const size_t qsmem = dq_smem<HD, KT>();
-  e = allow_smem(flash_bwd_dq_kernel<T, HD, KT>, qsmem);
+  e = allow_smem(flash_bwd_dq_kernel<HD, KT>, qsmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 qgrid((p.s + kTile - 1) / kTile, p.h, p.b);
-  flash_bwd_dq_kernel<T, HD, KT><<<qgrid, kThreads, qsmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dq_kernel<HD, KT><<<qgrid, kThreads, qsmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), p);
+      static_cast<float*>(dq), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -576,17 +646,17 @@ extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32) {
     switch (hd) {
-      case 32: return bwd<float, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 64: return bwd<float, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 128: return bwd<float, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 256: return bwd<float, 256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 32: return bwd_f32<32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 64: return bwd_f32<64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 128: return bwd_f32<128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 256: return bwd_f32<256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
     }
   } else if (dtype == repro::kBF16) {
     switch (hd) {
-      case 32: return bwd<__nv_bfloat16, 32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 64: return bwd<__nv_bfloat16, 64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 128: return bwd<__nv_bfloat16, 128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
-      case 256: return bwd<__nv_bfloat16, 256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 32: return bwd_tc<32>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 64: return bwd_tc<64>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 128: return bwd_tc<128>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
+      case 256: return bwd_tc<256>(q, k, v, out, lse, dout, delta, dq, dk, dv, p, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -3,7 +3,8 @@
 // ring-attention kernel (ring_attention.cu): the online-softmax fold of
 // every visible key tile into one 64-row q tile's carry, with the masks
 // of flash_fwd.cuh (absolute positions, causal, window, softcap, the
-// ragged edge).  f32 inputs keep flash_fwd.cuh's CUDA-core loop: a
+// ragged edge).  The PTX, tile geometry and products live in tc_ptx.cuh;
+// the backward's dQ block (flash_bwd_tc.cuh) reuses this file's producer.  f32 inputs keep flash_fwd.cuh's CUDA-core loop: a
 // tensor-core product of f32 inputs would be TF32, ~1e-3 off where the
 // f32 gates (card vs CPU, 1e-5) need full f32 sums.
 //
@@ -61,198 +62,25 @@
 #include <cuda_runtime.h>
 
 #include "flash_fwd.cuh"
+#include "tc_ptx.cuh"
 
 namespace repro {
 namespace flash {
+
+using namespace repro::tc;
+static_assert(kRows == kTile, "the tensor-core tile is the flash tile");
 
 constexpr int kTcConsumers = 128;              // one warpgroup
 constexpr int kTcThreads = kTcConsumers + 32;  // + the producer warp
 constexpr int kTcStages = 2;                   // K/V ring depth
 
+// the forward's shared memory: Q, then K and V of each stage, then the
+// slack that aligns the base
 template <int HD>
-struct TcGeo {
-  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256, "head dim");
-  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;     // bytes a box row
-  static constexpr int kChunk = kSwizzle / 2;              // bf16 columns a box
-  static constexpr int kChunks = HD / kChunk;              // boxes a tile
-  static constexpr int kChunkBytes = kTile * kSwizzle;     // one box: 64 rows
-  static constexpr int kTileBytes = kChunks * kChunkBytes; // [64][HD] bf16
-  static constexpr int kAcc = kChunk / 2;                  // O floats a box
-  // wgmma descriptor: layout 1 = 128-byte swizzle, 2 = 64-byte; 8-row
-  // groups kSwizzle * 8 bytes apart
-  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;
-  static constexpr uint32_t kGroupBytes = 8 * kSwizzle;
-  // Q, then K and V of each stage, then the slack that aligns the base
-  static constexpr size_t kSmem = (1 + 2 * kTcStages) * kTileBytes + 1024;
+struct TcGeo : TileGeo<HD> {
+  static constexpr size_t kSmem =
+      (1 + 2 * kTcStages) * TileGeo<HD>::kTileBytes + 1024;
 };
-
-// ---------------------------------------------------------------------------
-// PTX: shared addresses, mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// this thread's arrival, announcing `bytes` that TMA will complete
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Until the phase of parity `parity` has completed.  A wait that outlasts
-// kBarTimeoutNs traps (the launch then fails and the wrapper raises)
-// rather than hang the card on a load that never completes; it exceeds
-// the ring's 30 s wait for a peer's flag, which its producer may spend
-// while the consumers wait here.
-constexpr long long kBarTimeoutNs = 40LL * 1000 * 1000 * 1000;
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  if (bar_try(bar, parity)) return;
-  long long t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
-  while (!bar_try(bar, parity)) {
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    if (t - t0 > kBarTimeoutNs) __trap();
-  }
-}
-
-// one box of a 4-D tensor map at coordinates (c0 innermost) into `dst`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from moving reads of wgmma's registers across a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// shared-memory matrix descriptor of the swizzled tile at `addr`; both
-// byte offsets are the 8-row group stride (the only one a 64-row K-major
-// operand or a one-box-wide MN-major operand reads)
-template <int HD>
-__device__ __forceinline__ uint64_t mat_desc(uint32_t addr) {
-  using G = TcGeo<HD>;
-  constexpr uint64_t off = G::kGroupBytes >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (off << 16) |
-         (off << 32) | (G::kLayout << 62);
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
-// both K-major
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B from shared
-// memory MN-major (transpose bit)
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 32] += A[64 x 16] B[16 x 32], as mma_rs_n64 (head dim 32)
-__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void mma_rs(float (&d)[N], const uint32_t (&a)[4],
-                                       uint64_t db) {
-  if constexpr (N == 32) mma_rs_n64(d, a, db);
-  else mma_rs_n32(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // every pair of key tile [k0, k0 + 64) and q tile [q0, q0 + 64) attends
 // (rows past sq included: they are never stored)
@@ -271,22 +99,32 @@ __device__ __forceinline__ bool tile_full(int q0, int k0, const Mask& m) {
 // shard this q tile skips, and ready(i), which the producer runs before
 // its first load of shard i.
 // ---------------------------------------------------------------------------
+// The producer thread: Q (and, for the backward's dQ block, dO into `dos`
+// through `dmap`) once behind bars[0], then K and V of each key tile the
+// q tile sees through the ring.
 template <int HD, typename Shards>
 __device__ __forceinline__ void tc_produce(uint8_t* qs, uint8_t* ks,
                                            uint8_t* vs, uint64_t* bars,
                                            const CUtensorMap* qmap,
                                            const Shards& sh, int bi, int hi,
-                                           int kh, int q0) {
+                                           int kh, int q0,
+                                           const CUtensorMap* dmap = nullptr,
+                                           uint8_t* dos = nullptr) {
   using G = TcGeo<HD>;
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = k_full + kTcStages;
   uint64_t* empty = v_full + kTcStages;
-  bar_expect(q_full, G::kTileBytes);
+  bar_expect(q_full, (dmap != nullptr ? 2 : 1) * G::kTileBytes);
 #pragma unroll
   for (int c = 0; c < G::kChunks; ++c)
     tma_load(qs + c * G::kChunkBytes, qmap, q_full, c * G::kChunk, hi, q0,
              bi);
+  if (dmap != nullptr)
+#pragma unroll
+    for (int c = 0; c < G::kChunks; ++c)
+      tma_load(dos + c * G::kChunkBytes, dmap, q_full, c * G::kChunk, hi, q0,
+               bi);
   int it = 0;
   for (int s = 0; s < sh.count(); ++s) {
     Mask m;
@@ -368,13 +206,7 @@ __device__ __forceinline__ void tc_consume(const uint8_t* qs,
       float sc[32];
       bar_wait(k_full + st, par);
       wg_fence();
-#pragma unroll
-      for (int ks16 = 0; ks16 < HD / 16; ++ks16) {
-        const uint32_t off = (ks16 * 16) / G::kChunk * G::kChunkBytes +
-                             (ks16 * 16) % G::kChunk * 2;
-        mma_ss_n64(sc, mat_desc<HD>(q_addr + off), mat_desc<HD>(k_addr + off),
-                   ks16 > 0);
-      }
+      mma_abt<HD>(sc, q_addr, k_addr);
       wg_commit();
       wg_wait_all();
       fence_regs(sc);
@@ -416,19 +248,9 @@ __device__ __forceinline__ void tc_consume(const uint8_t* qs,
 #pragma unroll
         for (int i = 0; i < NA; ++i) o[c][i] *= corr[(i >> 1) & 1];
 
-      // P as wgmma's A fragments, in two bf16 halves: the accumulator of
-      // key columns [16 kk, 16 kk + 16) is the A fragment of k-step kk
+      // P as wgmma's A fragments, in two bf16 halves
       uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float a = sc[8 * kk + 2 * r], b = sc[8 * kk + 2 * r + 1];
-          const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-          const float2 hf = __bfloat1622float2(h2);
-          phi[kk][r] = bf16x2_bits(h2);
-          plo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-        }
+      split_frags(sc, phi, plo);
 
       // O += P_hi V + P_lo V over the tile's keys in steps of 16, one
       // 64-column box of V (and O) at a time
@@ -436,15 +258,7 @@ __device__ __forceinline__ void tc_consume(const uint8_t* qs,
 #pragma unroll
       for (int c = 0; c < G::kChunks; ++c) fence_regs(o[c]);
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int c = 0; c < G::kChunks; ++c) {
-          const uint64_t db = mat_desc<HD>(v_addr + c * G::kChunkBytes +
-                                           kk * 16 * G::kSwizzle);
-          mma_rs(o[c], phi[kk], db);
-          mma_rs(o[c], plo[kk], db);
-        }
+      mma_split<HD>(o, phi, plo, v_addr);
       wg_commit();
       wg_wait_all();
 #pragma unroll
@@ -476,6 +290,23 @@ __device__ __forceinline__ void tc_consume(const uint8_t* qs,
       lse[(static_cast<int64_t>(bi) * h + hi) * sq + qi] = mrow[r] + logf(lf);
   }
 }
+
+// flash attention (and its backward's dQ block) folds one shard: the
+// block's own k and v
+struct OwnShard {
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  Mask mk;
+  __device__ __forceinline__ int count() const { return 1; }
+  __device__ __forceinline__ bool get(int, int, Mask& m, const CUtensorMap*& km,
+                                      const CUtensorMap*& vm) const {
+    m = mk;
+    km = k;
+    vm = v;
+    return true;
+  }
+  __device__ __forceinline__ void ready(int) const {}
+};
 
 // The whole block: barriers, the producer thread's loads, the consumer
 // warpgroup's fold and store.  The block's q tile is rows [q0, q0 + 64)
@@ -511,66 +342,6 @@ __device__ __forceinline__ void tc_block(const CUtensorMap* qmap,
     return;
   }
   tc_consume<HD>(qs, ks, vs, bars, sh, q0, scale, out, lse, bi, hi, h, sq);
-}
-
-// ---------------------------------------------------------------------------
-// Host: tensor maps
-// ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found once through the runtime's
-// entry-point lookup (the library links no -lcuda); null if not found
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a contiguous bf16 [b, s, nh, hd] tensor at `base` whose box is
-// one TcGeo<hd> box: 64 rows of one head, hd 32 or 64 columns, swizzled
-// as the wgmma descriptors read it; rows past s read as zeros.  Returns a
-// cudaError_t code.
-inline int encode_rows(CUtensorMap* map, const void* base, int b, int s,
-                       int nh, int hd) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  if (reinterpret_cast<uintptr_t>(base) % 16 ||
-      (hd != 32 && hd != 64 && hd != 128 && hd != 256))
-    return cudaErrorInvalidValue;
-  const cuuint32_t chunk = hd >= 64 ? 64 : 32;
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(nh),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {row, row * nh, row * nh * s};
-  const cuuint32_t box[4] = {chunk, 1, static_cast<cuuint32_t>(kTile), 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        hd >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }
 
 }  // namespace flash

@@ -96,7 +96,7 @@ def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None,
-                  *, tma: bool = False) -> bool:
+                  *, tma: int = 0) -> bool:
     """``_build.on_cpu`` (over ``tensors`` and ``lse``); on CUDA,
     :func:`_kernel_check` of them."""
     extra = () if lse is None else (lse,)
@@ -106,13 +106,14 @@ def _flash_on_cpu(what: str, tensors, lse: Optional[torch.Tensor] = None,
     return False
 
 
-def _kernel_check(tensors, extra=(), *, tma: bool = False):
+def _kernel_check(tensors, extra=(), *, tma: int = 0):
     """What the kernels take: one f32 or bf16 dtype for ``tensors`` (an
     ``extra`` lse is f32, checked by the caller), hd among the compiled
     instances (any group h/kvh: ``_flash_check`` has checked that kvh
-    divides h), contiguity; with ``tma`` (the forward), bf16 q, k and v
-    (the first three) at 16-byte-aligned addresses, which the tensor-core
-    tile's tensor maps need."""
+    divides h), contiguity; and the first ``tma`` of ``tensors``, which
+    the bf16 tensor-core tiles read through tensor maps (the forward's
+    q, k, v; the backward's q, k, v, dout), at 16-byte-aligned addresses
+    when bf16."""
     if any(t.dtype != tensors[0].dtype for t in tensors) \
             or tensors[0].dtype not in _DTYPES:
         raise TypeError(
@@ -124,12 +125,12 @@ def _kernel_check(tensors, extra=(), *, tma: bool = False):
             f"flash_attention kernels support hd in {HEAD_DIMS}, got {hd}")
     if not all(t.is_contiguous() for t in (*tensors, *extra)):
         raise ValueError("flash_attention kernels take contiguous tensors")
-    if tma and tensors[0].dtype == torch.bfloat16 \
-            and any(t.data_ptr() % 16 for t in tensors[:3]):
+    if tensors[0].dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in tensors[:tma]):
         raise ValueError(
-            "flash_attention forward kernel takes bf16 q, k, v at 16-byte "
-            "aligned addresses (its tensor maps need them), got offsets "
-            f"{[t.data_ptr() % 16 for t in tensors[:3]]} mod 16")
+            "flash_attention kernels take bf16 tensors that their tensor "
+            "maps read at 16-byte aligned addresses, got offsets "
+            f"{[t.data_ptr() % 16 for t in tensors[:tma]]} mod 16")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,7 +140,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b, s, kvh, hd] -> (out [b, s, h, hd], lse [b, h, s] f32).  No autograd
     (see :func:`flash_attention`)."""
     _flash_check(q, k, v, window)
-    if _flash_on_cpu("flash_attention", (q, k, v), tma=True):
+    if _flash_on_cpu("flash_attention", (q, k, v), tma=3):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
     b, s, h, hd = q.shape
@@ -172,7 +173,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{tuple(dout.shape)} must be {tuple(q.shape)} and lse "
             f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {s}) "
             f"{wide_dtype(q)}")
-    if _flash_on_cpu("flash_attention_bwd", (q, k, v, out, dout), lse):
+    if _flash_on_cpu("flash_attention_bwd", (q, k, v, dout, out), lse,
+                     tma=4):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,
                                        softcap=softcap, scale=scale)

@@ -151,8 +151,8 @@ def test_forward_kernel_refuses_unaligned_bf16():
     assert q.is_contiguous() and q.data_ptr() % 16 == 2
     k = v = flat[:n].view(2, 64, 2, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        _kernel_check((q, k, v), tma=True)
-    _kernel_check((q, k, v))                 # the backward reads no maps
-    _kernel_check((k, k, v), tma=True)
+        _kernel_check((q, k, v), tma=3)
+    _kernel_check((q, k, v))                 # no tensor maps
+    _kernel_check((k, k, v), tma=3)
     f32 = torch.zeros(n + 1)[1:].view(2, 64, 2, 64)
-    _kernel_check((f32, f32, f32), tma=True)
+    _kernel_check((f32, f32, f32), tma=3)
