@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc/`` with
    ``nvcc`` for ``sm_90a``; print ptxas's registers, shared memory and
    spill bytes of each tensor-core kernel (the attention forward, the
-   flash backward's dK/dV and dQ kernels) and fail on a spill;
+   flash backward's dK/dV and dQ kernels, the GEMM tile in the grouped,
+   tile and ring matmuls) and fail on a spill;
    print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, in f32 (TF32 off) and bf16, and time kernel,
@@ -51,12 +52,15 @@ Phases (any failure raises and the script exits non-zero):
    only shapes at which training runs its code: as the ring kernel's
    per-step product, never launched alone) and a ragged one, f32 and
    bf16, timed beside its bound, its plain version and ``torch.matmul``
-   (cuBLAS); then, with 2 and 4 rank processes sharing the
+   (cuBLAS), with the tile each row took (``path``: bf16 ``wgmma`` or, for
+   the ragged shape, ``mma_sync``) and, in bf16, a second run that must
+   give the same bits; then, with 2 and 4 rank processes sharing the
    card over ``PeerComm``, the fused matmul -> reduce-scatter ring at both
    exits and the peer all-reduce, all-gather and reduce-scatter (the
    collective kernel's scatter mode, timed beside the all-reduce and
    slice it replaces), every rank's result held against the plain
-   version computed from all ranks' inputs.
+   version computed from all ranks' inputs (the ring's bf16 rows also
+   run twice and must give the same bits).
 9. Tensor-parallel consistency: ``gpt-h2048`` at full width, 2 layers,
    f32, batch 2 x 256, tp=2 on the card under ``megatron``, ``oases`` and
    ``fused`` with fine recomputation and ``oases`` without and with
@@ -105,10 +109,13 @@ Phases (any failure raises and the script exits non-zero):
    off) and bf16: the SSD kernel at ``mamba2-130m``'s mixer (24 heads of
    64, state 128) at b 1 x s 4096 (the slice's shape), at s 96 (one
    chunk shorter than 128) and at b 4 x s 1024; the grouped matmul's
-   forward and both backward products at ``granite-moe-3b-a800m``'s
-   expert shapes (40 experts, capacity 1,024: [1024, 1536] @ [1536, 512]
-   and [1024, 512] @ [512, 1536]) and at a capacity of 250 (no tile
-   multiple); granite's flash forward and backward (group 3; phase 5's
+   forward and both backward products as training launches them
+   (``moe_gmm`` and ``moe_gmm_bwd``: dx and dw read w and x where they
+   lie) at ``granite-moe-3b-a800m``'s expert shapes (40 experts, capacity
+   1,024: [1024, 1536] @ [1536, 512] and [1024, 512] @ [512, 1536]) and
+   at a capacity of 250 (no tile multiple), each row with its tile
+   (``path``) and, in bf16, a second run that must give the same bits;
+   granite's flash forward and backward (group 3; phase 5's
    rows when phase 5 ran).  Each timed
    beside its bound, its plain version and, for the grouped matmul,
    ``torch.bmm`` of the same product (a yardstick only; the port never
@@ -295,12 +302,22 @@ def phase_build():
 
 # the tensor-core kernels by instance: the flash forward (flash_fwd_tc.cuh)
 # and the flash backward's dK/dV and dQ kernels (flash_bwd_tc.cuh) at every
-# head dim, the ring at the ring's
+# head dim, the ring at the ring's; the GEMM tile (gemm_tc.cuh) at both
+# widths in the grouped matmul at its three operand layouts (<BN, A
+# MN-major, B K-major>: forward, dw, dx) and in the tile matmul, and at
+# 128 in the ring
 TC_KERNELS = ([f"{k}<{hd}>" for k in ("flash_fwd_tc_kernel",
                                       "flash_bwd_dkdv_tc_kernel",
                                       "flash_bwd_dq_tc_kernel")
                for hd in (32, 64, 128, 256)]
-              + [f"ring_attn_tc_kernel<{hd}>" for hd in (32, 64, 128)])
+              + [f"ring_attn_tc_kernel<{hd}>" for hd in (32, 64, 128)]
+              + [f"moe_gmm_tc_kernel<{bn},{ta},{tb}>" for bn in (128, 256)
+                 for ta, tb in ((0, 0), (1, 0), (0, 1))]
+              + [f"tile_matmul_tc_kernel<{bn}>" for bn in (128, 256)]
+              + ["ring_mm_rs_tc_kernel<128>"])
+_TC_NAMES = ("flash_fwd_tc_kernel|flash_bwd_dkdv_tc_kernel|"
+             "flash_bwd_dq_tc_kernel|ring_attn_tc_kernel|moe_gmm_tc_kernel|"
+             "tile_matmul_tc_kernel|ring_mm_rs_tc_kernel")
 
 
 def _tc_kernel_report(log: str) -> dict:
@@ -311,10 +328,9 @@ def _tc_kernel_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_fwd_tc_kernel|flash_bwd_dkdv_tc_kernel|"
-                          r"flash_bwd_dq_tc_kernel|ring_attn_tc_kernel)"
-                          r"ILi(\d+)E", m.group(1))
-            cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+            k = re.search(rf"({_TC_NAMES})I((?:L[ib]\d+E)+)E", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            cur = f"{k.group(1)}<{','.join(args)}>" if k else None
             if cur:
                 rep[cur] = {}
             continue
@@ -1097,13 +1113,18 @@ def phase_tmp_kernels():
                  / k ** 0.5).to(dtype)
             out = tile_matmul(x, w)
             want = ref.tile_matmul_ref(x, w)
+            # bf16: a second run gives the same bits (no atomics, no
+            # split of k)
+            same = dname == "float32" or torch.equal(out, tile_matmul(x, w))
             torch.cuda.synchronize()
             atol, rtol = _mm_tol(k, dname)
             err, ok = max_err(out, want, atol, rtol)
             bound = _mm_bound(m, k, n, x.element_size(), dname)
-            row = dict(case=case, m=m, k=k, n=n, dtype=dname,
-                       blocks=autotune.tuned_blocks(m, k, n, dtype, x.device),
-                       max_abs_err=err, atol=atol, rtol=rtol,
+            path = autotune.gemm_path(x, w)
+            row = dict(case=case, m=m, k=k, n=n, dtype=dname, path=path,
+                       blocks=autotune.tuned_blocks(m, k, n, dtype, x.device,
+                                                    path=path),
+                       same_bits=same, max_abs_err=err, atol=atol, rtol=rtol,
                        ms=time_ms(lambda: tile_matmul(x, w)),
                        plain_ms=time_ms(lambda: ref.tile_matmul_ref(x, w)),
                        bound_ms=bound[0], bound_by=bound[1],
@@ -1111,6 +1132,7 @@ def phase_tmp_kernels():
             print(f"[tile_matmul] {json.dumps(row)}")
             require(ok, f"tile_matmul {case} {dname}: max abs err {err} "
                         f"beyond atol {atol} + rtol {rtol}")
+            require(same, f"tile_matmul {case} {dname}: two runs differ")
             results["tile_matmul"].append(row)
     torch.cuda.empty_cache()
     for tp in (2, 4):
@@ -1122,6 +1144,7 @@ def phase_tmp_kernels():
             for i, row in enumerate(per_rank[0][kind]):
                 errs = [r[kind][i]["max_abs_err"] for r in per_rank]
                 oks = [r[kind][i]["ok"] for r in per_rank]
+                same = [r[kind][i].get("same_bits", True) for r in per_rank]
                 row = dict(row, tp=tp, max_abs_err=max(errs),
                            rank_errs=errs, rank_ms=[r[kind][i]["ms"]
                                                     for r in per_rank])
@@ -1131,6 +1154,10 @@ def phase_tmp_kernels():
                                   f"{row['dtype']}: rank errors {errs} "
                                   f"beyond atol {row['atol']} + rtol "
                                   f"{row['rtol']}")
+                differ = [j for j, ok in enumerate(same) if not ok]
+                require(not differ, f"{kind} tp={tp} {row['case']} "
+                                    f"{row['dtype']}: two runs differ on "
+                                    f"ranks {differ}")
                 results[kind].append(row)
         print(f"[tmp_kernels] tp={tp} ranks done in {wall:.1f} s")
     return results
@@ -1142,7 +1169,7 @@ def _tmp_kernels_rank(comm, device):
     every rank's inputs (every rank draws all ranks' inputs from one
     seed)."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import autotune, ref
     from repro_torch.kernels.collective_matmul import matmul_reducescatter
 
     n, rank = comm.size, comm.rank
@@ -1159,6 +1186,8 @@ def _tmp_kernels_rank(comm, device):
                    / kfull ** 0.5).to(dtype) for _ in range(n)]
             got = matmul_reducescatter(xs[rank], ws[rank], comm, 0)
             want = ref.matmul_reducescatter_all_ranks_ref(xs, ws, n, rank)
+            same = dname == "float32" or torch.equal(
+                got, matmul_reducescatter(xs[rank], ws[rank], comm, 0))
             torch.cuda.synchronize(device)
             atol, rtol = _mm_tol(kfull, dname)
             err, ok = max_err(got, want, atol, rtol)
@@ -1166,7 +1195,8 @@ def _tmp_kernels_rank(comm, device):
                            * xs[0].element_size(), 2 * rows * k * d, dname)
             out["ring_matmul_rs"].append(dict(
                 case=case, dtype=dname, rows=rows, k_local=k, d=d,
-                chunk=rows // n, max_abs_err=err, ok=ok, atol=atol,
+                chunk=rows // n, path=autotune.shape_path(k, d, dtype),
+                same_bits=same, max_abs_err=err, ok=ok, atol=atol,
                 rtol=rtol,
                 ms=time_ms(lambda: matmul_reducescatter(xs[rank], ws[rank],
                                                         comm, 0)),
@@ -1982,9 +2012,9 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed=5):
 
 def phase_family_kernels():
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import autotune, ref
     from repro_torch.kernels.bounds import moe_gmm_work, ssd_work
-    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
     from repro_torch.kernels.ssd import ssd_fwd
     from repro_torch.models.moe import capacity
 
@@ -2024,25 +2054,34 @@ def phase_family_kernels():
             w = (0.05 * torch.randn(e, d, f, generator=gen, device="cuda")
                  ).to(dtype)
             dy = torch.randn(e, c, f, generator=gen, device="cuda").to(dtype)
-            wt = w.transpose(1, 2).contiguous()
-            xt = x.transpose(1, 2).contiguous()
+            wt, xt = w.transpose(1, 2), x.transpose(1, 2)
             # the forward and the backward's two products (dx = dy w^T,
-            # dw = x^T dy), each one launch on its operands
-            for prod, (a, bmat) in (("fwd", (x, w)), ("dx", (dy, wt)),
-                                    ("dw", (xt, dy))):
-                got = moe_gmm(a, bmat)
+            # dw = x^T dy) as training launches them: moe_gmm and
+            # moe_gmm_bwd, one launch each; op(a) @ op(b) is the product
+            # (the plain version and torch.bmm take the transposed views)
+            for prod, run, (a, bmat), layout in (
+                    ("fwd", lambda: moe_gmm(x, w), (x, w), (x, w)),
+                    ("dx", lambda: moe_gmm_bwd(x, w, dy, need_dw=False)[0],
+                     (dy, wt), (dy, w)),
+                    ("dw", lambda: moe_gmm_bwd(x, w, dy, need_dx=False)[1],
+                     (xt, dy), (x, dy))):
+                got = run()
                 want = ref.moe_gmm_ref(a, bmat)
+                same = dname == "float32" or torch.equal(got, run())
                 torch.cuda.synchronize()
                 err, atol = _family_check(
                     f"moe_gmm {name} {prod} {dname}", got, want, dname)
+                require(same, f"moe_gmm {name} {prod} {dname}: two runs "
+                              f"differ")
                 ee, cc, dd = a.shape
                 ff = bmat.shape[2]
                 nbytes, flops = moe_gmm_work(ee, cc, dd, ff, x.element_size())
                 bound = _bound(nbytes, flops, dname)
                 row = dict(case=name, product=prod, dtype=dname, e=ee, c=cc,
-                           d=dd, f=ff, tokens=tokens, max_abs_err=err,
-                           atol=atol, rtol=FAMILY_RTOL[dname],
-                           ms=time_ms(lambda: moe_gmm(a, bmat)),
+                           d=dd, f=ff, tokens=tokens,
+                           path=autotune.gemm_path(*layout), same_bits=same,
+                           max_abs_err=err, atol=atol,
+                           rtol=FAMILY_RTOL[dname], ms=time_ms(run),
                            plain_ms=time_ms(lambda: ref.moe_gmm_ref(a, bmat)),
                            bound_ms=bound[0], bound_by=bound[1],
                            library_ms=time_ms(lambda: torch.bmm(a, bmat)))
@@ -2774,6 +2813,8 @@ def _kernels_line(report) -> dict:
                 extra = {"runs_inside": "ring_matmul_rs",
                          "ring_step_products": 2 * rings,
                          "shape": [row["m"], row["k"], row["n"]]}
+            if "path" in row:
+                extra["path"] = row["path"]
             add(name, src, replaces, row, **extra)
     if "ring_kernels" in report:
         row = pick(report["ring_kernels"]["ring_attention"], case="slice",
@@ -2790,7 +2831,7 @@ def _kernels_line(report) -> dict:
         row = pick(fk["moe_gmm"], case="w1", product="fwd",
                    dtype="bfloat16")
         add("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19", row,
-            shape=[row["e"], row["c"], row["d"], row["f"]])
+            shape=[row["e"], row["c"], row["d"], row["f"]], path=row["path"])
     if "hybrid_kernels" in report:
         hk = report["hybrid_kernels"]
         for name, side in (("rglru", "ms_stateless"),

@@ -71,12 +71,12 @@ _SIGNATURES = {
     # window, scale, softcap, dtype, stream
     "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _F, _F, _I, _P],
-    # x, w, out, m, k, n, bm, bn, bk, dtype, stream
-    "repro_tile_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, out, m, k, n, bm, bn, bk, dtype, tc, stream
+    "repro_tile_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ws, rank, n, slot, x, w, out, chunk, k, d, bm, bn, bk, base, dtype,
-    # err, stream
+    # tc, err, stream
     "repro_ring_matmul_rs": [_P, _I, _I, _L, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _U, _I, _P, _P],
+                             _I, _U, _I, _I, _P, _P],
     # ws, host_ws, rank, n, slot, q, k, v, out, lse, b, sq, sk, h, kvh, hd,
     # causal, window, scale, softcap, epoch, dtype, err, stream
     "repro_ring_attention": [_P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I,
@@ -85,8 +85,9 @@ _SIGNATURES = {
     # err, stream
     "repro_peer_collective": [_P, _I, _I, _L, _P, _P, _L, _L, _L, _I, _I, _U,
                               _P, _P],
-    # x, w, out, e, c, d, f, bm, bn, bk, dtype, stream
-    "repro_moe_gmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, out, e, m, k, n, ta, tb, bm, bn, bk, dtype, tc, stream
+    "repro_moe_gmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P],
     # x, dt, A_log, B, C, D, y, states, decay, b, s, h, p, n, q, dtype,
     # stream
     "repro_ssd_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

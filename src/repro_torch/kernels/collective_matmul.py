@@ -140,32 +140,43 @@ def ring_matmul_allreduce(x, w, comm: Comm, scatter_dim: int):
 # the kernels
 # --------------------------------------------------------------------------
 def _check_pair(what: str, x: torch.Tensor, w: torch.Tensor):
+    """What the kernels take (both tiles, any device): f32 or bf16 x and w
+    of one dtype, [m, k] @ [k, n] with no extent 0, both contiguous (the
+    tiles read x K-major and w MN-major as stored)."""
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"{what} takes f32 or bf16 x and w of one dtype, "
                         f"got {x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{what}: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
+    if 0 in x.shape or 0 in w.shape:
+        raise ValueError(f"{what}: empty operand {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError(f"{what} takes contiguous x and w")
+        raise ValueError(f"{what} takes contiguous x [m, k] and w [k, n] "
+                         f"(strides {x.stride()} and {w.stride()})")
 
 
 def tile_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 block_m: Optional[int] = None, block_n: Optional[int] = None,
-                block_k: Optional[int] = None,
-                count: bool = True) -> torch.Tensor:
+                block_k: Optional[int] = None, count: bool = True,
+                path: Optional[str] = None) -> torch.Tensor:
     """``[m, k] @ [k, n]`` with f32 accumulation, output in x's dtype
-    (``pallas_tile_matmul``).  Block sizes left as None come from
-    :func:`repro_torch.kernels.autotune.tuned_blocks`; explicit ones win.
-    A CPU tensor takes :func:`~repro_torch.kernels.ref.tile_matmul_ref`.
-    ``count=False`` (the autotuner's timing runs) leaves ``LAUNCHES``."""
+    (``pallas_tile_matmul``), on the tile that
+    :func:`~repro_torch.kernels.autotune.gemm_path` picks (``path``
+    overrides it: the autotuner's timing runs).  Block sizes left as None
+    come from :func:`repro_torch.kernels.autotune.tuned_blocks`; explicit
+    ones win.  A CPU tensor takes
+    :func:`~repro_torch.kernels.ref.tile_matmul_ref`.  ``count=False``
+    (the autotuner's timing runs) leaves ``LAUNCHES``."""
     if _build.on_cpu("tile_matmul", x, w):
         return tile_matmul_ref(x, w)
     _check_pair("tile_matmul", x, w)
     m, k = x.shape
     n = w.shape[1]
     from repro_torch.kernels import autotune
-    blocks = autotune.tuned_blocks(m, k, n, x.dtype, x.device) \
+    path = path or autotune.gemm_path(x, w)
+    blocks = autotune.tuned_blocks(m, k, n, x.dtype, x.device, path=path) \
         if None in (block_m, block_n, block_k) else (0, 0, 0)
     bm = block_m if block_m is not None else blocks[0]
     bn = block_n if block_n is not None else blocks[1]
@@ -173,8 +184,9 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     rc = _build.library().repro_tile_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, bm, bn, bk,
-        _DTYPES[x.dtype], _build.stream_ptr(x))
-    _build.check(rc, f"tile_matmul kernel launch (blocks {bm}x{bn}x{bk})")
+        _DTYPES[x.dtype], int(path == autotune.WGMMA), _build.stream_ptr(x))
+    _build.check(rc, f"tile_matmul kernel launch ({path}, blocks "
+                     f"{bm}x{bn}x{bk})")
     if count:
         _build.LAUNCHES["tile_matmul"] += 1
     return out
@@ -213,18 +225,29 @@ def matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, comm: Comm,
             f"matmul_reducescatter: an f32 chunk of {chunk} x {d} does not "
             f"fit a landing slot of {comm.ws.slot_bytes} bytes")
     from repro_torch.kernels import autotune
-    bm, bn, bk = comm.agree(
-        f"tile/{chunk}/{k}/{d}/{x.dtype}",
-        lambda: autotune.tuned_blocks(chunk, k, d, x.dtype, x.device))
+    # every rank must tile alike: the path follows the shapes alone, and
+    # an operand at an address TMA cannot take is copied to one it can
+    path = autotune.shape_path(k, d, x.dtype)
+    if path == autotune.WGMMA:
+        x2, w = autotune.aligned16(x2), autotune.aligned16(w)
+        # the ring's tile is 128 x 128 only: its epilogue is staged through
+        # 68 KB of shared memory beside the stages
+        bm, bn, bk = autotune.TC_DEFAULT_BLOCKS
+    else:
+        bm, bn, bk = comm.agree(
+            f"tile/{path}/{chunk}/{k}/{d}/{x.dtype}",
+            lambda: autotune.tuned_blocks(chunk, k, d, x.dtype, x.device,
+                                          path=path))
     out = torch.empty(chunk, d, dtype=x.dtype, device=x.device)
     comm.ws.check()
     with torch.cuda.stream(comm.begin()):
         rc = _build.library().repro_ring_matmul_rs(
             comm.ws.ptrs.data_ptr(), comm.rank, n, comm.ws.slot_bytes,
             x2.data_ptr(), w.data_ptr(), out.data_ptr(), chunk, k, d, bm, bn,
-            bk, comm.ring_base, _DTYPES[x.dtype], comm.ws.err_dev,
-            comm.stream.cuda_stream)
-    _build.check(rc, f"ring_matmul_rs kernel launch (blocks {bm}x{bn}x{bk})")
+            bk, comm.ring_base, _DTYPES[x.dtype], int(path == autotune.WGMMA),
+            comm.ws.err_dev, comm.stream.cuda_stream)
+    _build.check(rc, f"ring_matmul_rs kernel launch ({path}, blocks "
+                     f"{bm}x{bn}x{bk})")
     comm.ring_base += n - 1
     _build.LAUNCHES["ring_matmul_rs"] += 1
     torch.cuda.current_stream(x.device).wait_event(comm.end(x2, w, out))

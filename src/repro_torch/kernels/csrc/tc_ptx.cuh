@@ -1,7 +1,8 @@
 // Hopper's tensor-core plumbing, shared by the bf16 attention tiles on
-// wgmma and TMA (flash_fwd_tc.cuh, forward; flash_bwd_tc.cuh, backward):
-// the geometry of a swizzled [64 rows][hd] bf16 tile in shared memory,
-// the PTX of mbarriers, TMA loads and wgmma, and the host's tensor maps.
+// wgmma and TMA (flash_fwd_tc.cuh, forward; flash_bwd_tc.cuh, backward)
+// and the bf16 GEMM tile (gemm_tc.cuh): the geometry of a swizzled
+// [64 rows][hd] bf16 tile in shared memory, the PTX of mbarriers, TMA
+// loads and wgmma, and the host's tensor maps.
 //
 // A tile is cut into boxes of 64 columns (32 at hd 32), each box 64 rows
 // of 128 bytes (64 at hd 32) that TMA swizzles in the pattern wgmma's
@@ -86,6 +87,18 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// one box of a 3-D tensor map at coordinates (c0 innermost) into `dst`
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // one box of a 4-D tensor map at coordinates (c0 innermost) into `dst`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1,
@@ -107,6 +120,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
 
 // keeps the compiler from moving reads of wgmma's registers across a wait
 template <int N>
@@ -115,15 +133,27 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// shared-memory matrix descriptor of the swizzled tile at `addr`; both
-// byte offsets are the 8-row group stride (the only one a 64-row K-major
-// operand or a one-box-wide MN-major operand reads)
+// shared-memory matrix descriptor of a swizzled operand at `addr`
+// (layout 1: 128-byte swizzle, 2: 64-byte).  `lead` is the byte distance
+// between the operand's 64-column boxes along M or N, read only for an
+// MN-major operand wider than one box; `stride` the distance between its
+// 8-row groups (8 rows of M or N K-major, 8 rows of K MN-major).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lead,
+                                              uint32_t stride,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) |
+         (layout << 62);
+}
+
+// the descriptor of the swizzled tile at `addr`; both byte offsets are
+// the 8-row group stride (the only one a 64-row K-major operand or a
+// one-box-wide MN-major operand reads)
 template <int HD>
 __device__ __forceinline__ uint64_t mat_desc(uint32_t addr) {
   using G = TileGeo<HD>;
-  constexpr uint64_t off = G::kGroupBytes >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (off << 16) |
-         (off << 32) | (G::kLayout << 62);
+  return make_desc(addr, G::kGroupBytes, G::kGroupBytes, G::kLayout);
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
@@ -188,6 +218,85 @@ __device__ __forceinline__ void mma_rs(float (&d)[N], const uint32_t (&a)[4],
                                        uint64_t db) {
   if constexpr (N == 32) mma_rs_n64(d, a, db);
   else mma_rs_n32(d, a, db);
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory; TA:
+// A MN-major, TB: B MN-major (wgmma's transpose bits)
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], A and B from shared memory; TA:
+// A MN-major, TB: B MN-major (wgmma's transpose bits)
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
@@ -320,6 +429,34 @@ inline int encode_rows(CUtensorMap* map, const void* base, int b, int s,
                         hd >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// The map of a contiguous bf16 [d2][d1][d0] tensor (d0 innermost) whose
+// box is `box1` rows of 64 columns of one d2 slice, swizzled 128 bytes as
+// the wgmma descriptors read it; reads past d0, or past d1 within a
+// slice, are zeros.  TMA needs a 16-byte-aligned base and row stride: d0
+// a multiple of 8.  Returns a cudaError_t code.
+inline int encode_3d(CUtensorMap* map, const void* base, int d0, int d1,
+                     int d2, int box1) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || d0 <= 0 || d0 % 8 ||
+      d1 <= 0 || d2 <= 0 || box1 <= 0 || box1 > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t row = static_cast<cuuint64_t>(d0) * 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {row, row * static_cast<cuuint64_t>(d1)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
 }

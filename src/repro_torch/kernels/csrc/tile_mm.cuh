@@ -1,7 +1,12 @@
-// One block's tile of a matrix product, shared by the standalone tile
-// matmul (tile_matmul.cu) and the fused matmul -> reduce-scatter ring
-// (ring_matmul_rs.cu), as `_mm_tile_kernel` is shared by the Pallas ring
-// kernels in src/repro/kernels/collective_matmul.py.
+// One block's tile of a matrix product on the CUDA cores (f32) or on
+// warp-level mma.sync (bf16), shared by the standalone tile matmul
+// (tile_matmul.cu), the fused matmul -> reduce-scatter ring
+// (ring_matmul_rs.cu) and the grouped matmul (moe_gmm.cu), as
+// `_mm_tile_kernel` is shared by the Pallas ring kernels in
+// src/repro/kernels/collective_matmul.py.  bf16 operands that TMA can
+// describe run gemm_tc.cuh's tile on wgmma instead; this bf16 tile is
+// kept for the rest (kernels/autotune.py gemm_path: a base not 16-byte
+// aligned, or a contiguous extent not a multiple of 8).
 //
 // `TileMM<T, BM, BN, BK>::run` computes the BM x BN tile (tm, tn) of
 // x [m, k] @ w [k, n] (both row-major, contiguous) into f32 accumulators
@@ -10,7 +15,7 @@
 // rather than padded.  256 threads (8 warps).
 //
 // bf16: warp-level tensor-core products, mma.sync.m16n8k16 with f32
-// accumulation (runs on sm_90a; wgmma/TMA are later work).  The 8 warps
+// accumulation, one shared-memory stage, plain loads.  The 8 warps
 // are 2 (rows) x 4 (columns); a warp owns (BM/2) x (BN/4) outputs as
 // (BM/32) x (BN/32) m16n8 fragments.  Tiles sit in shared memory as
 // x[BM][BK+8] and w transposed, w[BN][BK+8]: each fragment register is one
@@ -252,7 +257,8 @@ struct TileMM<float, BM, BN, BK> {
 };
 
 // Calls f.template run<BM, BN, BK>() for the instantiated block sizes
-// (kernels/autotune.py CAND_M x CAND_N x CAND_K) and returns its result;
+// (kernels/autotune.py CAND_M x CAND_N x CAND_K; gemm_tc.cuh's
+// dispatch_tc instantiates TC_BLOCKS) and returns its result;
 // cudaErrorInvalidValue for any other combination.
 template <typename F>
 __host__ int dispatch_blocks(int bm, int bn, int bk, F& f) {

@@ -343,11 +343,13 @@ def test_autotune_off_card_returns_clipped_default(tmp_path, monkeypatch):
     cache = tmp_path / "tiles.json"
     monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(cache))
     assert autotune.tuned_blocks(2048, 1024, 2048, torch.bfloat16) \
-        == autotune.DEFAULT_BLOCKS
+        == autotune.TC_DEFAULT_BLOCKS
     assert autotune.tuned_blocks(33, 48, 17, torch.float32) == (64, 64, 32)
     entries = json.loads(cache.read_text())
-    assert entries == {"cpu|m2048k1024n2048|bfloat16": [128, 128, 32],
-                       "cpu|m33k48n17|float32": [64, 64, 32]}
+    v = autotune.TILE_VERSION
+    assert entries == {f"cpu|{v}|wgmma|m2048k1024n2048|bfloat16":
+                       [128, 128, 64],
+                       f"cpu|{v}|cuda_core|m33k48n17|float32": [64, 64, 32]}
     # every candidate is a compiled block size within shared memory
     for c in autotune.candidates(2048, 1024, 2048, itemsize=4):
         assert c[0] in autotune.CAND_M and c[1] in autotune.CAND_N
