@@ -9,12 +9,18 @@ Phases (any failure raises and the script exits non-zero):
    ``nvcc`` for ``sm_90a``; print ptxas's registers, shared memory and
    spill bytes of each tensor-core kernel (the attention forward, the
    flash backward's dK/dV and dQ kernels, the GEMM tile in the grouped,
-   tile and ring matmuls) and fail on a spill;
+   tile and ring matmuls) and of the paged decode and RMSNorm backward
+   kernels, and fail on a spill;
    print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shapes, in f32 (TF32 off) and bf16, and time kernel,
    plain version, the one PyTorch call that computes the same function
    (a yardstick only; the port never calls it) and the card's bound.
+   The paged decode runs at mixed positions (``main`` and its variants),
+   with every slot at the last position (``full``), at the serve
+   phase's profiled positions (``serve``) and with K/V pools off 16-byte
+   alignment (``unaligned``); each row runs twice and the bits must
+   agree.
 3. Whole-slice consistency: ``gpt-serve-h4096`` at full width and 2
    layers in f32 through the port's ``ServingEngine`` on the card (kernels)
    and on the CPU (plain versions) from the same weights: tokens must be
@@ -31,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
    GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000;
    granite's 24/8 heads of 64, a group of 3; 16/4 heads of 32; ragged
    s 1000 at hd 32 and at hd 128 with window 300; s 40 at hd 128 with
-   window 16 and softcap 30) and the RMSNorm forward and backward at 4096 x 2048, each timed with its bound, its
+   window 16 and softcap 30) and the RMSNorm forward at 4096 x 2048 and
+   backward at 4096 x 2048, 1536 and 4096, a ragged 1000 x 1001 and a
+   1024 x 8192 wider than a warp group holds (run twice, the bits must
+   agree), each timed with its bound, its
    plain version and, where one PyTorch call computes the same function,
    that call (a yardstick only).
 6. Training consistency: ``gpt-h2048`` at full width and 2 layers in f32,
@@ -185,6 +194,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -282,22 +292,27 @@ def phase_build():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    tc = _tc_kernel_report(log)
-    for name, rep in sorted(tc.items()):
+    tc = _kernel_report(log, _TC_NAMES)
+    cc = _kernel_report(log, _CC_NAMES)
+    for name, rep in sorted({**tc, **cc}.items()):
         print(f"[build] {name}: {rep['spills']}; {rep['usage']}")
-    require(sorted(tc) == sorted(TC_KERNELS),
-            f"ptxas reported tensor-core kernels {sorted(tc)}, expected "
-            f"{sorted(TC_KERNELS)}")
-    spilled = [n for n, rep in tc.items()
-               if rep["spill_stores"] or rep["spill_loads"]]
-    require(not spilled, f"tensor-core kernels spill: {spilled}")
+    for what, got, want in (("tensor-core", tc, TC_KERNELS),
+                            ("paged decode and RMSNorm backward", cc,
+                             CC_KERNELS)):
+        require(sorted(got) == sorted(want),
+                f"ptxas reported {what} kernels {sorted(got)}, expected "
+                f"{sorted(want)}")
+        spilled = [n for n, rep in got.items()
+                   if rep["spill_stores"] or rep["spill_loads"]]
+        require(not spilled, f"{what} kernels spill: {spilled}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    return {"build_s": build_s, "card": card, "tc_kernels": tc}
+    return {"build_s": build_s, "card": card, "tc_kernels": tc,
+            "cuda_core_kernels": cc}
 
 
 # the tensor-core kernels by instance: the flash forward (flash_fwd_tc.cuh)
@@ -318,18 +333,30 @@ TC_KERNELS = ([f"{k}<{hd}>" for k in ("flash_fwd_tc_kernel",
 _TC_NAMES = ("flash_fwd_tc_kernel|flash_bwd_dkdv_tc_kernel|"
              "flash_bwd_dq_tc_kernel|ring_attn_tc_kernel|moe_gmm_tc_kernel|"
              "tile_matmul_tc_kernel|ring_mm_rs_tc_kernel")
+# the CUDA-core kernels redesigned in the tenth slice, by instance: the
+# paged decode <dtype, hd, group> and the RMSNorm backward <dtype, 16-byte
+# loads> and its wide-row form <dtype>
+CC_KERNELS = ([f"paged_decode_kernel<{t},{hd},{g}>" for t in ("f32", "bf16")
+               for hd in (32, 64, 128) for g in (1, 2, 4, 8)]
+              + [f"rmsnorm_bwd_kernel<{t},{v}>" for t in ("f32", "bf16")
+                 for v in (0, 1)]
+              + [f"rmsnorm_bwd_wide_kernel<{t}>" for t in ("f32", "bf16")])
+_CC_NAMES = "paged_decode_kernel|rmsnorm_bwd_kernel|rmsnorm_bwd_wide_kernel"
+_MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
 
 
-def _tc_kernel_report(log: str) -> dict:
-    """ptxas's lines (``-Xptxas -v``) for each tensor-core kernel instance:
-    stack and spill bytes, registers and static shared memory."""
-    import re
+def _kernel_report(log: str, names: str) -> dict:
+    """ptxas's lines (``-Xptxas -v``) for each instance of the kernels
+    ``names`` (a regex alternation): stack and spill bytes, registers and
+    static shared memory."""
     rep, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(rf"({_TC_NAMES})I((?:L[ib]\d+E)+)E", m.group(1))
-            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            k = re.search(rf"\d({names})I(f|13__nv_bfloat16)?"
+                          rf"((?:L[ib]\d+E)*)E", m.group(1))
+            args = ([_MANGLED_TYPES[k.group(2)]] if k and k.group(2) else [])
+            args += re.findall(r"L[ib](\d+)E", k.group(3)) if k else []
             cur = f"{k.group(1)}<{','.join(args)}>" if k else None
             if cur:
                 rep[cur] = {}
@@ -347,17 +374,24 @@ def _tc_kernel_report(log: str) -> dict:
     return rep
 
 
-def _paged_inputs(*, b, h, kvh, hd, page, nb, dtype, pos, inactive, seed):
+def _paged_inputs(*, b, h, kvh, hd, page, nb, dtype, pos, inactive, seed,
+                  offset=0):
+    """``offset``: the K/V pools start that many elements into their
+    storage (contiguous, but not 16-byte aligned for offset 1)."""
     import torch
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
     npages = b * nb + 1
     q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(npages, page, kvh, hd, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(npages, page, kvh, hd, generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn(npages, page, kvh, hd, generator=gen,
+                          device=dev).to(dtype) for _ in range(2))
+    if offset:
+        kp, vp = (torch.empty(t.numel() + offset, dtype=dtype, device=dev)
+                  [offset:].view(t.shape).copy_(t) for t in (kp, vp))
     perm = torch.randperm(npages - 1, generator=gen, device=dev) + 1
     tables = perm.reshape(b, nb).to(torch.int32)
-    tables[inactive] = 0
+    if inactive is not None:
+        tables[inactive] = 0
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     return q, kp, vp, tables.contiguous(), pos_t
 
@@ -389,33 +423,54 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import paged_flash_decode
+    from repro_torch.kernels.flash_attention import (paged_flash_decode,
+                                                     paged_splits)
 
     results = {"paged_decode": [], "rmsnorm": []}
     page, nb, b = 16, 128, 8
-    pos = [0, 15, 16, 1023, 1024, 2047, 777, 1500]   # slot 6 inactive
+    mixed = dict(pos=[0, 15, 16, 1023, 1024, 2047, 777, 1500], inactive=6)
     cases = [
-        dict(name="main", h=32, kvh=32, hd=128, softcap=0.0),
-        dict(name="gqa", h=32, kvh=8, hd=64, softcap=0.0),
-        dict(name="softcap", h=32, kvh=32, hd=128, softcap=30.0),
-        dict(name="gqa_g2_hd32", h=32, kvh=16, hd=32, softcap=0.0),
-        dict(name="gqa_g8", h=64, kvh=8, hd=128, softcap=0.0),
+        dict(name="main", h=32, kvh=32, hd=128, softcap=0.0, **mixed),
+        dict(name="gqa", h=32, kvh=8, hd=64, softcap=0.0, **mixed),
+        dict(name="softcap", h=32, kvh=32, hd=128, softcap=30.0, **mixed),
+        dict(name="gqa_g2_hd32", h=32, kvh=16, hd=32, softcap=0.0, **mixed),
+        dict(name="gqa_g8", h=64, kvh=8, hd=128, softcap=0.0, **mixed),
+        # every slot at the last position: the most work a call can hold
+        dict(name="full", h=32, kvh=32, hd=128, softcap=0.0,
+             pos=[nb * page - 1] * b, inactive=None),
+        # the serve phase's profiled step (PROFILE_AT): 8 active slots,
+        # positions up to 470, mean 334
+        dict(name="serve", h=32, kvh=32, hd=128, softcap=0.0,
+             pos=[470, 436, 402, 368, 300, 266, 232, 198], inactive=None),
+        # K/V pools one element off 16-byte alignment: element copies in
+        # place of cp.async
+        dict(name="unaligned", h=32, kvh=8, hd=64, softcap=0.0, offset=1,
+             **mixed),
     ]
     for case in cases:
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             q, kp, vp, tables, pos_t = _paged_inputs(
                 b=b, h=case["h"], kvh=case["kvh"], hd=case["hd"],
-                page=page, nb=nb, dtype=dtype, pos=pos, inactive=6, seed=1)
+                page=page, nb=nb, dtype=dtype, pos=case["pos"],
+                inactive=case["inactive"], seed=1,
+                offset=case.get("offset", 0))
             sc = case["softcap"]
             out = paged_flash_decode(q, kp, vp, tables, pos_t, softcap=sc)
+            again = paged_flash_decode(q, kp, vp, tables, pos_t, softcap=sc)
             want = ref.paged_decode_attention_ref(q, kp, vp, tables, pos_t,
                                                   softcap=sc)
             torch.cuda.synchronize()
+            # the splits merge in a fixed order: a second run gives the
+            # same bits
+            require(torch.equal(out, again),
+                    f"paged_decode {case['name']} {dname}: two runs differ")
             atol, rtol = PAGED_TOL[dname]
             err, ok = max_err(out, want, atol, rtol)
             row = dict(case=case["name"], dtype=dname, b=b, h=case["h"],
                        kvh=case["kvh"], hd=case["hd"], page=page, nb=nb,
+                       pos=case["pos"], splits=paged_splits(
+                           b, case["kvh"], page, nb)[1],
                        softcap=sc, max_abs_err=err, atol=atol, rtol=rtol)
             row["ms"] = time_ms(lambda: paged_flash_decode(
                 q, kp, vp, tables, pos_t, softcap=sc))
@@ -447,7 +502,7 @@ def phase_kernels():
             require(ok, f"paged_decode {case['name']} {dname}: max abs err "
                         f"{err} beyond atol {atol} + rtol {rtol}")
             results["paged_decode"].append(row)
-            del q, kp, vp, out, want
+            del q, kp, vp, out, again, want
 
     for rows in (8, 8192):
         for dname in ("float32", "bfloat16"):
@@ -697,9 +752,24 @@ def _profile_steps(eng, steps: int = 4):
         idle_share=(1 - device_ms / wall_ms) if kernels
         else "not measured",
         launches_per_step=sum(k[1] for k in kernels) / steps,
+        by_kernel_ms_per_step={k: v / steps for k, v in
+                               _named_ms(kernels).items()},
         top=[dict(name=k[2][:90], ms_per_step=k[0] / 1e3 / steps,
                   calls_per_step=k[1] / steps) for k in kernels[:14]]
     ), (n0, n0 + steps)
+
+
+# the port's kernels a profile sums by name (the CUDA kernels' own names)
+PROFILED_KERNELS = ("paged_decode_kernel", "rmsnorm_kernel",
+                    "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel")
+
+
+def _named_ms(kernels) -> dict:
+    """Device ms of each of ``PROFILED_KERNELS`` in a profile's (us, count,
+    name) list."""
+    return {n: sum(k[0] for k in kernels
+                   if re.search(rf"\b{n}\b", k[2])) / 1e3
+            for n in PROFILED_KERNELS}
 
 
 def _bound(nbytes, flops, dname):
@@ -844,11 +914,6 @@ def _flash_rows(case, dname):
 
 
 def phase_train_kernels():
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
-
     results = {"flash_attention": [], "flash_attention_bwd": [],
                "rmsnorm": [], "rmsnorm_bwd": []}
     for case in FLASH_CASES:
@@ -858,38 +923,62 @@ def phase_train_kernels():
             results["flash_attention_bwd"].append(brow)
 
     # the training path's norms: x [b*s, d] = [4096, 2048], forward and
-    # backward
-    rows, d = 4096, 2048
+    # backward; the backward also at the other models' widths (granite's
+    # and mamba2's inner 1536, recurrentgemma's 4096) and at
+    # RMS_BWD_SHAPES' other two
     for dname in ("float32", "bfloat16"):
-        results["rmsnorm"].append(_rmsnorm_row(rows, d, dname))
-        dtype = getattr(torch, dname)
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        x = (torch.randn(rows, d, generator=gen, device="cuda") * 3
-             ).to(dtype)
-        dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
-        sc = torch.randn(d, generator=gen, device="cuda") * 0.1
-        dx, dsc = rmsnorm_bwd(x, sc, dy, eps=1e-5)
-        want_dx, want_dsc = ref.rmsnorm_bwd_ref(x, sc, dy, 1e-5)
-        torch.cuda.synchronize()
-        errs = _check_all(f"rmsnorm_bwd {dname}",
-                          {"dx": (dx, want_dx), "dscale": (dsc, want_dsc)},
-                          RMS_BWD_TOL[dname])
-        elt = x.element_size()
-        bound = _bound(3 * rows * d * elt + 2 * d * 4, 12 * rows * d, dname)
-        xr = x.detach().requires_grad_()
-        sr = sc.detach().requires_grad_()
-        ly = F.rms_norm(xr, (d,), weight=(1.0 + sr).to(dtype), eps=1e-5)
-        row = dict(rows=rows, d=d, dtype=dname, max_abs_err=max(errs.values()),
-                   errs=errs, tol=RMS_BWD_TOL[dname],
-                   ms=time_ms(lambda: rmsnorm_bwd(x, sc, dy, eps=1e-5)),
-                   plain_ms=time_ms(lambda: ref.rmsnorm_bwd_ref(
-                       x, sc, dy, 1e-5)),
-                   bound_ms=bound[0], bound_by=bound[1],
-                   library_ms=time_ms(lambda: torch.autograd.grad(
-                       ly, (xr, sr), dy, retain_graph=True)))
-        print(f"[rmsnorm_bwd] {json.dumps(row)}")
-        results["rmsnorm_bwd"].append(row)
+        results["rmsnorm"].append(_rmsnorm_row(4096, 2048, dname))
+        for rows, d in RMS_BWD_SHAPES:
+            results["rmsnorm_bwd"].append(_rmsnorm_bwd_row(rows, d, dname))
     return results
+
+
+# the training widths, a ragged d (scalar loads, masked columns) and a
+# row wider than a group's registers hold (a block a row)
+RMS_BWD_SHAPES = [(4096, 2048), (4096, 1536), (4096, 4096), (1000, 1001),
+                  (1024, 8192)]
+
+
+def _rmsnorm_bwd_row(rows: int, d: int, dname: str) -> dict:
+    """The RMSNorm backward kernel on [rows, d] against its plain version,
+    run twice (the bits must agree), timed beside its bound, the plain
+    version and autograd of ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import bwd_geometry, rmsnorm_bwd
+
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    sc = torch.randn(d, generator=gen, device="cuda") * 0.1
+    dx, dsc = rmsnorm_bwd(x, sc, dy, eps=1e-5)
+    dx2, dsc2 = rmsnorm_bwd(x, sc, dy, eps=1e-5)
+    want_dx, want_dsc = ref.rmsnorm_bwd_ref(x, sc, dy, 1e-5)
+    torch.cuda.synchronize()
+    # no atomics: a second run gives the same bits
+    require(torch.equal(dx, dx2) and torch.equal(dsc, dsc2),
+            f"rmsnorm_bwd {rows} x {d} {dname}: two runs differ")
+    errs = _check_all(f"rmsnorm_bwd {rows} x {d} {dname}",
+                      {"dx": (dx, want_dx), "dscale": (dsc, want_dsc)},
+                      RMS_BWD_TOL[dname])
+    elt = x.element_size()
+    bound = _bound(3 * rows * d * elt + 2 * d * 4, 12 * rows * d, dname)
+    xr = x.detach().requires_grad_()
+    sr = sc.detach().requires_grad_()
+    ly = F.rms_norm(xr, (d,), weight=(1.0 + sr).to(dtype), eps=1e-5)
+    row = dict(rows=rows, d=d, dtype=dname, geometry=bwd_geometry(rows, d),
+               max_abs_err=max(errs.values()), errs=errs,
+               tol=RMS_BWD_TOL[dname],
+               ms=time_ms(lambda: rmsnorm_bwd(x, sc, dy, eps=1e-5)),
+               plain_ms=time_ms(lambda: ref.rmsnorm_bwd_ref(
+                   x, sc, dy, 1e-5)),
+               bound_ms=bound[0], bound_by=bound[1],
+               library_ms=time_ms(lambda: torch.autograd.grad(
+                   ly, (xr, sr), dy, retain_graph=True)))
+    print(f"[rmsnorm_bwd] {json.dumps(row)}")
+    return row
 
 
 def grads_err(g1: dict, g2: dict) -> float:
@@ -1056,6 +1145,7 @@ def _profile_train_step(tr):
         device_ms=device_ms if kernels else "not measured",
         idle_share=(1 - device_ms / wall_ms) if kernels else "not measured",
         kernel_launches=sum(k[1] for k in kernels),
+        by_kernel_ms=_named_ms(kernels),
         top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
              for k in kernels[:16]])
 
@@ -1506,6 +1596,7 @@ def _profile_tp_step(tr, comm):
         else "not measured",
         ring_attention_calls=sum(k[1] for k in ring),
         kernel_launches=sum(k[1] for k in kernels),
+        by_kernel_ms=_named_ms(kernels),
         top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
              for k in kernels[:16]])
 
@@ -2770,7 +2861,7 @@ def _kernels_line(report) -> dict:
             at_train_shape={k: train_rms[k] for k in ("rows", "d") + keys})
         for name, src, replaces, case in (
                 ("rmsnorm_bwd", "rmsnorm.cu",
-                 "src/repro/kernels/rmsnorm.py:16", {}),
+                 "src/repro/kernels/rmsnorm.py:16", {"d": 2048}),
                 ("flash_attention", "flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:30", {"case": "main"}),
                 ("flash_attention_bwd", "flash_attention.cu",

@@ -57,12 +57,14 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _P],
-    # q, k_pages, v_pages, tables, pos, out, b, kvh, g, hd, page, nb,
-    # scale, softcap, dtype, stream
-    "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _F, _I, _P],
-    # x, scale, dy, dx, dscale, partial, rows, d, nblocks, eps, dtype, stream
-    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _I, _P],
+    # q, k_pages, v_pages, tables, pos, out, partial, counters, b, kvh, g,
+    # hd, page, nb, pps, nsplit, scale, softcap, dtype, stream
+    "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _F, _I, _P],
+    # x, scale, dy, dx, dscale, partial, rows, d, warps_per_row,
+    # rows_per_block, nblocks, eps, dtype, stream
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
+                          _P],
     # q, k, v, out, lse, b, s, h, kvh, hd, causal, window, scale, softcap,
     # dtype, stream
     "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,

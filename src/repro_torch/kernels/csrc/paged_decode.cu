@@ -1,37 +1,134 @@
-// Paged single-token decode attention for Hopper.
+// Paged single-token decode attention for Hopper (flash-decoding).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // `_paged_kernel` (reached through `paged_flash_decode`).  On the TPU the
 // grid is (slot, kv head, page) with the page axis sequential: the block
 // table arrives by scalar prefetch, each grid step DMAs one page and the
 // online-softmax state m/l/acc lives in VMEM scratch from step to step.
-// Hopper blocks run in no order, so here one block owns one (slot, kv
-// head) pair and walks that slot's pages itself, reading its own row of
-// `tables` and its own `pos` (no scalar prefetch).  Positions past `pos`
-// are never read: pages wholly beyond it are skipped and the last page is
-// cut at `pos`, which is what the TPU kernel's `pi * page <= pos` skip and
+// Hopper blocks run in no order and in parallel, so the sequence of each
+// slot is cut into splits of `pps` pages (kernels/flash_attention.py
+// `paged_splits`, from the shapes alone, never from `pos`) and one block
+// owns one (slot, kv head, split), reading its own row of `tables` and its
+// own `pos` (no scalar prefetch).  Positions past `pos` are never read:
+// a split that starts past it exits at once and the last split is cut at
+// `pos`, which is what the TPU kernel's `pi * page <= pos` skip and
 // `k_pos <= pos` mask compute.  The null page 0 is read like any other
 // page and is masked by position only, as there.
 //
 // Bound on the H100: bytes.  Each key and value row of a mapped position
 // is read once (2 * kvh * hd values per position and slot) against about
-// 4 * g * hd flops, far below the card's flop-per-byte balance.  Design:
-// the block's 8 warps take positions round-robin; a warp reads one token's
-// k and v rows (hd values, split over the 32 lanes, coalesced), reduces
-// q.k for the g query heads of the kv head with warp shuffles and updates
-// its own f32 m/l/acc in registers.  The 8 partial states are merged once
-// through shared memory at the end.  Work is one block per (slot, kv
-// head): 256 blocks at 8 slots x 32 kv heads on 132 SMs; splitting the
-// sequence over more blocks is later work.
+// 4 * g * hd flops: at g <= 8 that is <= 8 flop/B in bf16, below the f32
+// FMA units' balance (~20 flop/B), so CUDA cores suffice.  The design
+// moves the bytes at the card's rate:
+//  - many blocks: at 8 slots x 32 kv heads x 16 splits of 128 positions
+//    a long slot's work is spread over every SM, where one block per
+//    (slot, kv head) walked 2,048 positions alone;
+//  - 16-byte loads: a chunk of CHUNK tokens' K and V rows (8 KB each) is
+//    copied with `cp.async` into a two-stage shared-memory ring, so the
+//    next chunk's loads run under this chunk's arithmetic;
+//  - one softmax step a chunk: the chunk's q.k scores for all g heads go
+//    to shared memory (each row's DL lanes reduce the g partial dots by a
+//    butterfly that halves the values at each shuffle), then one max and
+//    one rescale of acc per chunk, not per token;
+//  - p.v: a thread owns 16 bytes of d for one head and a strided subset
+//    of the chunk's tokens; the token groups' acc and l are added in a
+//    fixed order at the end of the split.
+// The splits of a (slot, kv head) are merged in split order by the last
+// of its blocks to finish (an atomic counter per pair in `counters`,
+// which that block resets to 0), so a call is one launch and gives the
+// same bits on every run; a pair with one active split writes its output
+// directly.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 128;
+constexpr int kMaxPps = 256;       // a split's row of the table, in smem
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
+
+template <typename T, int HD>
+struct Geo {
+  static constexpr int ELT = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int DL = HD / ELT;        // lanes per K/V row (4..32)
+  static constexpr int ROWS = kThreads / DL;  // rows one pass covers
+  static constexpr int C0 = 8192 / (HD * static_cast<int>(sizeof(T)));
+  // tokens a stage holds: 8 KB of K (and of V), 16..64 rows
+  static constexpr int CHUNK = C0 < 16 ? 16 : (C0 > 64 ? 64 : C0);
+  static_assert(32 % DL == 0 && CHUNK % ROWS == 0, "row geometry");
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// s[0..N-1]: this lane's partial dots of N heads.  Each step with offset
+// O halves the values a lane keeps (lanes with bit O keep the upper half
+// and send the lower one); once one is left, the steps add it whole.
+// After the steps down to offset 1 the lane holds the totals of
+// max(1, N / (2 * O0)) heads (see head_base).
+template <int G, int N, int O>
+__device__ __forceinline__ void butterfly(float (&s)[G], int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = up ? s[i] : s[i + N / 2];
+        const float keep = up ? s[i + N / 2] : s[i];
+        s[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      butterfly<G, N / 2, O / 2>(s, lane);
+    } else {
+      s[0] += __shfl_xor_sync(0xffffffffu, s[0], O);
+      butterfly<G, 1, O / 2>(s, lane);
+    }
+  }
+}
+
+// the first head whose total the lane holds after butterfly<G, G, DL/2>
+template <int G, int DL>
+__device__ __forceinline__ int head_base(int lane) {
+  int base = 0, n = G;
+#pragma unroll
+  for (int o = DL / 2; o >= 1; o >>= 1) {
+    if (n > 1) {
+      n /= 2;
+      if (lane & o) base += n;
+    }
+  }
+  return base;
+}
+
+template <typename T>
+__device__ __forceinline__ void to_floats(const uint4& raw, float* f);
+template <>
+__device__ __forceinline__ void to_floats<float>(const uint4& raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void to_floats<__nv_bfloat16>(const uint4& raw,
+                                                         float* f) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
@@ -41,136 +138,271 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ tables,   // [b, nb]
     const int* __restrict__ pos,      // [b]
     T* __restrict__ out,              // [b, kvh * G, HD]
-    int kvh, int page, int nb, float scale, float softcap) {
-  constexpr int PER = HD / 32;  // values per lane: lane + 32 * e
-  const int bi = blockIdx.x;
+    float* __restrict__ partial,      // [b, kvh, nsplit, G, HD + 2]
+    int* __restrict__ counters,       // [b * kvh], 0 between calls
+    int kvh, int page, int page_shift, int nb, int pps, int nsplit,
+    float scale, float softcap, bool vec) {
+  using Gm = Geo<T, HD>;
+  constexpr int ELT = Gm::ELT, DL = Gm::DL, ROWS = Gm::ROWS;
+  constexpr int CHUNK = Gm::CHUNK;
+  constexpr int GPT = G > ROWS ? G / ROWS : 1;  // heads a thread adds p.v for
+  constexpr int TG = G < ROWS ? ROWS / G : 1;   // token groups of p.v
+  constexpr int NH = G > DL ? G / DL : 1;       // totals a lane holds
+  constexpr int DUP = DL > G ? DL / G : 1;      // lanes holding the same
+
+  const int split = blockIdx.x % nsplit;
+  const int bi = blockIdx.x / nsplit;
   const int kh = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int last = min(pos[bi], nb * page - 1);
+  const int span = pps * page;
+  const int n_active = last < 0 ? 1 : last / span + 1;
+  if (split >= n_active) return;
+  const int t0 = split * span;
+  const int n = max(0, min(t0 + span, last + 1) - t0);
+
+  __shared__ __align__(16) T sk[2][CHUNK * HD];
+  __shared__ __align__(16) T sv[2][CHUNK * HD];
+  __shared__ float ssc[CHUNK][G];
+  __shared__ int tab[kMaxPps];  // the split's physical pages
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int dl = tid % DL;
+  const int rest = tid / DL;
 
   const int64_t head0 = (static_cast<int64_t>(bi) * kvh + kh) * G * HD;
-  float qv[G][PER];
+  float qv[G][ELT];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < PER; ++e)
-      qv[g][e] = repro::to_float(q[head0 + g * HD + lane + 32 * e]) * scale;
+    for (int e = 0; e < ELT; ++e)
+      qv[g][e] = repro::to_float(q[head0 + g * HD + dl * ELT + e]) * scale;
 
-  float m[G], l[G], acc[G][PER];
+  // p.v ownership: heads hg0 .. hg0 + GPT - 1, tokens tg, tg + TG, ...
+  const int hg0 = GPT > 1 ? rest * GPT : rest % G;
+  const int tg = GPT > 1 ? 0 : rest / G;
+  float m[GPT], l[GPT], acc[GPT][ELT];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+  for (int i = 0; i < GPT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < ELT; ++e) acc[i][e] = 0.f;
   }
 
-  const int* row = tables + static_cast<int64_t>(bi) * nb;
+  const int* row = tables + static_cast<int64_t>(bi) * nb + split * pps;
+  for (int i = tid; i < min(pps, nb - split * pps); i += kThreads)
+    tab[i] = row[i];
+  __syncthreads();
   const int64_t tok_stride = static_cast<int64_t>(kvh) * HD;
-  for (int t = warp; t <= last; t += kWarps) {
-    const int pg = row[t / page];
-    const int64_t base =
-        (static_cast<int64_t>(pg) * page + t % page) * tok_stride +
-        static_cast<int64_t>(kh) * HD;
-    float kr[PER], vr[PER];
+  const int nchunks = (n + CHUNK - 1) / CHUNK;
+
+  // chunk c's K and V rows into stage c & 1 (rows past n are not read)
+  auto issue = [&](int c) {
+    const int st = c & 1;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      kr[e] = repro::to_float(k_pages[base + lane + 32 * e]);
-      vr[e] = repro::to_float(v_pages[base + lane + 32 * e]);
+    for (int it = 0; it < CHUNK / ROWS; ++it) {
+      const int r = it * ROWS + rest;
+      const int t = c * CHUNK + r;  // position within the split
+      if (t < n) {
+        const int pi = page_shift >= 0 ? t >> page_shift : t / page;
+        const int po = page_shift >= 0 ? t & (page - 1) : t % page;
+        const int64_t off =
+            (static_cast<int64_t>(tab[pi]) * page + po) * tok_stride +
+            static_cast<int64_t>(kh) * HD + dl * ELT;
+        T* dk = &sk[st][r * HD + dl * ELT];
+        T* dv = &sv[st][r * HD + dl * ELT];
+        if (vec) {
+          cp_async16(dk, k_pages + off);
+          cp_async16(dv, v_pages + off);
+        } else {
+#pragma unroll
+          for (int e = 0; e < ELT; ++e) {
+            dk[e] = k_pages[off + e];
+            dv[e] = v_pages[off + e];
+          }
+        }
+      }
     }
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < PER; ++e) dot += qv[g][e] * kr[e];
-      s[g] = dot;
+    cp_async_commit();
+  };
+
+  if (nchunks > 0) issue(0);
+  for (int c = 0; c < nchunks; ++c) {
+    const int st = c & 1;
+    if (c + 1 < nchunks) {
+      issue(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const int n_in = min(CHUNK, n - c * CHUNK);
+
+    // scores of the chunk's tokens for all G heads -> ssc
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
+    for (int it = 0; it < CHUNK / ROWS; ++it) {
+      const int r = it * ROWS + rest;
+      float kf[ELT];
+      to_floats<T>(*reinterpret_cast<const uint4*>(&sk[st][r * HD + dl * ELT]),
+                   kf);
+      float s[G];
 #pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+      for (int g = 0; g < G; ++g) {
+        float dot = 0.f;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float sc = s[g];
-      if (softcap != 0.f) sc = softcap * tanhf(sc / softcap);
-      const float m_new = fmaxf(m[g], sc);
-      const float corr = expf(m[g] - m_new);
-      const float p = expf(sc - m_new);
-      l[g] = l[g] * corr + p;
+        for (int e = 0; e < ELT; ++e) dot += qv[g][e] * kf[e];
+        s[g] = dot;
+      }
+      butterfly<G, G, DL / 2>(s, lane);
+      if (dl % DUP == 0) {
+        const int hb = head_base<G, DL>(lane);
 #pragma unroll
-      for (int e = 0; e < PER; ++e) acc[g][e] = acc[g][e] * corr + p * vr[e];
-      m[g] = m_new;
+        for (int i = 0; i < NH; ++i) {
+          float sc = s[i];
+          if (softcap != 0.f) sc = softcap * tanhf(sc / softcap);
+          ssc[r][hb + i] = r < n_in ? sc : kNegInf;  // rows past n: no part
+        }
+      }
     }
+    __syncthreads();
+
+    // one max and one rescale per head, then p.v over this thread's tokens
+    // (loops of fixed length, so the shared-memory loads issue together)
+#pragma unroll
+    for (int i = 0; i < GPT; ++i) {
+      const int g = hg0 + i;
+      float mx = m[i];
+#pragma unroll
+      for (int t = 0; t < CHUNK; ++t) mx = fmaxf(mx, ssc[t][g]);
+      const float corr = expf(m[i] - mx);
+      m[i] = mx;
+      l[i] *= corr;
+#pragma unroll
+      for (int e = 0; e < ELT; ++e) acc[i][e] *= corr;
+#pragma unroll
+      for (int j = 0; j < CHUNK / TG; ++j) {
+        const int t = tg + j * TG;
+        if (t < n_in) {
+          const float p = expf(ssc[t][g] - mx);
+          l[i] += p;
+          float vf[ELT];
+          to_floats<T>(
+              *reinterpret_cast<const uint4*>(&sv[st][t * HD + dl * ELT]),
+              vf);
+#pragma unroll
+          for (int e = 0; e < ELT; ++e) acc[i][e] += p * vf[e];
+        }
+      }
+    }
+    __syncthreads();  // stage st is refilled by the next issue
   }
 
-  // merge the warps' partial softmax states
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][HD];
+  // add the token groups in order (the stages are free now)
+  float* red = reinterpret_cast<float*>(&sk[0][0]);   // [TG][G][HD]
+  float* red_l = reinterpret_cast<float*>(&sv[0][0]);  // [TG][G]
+  __shared__ float red_m[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+  for (int i = 0; i < GPT; ++i) {
+    const int g = hg0 + i;
+#pragma unroll
+    for (int e = 0; e < ELT; ++e)
+      red[(tg * G + g) * HD + dl * ELT + e] = acc[i][e];
+    if (dl == 0) {
+      red_l[tg * G + g] = l[i];
+      if (tg == 0) red_m[g] = m[i];
     }
-#pragma unroll
-    for (int e = 0; e < PER; ++e) sm_acc[warp][g][lane + 32 * e] = acc[g][e];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
+
+  const int pair = bi * kvh + kh;
+  float* part = partial + static_cast<int64_t>(pair) * nsplit * G * (HD + 2);
+  for (int idx = tid; idx < G * HD; idx += kThreads) {
     const int g = idx / HD;
-    const int d = idx % HD;
+    float o = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TG; ++j) {
+      o += red[(j * G + g) * HD + idx % HD];
+      lsum += red_l[j * G + g];
+    }
+    if (n_active == 1) {
+      out[head0 + idx] = repro::from_float<T>(o / fmaxf(lsum, 1e-30f));
+    } else {
+      float* ps = part + (static_cast<int64_t>(split) * G + g) * (HD + 2);
+      ps[idx % HD] = o;
+      if (idx % HD == 0) {
+        ps[HD] = red_m[g];
+        ps[HD + 1] = lsum;
+      }
+    }
+  }
+  if (n_active == 1) return;
+
+  // the last block of this pair to finish merges the splits in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&counters[pair], 1) == n_active - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int idx = tid; idx < G * HD; idx += kThreads) {
+    const int g = idx / HD;
     float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * c;
-      o += sm_acc[w][g][d] * c;
+    for (int s = 0; s < n_active; ++s)
+      mx = fmaxf(mx, __ldcg(part + (static_cast<int64_t>(s) * G + g) *
+                                       (HD + 2) + HD));
+    float o = 0.f, lsum = 0.f;
+    for (int s = 0; s < n_active; ++s) {
+      const float* ps = part + (static_cast<int64_t>(s) * G + g) * (HD + 2);
+      const float c = expf(__ldcg(ps + HD) - mx);
+      lsum += __ldcg(ps + HD + 1) * c;
+      o += __ldcg(ps + idx % HD) * c;
     }
     out[head0 + idx] = repro::from_float<T>(o / fmaxf(lsum, 1e-30f));
   }
+  if (tid == 0) counters[pair] = 0;
 }
 
+struct Args {
+  const void *q, *k, *v, *tables, *pos;
+  void* out;
+  float* partial;
+  int* counters;
+  int b, kvh, page, page_shift, nb, pps, nsplit;
+  float scale, softcap;
+  bool vec;
+};
+
 template <typename T, int HD, int G>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* pos, void* out, int b, int kvh, int page, int nb,
-           float scale, float softcap, cudaStream_t s) {
-  const dim3 grid(b, kvh);
+int launch(const Args& a, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(a.b) * a.nsplit, a.kvh);
   paged_decode_kernel<T, HD, G><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<T*>(out), kvh, page, nb,
-      scale, softcap);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.pos), static_cast<T*>(a.out), a.partial,
+      a.counters, a.kvh, a.page, a.page_shift, a.nb, a.pps, a.nsplit,
+      a.scale, a.softcap, a.vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int dispatch_g(int g, const void* q, const void* k, const void* v,
-               const void* tables, const void* pos, void* out, int b, int kvh,
-               int page, int nb, float scale, float softcap, cudaStream_t s) {
+int dispatch_g(int g, const Args& a, cudaStream_t s) {
   switch (g) {
-    case 1: return launch<T, HD, 1>(q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
-    case 2: return launch<T, HD, 2>(q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
-    case 4: return launch<T, HD, 4>(q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
-    case 8: return launch<T, HD, 8>(q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
+    case 1: return launch<T, HD, 1>(a, s);
+    case 2: return launch<T, HD, 2>(a, s);
+    case 4: return launch<T, HD, 4>(a, s);
+    case 8: return launch<T, HD, 8>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int dispatch_hd(int hd, int g, const void* q, const void* k, const void* v,
-                const void* tables, const void* pos, void* out, int b,
-                int kvh, int page, int nb, float scale, float softcap,
-                cudaStream_t s) {
+int dispatch_hd(int hd, int g, const Args& a, cudaStream_t s) {
   switch (hd) {
-    case 32: return dispatch_g<T, 32>(g, q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
-    case 64: return dispatch_g<T, 64>(g, q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
-    case 128: return dispatch_g<T, 128>(g, q, k, v, tables, pos, out, b, kvh, page, nb, scale, softcap, s);
+    case 32: return dispatch_g<T, 32>(g, a, s);
+    case 64: return dispatch_g<T, 64>(g, a, s);
+    case 128: return dispatch_g<T, 128>(g, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -179,23 +411,35 @@ int dispatch_hd(int hd, int g, const void* q, const void* k, const void* v,
 
 // q, out: [b, 1, kvh * g, hd]; k_pages, v_pages: [P, page, kvh, hd], all of
 // dtype code `dtype` and contiguous; tables: [b, nb] int32; pos: [b] int32.
-// Returns a cudaError_t code (0 on success).
+// The sequence of a slot is cut into nsplit = ceil(nb / pps) splits of
+// pps <= 256 pages; partial: f32 scratch of b * kvh * nsplit * g * (hd + 2) values;
+// counters: int32 scratch of b * kvh values, all 0 (and 0 again after the
+// call).  Returns a cudaError_t code (0 on success).
 extern "C" int repro_paged_decode(const void* q, const void* k_pages,
                                   const void* v_pages, const void* tables,
-                                  const void* pos, void* out, int b, int kvh,
-                                  int g, int hd, int page, int nb,
-                                  float scale, float softcap, int dtype,
-                                  void* stream) {
+                                  const void* pos, void* out, void* partial,
+                                  void* counters, int b, int kvh, int g,
+                                  int hd, int page, int nb, int pps,
+                                  int nsplit, float scale, float softcap,
+                                  int dtype, void* stream) {
   if (b <= 0) return 0;
-  if (kvh <= 0 || kvh > 65535 || page <= 0 || nb <= 0)
+  if (kvh <= 0 || kvh > 65535 || page <= 0 || nb <= 0 || pps <= 0 ||
+      pps > kMaxPps || nsplit != (nb + pps - 1) / pps ||
+      static_cast<long long>(b) * nsplit > 0x7fffffffLL ||
+      static_cast<long long>(nb) * page > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const auto bits = reinterpret_cast<uintptr_t>(k_pages) |
+                    reinterpret_cast<uintptr_t>(v_pages);
+  int page_shift = -1;
+  if ((page & (page - 1)) == 0)
+    for (page_shift = 0; (1 << page_shift) < page; ++page_shift) {
+    }
+  const Args a{q, k_pages, v_pages, tables, pos, out,
+               static_cast<float*>(partial), static_cast<int*>(counters),
+               b, kvh, page, page_shift, nb, pps, nsplit, scale, softcap,
+               (bits & 15) == 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32)
-    return dispatch_hd<float>(hd, g, q, k_pages, v_pages, tables, pos, out,
-                              b, kvh, page, nb, scale, softcap, s);
-  if (dtype == repro::kBF16)
-    return dispatch_hd<__nv_bfloat16>(hd, g, q, k_pages, v_pages, tables, pos,
-                                      out, b, kvh, page, nb, scale, softcap,
-                                      s);
+  if (dtype == repro::kF32) return dispatch_hd<float>(hd, g, a, s);
+  if (dtype == repro::kBF16) return dispatch_hd<__nv_bfloat16>(hd, g, a, s);
   return cudaErrorInvalidValue;
 }

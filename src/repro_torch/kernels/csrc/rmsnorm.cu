@@ -17,13 +17,23 @@
 // differentiate core/tmp.py `rms_norm`): with w = 1 + scale and
 // r = rsqrt(mean(x^2) + eps), dx = r * (w*dy - x * r^2 * mean(x*w*dy)) and
 // dscale = sum over rows of dy * x * r.  Bound: bytes (x and dy read, dx
-// written, a few flops each).  Design: a grid of at most a few hundred
-// blocks walks the rows (one row per block at a time, reduced as in the
-// forward); each block adds its rows' dy * x * r into its own f32 row
-// of `partial` [nblocks, d] held in shared memory, and a second small
-// kernel sums the nblocks partials per column in a fixed order.  No
-// atomics, so dscale is deterministic.
+// written, a few flops each).  Design, for d <= 4096: a group of W warps
+// owns one row at a time (W = ceil(d / 256), a thread 8 columns), R = 16 / W
+// groups a block, each walking its rows with the next row's x and dy
+// already in flight.  x and dy are read once, with 16-byte loads where
+// d and the pointers allow (else 8 strided scalar loads, the same
+// arithmetic), and stay in registers for both passes; a row's two sums are
+// reduced by shuffles and, for W > 1, across the group's warps through
+// shared memory behind a named barrier of that group only (slots
+// alternate by row parity, so one barrier a row suffices).  Each thread
+// sums its columns' dy * x * r over its rows in registers; the block adds
+// its groups in order into one f32 row of `partial` [nblocks, d], and a
+// second small kernel sums the nblocks rows per column in a fixed order.
+// No atomics, so every run gives the same bits; no dynamic shared memory,
+// so no per-call attribute.  Wider rows (d > 4096) take a block a row and
+// read x and dy twice, adding into the block's row of `partial` itself.
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -67,93 +77,273 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kBwdThreads = 512;  // 16 warps: R groups of W warps
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kCols = 8;             // columns a thread holds
+constexpr int kRowCols = kBwdWarps * 32 * kCols;  // 4096: widest held row
+
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A thread's 8 columns of a row: with VEC, 16-byte vectors (bf16: one at
+// column 8 * t; f32: two at columns 4 * t and 4 * (t + gt)); else the
+// strided columns t, t + gt, ..., t + 7 * gt.  Columns >= d read as 0.
+template <typename T, bool VEC>
+struct Cols {
+  static constexpr int ELT = 16 / static_cast<int>(sizeof(T));
+  __device__ static int col(int j, int t, int gt) {
+    if constexpr (VEC) return ((j / ELT) * gt + t) * ELT + j % ELT;
+    else return j * gt + t;
+  }
+  __device__ static void load(const T* __restrict__ rowp, int t, int gt,
+                              int d, uint4 (&raw)[kCols / ELT]) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int k = 0; k < kCols / ELT; ++k) {
+        const int c = (k * gt + t) * ELT;
+        raw[k] = c < d ? __ldcs(reinterpret_cast<const uint4*>(rowp + c))
+                       : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      T v[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = j * gt + t;
+        v[j] = c < d ? rowp[c] : repro::from_float<T>(0.f);
+      }
+      memcpy(&raw, v, sizeof(v));
+    }
+  }
+  __device__ static void to_float(const uint4 (&raw)[kCols / ELT],
+                                  float (&f)[kCols]) {
+    T v[kCols];
+    memcpy(v, &raw, sizeof(v));
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) f[j] = repro::to_float(v[j]);
+  }
+  __device__ static void store(T* __restrict__ rowp, int t, int gt, int d,
+                               const float (&f)[kCols]) {
+    T v[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) v[j] = repro::from_float<T>(f[j]);
+    if constexpr (VEC) {
+#pragma unroll
+      for (int k = 0; k < kCols / ELT; ++k) {
+        const int c = (k * gt + t) * ELT;
+        if (c < d) {
+          uint4 w;
+          memcpy(&w, v + k * ELT, sizeof(w));
+          *reinterpret_cast<uint4*>(rowp + c) = w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int c = j * gt + t;
+        if (c < d) rowp[c] = v[j];
+      }
+    }
+  }
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads)
     rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                        const T* __restrict__ dy, T* __restrict__ dx,
                        float* __restrict__ partial, int64_t rows, int d,
-                       float eps) {
-  extern __shared__ float dsc[];  // [d] this block's dscale partial
-  __shared__ float warp_sums[2][kWarps];
-  __shared__ float stats[2];      // r, mean(x * w * dy)
+                       int warps_per_row, float eps) {
+  using C = Cols<T, VEC>;
+  constexpr int NV = kCols / C::ELT;
+  __shared__ float2 sums[2][kBwdWarps];  // [row parity][warp]: (ss, dot)
+  __shared__ float red[kRowCols];        // the block's groups' dscale
+  const int gt = warps_per_row * 32;
+  const int groups = blockDim.x / gt;
+  const int group = threadIdx.x / gt;
+  const int t = threadIdx.x % gt;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < d; i += kThreads) dsc[i] = 0.f;
 
-  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+  float w[kCols], dsc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = C::col(j, t, gt);
+    w[j] = c < d ? 1.f + scale[c] : 0.f;
+    dsc[j] = 0.f;
+  }
+
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * groups;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * groups + group;
+  uint4 cx[NV], cdy[NV];
+  if (row < rows) {
+    C::load(x + row * d, t, gt, d, cx);
+    C::load(dy + row * d, t, gt, d, cdy);
+  }
+  for (int parity = 0; row < rows; row += stride, parity ^= 1) {
+    uint4 nx[NV], ndy[NV];
+    const int64_t next = row + stride;
+    if (next < rows) {
+      C::load(x + next * d, t, gt, d, nx);
+      C::load(dy + next * d, t, gt, d, ndy);
+    }
+    float xv[kCols], dyv[kCols];
+    C::to_float(cx, xv);
+    C::to_float(cdy, dyv);
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      ss += xv[j] * xv[j];
+      dot += xv[j] * (w[j] * dyv[j]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    }
+    if (warps_per_row > 1) {
+      if (lane == 0) sums[parity][warp] = make_float2(ss, dot);
+      group_barrier(1 + group, gt);
+      ss = dot = 0.f;
+      for (int k = 0; k < warps_per_row; ++k) {
+        const float2 p = sums[parity][group * warps_per_row + k];
+        ss += p.x;
+        dot += p.y;
+      }
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float mdot = dot / static_cast<float>(d);
+    float dxv[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      dxv[j] = r * (w[j] * dyv[j] - xv[j] * (r * r) * mdot);
+      dsc[j] += dyv[j] * xv[j] * r;
+    }
+    C::store(dx + row * d, t, gt, d, dxv);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      cx[k] = nx[k];
+      cdy[k] = ndy[k];
+    }
+  }
+
+  // the groups' column sums, added in group order -> partial[blockIdx.x]
+  float* prow = partial + static_cast<int64_t>(blockIdx.x) * d;
+  if (groups > 1) {
+    if (group > 0) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        red[(group * gt + t) * kCols + j] = dsc[j];
+    }
+    __syncthreads();
+    if (group > 0) return;
+    for (int k = 1; k < groups; ++k) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) dsc[j] += red[(k * gt + t) * kCols + j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    const int c = C::col(j, t, gt);
+    if (c < d) prow[c] = dsc[j];
+  }
+}
+
+// rows wider than kRowCols: a block a row; x and dy read twice; the
+// block's dscale row accumulates in `partial` (its own columns a thread)
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_wide_kernel(const T* __restrict__ x,
+                            const float* __restrict__ scale,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ partial, int64_t rows, int d,
+                            float eps) {
+  __shared__ float2 sums[2][kBwdWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* prow = partial + static_cast<int64_t>(blockIdx.x) * d;
+  for (int i = threadIdx.x; i < d; i += kBwdThreads) prow[i] = 0.f;
+  int parity = 0;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
     const T* xr = x + row * d;
     const T* dyr = dy + row * d;
     float ss = 0.f, dot = 0.f;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
+    for (int i = threadIdx.x; i < d; i += kBwdThreads) {
       const float xv = repro::to_float(xr[i]);
-      const float wdy = (1.f + scale[i]) * repro::to_float(dyr[i]);
       ss += xv * xv;
-      dot += xv * wdy;
+      dot += xv * ((1.f + scale[i]) * repro::to_float(dyr[i]));
     }
     for (int o = 16; o > 0; o >>= 1) {
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
     }
-    if (lane == 0) {
-      warp_sums[0][warp] = ss;
-      warp_sums[1][warp] = dot;
-    }
+    if (lane == 0) sums[parity][warp] = make_float2(ss, dot);
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float ts = 0.f, td = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        ts += warp_sums[0][w];
-        td += warp_sums[1][w];
-      }
-      stats[0] = rsqrtf(ts / static_cast<float>(d) + eps);
-      stats[1] = td / static_cast<float>(d);
+    ss = dot = 0.f;
+    for (int k = 0; k < kBwdWarps; ++k) {
+      ss += sums[parity][k].x;
+      dot += sums[parity][k].y;
     }
-    __syncthreads();
-    const float r = stats[0];
-    const float mdot = stats[1];
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float mdot = dot / static_cast<float>(d);
     T* dxr = dx + row * d;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
+    for (int i = threadIdx.x; i < d; i += kBwdThreads) {
       const float xv = repro::to_float(xr[i]);
       const float dyv = repro::to_float(dyr[i]);
-      const float wdy = (1.f + scale[i]) * dyv;
-      dxr[i] = repro::from_float<T>(r * (wdy - xv * (r * r) * mdot));
-      dsc[i] += dyv * xv * r;  // column i belongs to this thread only
+      dxr[i] = repro::from_float<T>(
+          r * ((1.f + scale[i]) * dyv - xv * (r * r) * mdot));
+      prow[i] += dyv * xv * r;
     }
-    __syncthreads();  // warp_sums/stats are rewritten by the next row
   }
-  float* prow = partial + static_cast<int64_t>(blockIdx.x) * d;
-  for (int i = threadIdx.x; i < d; i += kThreads) prow[i] = dsc[i];
 }
 
-// dscale[i] = sum over blocks of partial[block, i], in block order
-__global__ void __launch_bounds__(kThreads)
+// dscale[c] = sum over blocks of partial[block, c], in block order: 32
+// columns a block, 8 lanes of blocks each (blocks k, k + 8, ...), the
+// lanes added in order
+__global__ void __launch_bounds__(256)
     rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial,
                               float* __restrict__ dscale, int nblocks, int d) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= d) return;
+  __shared__ float lanes[8][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
-  for (int b = 0; b < nblocks; ++b) acc += partial[static_cast<int64_t>(b) * d + i];
-  dscale[i] = acc;
+  if (c < d)
+    for (int b = threadIdx.y; b < nblocks; b += 8)
+      acc += partial[static_cast<int64_t>(b) * d + c];
+  lanes[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= d) return;
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sum += lanes[k][threadIdx.x];
+  dscale[c] = sum;
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
-               void* dscale, void* partial, long long rows, int d,
-               int nblocks, float eps, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+               void* dscale, void* partial, long long rows, int d, int wpr,
+               int rpb, int nblocks, float eps, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  const float* sp = static_cast<const float*>(scale);
+  float* pp = static_cast<float*>(partial);
+  constexpr int ELT = 16 / static_cast<int>(sizeof(T));
+  const auto bits = reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(dy) |
+                    reinterpret_cast<uintptr_t>(dx) |
+                    reinterpret_cast<uintptr_t>(scale);
+  if (d > kRowCols)
+    rmsnorm_bwd_wide_kernel<T><<<nblocks, kBwdThreads, 0, s>>>(
+        xp, sp, dyp, dxp, pp, rows, d, eps);
+  else if (d % ELT == 0 && (bits & 15) == 0)
+    rmsnorm_bwd_kernel<T, true><<<nblocks, wpr * rpb * 32, 0, s>>>(
+        xp, sp, dyp, dxp, pp, rows, d, wpr, eps);
+  else
+    rmsnorm_bwd_kernel<T, false><<<nblocks, wpr * rpb * 32, 0, s>>>(
+        xp, sp, dyp, dxp, pp, rows, d, wpr, eps);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_bwd_kernel<T><<<nblocks, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(partial), rows, d, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_bwd_reduce_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dscale),
-      nblocks, d);
+  rmsnorm_bwd_reduce_kernel<<<(d + 31) / 32, dim3(32, 8), 0, s>>>(
+      pp, static_cast<float*>(dscale), nblocks, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -184,22 +374,32 @@ extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out,
 }
 
 // Backward of repro_rmsnorm.  x, dy, dx: [rows, d] of dtype code `dtype`;
-// scale, dscale: [d] f32; partial: [nblocks, d] f32 scratch with
-// 1 <= nblocks <= rows.  Returns a cudaError_t code (0 on success).
+// scale, dscale: [d] f32; partial: [nblocks, d] f32 scratch.  Rows go to
+// groups of warps_per_row warps, rows_per_block groups a block
+// (kernels/rmsnorm.py `bwd_geometry`): warps_per_row * 256 >= d, or 16
+// with rows_per_block 1 for d > 4096; nblocks <= ceil(rows /
+// rows_per_block).  Returns a cudaError_t code (0 on success).
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
                                  const void* dy, void* dx, void* dscale,
                                  void* partial, long long rows, int d,
+                                 int warps_per_row, int rows_per_block,
                                  int nblocks, float eps, int dtype,
                                  void* stream) {
-  if (d <= 0 || rows <= 0 || nblocks <= 0 || nblocks > rows ||
-      nblocks > 65535 || static_cast<size_t>(d) * sizeof(float) > 227 * 1024)
+  const bool wide = d > kRowCols;
+  if (d <= 0 || rows <= 0 || warps_per_row <= 0 || rows_per_block <= 0 ||
+      warps_per_row * rows_per_block > kBwdWarps ||
+      (wide ? warps_per_row != kBwdWarps
+            : warps_per_row * 32 * kCols < d) ||
+      nblocks <= 0 || nblocks > 65535 ||
+      nblocks > (rows + rows_per_block - 1) / rows_per_block)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
     return launch_bwd<float>(x, scale, dy, dx, dscale, partial, rows, d,
-                             nblocks, eps, s);
+                             warps_per_row, rows_per_block, nblocks, eps, s);
   if (dtype == repro::kBF16)
     return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dscale, partial, rows,
-                                     d, nblocks, eps, s);
+                                     d, warps_per_row, rows_per_block,
+                                     nblocks, eps, s);
   return cudaErrorInvalidValue;
 }

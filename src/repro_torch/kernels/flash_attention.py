@@ -27,6 +27,37 @@ _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 GROUPS = (1, 2, 4, 8)
 PAGED_HEAD_DIMS = (32, 64, 128)
 HEAD_DIMS = (32, 64, 128, 256)
+# the paged decode's splits: at most this many positions a split (four
+# chunks of a bf16 hd-128 block: short chains of dependent chunk loads),
+# and enough (slot, kv head, split) blocks for a few on each of the H100's
+# 132 SMs when every slot is full
+SPLIT_POSITIONS = 128
+SPLIT_BLOCKS = 4 * 132
+# per (device, stream): the split merge's int32 counters (0 between calls:
+# the last block of each (slot, kv head) resets its own) and f32 partials,
+# grown to the largest call seen
+_PAGED_SCRATCH = {}
+
+
+def paged_splits(b: int, kvh: int, page: int, nb: int):
+    """(pages a split covers, splits a slot has) of the paged decode
+    kernel: a pure function of the shapes, never of ``pos``.  A split
+    covers at most ``SPLIT_POSITIONS`` positions (rounded up to whole
+    pages), and a full batch of ``b * kvh`` pairs gets at least
+    ``SPLIT_BLOCKS`` blocks where ``nb`` allows."""
+    want = max(-(-nb * page // SPLIT_POSITIONS), -(-SPLIT_BLOCKS // (b * kvh)))
+    pps = -(-nb // min(want, nb))
+    return pps, -(-nb // pps)
+
+
+def _paged_scratch(device, stream: int, pairs: int, floats: int):
+    counters, partial = _PAGED_SCRATCH.get((device, stream), (None, None))
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+    _PAGED_SCRATCH[device, stream] = counters, partial
+    return counters, partial
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -69,13 +100,18 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_flash_decode kernel takes contiguous tensors")
     scale = hd ** -0.5 if scale is None else scale
+    nb = tables.shape[1]
+    pps, nsplit = paged_splits(b, kvh, page, nb)
+    stream = _build.stream_ptr(q)
+    counters, partial = _paged_scratch(q.device, stream, b * kvh,
+                                       b * nsplit * h * (hd + 2))
     out = torch.empty_like(q)
     lib = _build.library()
     rc = lib.repro_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, kvh, h // kvh,
-        hd, page, tables.shape[1], scale, softcap, _DTYPES[q.dtype],
-        _build.stream_ptr(q))
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), counters.data_ptr(), b, kvh, h // kvh, hd, page,
+        nb, pps, nsplit, scale, softcap, _DTYPES[q.dtype], stream)
     _build.check(rc, "paged_decode kernel launch")
     _build.LAUNCHES["paged_decode"] += 1
     return out

@@ -16,9 +16,35 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
-# blocks of the backward's first pass: each adds its rows into one f32 row
-# of the [blocks, d] dscale scratch (2 per SM of an H100)
-BWD_BLOCKS = 264
+# blocks of the backward's first pass, one per SM of an H100 (two blocks
+# of 16 warps at the ~82 registers a thread that ptxas gives the kernel
+# exceed an SM's 65,536, so more blocks would run as a second wave): each
+# adds its rows into one f32 row of the [blocks, d] dscale scratch
+BWD_BLOCKS = 132
+# the backward's block: 16 warps, a thread holding 8 columns of a row
+BWD_WARPS = 16
+BWD_COLS = 8
+# per (device, stream): the backward's f32 dscale partials, grown to the
+# largest call seen
+_BWD_SCRATCH = {}
+
+
+def bwd_geometry(rows: int, d: int):
+    """(warps a row, rows a block, blocks) of the backward kernel: a row
+    of d <= 4096 is held by ceil(d / 256) warps, 8 columns a thread, and a
+    block of at most 16 warps takes as many such groups as fit; wider rows
+    take a whole block each."""
+    wpr = min(-(-d // (32 * BWD_COLS)), BWD_WARPS)
+    rpb = BWD_WARPS // wpr
+    return wpr, rpb, min(-(-rows // rpb), BWD_BLOCKS)
+
+
+def _bwd_partial(device, stream: int, floats: int) -> torch.Tensor:
+    buf = _BWD_SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(floats, dtype=torch.float32, device=device)
+        _BWD_SCRATCH[device, stream] = buf
+    return buf
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor):
@@ -67,14 +93,15 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(scale)
-    nblocks = min(rows, BWD_BLOCKS)
+    wpr, rpb, nblocks = bwd_geometry(rows, d)
+    stream = _build.stream_ptr(x)
+    partial = _bwd_partial(x.device, stream, nblocks * d)
     dscale = torch.empty_like(scale)
-    partial = torch.empty(nblocks, d, dtype=torch.float32, device=x.device)
     lib = _build.library()
     rc = lib.repro_rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
                                dx.data_ptr(), dscale.data_ptr(),
-                               partial.data_ptr(), rows, d, nblocks, eps,
-                               _DTYPES[x.dtype], _build.stream_ptr(x))
+                               partial.data_ptr(), rows, d, wpr, rpb, nblocks,
+                               eps, _DTYPES[x.dtype], stream)
     _build.check(rc, "rmsnorm_bwd kernel launch")
     _build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dscale

@@ -34,6 +34,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _leave(store, rank: int, tp: int, timeout_s: float = 300.0):
+    """The store lives in rank 0's process: rank 0 returns only once every
+    other rank has made its last store call, so that no rank finds the
+    store gone in the middle of one (a barrier's last poll)."""
+    if rank:
+        store.add("left", 1)
+        return
+    t0 = time.monotonic()
+    while store.add("left", 0) < tp - 1:
+        if time.monotonic() - t0 > timeout_s:
+            raise TimeoutError(f"ranks did not leave within {timeout_s} s")
+        time.sleep(0.001)
+
+
 def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
                 fn: Callable, args: Sequence, out_q):
     import torch.distributed as dist
@@ -56,6 +70,7 @@ def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
         result = fn(comm, dev, *args)
         comm.check()
         comm.close()
+        _leave(store, rank, tp)
         out_q.put((rank, True, result))
     except BaseException:
         msg = traceback.format_exc()
