@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
    ``nvcc`` for ``sm_90a``; print ptxas's registers, shared memory and
    spill bytes of each tensor-core kernel (the attention forward, the
    flash backward's dK/dV and dQ kernels, the GEMM tile in the grouped,
-   tile and ring matmuls) and of the paged decode and RMSNorm backward
+   tile and ring matmuls), of the paged decode and RMSNorm backward
+   kernels and of the SSD forward and backward and RMSNorm forward
    kernels, and fail on a spill;
    print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
@@ -37,7 +38,9 @@ Phases (any failure raises and the script exits non-zero):
    GQA 16/8 heads of 128; softcap 30 with window 256; ragged s 1000;
    granite's 24/8 heads of 64, a group of 3; 16/4 heads of 32; ragged
    s 1000 at hd 32 and at hd 128 with window 300; s 40 at hd 128 with
-   window 16 and softcap 30) and the RMSNorm forward at 4096 x 2048 and
+   window 16 and softcap 30; in bf16 also b 1, s 8192, 4 heads of 128,
+   the long rows that one tensor-core accumulator sums) and the RMSNorm
+   forward at 4096 x 2048, 1536 and 768 and
    backward at 4096 x 2048, 1536 and 4096, a ragged 1000 x 1001 and a
    1024 x 8192 wider than a warp group holds (run twice, the bits must
    agree), each timed with its bound, its
@@ -115,9 +118,12 @@ Phases (any failure raises and the script exits non-zero):
    rank and a one-step profile per schedule.
 
 14. Family kernels against their plain versions on the card, f32 (TF32
-   off) and bf16: the SSD kernel at ``mamba2-130m``'s mixer (24 heads of
-   64, state 128) at b 1 x s 4096 (the slice's shape), at s 96 (one
-   chunk shorter than 128) and at b 4 x s 1024; the grouped matmul's
+   off) and bf16: the SSD forward and backward kernels at
+   ``mamba2-130m``'s mixer (24 heads of 64, state 128) at b 1 x s 4096
+   (the slice's shape), at s 96 (one chunk shorter than 128) and at b 4
+   x s 1024, every result (y; dx, d(dt), dA_log, dB, dC, dD) against the
+   plain versions and bit-identical on a second run, each row with its
+   f32 CUDA-core and its tensor-core bound; the grouped matmul's
    forward and both backward products as training launches them
    (``moe_gmm`` and ``moe_gmm_bwd``: dx and dw read w and x where they
    lie) at ``granite-moe-3b-a800m``'s expert shapes (40 experts, capacity
@@ -128,7 +134,7 @@ Phases (any failure raises and the script exits non-zero):
    rows when phase 5 ran).  Each timed
    beside its bound, its plain version and, for the grouped matmul,
    ``torch.bmm`` of the same product (a yardstick only; the port never
-   calls it; no PyTorch call computes the SSD).
+   calls it; no PyTorch call computes the SSD or its gradient).
 15. Family consistency: ``mamba2-130m`` and ``granite-moe-3b-a800m`` at
    full width and 2 layers in f32, batch 2 x 256, under ``megatron``
    without recomputation and under the training default, ``oases`` (split
@@ -146,7 +152,8 @@ Phases (any failure raises and the script exits non-zero):
    full width and 8 of its 32 layers (batch 8 x 1024 in 2
    microbatches): finite losses, every leaf's gradient present and
    finite after step 1, launches a step exactly as worked out from the
-   code (SSD 24 x 4, grouped matmul 9 x 8 x 2), step time, tokens/s,
+   code (SSD forward and backward 24 x 4 each, grouped matmul 9 x 8 x
+   2), step time, tokens/s,
    peak memory and a one-step profile; then each family through the
    launcher (``launch/train.py``) with its defaults (``oases``, split 2,
    fine recomputation) at full depth for 2 steps: ``mamba2-130m`` at
@@ -224,8 +231,8 @@ SERVE_ONLY = {"rmsnorm_bwd": 0, "flash_attention": 0,
               "flash_attention_bwd": 0, "tile_matmul": 0,
               "ring_matmul_rs": 0, "peer_all_reduce": 0,
               "peer_all_gather": 0, "peer_reduce_scatter": 0,
-              "ring_attention": 0, "ssd": 0, "moe_gmm": 0, "rglru": 0,
-              "rglru_bwd": 0}
+              "ring_attention": 0, "ssd": 0, "ssd_bwd": 0, "moe_gmm": 0,
+              "rglru": 0, "rglru_bwd": 0}
 # the one-device training configuration of phases 6 and 7 (slice 2)
 TP1_SCHEDULE = dict(schedule="megatron", remat=False)
 TRAIN_ARCH = "gpt-h2048"
@@ -294,11 +301,14 @@ def phase_build():
             print(f"[build] {line.strip()}")
     tc = _kernel_report(log, _TC_NAMES)
     cc = _kernel_report(log, _CC_NAMES)
-    for name, rep in sorted({**tc, **cc}.items()):
+    sn = _kernel_report(log, _SSD_NORM_NAMES)
+    for name, rep in sorted({**tc, **cc, **sn}.items()):
         print(f"[build] {name}: {rep['spills']}; {rep['usage']}")
     for what, got, want in (("tensor-core", tc, TC_KERNELS),
                             ("paged decode and RMSNorm backward", cc,
-                             CC_KERNELS)):
+                             CC_KERNELS),
+                            ("SSD and RMSNorm forward", sn,
+                             SSD_NORM_KERNELS)):
         require(sorted(got) == sorted(want),
                 f"ptxas reported {what} kernels {sorted(got)}, expected "
                 f"{sorted(want)}")
@@ -312,7 +322,7 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     return {"build_s": build_s, "card": card, "tc_kernels": tc,
-            "cuda_core_kernels": cc}
+            "cuda_core_kernels": cc, "ssd_norm_kernels": sn}
 
 
 # the tensor-core kernels by instance: the flash forward (flash_fwd_tc.cuh)
@@ -342,6 +352,20 @@ CC_KERNELS = ([f"paged_decode_kernel<{t},{hd},{g}>" for t in ("f32", "bf16")
                  for v in (0, 1)]
               + [f"rmsnorm_bwd_wide_kernel<{t}>" for t in ("f32", "bf16")])
 _CC_NAMES = "paged_decode_kernel|rmsnorm_bwd_kernel|rmsnorm_bwd_wide_kernel"
+# the kernels redesigned in the eleventh slice, by instance: the SSD's
+# chunk-tile kernels <dtype> (ssd_tile.cuh: mma.sync in bf16, CUDA cores in
+# f32; the state kernel <dtype, backward>) and the RMSNorm forward <dtype,
+# 16-byte loads> and its wide-row form <dtype>
+SSD_NORM_KERNELS = (
+    [f"{k}<{t}>" for k in ("ssd_cb_kernel", "ssd_out_kernel",
+                           "ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel",
+                           "rmsnorm_wide_kernel")
+     for t in ("f32", "bf16")]
+    + [f"{k}<{t},{v}>" for k in ("ssd_state_kernel", "rmsnorm_kernel")
+       for t in ("f32", "bf16") for v in (0, 1)])
+_SSD_NORM_NAMES = ("ssd_cb_kernel|ssd_state_kernel|ssd_out_kernel|"
+                   "ssd_bwd_chunk_kernel|ssd_bwd_reduce_kernel|"
+                   "rmsnorm_kernel|rmsnorm_wide_kernel")
 _MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
 
 
@@ -516,7 +540,7 @@ def _rmsnorm_row(rows: int, d: int, dname: str) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import fwd_geometry, rmsnorm
 
     dtype = getattr(torch, dname)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -530,7 +554,9 @@ def _rmsnorm_row(rows: int, d: int, dname: str) -> dict:
     w = (1.0 + s).to(dtype)
     bound = _bound(2 * rows * d * x.element_size() + d * 4, 4 * rows * d,
                    dname)
-    row = dict(rows=rows, d=d, dtype=dname, max_abs_err=err, atol=atol,
+    row = dict(rows=rows, d=d, dtype=dname,
+               geometry=fwd_geometry(rows, d, x.element_size()),
+               max_abs_err=err, atol=atol,
                rtol=rtol, ms=time_ms(lambda: rmsnorm(x, s, eps=1e-5)),
                plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, s, 1e-5)),
                bound_ms=bound[0], bound_by=bound[1],
@@ -761,7 +787,10 @@ def _profile_steps(eng, steps: int = 4):
 
 # the port's kernels a profile sums by name (the CUDA kernels' own names)
 PROFILED_KERNELS = ("paged_decode_kernel", "rmsnorm_kernel",
-                    "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel")
+                    "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel",
+                    "ssd_cb_kernel", "ssd_state_kernel", "ssd_scan_kernel",
+                    "ssd_out_kernel", "ssd_bwd_chunk_kernel",
+                    "ssd_bwd_reduce_kernel", "ssd_bwd_head_kernel")
 
 
 def _named_ms(kernels) -> dict:
@@ -807,6 +836,10 @@ FLASH_CASES = [
     dict(name="short", b=4, s=40, h=16, kvh=8, hd=128, softcap=30.0,
          window=16),
 ]
+# bf16 only: rows of 8192 keys, 128 key tiles, that the forward and the dQ
+# block each sum in one tensor-core accumulator (dK/dV fold each q tile
+# into an IEEE f32 sum), held to the f32 plain version under FLASH_TOL
+FLASH_LONG_CASES = [dict(name="long", b=1, s=8192, h=4, kvh=4, hd=128)]
 
 
 # (case name, dtype) -> the rows of _flash_rows, so a case that two phases
@@ -921,18 +954,26 @@ def phase_train_kernels():
             frow, brow = _flash_rows(case, dname)
             results["flash_attention"].append(frow)
             results["flash_attention_bwd"].append(brow)
+    for case in FLASH_LONG_CASES:
+        frow, brow = _flash_rows(case, "bfloat16")
+        results["flash_attention"].append(frow)
+        results["flash_attention_bwd"].append(brow)
 
     # the training path's norms: x [b*s, d] = [4096, 2048], forward and
-    # backward; the backward also at the other models' widths (granite's
-    # and mamba2's inner 1536, recurrentgemma's 4096) and at
-    # RMS_BWD_SHAPES' other two
+    # backward; the forward also at mamba2's widths (its ln 768 and
+    # norm_g 1536: several rows a block), the backward at the other
+    # models' widths (granite's and mamba2's inner 1536, recurrentgemma's
+    # 4096) and at RMS_BWD_SHAPES' other two
     for dname in ("float32", "bfloat16"):
-        results["rmsnorm"].append(_rmsnorm_row(4096, 2048, dname))
+        for d in RMS_FWD_WIDTHS:
+            results["rmsnorm"].append(_rmsnorm_row(4096, d, dname))
         for rows, d in RMS_BWD_SHAPES:
             results["rmsnorm_bwd"].append(_rmsnorm_bwd_row(rows, d, dname))
     return results
 
 
+# the forward's training widths at 4096 rows: gpt-h2048's d, then mamba2's
+RMS_FWD_WIDTHS = (2048, 1536, 768)
 # the training widths, a ragged d (scalar loads, masked columns) and a
 # row wider than a group's registers hold (a block a row)
 RMS_BWD_SHAPES = [(4096, 2048), (4096, 1536), (4096, 4096), (1000, 1001),
@@ -2050,6 +2091,9 @@ GMM_CASES = [("w1", 4096, 1536, 512), ("w2", 4096, 512, 1536),
 # once from f32 in both, so one bf16 ulp on top (rtol 2**-7)
 FAMILY_TOL = 1e-5
 FAMILY_RTOL = {"float32": 0.0, "bfloat16": 2 ** -7}
+# the SSD backward's results, each held under FAMILY_TOL of its own
+# largest |value|
+SSD_GRADS = ("dx", "ddt", "dA_log", "dB", "dC", "dD")
 # phase 15: the schedules each family is held to, card vs CPU: the
 # families' megatron without recomputation (phase 16's Trainer) and the
 # training default, oases (split 2: each sub-batch routes alone) with fine
@@ -2104,37 +2148,68 @@ def _ssd_inputs(b, s, h, p, n, dtype, seed=5):
 def phase_family_kernels():
     import torch
     from repro_torch.kernels import autotune, ref
-    from repro_torch.kernels.bounds import moe_gmm_work, ssd_work
+    from repro_torch.kernels.bounds import (moe_gmm_work, ssd_bounds,
+                                            ssd_bwd_work, ssd_work)
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
-    from repro_torch.kernels.ssd import ssd_fwd
+    from repro_torch.kernels.ssd import ssd_bwd, ssd_fwd
     from repro_torch.models.moe import capacity
 
-    results = {"ssd": [], "moe_gmm": [], "flash_attention": [],
-               "flash_attention_bwd": []}
+    results = {"ssd": [], "ssd_bwd": [], "moe_gmm": [],
+               "flash_attention": [], "flash_attention_bwd": []}
     for case in SSD_CASES:
         b, s_, h, p, n = (case[k] for k in ("b", "s", "h", "p", "n"))
         q = min(128, s_)
         for dname in ("float32", "bfloat16"):
             ins = _ssd_inputs(b, s_, h, p, n, getattr(torch, dname))
+            dy = torch.randn(ins[0].shape, device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(7)).to(ins[0].dtype)
+            common = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h,
+                          p=p, n=n, chunk=q)
+            elt = ins[0].element_size()
+            # the forward; no atomics, so a second run gives the same bits
             got = ssd_fwd(*ins, chunk=q)
+            same = torch.equal(got, ssd_fwd(*ins, chunk=q))
             want = ref.ssd_ref(*ins, chunk=q)
             torch.cuda.synchronize()
             err, atol = _family_check(f"ssd {case['name']} {dname}", got,
                                       want, dname)
-            nbytes, flops = ssd_work(b, s_, h, p, n, q,
-                                     ins[0].element_size())
-            bound = _bound(nbytes, flops, "float32")
-            row = dict(case=case["name"], dtype=dname, b=b, s=s_, h=h, p=p,
-                       n=n, chunk=q, max_abs_err=err, atol=atol,
+            require(same, f"ssd {case['name']} {dname}: two runs differ")
+            nbytes, flops = ssd_work(b, s_, h, p, n, q, elt)
+            row = dict(common, same_bits=same, max_abs_err=err, atol=atol,
                        rtol=FAMILY_RTOL[dname],
                        ms=time_ms(lambda: ssd_fwd(*ins, chunk=q)),
                        plain_ms=time_ms(lambda: ref.ssd_ref(*ins, chunk=q),
                                         iters=10),
-                       bound_ms=bound[0], bound_by=bound[1],
+                       **ssd_bounds(nbytes, flops, dname),
                        bytes=nbytes, flops=flops, library_ms=None)
             print(f"[ssd] {json.dumps(row)}")
             results["ssd"].append(row)
-            del ins, got, want
+            del got, want
+            # the backward: six gradients against the plain backward
+            grads = ssd_bwd(*ins, dy, chunk=q)
+            again = ssd_bwd(*ins, dy, chunk=q)
+            same = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+            wants = ref.ssd_bwd_ref(*ins, dy, chunk=q)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, g, w in zip(SSD_GRADS, grads, wants):
+                errs[gname] = _family_check(
+                    f"ssd_bwd {case['name']} {dname} {gname}", g, w,
+                    dname)[0]
+            require(same, f"ssd_bwd {case['name']} {dname}: two runs differ")
+            nbytes, flops = ssd_bwd_work(b, s_, h, p, n, q, elt)
+            row = dict(common, same_bits=same, max_abs_err=max(errs.values()),
+                       errs=errs, rtol=FAMILY_RTOL[dname],
+                       ms=time_ms(lambda: ssd_bwd(*ins, dy, chunk=q)),
+                       plain_ms=time_ms(lambda: ref.ssd_bwd_ref(
+                           *ins, dy, chunk=q), iters=10),
+                       **ssd_bounds(nbytes, flops, dname),
+                       bytes=nbytes, flops=flops, library_ms=None)
+            print(f"[ssd_bwd] {json.dumps(row)}")
+            results["ssd_bwd"].append(row)
+            del ins, dy, grads, again, wants
+            torch.cuda.empty_cache()
     e, k = 40, 8
     for name, tokens, d, f in GMM_CASES:
         c = capacity(tokens, k, e, 1.25)
@@ -2227,8 +2302,8 @@ def _family_launches(cfg, passes: int, *, split: int = 1,
     """Kernel launches of ``passes`` forward + backward passes over
     ``split`` sub-batches: per layer and sub-batch the norms (``ln`` and,
     in attention and RG-LRU layers, ``ln2``; in SSD layers the gated
-    ``norm_g``) forward and backward, SSD layers one SSD launch (its
-    backward replays the plain version), RG-LRU layers the RG-LRU forward
+    ``norm_g``) forward and backward, SSD layers the SSD forward and
+    backward, RG-LRU layers the RG-LRU forward
     and backward, attention layers (global or local) the flash forward and
     backward, MoE FFNs 3 expert products forward and 2 each backward;
     ``final_ln`` once a pass on the merged batch.  Recomputation (fine or
@@ -2247,6 +2322,7 @@ def _family_launches(cfg, passes: int, *, split: int = 1,
     for kind in kinds:
         if kind == SSD:
             want["ssd"] += per * fwd
+            want["ssd_bwd"] += per
         elif kind == RGLRU:
             want["rglru"] += per * fwd
             want["rglru_bwd"] += per
@@ -2854,7 +2930,7 @@ def _kernels_line(report) -> dict:
                  dtype="bfloat16"))
     if "train_kernels" in report:
         tk = report["train_kernels"]
-        train_rms = pick(tk["rmsnorm"], dtype="bfloat16")
+        train_rms = pick(tk["rmsnorm"], dtype="bfloat16", d=2048)
         rms = (pick(report["kernels"]["rmsnorm"], rows=8, dtype="bfloat16")
                if "kernels" in report else train_rms)
         add("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:16", rms,
@@ -2916,9 +2992,15 @@ def _kernels_line(report) -> dict:
             rank=row["rank"])
     if "family_kernels" in report:
         fk = report["family_kernels"]
-        row = pick(fk["ssd"], case="slice", dtype="bfloat16")
-        add("ssd", "ssd.cu", "src/repro/kernels/ssd.py:25", row,
-            shape={k: row[k] for k in ("b", "s", "h", "p", "n", "chunk")})
+        for name, replaces in (
+                ("ssd", "src/repro/kernels/ssd.py:25"),
+                ("ssd_bwd", "none (XLA's autodiff of src/repro/models/"
+                 "ssd.py:13 ssd_chunked)")):
+            row = pick(fk[name], case="slice", dtype="bfloat16")
+            add(name, "ssd.cu", replaces, row,
+                shape={k: row[k] for k in ("b", "s", "h", "p", "n",
+                                           "chunk")},
+                bound_f32_ms=row["bound_f32_ms"])
         row = pick(fk["moe_gmm"], case="w1", product="fwd",
                    dtype="bfloat16")
         add("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19", row,

@@ -12,8 +12,9 @@ rank processes builds once in the parent first (:func:`build`).
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
 where it launches its kernel, and nowhere else (a backward entry point
 that runs two or three CUDA kernels counts as one call, as does the ring
-attention's publish, attention and done launches, the SSD's state,
-scan and output launches, and the RG-LRU's chunk and step launches).
+attention's publish, attention and done launches, the SSD forward's
+four launches and its backward's eight, and the RG-LRU's chunk and step
+launches).
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "rmsnorm": 0,
                             "flash_attention_bwd": 0, "tile_matmul": 0,
                             "ring_matmul_rs": 0, "peer_all_reduce": 0,
                             "peer_all_gather": 0, "ring_attention": 0,
-                            "ssd": 0, "moe_gmm": 0, "rglru": 0,
-                            "rglru_bwd": 0, "peer_reduce_scatter": 0}
+                            "ssd": 0, "ssd_bwd": 0, "moe_gmm": 0,
+                            "rglru": 0, "rglru_bwd": 0,
+                            "peer_reduce_scatter": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -55,8 +57,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
-    # x, scale, out, rows, d, eps, dtype, stream
-    "repro_rmsnorm": [_P, _P, _P, _L, _I, _F, _I, _P],
+    # x, scale, out, rows, d, warps_per_row, rows_per_block, nblocks, eps,
+    # dtype, stream
+    "repro_rmsnorm": [_P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P],
     # q, k_pages, v_pages, tables, pos, out, partial, counters, b, kvh, g,
     # hd, page, nb, pps, nsplit, scale, softcap, dtype, stream
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -90,10 +93,13 @@ _SIGNATURES = {
     # a, b, out, e, m, k, n, ta, tb, bm, bn, bk, dtype, tc, stream
     "repro_moe_gmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
-    # x, dt, A_log, B, C, D, y, states, decay, b, s, h, p, n, q, dtype,
+    # x, dt, A_log, B, C, D, y, cb, states, decay, b, s, h, p, n, q, dtype,
     # stream
-    "repro_ssd_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _P],
+    "repro_ssd_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # x, dt, A_log, B, C, D, dy, dx, ddt, dA_log, dB, dC, dD, cb, states,
+    # decay, gstates, dcb_part, dc_part, db_part, head_part, b, s, h, p, n,
+    # q, dtype, stream
+    "repro_ssd_bwd": [_P] * 21 + [_I] * 7 + [_P],
     # x, w_a, b_a, w_x, b_x, a_param, y, hs, hend, aprod, b, s, w, chunk,
     # dtype, stream
     "repro_rglru_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

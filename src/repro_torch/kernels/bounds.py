@@ -5,9 +5,10 @@ their type (NVIDIA's data sheet, H100 SXM, dense, at 700 W).
 
 ``python -m repro_torch.kernels.bounds`` prints the bounds of the ring
 attention kernel (PERF.md row 6), of the grouped matmul and the SSD
-(rows 7-8), of the RG-LRU forward and backward (rows 9, 9b) and of flash
-attention at recurrentgemma-9b's head dim 256 (row 3), each at a named
-shape of a configuration that runs it.  ``chip_smoke.py``
+forward and backward (rows 7, 8, 8b; each SSD row with its f32 and its
+tensor-core bound), of the RG-LRU forward and backward (rows 9, 9b) and
+of flash attention at recurrentgemma-9b's head dim 256 (row 3), each at
+a named shape of a configuration that runs it.  ``chip_smoke.py``
 computes its bounds from the same work functions at its own inputs.
 """
 from __future__ import annotations
@@ -92,13 +93,56 @@ def ssd_work(b: int, s: int, h: int, p: int, n: int, q: int, elt: int
     return nbytes, flops
 
 
+def ssd_bwd_work(b: int, s: int, h: int, p: int, n: int, q: int, elt: int
+                 ) -> Tuple[int, int]:
+    """(bytes, flops) of the chunked SSD's backward (``ref.ssd_bwd_ref``):
+    reads x, dy, B and C (``elt`` bytes a value), dt, A_log and D once,
+    writes dx, dB, dC (``elt``), d(dt), dA_log and dD.  The least
+    arithmetic from the inputs alone: per (batch, chunk) C B^T over the
+    causal pairs and the heads' dCB times B and C (three products over the
+    causal pairs); per head dy x^T and M^T dy over the causal pairs, and
+    five products of 2 q n p: the chunk's state, its gradient, B G^T,
+    dy S_prev and x G."""
+    nc = s // q
+    pairs = q * (q + 1) // 2
+    flops = b * nc * (3 * 2 * pairs * n
+                      + h * (2 * 2 * pairs * p + 5 * 2 * q * n * p))
+    nbytes = (elt * (3 * b * s * h * p + 4 * b * s * n) + 2 * 4 * b * s * h
+              + 4 * 4 * h)
+    return nbytes, flops
+
+
+def ssd_bounds(nbytes: float, flops: float, dtype: str) -> Dict:
+    """Both bounds of an SSD kernel's work and the one it is held to: f32
+    math on the CUDA cores (``float32``) for f32 inputs, the bf16 tensor
+    cores (``bfloat16``: the products' operands are bf16 or bf16 halves)
+    for bf16 inputs."""
+    f32 = bound(nbytes, flops, "float32")
+    tc = bound(nbytes, flops, "bfloat16")
+    held = f32 if dtype == "float32" else tc
+    return dict(bound_ms=held[0], bound_by=held[1], bound_f32_ms=f32[0],
+                bound_f32_by=f32[1], bound_tc_ms=tc[0], bound_tc_by=tc[1])
+
+
+def _ssd_row(name, work) -> Dict:
+    """An SSD row at mamba2-130m's slice (d_inner 1536 = 24 heads of 64,
+    state 128), batch 1, seq 4096, chunk 128, bf16 x, B, C, y and their
+    gradients, with both bounds (:func:`ssd_bounds`)."""
+    nbytes, flops = work(1, 4096, 24, 64, 128, 128, 2)
+    return dict(_row(name, "mamba2-130m, batch 1, seq 4096, chunk 128",
+                     nbytes, flops, "bfloat16"),
+                **ssd_bounds(nbytes, flops, "bfloat16"))
+
+
 def ssd() -> Dict:
-    """``ssd.py:25`` ``_kernel``: mamba2-130m (d_inner 1536 = 24 heads of
-    64, state 128), batch 1, seq 4096, chunk 128, bf16 x, B, C and y
-    (:func:`ssd_work`); f32 math, so the f32 peak."""
-    nbytes, flops = ssd_work(1, 4096, 24, 64, 128, 128, 2)
-    return _row("ssd", "mamba2-130m, batch 1, seq 4096, chunk 128",
-                nbytes, flops, "float32")
+    """``ssd.py:25`` ``_kernel`` (:func:`ssd_work`)."""
+    return _ssd_row("ssd", ssd_work)
+
+
+def ssd_bwd() -> Dict:
+    """The SSD's backward (port-only: XLA differentiates ``ssd_chunked``
+    in JAX; :func:`ssd_bwd_work`)."""
+    return _ssd_row("ssd_bwd", ssd_bwd_work)
 
 
 def rglru_work(b: int, s: int, w: int, elt: int) -> Tuple[int, int]:
@@ -187,6 +231,6 @@ def _row(name, shape, nbytes, flops, dtype) -> Dict:
 
 
 if __name__ == "__main__":
-    for fn in (ring_attention, ring_attention_slice, moe_gmm, ssd, rglru,
-               rglru_bwd, flash_hd256):
+    for fn in (ring_attention, ring_attention_slice, moe_gmm, ssd, ssd_bwd,
+               rglru, rglru_bwd, flash_hd256):
         print(json.dumps(fn()))

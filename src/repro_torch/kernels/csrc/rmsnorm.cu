@@ -5,13 +5,26 @@
 // dim resident in VMEM.  Same arithmetic: f32 math, the (1 + scale)
 // convention of core/tmp.py `rms_norm`, output in x's dtype.
 //
-// Bound on the H100: bytes.  Each row is read once for the sum of squares
-// and once more (from L1/L2) for the output, and written once; a few
-// flops per element.  At decode the call is 8 rows x 4096, about 130 KB,
-// which the card moves in well under the launch latency, so the launch
-// itself bounds the decode-time call.  Design: one block of 256 threads
-// per row (a row of 4096 values is 16 per thread), a warp-shuffle then
-// shared-memory reduction for the sum, one rsqrt per row.
+// Bound on the H100: bytes.  Each row is read once and written once; a
+// few flops per element.  At decode the call is 8 rows x 4096, about
+// 130 KB, which the card moves in well under the launch latency, so the
+// launch itself bounds the decode-time call.  Design, for d <= 4096
+// (kernels/rmsnorm.py `fwd_geometry`): a group of W warps owns a row, a
+// thread two 16-byte words of it (bf16 16 columns, f32 8: W = ceil(d /
+// 512) in bf16, ceil(d / 256) in f32), both loaded with ordinary loads
+// before either is used, read once and kept in registers; blocks of 16
+// warps take 16 / W rows (mamba2's `ln`, d 768 in bf16: 8 rows; gpt-h2048's
+// d 2048: 4), a row a group, as many blocks as rows need.  A row's sum of
+// squares goes through shuffles and, for W > 1, across the group's warps
+// through shared memory behind a named barrier of that group only, every
+// thread adding the group's W partials in order (no thread sums for the
+// others).  Scalar loads where d or the pointers rule out 16-byte words.
+// Chosen by measurement (my chip calls 5-12, PR 21): groups walking rows
+// over a grid cut to the card (one or two rows prefetched into registers,
+// or a ring of rows filled by bulk copies), and 1, 4 or 8 words a thread
+// or 4- and 8-warp blocks, were as fast or slower; evict-first loads
+// (`__ldcs`) cost ~20% where x stays in L2 from its producer.  Wider rows
+// (d > 4096) take a block a row and read x twice.
 //
 // Backward (training path; the TPU kernel has none, JAX lets XLA
 // differentiate core/tmp.py `rms_norm`): with w = 1 + scale and
@@ -38,44 +51,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   T* __restrict__ out, int d, float eps) {
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * d;
-  T* orow = out + row * d;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = repro::to_float(xr[i]);
-    ss += v * v;
-  }
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-
-  __shared__ float warp_sums[kWarps];
-  __shared__ float inv_rms;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = ss;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
-    inv_rms = rsqrtf(total / static_cast<float>(d) + eps);
-  }
-  __syncthreads();
-
-  const float r = inv_rms;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float y = repro::to_float(xr[i]) * r;
-    orow[i] = repro::from_float<T>(y * (1.f + scale[i]));
-  }
-}
 
 constexpr int kBwdThreads = 512;  // 16 warps: R groups of W warps
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -146,6 +121,141 @@ struct Cols {
     }
   }
 };
+
+// The forward: a group of warps_per_row warps owns one row, a thread
+// kFwdVecs words of it (bf16 16 columns, f32 8), all loaded before any is
+// used; rows_per_block groups a block of at most 16 warps, a row a group.
+constexpr int kFwdThreads = 512;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdVecs = 2;
+
+// A thread's columns of a row, kFwdVecs words of ELT values: with VEC,
+// word k holds columns (k gt + t) ELT .. + ELT (one 16-byte load, kept as
+// loaded and converted where used); else value e of word k is column
+// (k ELT + e) gt + t (scalar loads, kept as f32).  Columns >= d read as 0.
+// Four 512-thread blocks an SM (32 registers) with 16-byte words; the
+// scalar path's strided columns need more, so two.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kFwdThreads, VEC ? 4 : 2)
+    rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   T* __restrict__ out, int64_t rows, int d,
+                   int warps_per_row, float eps) {
+  constexpr int ELT = 16 / static_cast<int>(sizeof(T));
+  __shared__ float sums[kFwdWarps];
+  const int gt = warps_per_row * 32;
+  const int group = threadIdx.x / gt;
+  const int t = threadIdx.x % gt;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (blockDim.x / gt) + group;
+  if (row >= rows) return;  // a whole group: no barrier of it is pending
+  const T* xr = x + row * d;
+  T* orow = out + row * d;
+  auto col = [&](int k, int e) {
+    return VEC ? (k * gt + t) * ELT + e : (k * ELT + e) * gt + t;
+  };
+  uint4 raw[kFwdVecs];               // VEC
+  float xs[kFwdVecs * ELT];          // scalar loads
+  float ss = 0.f;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < kFwdVecs; ++k) {
+      const int c = col(k, 0);
+      raw[k] = c < d ? __ldg(reinterpret_cast<const uint4*>(xr + c))
+                     : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kFwdVecs; ++k) {
+      const T* v = reinterpret_cast<const T*>(&raw[k]);
+#pragma unroll
+      for (int e = 0; e < ELT; ++e) {
+        const float f = repro::to_float(v[e]);
+        ss += f * f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kFwdVecs; ++k)
+#pragma unroll
+      for (int e = 0; e < ELT; ++e) {
+        const int c = col(k, e);
+        xs[k * ELT + e] = c < d ? repro::to_float(xr[c]) : 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < kFwdVecs * ELT; ++j) ss += xs[j] * xs[j];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (warps_per_row > 1) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) sums[warp] = ss;
+    group_barrier(1 + group, gt);
+    ss = 0.f;
+    for (int k = 0; k < warps_per_row; ++k)
+      ss += sums[group * warps_per_row + k];
+  }
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int k = 0; k < kFwdVecs; ++k) {
+    if constexpr (VEC) {
+      const int c = col(k, 0);
+      if (c >= d) continue;
+      const T* v = reinterpret_cast<const T*>(&raw[k]);
+      // the word's ELT scales, 4 to a 16-byte load
+      T y[ELT];
+#pragma unroll
+      for (int e = 0; e < ELT; e += 4) {
+        const float4 s4 =
+            __ldg(reinterpret_cast<const float4*>(scale + c + e));
+        const float w[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          y[e + u] = repro::from_float<T>(repro::to_float(v[e + u]) * r *
+                                          (1.f + w[u]));
+      }
+      uint4 wv;
+      memcpy(&wv, y, sizeof(wv));
+      *reinterpret_cast<uint4*>(orow + c) = wv;
+    } else {
+#pragma unroll
+      for (int e = 0; e < ELT; ++e) {
+        const int c = col(k, e);
+        if (c < d)
+          orow[c] =
+              repro::from_float<T>(xs[k * ELT + e] * r * (1.f + scale[c]));
+      }
+    }
+  }
+}
+
+// rows wider than kRowCols: a block a row, x read twice
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_wide_kernel(const T* __restrict__ x,
+                        const float* __restrict__ scale, T* __restrict__ out,
+                        int64_t rows, int d, float eps) {
+  __shared__ float sums[2][kBwdWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int parity = 0;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const T* xr = x + row * d;
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < d; i += kBwdThreads) {
+      const float v = repro::to_float(xr[i]);
+      ss += v * v;
+    }
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) sums[parity][warp] = ss;
+    __syncthreads();
+    ss = 0.f;
+    for (int k = 0; k < kBwdWarps; ++k) ss += sums[parity][k];
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    T* orow = out + row * d;
+    for (int i = threadIdx.x; i < d; i += kBwdThreads)
+      orow[i] = repro::from_float<T>(repro::to_float(xr[i]) * r *
+                                     (1.f + scale[i]));
+  }
+}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kBwdThreads)
@@ -347,30 +457,63 @@ int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_fwd(const void* x, const void* scale, void* out, long long rows,
+               int d, int wpr, int rpb, int nblocks, float eps,
+               cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  const float* sp = static_cast<const float*>(scale);
+  constexpr int ELT = 16 / static_cast<int>(sizeof(T));
+  const auto bits = reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(out) |
+                    reinterpret_cast<uintptr_t>(scale);
+  if (d > kRowCols)
+    rmsnorm_wide_kernel<T><<<nblocks, kBwdThreads, 0, s>>>(xp, sp, op, rows,
+                                                           d, eps);
+  else if (d % ELT == 0 && (bits & 15) == 0)
+    rmsnorm_kernel<T, true><<<nblocks, wpr * rpb * 32, 0, s>>>(
+        xp, sp, op, rows, d, wpr, eps);
+  else
+    rmsnorm_kernel<T, false><<<nblocks, wpr * rpb * 32, 0, s>>>(
+        xp, sp, op, rows, d, wpr, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x, out: [rows, d] contiguous, dtype code `dtype`; scale: [d] f32.
-// Returns a cudaError_t code (0 on success).
+// x, out: [rows, d] contiguous, dtype code `dtype`; scale: [d] f32.  Rows
+// go to groups of warps_per_row warps, rows_per_block groups a block, a
+// row a group (kernels/rmsnorm.py `fwd_geometry`): warps_per_row * 32
+// threads hold kFwdVecs words of d, at most 16 warps a block, nblocks =
+// ceil(rows / rows_per_block); or, for d > 4096, 16 warps, rows_per_block
+// 1.  Returns a cudaError_t code (0 on success).
 extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out,
-                             long long rows, int d, float eps, int dtype,
-                             void* stream) {
+                             long long rows, int d, int warps_per_row,
+                             int rows_per_block, int nblocks, float eps,
+                             int dtype, void* stream) {
   if (rows <= 0) return 0;
-  if (rows > 0x7fffffffLL || d <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(rows));
-  if (dtype == repro::kF32) {
-    rmsnorm_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(scale),
-        static_cast<float*>(out), d, eps);
-  } else if (dtype == repro::kBF16) {
-    rmsnorm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
-        d, eps);
-  } else {
+  if (dtype != repro::kF32 && dtype != repro::kBF16)
     return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  // columns a thread holds
+  const int cols = kFwdVecs * (dtype == repro::kF32 ? 4 : 8);
+  const bool wide = d > kRowCols;
+  if (d <= 0 || warps_per_row <= 0 || rows_per_block <= 0 ||
+      (wide ? warps_per_row != kBwdWarps || rows_per_block != 1 ||
+                  nblocks > 65535
+            : warps_per_row * rows_per_block > kFwdWarps ||
+                  warps_per_row * 32 * cols < d ||
+                  nblocks != (rows + rows_per_block - 1) / rows_per_block) ||
+      nblocks <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32)
+    return launch_fwd<float>(x, scale, out, rows, d, warps_per_row,
+                             rows_per_block, nblocks, eps, s);
+  if (dtype == repro::kBF16)
+    return launch_fwd<__nv_bfloat16>(x, scale, out, rows, d, warps_per_row,
+                                     rows_per_block, nblocks, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 // Backward of repro_rmsnorm.  x, dy, dx: [rows, d] of dtype code `dtype`;

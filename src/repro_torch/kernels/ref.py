@@ -3,8 +3,8 @@
 The kernel wrappers route CPU tensors here; the tests hold these against
 the JAX package, and ``chip_smoke.py`` holds each CUDA kernel against its
 plain version on the card.  They run on any device.  Where the kernels
-compute in f32, the norm, attention and RG-LRU versions do too, and in f64
-when given f64 (:func:`wide`): the f64 witness of ``chip_smoke.py``'s
+compute in f32, the norm, attention, RG-LRU and SSD versions do too, and in
+f64 when given f64 (:func:`wide`): the f64 witness of ``chip_smoke.py``'s
 recurrentgemma phase runs the whole model so.
 """
 from __future__ import annotations
@@ -299,7 +299,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [b, s, h, p]; dt [b, s, h] (post-softplus step); A_log [h];
     B, C [b, s, n]; D [h] skip -> (y [b, s, h, p] in x's dtype, final
-    state [b, h, p, n] f32).  f32 math throughout.
+    state [b, h, p, n] f32, f64 for f64 inputs).  f32 math throughout
+    (f64 for f64 inputs, :func:`wide`).
 
     Per head: ``S_t = exp(-exp(A_log) dt_t) S_{t-1} + dt_t x_t B_t^T`` and
     ``y_t = S_t C_t + D x_t``."""
@@ -310,12 +311,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError(f"seq {s} must divide by chunk {q}")
     nc = s // q
 
-    xf = x.float()
-    a = -torch.exp(A_log.float())                            # [h], a < 0
-    dta = dt.float() * a                                     # [b, s, h]
-    x_c = (xf * dt.float()[..., None]).reshape(b, nc, q, h, p)
-    B_c = B.float().reshape(b, nc, q, n)
-    C_c = C.float().reshape(b, nc, q, n)
+    xf = wide(x)
+    a = -torch.exp(wide(A_log))                              # [h], a < 0
+    dta = wide(dt) * a                                       # [b, s, h]
+    x_c = (xf * wide(dt)[..., None]).reshape(b, nc, q, h, p)
+    B_c = wide(B).reshape(b, nc, q, n)
+    C_c = wide(C).reshape(b, nc, q, n)
 
     la = torch.cumsum(dta.reshape(b, nc, q, h), dim=2)       # [b,c,q,h]
     la_last = la[:, :, -1:, :]
@@ -337,8 +338,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
 
     # inter-chunk recurrence over the chunk states (the state before each)
     chunk_decay = torch.exp(la_last[:, :, 0, :])             # [b,c,h]
-    carry = (h0.float() if h0 is not None
-             else x.new_zeros(b, h, p, n, dtype=torch.float32))
+    carry = (wide(h0) if h0 is not None
+             else x.new_zeros(b, h, p, n, dtype=xf.dtype))
     prev = []
     for c in range(nc):
         prev.append(carry)
@@ -351,8 +352,113 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     y_inter = y_inter * torch.exp(la).permute(0, 1, 3, 2)[..., None]
 
     y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, s, h, p)
-    y = y + D.float()[:, None] * xf
+    y = y + wide(D)[:, None] * xf
     return y.to(x.dtype), carry
+
+
+def _rev_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum over k >= i along ``dim``."""
+    return torch.flip(torch.cumsum(torch.flip(t, [dim]), dim), [dim])
+
+
+def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                dy: torch.Tensor, *, chunk: int = 128):
+    """The gradient of :func:`ssd_chunked`'s y for the cotangent ``dy`` (x's
+    shape and dtype): -> (dx, d(dt), dA_log, dB, dC, dD), each in its
+    input's dtype; dB and dC summed over the heads that share B and C.
+    f32 math (f64 for f64 inputs).
+
+    The chunked backward that the CUDA kernel ``csrc/ssd.cu`` runs, in
+    torch ops (not autograd).  Per (batch, chunk c, head), with
+    la_i = sum_{k<=i} a dt_k inside the chunk, L its last row,
+    S_prev the state before the chunk, M_ij = (C_i . B_j) exp(la_i - la_j)
+    for j <= i and w_j = exp(la_L - la_j) dt_j:
+
+    - the state gradient after each chunk by a reverse scan,
+      G_c = sum_i exp(la_i) dy_i^T C_i + exp(la_L) G_{c+1}, so that
+      dS_c = G_{c+1} (zero after the last chunk);
+    - dP_ij = dt_j (dy_i . x_j): d(dt x)_j = sum_i M_ij dy_i
+      + exp(la_L - la_j) G_{c+1} B_j; dC and dB from the heads' sum of
+      dP_ij exp(la_i - la_j) (times B_j, C_i), from exp(la_i) S_prev^T
+      dy_i (dC) and from w_j G_{c+1}^T x_j (dB);
+    - d la_i: the rows minus the columns of dP * M, exp(la_i) C_i .
+      (S_prev^T dy_i), minus u_i = exp(la_L - la_i) (dt x)_i . (G B_i),
+      and on the last row sum_j u_j + exp(la_L) <S_prev, G_{c+1}>; a
+      reverse cumulative sum inside the chunk turns it into d(a dt)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must divide by chunk {q}")
+    nc = s // q
+    xf, dtf, dyf = wide(x), wide(dt), wide(dy)
+    a = -torch.exp(wide(A_log))                              # [h]
+    x_c = xf.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)  # [b,c,h,q,p]
+    dy_c = dyf.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    dt_c = dtf.reshape(b, nc, q, h).permute(0, 1, 3, 2)      # [b,c,h,q]
+    B_c = wide(B).reshape(b, nc, q, n)[:, :, None]           # [b,c,1,q,n]
+    C_c = wide(C).reshape(b, nc, q, n)[:, :, None]
+    la = torch.cumsum(dt_c * a[:, None], dim=-1)             # [b,c,h,q]
+    la_last = la[..., -1:]                                   # [b,c,h,1]
+    el = torch.exp(la)
+    to_end = torch.exp(la_last - la)                         # [b,c,h,q]
+    xdt = x_c * dt_c[..., None]                              # [b,c,h,q,p]
+    decay = torch.exp(la_last[..., 0])                       # [b,c,h]
+
+    # the forward's chunk states and the state before each chunk
+    S = torch.matmul((to_end[..., None] * xdt).transpose(-1, -2), B_c)
+    carry = torch.zeros_like(S[:, 0])
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * decay[:, c, :, None, None] + S[:, c]
+    prev = torch.stack(prev, dim=1)                          # [b,c,h,p,n]
+    # the state gradient after each chunk (reverse scan)
+    G_loc = torch.matmul((el[..., None] * dy_c).transpose(-1, -2), C_c)
+    carry = torch.zeros_like(G_loc[:, 0])
+    nxt = [None] * nc
+    for c in reversed(range(nc)):
+        nxt[c] = carry
+        carry = carry * decay[:, c, :, None, None] + G_loc[:, c]
+    G = torch.stack(nxt, dim=1)                              # [b,c,h,p,n]
+
+    # intra-chunk
+    diff = la[..., :, None] - la[..., None, :]               # [b,c,h,i,j]
+    mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = torch.exp(diff.masked_fill(~mask, float("-inf")))
+    cb = torch.matmul(C_c, B_c.transpose(-1, -2))            # [b,c,1,i,j]
+    M = cb * seg
+    dP = torch.matmul(dy_c, x_c.transpose(-1, -2)) * dt_c[..., None, :]
+    E = dP * M
+    dla = E.sum(-1) - E.sum(-2)                              # [b,c,h,q]
+    dCB = (dP * seg).sum(2)                                  # [b,c,i,j]
+    dxdt = torch.matmul(M.transpose(-1, -2), dy_c)           # [b,c,h,q,p]
+    # the chunk's state
+    dxdt_state = to_end[..., None] * torch.matmul(B_c, G.transpose(-1, -2))
+    u = (dxdt_state * xdt).sum(-1)                           # [b,c,h,q]
+    dxdt = dxdt + dxdt_state
+    dla = dla - u
+    dla[..., -1] += u.sum(-1) + decay * (prev * G).sum((-1, -2))
+    # inter-chunk
+    v = torch.matmul(dy_c, prev)                             # [b,c,h,q,n]
+    dla = dla + el * (v * C_c).sum(-1)
+    dC = torch.matmul(dCB, B_c[:, :, 0]) + (el[..., None] * v).sum(2)
+    xG = torch.matmul(x_c, G)                                # [b,c,h,q,n]
+    dB = (torch.matmul(dCB.transpose(-1, -2), C_c[:, :, 0])
+          + ((to_end * dt_c)[..., None] * xG).sum(2))
+
+    ddta = _rev_cumsum(dla, -1)                              # [b,c,h,q]
+    ddt = (dxdt * x_c).sum(-1) + a[:, None] * ddta
+    dx = dxdt * dt_c[..., None] + wide(D)[:, None, None] * dy_c
+    dA_log = a * (ddta * dt_c).sum((0, 1, 3))
+    dD = (dy_c * x_c).sum((0, 1, 3, 4))
+
+    def tokens(t):                                           # [b,c,h,q,...]
+        return t.transpose(2, 3).reshape(b, s, h, *t.shape[4:])
+    return (tokens(dx).to(x.dtype), tokens(ddt).to(dt.dtype),
+            dA_log.to(A_log.dtype), dB.reshape(b, s, n).to(B.dtype),
+            dC.reshape(b, s, n).to(C.dtype), dD.to(D.dtype))
 
 
 def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,

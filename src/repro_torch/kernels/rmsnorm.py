@@ -39,6 +39,25 @@ def bwd_geometry(rows: int, d: int):
     return wpr, rpb, min(-(-rows // rpb), BWD_BLOCKS)
 
 
+# the forward: a thread holds FWD_VECS 16-byte words of a row (bf16 8
+# columns a word, f32 4), a block FWD_WARPS warps
+FWD_VECS = 2
+FWD_WARPS = 16
+
+
+def fwd_geometry(rows: int, d: int, elt: int = 2):
+    """(warps a row, rows a block, blocks) of the forward kernel for
+    ``elt``-byte values: a row of d <= 4096 is held by ceil(d / (32 x
+    FWD_VECS x 16 / elt)) warps, a block of 16 warps takes as many such
+    rows as fit, and there is a block for every that many rows; wider rows
+    take the backward's 16-warp block a row (:func:`bwd_geometry`)."""
+    if d > BWD_WARPS * 32 * BWD_COLS:
+        return bwd_geometry(rows, d)
+    wpr = -(-d // (32 * FWD_VECS * 16 // elt))
+    rpb = FWD_WARPS // wpr
+    return wpr, rpb, -(-rows // rpb)
+
+
 def _bwd_partial(device, stream: int, floats: int) -> torch.Tensor:
     buf = _BWD_SCRATCH.get((device, stream))
     if buf is None or buf.numel() < floats:
@@ -67,10 +86,14 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, *,
         return rmsnorm_ref(x, scale, eps)
     _check(x, scale)
     d = x.shape[-1]
+    rows = x.numel() // d
     out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    wpr, rpb, nblocks = fwd_geometry(rows, d, x.element_size())
     lib = _build.library()
     rc = lib.repro_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                           x.numel() // d, d, eps, _DTYPES[x.dtype],
+                           rows, d, wpr, rpb, nblocks, eps, _DTYPES[x.dtype],
                            _build.stream_ptr(x))
     _build.check(rc, "rmsnorm kernel launch")
     _build.LAUNCHES["rmsnorm"] += 1

@@ -1,5 +1,5 @@
-"""Mamba2 chunked SSD: the wrapper of the CUDA kernel ``csrc/ssd.cu`` and
-the autograd Function of the SSD mixer.
+"""Mamba2 chunked SSD: the wrappers of the CUDA kernels ``csrc/ssd.cu``
+(forward and backward) and the autograd Function of the SSD mixer.
 
 Counterpart of ``repro.kernels.ssd.ssd`` (the training path's y; the
 final state is not returned, decode is ``ssd_step``): x [b, s, h, p],
@@ -7,23 +7,27 @@ dt [b, s, h] f32 (post-softplus), A_log [h] f32, B, C [b, s, n], D [h]
 f32 -> y [b, s, h, p] in x's dtype.  The D skip is added in f32 before
 the one cast to x's dtype, as the plain ``ssd_chunked`` does (the
 JAX wrapper casts the kernel's output first and adds D after).  A CPU
-tensor takes the plain version (:func:`repro_torch.kernels.ref.ssd_ref`);
-a CUDA tensor launches the kernel or raises.
+tensor takes the plain versions (:func:`repro_torch.kernels.ref.ssd_ref`
+and :func:`~repro_torch.kernels.ref.ssd_bwd_ref`); a CUDA tensor
+launches the kernels or raises.
 
 JAX has no backward kernel (XLA differentiates ``ssd_chunked``).  The
-Function's backward replays the plain ``ssd_chunked`` under autograd, in
-torch ops, on every device (as the ring-attention backward does).
+port's backward is a kernel of its own, :func:`ssd_bwd`: the chunked
+backward of ``ssd_chunked`` (its plain version ``ssd_bwd_ref`` states
+the algorithm), recomputing the forward's chunk states rather than
+keeping them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_chunked, ssd_ref
+from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
-MAX_CHUNK = 128          # the kernel's largest chunk
-MAX_HEAD_DIM = 128       # the kernel's largest p
+MAX_CHUNK = 128          # the kernels' largest chunk
+MAX_HEAD_DIM = 64        # the kernels' largest p
+MAX_STATE = 128          # the kernels' largest n
 
 
 def _check(x, dt, A_log, B, C, D, chunk):
@@ -40,15 +44,9 @@ def _check(x, dt, A_log, B, C, D, chunk):
         raise ValueError(f"ssd: seq {s} must divide by chunk {min(chunk, s)}")
 
 
-def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
-            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
-            chunk: int = 128) -> torch.Tensor:
-    """y of the chunked SSD (shapes in the module's docstring), chunk
-    ``min(chunk, s)``.  No autograd (see :func:`ssd`)."""
-    _check(x, dt, A_log, B, C, D, chunk)
-    tensors = (x, dt, A_log, B, C, D)
-    if _build.on_cpu("ssd", *tensors):
-        return ssd_ref(x, dt, A_log, B, C, D, chunk=chunk)
+def _check_kernel(tensors, chunk):
+    """The kernels' dtypes, layout and sizes -> (b, s, h, p, n, q)."""
+    x, dt, A_log, B, C, D = tensors[:6]
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd kernel takes f32 or bf16 x, B, C of one dtype, "
                         f"got {x.dtype}, {B.dtype}, {C.dtype}")
@@ -60,27 +58,84 @@ def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     b, s, h, p = x.shape
     n = B.shape[2]
     q = min(chunk, s)
-    if q > MAX_CHUNK or p > MAX_HEAD_DIM:
-        raise ValueError(f"ssd kernel takes chunks up to {MAX_CHUNK} and "
-                         f"head dims up to {MAX_HEAD_DIM}, got {q} and {p}")
-    nc = s // q
+    if q > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd kernel takes chunks up to {MAX_CHUNK}, head "
+                         f"dims up to {MAX_HEAD_DIM} and states up to "
+                         f"{MAX_STATE}, got {q}, {p} and {n}")
+    return b, s, h, p, n, q
+
+
+def _scratch(x, b, h, nc, p, n):
+    """The forward's f32 scratch: C B^T of each chunk [b, nc, 128, 128]
+    (causal, zero-padded), the chunk states [b, h, nc, p, n] and their
+    decays [b, h, nc]."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty(b, nc, MAX_CHUNK, MAX_CHUNK, **f32),
+            torch.empty(b, h, nc, p, n, **f32), torch.empty(b, h, nc, **f32))
+
+
+def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+            chunk: int = 128) -> torch.Tensor:
+    """y of the chunked SSD (shapes in the module's docstring), chunk
+    ``min(chunk, s)``.  No autograd (see :func:`ssd`)."""
+    _check(x, dt, A_log, B, C, D, chunk)
+    tensors = (x, dt, A_log, B, C, D)
+    if _build.on_cpu("ssd", *tensors):
+        return ssd_ref(x, dt, A_log, B, C, D, chunk=chunk)
+    b, s, h, p, n, q = _check_kernel(tensors, chunk)
     y = torch.empty_like(x)
-    states = torch.empty(b, h, nc, p, n, dtype=torch.float32,
-                         device=x.device)
-    decay = torch.empty(b, h, nc, dtype=torch.float32, device=x.device)
+    cb, states, decay = _scratch(x, b, h, s // q, p, n)
     rc = _build.library().repro_ssd_fwd(
         x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
-        C.data_ptr(), D.data_ptr(), y.data_ptr(), states.data_ptr(),
-        decay.data_ptr(), b, s, h, p, n, q, _DTYPES[x.dtype],
-        _build.stream_ptr(x))
+        C.data_ptr(), D.data_ptr(), y.data_ptr(), cb.data_ptr(),
+        states.data_ptr(), decay.data_ptr(), b, s, h, p, n, q,
+        _DTYPES[x.dtype], _build.stream_ptr(x))
     _build.check(rc, "ssd kernel launch")
     _build.LAUNCHES["ssd"] += 1
     return y
 
 
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            dy: torch.Tensor, *, chunk: int = 128):
+    """Gradient of :func:`ssd_fwd` for the cotangent ``dy`` (x's shape and
+    dtype): -> (dx, d(dt), dA_log, dB, dC, dD), each in its input's dtype,
+    dB and dC summed over the heads."""
+    _check(x, dt, A_log, B, C, D, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_bwd: dy {tuple(dy.shape)} {dy.dtype} is not "
+                         f"like x {tuple(x.shape)} {x.dtype}")
+    tensors = (x, dt, A_log, B, C, D, dy)
+    if _build.on_cpu("ssd_bwd", *tensors):
+        return ssd_bwd_ref(x, dt, A_log, B, C, D, dy, chunk=chunk)
+    b, s, h, p, n, q = _check_kernel(tensors, chunk)
+    nc = s // q
+    cb, states, decay = _scratch(x, b, h, nc, p, n)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gstates = torch.empty_like(states)
+    dcb_part = torch.empty(b, nc, h, q, q, **f32)
+    dc_part = torch.empty(b, nc, h, q, n, **f32)
+    db_part = torch.empty(b, nc, h, q, n, **f32)
+    head_part = torch.empty(b, nc, h, 2, **f32)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, B, C))
+    ddt, dA_log, dD = (torch.empty_like(t) for t in (dt, A_log, D))
+    rc = _build.library().repro_ssd_bwd(
+        x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dD.data_ptr(), cb.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        gstates.data_ptr(), dcb_part.data_ptr(), dc_part.data_ptr(),
+        db_part.data_ptr(), head_part.data_ptr(), b, s, h, p, n, q,
+        _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "ssd_bwd kernel launch")
+    _build.LAUNCHES["ssd_bwd"] += 1
+    return dx, ddt, dA_log, dB, dC, dD
+
+
 class SSDFunction(torch.autograd.Function):
-    """Forward: the SSD kernel (plain version on the CPU); backward: the
-    plain ``ssd_chunked`` replayed under autograd.  Saves the inputs."""
+    """Forward: the SSD kernel; backward: the SSD backward kernel (plain
+    versions on the CPU).  Saves the inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, A_log, B, C, D, chunk):
@@ -91,13 +146,10 @@ class SSDFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         need = ctx.needs_input_grad[:6]
-        ins = [t.detach().requires_grad_(g)
-               for t, g in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y, _ = ssd_chunked(*ins, chunk=ctx.chunk)
-        wrt = [t for t, g in zip(ins, need) if g]
-        got = iter(torch.autograd.grad(y, wrt, dy) if wrt else ())
-        return (*(next(got) if g else None for g in need), None)
+        if not any(need):
+            return (None,) * 7
+        grads = ssd_bwd(*ctx.saved_tensors, dy.contiguous(), chunk=ctx.chunk)
+        return (*(g if n else None for g, n in zip(grads, need)), None)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,

@@ -346,6 +346,56 @@ def test_rmsnorm_bwd_geometry():
             assert 1 <= nblocks <= min(-(-rows // rpb), trms.BWD_BLOCKS)
 
 
+def test_rmsnorm_fwd_geometry():
+    """The forward holds a row in 32 x 16 bf16 (32 x 8 f32) columns a
+    warp, 16 warps a block, a block for every 16 / W rows; wider rows take
+    the backward's block a row."""
+    assert trms.fwd_geometry(4096, 2048, 2) == (4, 4, 1024)
+    assert trms.fwd_geometry(4096, 2048, 4) == (8, 2, 2048)
+    assert trms.fwd_geometry(4096, 1536, 2) == (3, 5, 820)
+    assert trms.fwd_geometry(4096, 768, 2) == (2, 8, 512)
+    assert trms.fwd_geometry(8, 4096, 2) == (8, 2, 4)
+    assert trms.fwd_geometry(8, 4096, 4) == (16, 1, 8)
+    assert trms.fwd_geometry(1000, 1001, 4) == (4, 4, 250)
+    assert trms.fwd_geometry(1000, 8192, 2) == trms.bwd_geometry(1000, 8192)
+    for elt in (2, 4):
+        cols = 32 * trms.FWD_VECS * 16 // elt        # a warp's columns
+        for rows in (1, 7, 300, 100_000):
+            for d in (1, 63, 256, 257, 1001, 2048, 4096):
+                wpr, rpb, nblocks = trms.fwd_geometry(rows, d, elt)
+                assert (wpr - 1) * cols < d <= wpr * cols
+                assert 1 <= wpr * rpb <= trms.FWD_WARPS
+                assert nblocks == -(-rows // rpb)
+
+
+def test_smoke_build_report_lists_the_ssd_and_norm_forward_kernels():
+    """Phase 1 also parses the SSD kernels' and the RMSNorm forward's
+    instances (a template flag as 0 or 1), apart from the other groups."""
+    assert len(SMOKE.SSD_NORM_KERNELS) == 18
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116"
+        "ssd_state_kernelI13__nv_bfloat16Lb1EEEvPKT_PKfS6_S4_PfS7_iiiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114"
+        "rmsnorm_kernelIfLb0EEEvPKT_PKfPS2_lif' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 128 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120"
+        "ssd_bwd_chunk_kernelIfEEvPKT_PKfS5_S3_S3_S5_S3_S5_S5_S5_PS1_PfS7_"
+        "S7_S7_S7_iiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 200 registers",
+    ])
+    rep = SMOKE._kernel_report(log, SMOKE._SSD_NORM_NAMES)
+    assert sorted(rep) == ["rmsnorm_kernel<f32,0>",
+                           "ssd_bwd_chunk_kernel<f32>",
+                           "ssd_state_kernel<bf16,1>"]
+    assert set(rep) <= set(SMOKE.SSD_NORM_KERNELS)
+    assert not SMOKE._kernel_report(log, SMOKE._CC_NAMES)
+
+
 def test_smoke_build_report_lists_the_redesigned_kernels():
     """chip_smoke.py phase 1 parses ptxas's report of every instance the
     wrappers can launch, and a spill fails the run."""

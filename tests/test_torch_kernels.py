@@ -211,8 +211,9 @@ def test_kernel_wrappers_refuse_non_cuda_device_mixes():
                                "flash_attention_bwd": 0, "tile_matmul": 0,
                                "ring_matmul_rs": 0, "peer_all_reduce": 0,
                                "peer_all_gather": 0, "ring_attention": 0,
-                               "ssd": 0, "moe_gmm": 0, "rglru": 0,
-                               "rglru_bwd": 0, "peer_reduce_scatter": 0}
+                               "ssd": 0, "ssd_bwd": 0, "moe_gmm": 0,
+                               "rglru": 0, "rglru_bwd": 0,
+                               "peer_reduce_scatter": 0}
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
