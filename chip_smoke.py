@@ -302,13 +302,15 @@ def phase_build():
     tc = _kernel_report(log, _TC_NAMES)
     cc = _kernel_report(log, _CC_NAMES)
     sn = _kernel_report(log, _SSD_NORM_NAMES)
-    for name, rep in sorted({**tc, **cc, **sn}.items()):
+    rg = _kernel_report(log, _RGLRU_NAMES)
+    for name, rep in sorted({**tc, **cc, **sn, **rg}.items()):
         print(f"[build] {name}: {rep['spills']}; {rep['usage']}")
     for what, got, want in (("tensor-core", tc, TC_KERNELS),
                             ("paged decode and RMSNorm backward", cc,
                              CC_KERNELS),
                             ("SSD and RMSNorm forward", sn,
-                             SSD_NORM_KERNELS)):
+                             SSD_NORM_KERNELS),
+                            ("RG-LRU", rg, RGLRU_KERNELS)):
         require(sorted(got) == sorted(want),
                 f"ptxas reported {what} kernels {sorted(got)}, expected "
                 f"{sorted(want)}")
@@ -322,7 +324,8 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     return {"build_s": build_s, "card": card, "tc_kernels": tc,
-            "cuda_core_kernels": cc, "ssd_norm_kernels": sn}
+            "cuda_core_kernels": cc, "ssd_norm_kernels": sn,
+            "rglru_kernels": rg}
 
 
 # the tensor-core kernels by instance: the flash forward (flash_fwd_tc.cuh)
@@ -366,7 +369,25 @@ SSD_NORM_KERNELS = (
 _SSD_NORM_NAMES = ("ssd_cb_kernel|ssd_state_kernel|ssd_out_kernel|"
                    "ssd_bwd_chunk_kernel|ssd_bwd_reduce_kernel|"
                    "rmsnorm_kernel|rmsnorm_wide_kernel")
+# the RG-LRU kernels redesigned in the twelfth slice, by instance: the
+# forward and backward <dtype> (a block owns 32 channels of a batch row
+# for the whole sequence) and the backward's batch-row sum <gate vectors>
+RGLRU_KERNELS = ([f"rglru_{k}_kernel<{t}>" for k in ("fwd", "bwd")
+                  for t in ("f32", "bf16")] + ["rglru_sum_kernel<5>"])
+_RGLRU_NAMES = "rglru_fwd_kernel|rglru_bwd_kernel|rglru_sum_kernel"
 _MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+
+
+def _instance(mangled: str, names: str):
+    """``name<args>`` of a mangled kernel template instance whose name is
+    one of ``names`` (a regex alternation), else None."""
+    k = re.search(rf"\d({names})I(f|13__nv_bfloat16)?((?:L[ib]\d+E)*)E",
+                  mangled)
+    if not k:
+        return None
+    args = [_MANGLED_TYPES[k.group(2)]] if k.group(2) else []
+    args += re.findall(r"L[ib](\d+)E", k.group(3))
+    return f"{k.group(1)}<{','.join(args)}>"
 
 
 def _kernel_report(log: str, names: str) -> dict:
@@ -377,11 +398,7 @@ def _kernel_report(log: str, names: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(rf"\d({names})I(f|13__nv_bfloat16)?"
-                          rf"((?:L[ib]\d+E)*)E", m.group(1))
-            args = ([_MANGLED_TYPES[k.group(2)]] if k and k.group(2) else [])
-            args += re.findall(r"L[ib](\d+)E", k.group(3)) if k else []
-            cur = f"{k.group(1)}<{','.join(args)}>" if k else None
+            cur = _instance(m.group(1), names)
             if cur:
                 rep[cur] = {}
             continue
@@ -2596,10 +2613,13 @@ def _family_launcher(arch) -> dict:
 # ---------------------------------------------------------------------------
 HYBRID_ARCH = "recurrentgemma-9b"
 # phase 17: RG-LRU cases: recurrentgemma-9b's width 4096 at the slice's
-# b 2 x s 4096, and a ragged one (s not a multiple of the kernel's 64-step
-# chunk, w not a multiple of its 256-channel block)
+# b 2 x s 4096; a ragged one (s not a multiple of the kernels' 64-step
+# tile, w not a multiple of a block's 32 channels); and `odd`, whose row
+# pitch (1001 values) 16-byte copies cannot take, so every block loads
+# with plain loads
 RGLRU_CASES = [dict(name="slice", b=2, s=4096, w=4096),
-               dict(name="ragged", b=1, s=1000, w=1000)]
+               dict(name="ragged", b=1, s=1000, w=1000),
+               dict(name="odd", b=3, s=77, w=1001)]
 # phase 17: flash at recurrentgemma-9b's local attention, 16 q heads and
 # 1 kv head of 256 (16:1 MQA), b 2 x s 4096, with its window 2048 and
 # without a window
@@ -2649,37 +2669,97 @@ def _rglru_inputs(b, s, w, dtype, seed=9):
     return x, gates, rnd(b, s, w).to(dtype)
 
 
+def _sass_counts(sass: str, names: str) -> dict:
+    """Static instruction counts of the kernels ``names`` (a regex
+    alternation) in ``cuobjdump -sass`` output: per instance, every
+    instruction but NOPs, and the special-function ones (MUFU)."""
+    rep, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _instance(m.group(1), names)
+            if cur:
+                rep[cur] = {"instructions": 0, "mufu": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if cur and m and m.group(1) != "NOP":
+            rep[cur]["instructions"] += 1
+            rep[cur]["mufu"] += m.group(1).startswith("MUFU")
+    return rep
+
+
+def _rglru_sass() -> dict:
+    """:func:`_sass_counts` of the RG-LRU kernels as built (``cuobjdump``
+    beside nvcc); {} where the toolkit has none."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass",
+                          str(_build.BUILD_DIR / "rglru.o")],
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    return _sass_counts(out.stdout, _RGLRU_NAMES)
+
+
+def _max_sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi``), for the MUFU floor."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return 1e6 * float(smi.stdout.strip().splitlines()[0])
+
+
 def phase_hybrid_kernels():
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bounds import (rglru_bwd_work,
+    from repro_torch.kernels.bounds import (RGLRU_MUFU, mufu_ms,
+                                            rglru_bwd_work,
                                             rglru_states_bytes, rglru_work)
-    from repro_torch.kernels.rglru import rglru_bwd, rglru_fwd
+    from repro_torch.kernels.rglru import rglru_bwd, rglru_fwd, tile_states
 
+    clock = _max_sm_clock_hz()
+    sass = _rglru_sass()
+    print(f"[rglru] SASS (static counts) {json.dumps(sass)}; "
+          f"max SM clock {clock / 1e9:.3f} GHz")
     results = {"rglru": [], "rglru_bwd": [], "flash_attention": [],
-               "flash_attention_bwd": []}
+               "flash_attention_bwd": [], "rglru_sass": sass,
+               "sm_clock_max_hz": clock}
     for case in RGLRU_CASES:
         b, s_, w = case["b"], case["s"], case["w"]
         for dname in ("float32", "bfloat16"):
             x, gates, dy = _rglru_inputs(b, s_, w, getattr(torch, dname))
             gd = dict(zip(ref.RGLRU_GATES, gates))
-            y, h = rglru_fwd(x, gates, states=True)
+            y, h0 = rglru_fwd(x, gates, states=True)
+            y_plain, none = rglru_fwd(x, gates)
+            grads = rglru_bwd(x, gates, h0, dy)
+            # each kernel again, for the same bits
+            y2, h02 = rglru_fwd(x, gates, states=True)
+            grads2 = rglru_bwd(x, gates, h0, dy)
             want_h = ref.rglru_states_ref(x, gd)
-            grads = rglru_bwd(x, gates, h, dy)
-            want_grads = ref.rglru_bwd_ref(x, gd, h, dy)
+            want_grads = ref.rglru_bwd_ref(x, gd, want_h, dy)
             torch.cuda.synchronize()
             name = f"{case['name']} {dname}"
-            ferr = dict(zip(("y", "h"), (
+            require(none is None and torch.equal(y, y_plain),
+                    f"rglru {name}: y with states differs from y without")
+            require(torch.equal(y, y2) and torch.equal(h0, h02)
+                    and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
+                    f"rglru {name}: a second run gave other bits")
+            ferr = dict(zip(("y", "h0"), (
                 _family_check(f"rglru {name} y", y, want_h.to(x.dtype),
                               dname)[0],
-                _family_check(f"rglru {name} h", h, want_h, "float32")[0])))
+                _family_check(f"rglru {name} h0", h0, tile_states(want_h),
+                              "float32")[0])))
             berr = {g: _family_check(f"rglru_bwd {name} d{g}", got, want,
                                      dname if g == "x" else "float32")[0]
                     for g, got, want in zip(("x",) + ref.RGLRU_GATES, grads,
                                             want_grads)}
             elt = x.element_size()
+            n = b * s_ * w
             common = dict(case=case["name"], dtype=dname, b=b, s=s_, w=w,
-                          library_ms=None)
+                          library_ms=None, same_bits_twice=True)
             nbytes, flops = rglru_work(b, s_, w, elt)
             bound = _bound(nbytes, flops, "float32")
             frow = dict(common, max_abs_err=max(ferr.values()), errs=ferr,
@@ -2688,21 +2768,28 @@ def phase_hybrid_kernels():
                         plain_ms=time_ms(lambda: ref.rglru_ref(x, gd),
                                          iters=5, warmup=1),
                         bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
-                        flops=flops)
+                        flops=flops,
+                        states_bytes=rglru_states_bytes(b, s_, w),
+                        mufu_floor_ms=mufu_ms(RGLRU_MUFU["forward"] * n,
+                                              clock),
+                        y_states_equal_y=True)
             nbytes, flops = rglru_bwd_work(b, s_, w, elt)
             bound = _bound(nbytes, flops, "float32")
             brow = dict(common, max_abs_err=max(berr.values()), errs=berr,
                         states_bytes=rglru_states_bytes(b, s_, w),
-                        ms=time_ms(lambda: rglru_bwd(x, gates, h, dy)),
+                        ms=time_ms(lambda: rglru_bwd(x, gates, h0, dy)),
                         plain_ms=time_ms(lambda: ref.rglru_bwd_ref(
-                            x, gd, h, dy), iters=5, warmup=1),
+                            x, gd, want_h, dy), iters=5, warmup=1),
                         bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
-                        flops=flops)
+                        flops=flops,
+                        mufu_floor_ms=mufu_ms(RGLRU_MUFU["backward"] * n,
+                                              clock))
             print(f"[rglru] {json.dumps(frow)}")
             print(f"[rglru_bwd] {json.dumps(brow)}")
             results["rglru"].append(frow)
             results["rglru_bwd"].append(brow)
-            del x, gates, dy, y, h, want_h, grads, want_grads
+            del x, gates, dy, y, h0, y_plain, y2, h02, want_h, grads, \
+                grads2, want_grads
             torch.cuda.empty_cache()
     for case in HD256_CASES:
         for dname in ("float32", "bfloat16"):

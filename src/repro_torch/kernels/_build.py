@@ -13,8 +13,8 @@ rank processes builds once in the parent first (:func:`build`).
 where it launches its kernel, and nowhere else (a backward entry point
 that runs two or three CUDA kernels counts as one call, as does the ring
 attention's publish, attention and done launches, the SSD forward's
-four launches and its backward's eight, and the RG-LRU's chunk and step
-launches).
+four launches and its backward's eight, and the RG-LRU backward's
+two).
 """
 from __future__ import annotations
 
@@ -100,14 +100,11 @@ _SIGNATURES = {
     # decay, gstates, dcb_part, dc_part, db_part, head_part, b, s, h, p, n,
     # q, dtype, stream
     "repro_ssd_bwd": [_P] * 21 + [_I] * 7 + [_P],
-    # x, w_a, b_a, w_x, b_x, a_param, y, hs, hend, aprod, b, s, w, chunk,
-    # dtype, stream
-    "repro_rglru_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P],
-    # x, w_a, b_a, w_x, b_x, a_param, hs, dy, dx, lcarry, aprod, partial,
-    # dgates, b, s, w, chunk, dtype, stream
-    "repro_rglru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _P],
+    # x, w_a, b_a, w_x, b_x, a_param, y, states, b, s, w, dtype, stream
+    "repro_rglru_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    # x, w_a, b_a, w_x, b_x, a_param, states, dy, dx, partial, dgates, b, s,
+    # w, dtype, stream
+    "repro_rglru_bwd": [_P] * 11 + [_I] * 4 + [_P],
     # slot, &ptr
     "repro_peer_alloc": [_L, _P],
     "repro_peer_free": [_P],
@@ -162,10 +159,10 @@ def build(force: bool = False) -> Path:
         out, _ = p.communicate()
         log.append(f"== {src.name} (rc {p.returncode})\n{out}")
         if p.returncode != 0:
-            failed.append(src.name)
+            failed.append(log[-1])
     (BUILD_DIR / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = BUILD_DIR / (LIB_NAME + ".tmp")
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),

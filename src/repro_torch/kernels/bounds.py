@@ -19,6 +19,12 @@ from typing import Dict, Tuple
 
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# special-function (MUFU) results a clock an SM at compute capability 9.0
+# (the CUDA programming guide's throughput table: exp2, reciprocal,
+# reciprocal square root), the H100 SXM's SMs and its highest SM clock
+MUFU_PER_CLOCK = 16
+H100_SMS = 132
+H100_SM_CLOCK_HZ = 1.98e9
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> Tuple[float, str]:
@@ -166,28 +172,49 @@ def rglru_bwd_work(b: int, s: int, w: int, elt: int) -> Tuple[int, int]:
     return 3 * elt * n + 10 * 4 * w, 50 * n
 
 
+# steps in a time tile of the RG-LRU kernels (``kernels/rglru.py`` ``TILE``)
+RGLRU_TILE = 64
+
+
 def rglru_states_bytes(b: int, s: int, w: int) -> int:
     """Bytes the port's design adds to the RG-LRU's work: the forward
-    writes the f32 states h [b, s, w] and the backward reads them."""
-    return 2 * 4 * b * s * w
+    writes the f32 state entering each time tile of ``RGLRU_TILE`` steps,
+    [b, ceil(s / RGLRU_TILE), w], and the backward reads it."""
+    return 2 * 4 * b * -(-s // RGLRU_TILE) * w
+
+
+# special-function results an element: the gates' 4 exps, 2 reciprocals
+# (the sigmoids) and 1 sqrt; the backward's chain rule adds one division
+RGLRU_MUFU = {"forward": 7, "backward": 8}
+
+
+def mufu_ms(results: float, clock_hz: float = H100_SM_CLOCK_HZ,
+            sms: int = H100_SMS) -> float:
+    """The least time for ``results`` special-function results at
+    ``MUFU_PER_CLOCK`` a clock on each of ``sms`` SMs.  Reported beside a
+    kernel's bound, not folded into it."""
+    return 1e3 * results / (MUFU_PER_CLOCK * sms * clock_hz)
 
 
 def rglru() -> Dict:
     """``rglru.py:23`` ``_kernel``: recurrentgemma-9b (RG-LRU width 4096),
     the slice's batch 2 x seq 4096, bf16 x and y (:func:`rglru_work`)."""
     nbytes, flops = rglru_work(2, 4096, 4096, 2)
-    return _row("rglru", "recurrentgemma-9b, batch 2, seq 4096", nbytes,
-                flops, "float32")
+    return dict(_row("rglru", "recurrentgemma-9b, batch 2, seq 4096",
+                     nbytes, flops, "float32"),
+                mufu_ms=mufu_ms(RGLRU_MUFU["forward"] * 2 * 4096 * 4096))
 
 
 def rglru_bwd() -> Dict:
     """The RG-LRU's backward (port-only: XLA differentiates the scan in
     JAX) at the same shape (:func:`rglru_bwd_work`), with the bytes of the
-    f32 states that the port's forward keeps for it beside the bound."""
+    f32 tile-start states that the port's forward keeps for it and the
+    special-function floor beside the bound."""
     nbytes, flops = rglru_bwd_work(2, 4096, 4096, 2)
     return dict(_row("rglru_bwd", "recurrentgemma-9b, batch 2, seq 4096",
                      nbytes, flops, "float32"),
-                states_bytes=rglru_states_bytes(2, 4096, 4096))
+                states_bytes=rglru_states_bytes(2, 4096, 4096),
+                mufu_ms=mufu_ms(RGLRU_MUFU["backward"] * 2 * 4096 * 4096))
 
 
 def visible_pairs(s: int, window=None) -> int:

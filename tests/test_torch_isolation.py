@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package."""
+"""The PyTorch port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/`` imports JAX or the JAX
+package."""
 import os
 import pkgutil
 import re
@@ -57,7 +58,8 @@ def test_importing_every_port_module_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), *(ROOT / "tools").glob("*.py"),
+     ROOT / "chip_smoke.py"]))
 def test_source_has_no_jax_or_repro_import(path):
     for n, line in enumerate((ROOT / path).read_text().splitlines(), 1):
         assert not IMPORT_RE.match(line), f"{path}:{n}: {line}"

@@ -35,7 +35,8 @@ from repro.models import rglru as jrglru
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (RGLRU_GATES, rglru_bwd_ref, rglru_ref,
                                     rglru_states_ref)
-from repro_torch.kernels.rglru import RGLRUFunction, rglru, rglru_fwd
+from repro_torch.kernels.rglru import (RGLRUFunction, rglru, rglru_bwd,
+                                      rglru_fwd)
 from repro_torch.models import params as tprm
 from repro_torch.models.rglru import rglru_scan
 from repro_torch.serving import ServingEngine
@@ -150,37 +151,54 @@ def test_rglru_backward_matches_jax_grad(b, s, w):
 
 
 def test_rglru_function_keeps_states_only_for_gradients(monkeypatch):
-    """The forward asks for the f32 states only when a gradient is
-    wanted; with the gates needing none, x's gradient alone flows."""
+    """The forward asks for the tile-start states only when a gradient is
+    wanted, and keeps [b, tiles(s), w] of them, not the state of every
+    step; with the gates needing none, x's gradient alone flows."""
     import repro_torch.kernels.rglru as krglru
     asked = []
     fwd = krglru.rglru_fwd
 
     def spy(x, gates, *, states=False):
-        asked.append(states)
-        return fwd(x, gates, states=states)
+        y, h0 = fwd(x, gates, states=states)
+        asked.append((states, None if h0 is None else tuple(h0.shape)))
+        return y, h0
 
     monkeypatch.setattr(krglru, "rglru_fwd", spy)
-    x, gates = _inputs(1, 70, 16, seed=3)
+    x, gates = _inputs(1, 300, 16, seed=3)
     tg = {k: torch.from_numpy(v) for k, v in gates.items()}
     with torch.no_grad():
         y, h_last = rglru(torch.from_numpy(x), tg)
     assert y.grad_fn is None and h_last.shape == (1, 16)
     xt = torch.from_numpy(x).requires_grad_()
     out = RGLRUFunction.apply(xt, *(tg[k] for k in RGLRU_GATES))
+    assert [t.shape for t in out.grad_fn.saved_tensors] \
+        == [xt.shape] + [(16,)] * 5 + [(1, krglru.tiles(300), 16)]
     out.sum().backward()
-    assert asked == [False, True]
+    assert asked == [(False, None), (True, (1, 5, 16))]
     assert xt.grad is not None and xt.grad.shape == xt.shape
 
 
 def test_rglru_wrapper_checks_shapes_and_devices():
-    x, gates = _inputs(1, 32, 8)
+    """Shapes, the tile-start states' shape and type, and devices; on the
+    CPU nothing counts as a launch."""
+    x, gates = _inputs(1, 200, 8)
     xt = torch.from_numpy(x)
     g = tuple(torch.from_numpy(gates[k]) for k in RGLRU_GATES)
     with pytest.raises(ValueError, match="do not match"):
         rglru_fwd(xt, g[:4] + (g[4][:4],))
     with pytest.raises(ValueError, match="same CUDA device"):
         rglru_fwd(xt.to("meta"), g)
+    _, h0 = rglru_fwd(xt, g, states=True)
+    assert h0.shape == (1, 4, 8) and h0.dtype == torch.float32
+    dy = torch.ones_like(xt)
+    with pytest.raises(ValueError, match="must be"):   # every step's states
+        rglru_bwd(xt, g, rglru_states_ref(xt, dict(zip(RGLRU_GATES, g))),
+                  dy)
+    with pytest.raises(ValueError, match="must be"):
+        rglru_bwd(xt, g, h0.double(), dy)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        rglru_bwd(xt, g, h0.to("meta"), dy)
+    assert len(rglru_bwd(xt, g, h0, dy)) == 6
     assert _build.LAUNCHES["rglru"] == 0 and _build.LAUNCHES["rglru_bwd"] == 0
 
 
