@@ -188,6 +188,17 @@ Phases (any failure raises and the script exits non-zero):
    and 6 backward, flash 2 and 2; ``oases``: two sub-batches, each
    forward replayed: 24 and 12, 8 and 4), step time, tokens/s, MFU, peak
    memory and a one-step profile.
+20. The planner's path (``repro_torch.core.planner``): calibrate the card
+   with a fresh cache (a bf16 product for ``peak_flops``, a 1 GiB f32
+   stream for ``hbm_bw``, gated at 0.3x-1.05x of the data sheet's 989
+   TFLOP/s and 3.35 TB/s; ``hbm_cap`` the device's memory), then
+   ``launch/train.py --planner --save-plan`` for ``gpt-h2048`` in phase
+   7's configuration (tp=1, batch 8 x 1024, microbatch 2, ``megatron``
+   without recomputation), 3 steps, and ``--plan`` of that file, 3 steps:
+   the plan ``[1/megatron] * 24``, its JSON read back equal, both runs'
+   losses bit-identical, each run's launches exactly phase 7's count;
+   the ILP's prediction beside the measured median step (CUDA events,
+   the last 2 steps) and their ratio, recorded, not gated.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -317,11 +328,7 @@ def phase_build():
         spilled = [n for n, rep in got.items()
                    if rep["spill_stores"] or rep["spill_loads"]]
         require(not spilled, f"{what} kernels spill: {spilled}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = _card()
     print(card)
     return {"build_s": build_s, "card": card, "tc_kernels": tc,
             "cuda_core_kernels": cc, "ssd_norm_kernels": sn,
@@ -2948,13 +2955,142 @@ def _hybrid_model_flops(cfg, batch, seq):
     return 6 * weights * batch * seq + attn
 
 
+# ---------------------------------------------------------------------------
+# the planner (phase 20)
+# ---------------------------------------------------------------------------
+PLAN_STEPS = 3
+# a calibrated rate against the data sheet's: above 1.05x no card reads, so
+# the probe is wrong; below 0.3x it timed launches or L2
+CAL_GATE = (0.3, 1.05)
+
+
+def _card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _planned_run(argv, want) -> dict:
+    """``launch/train.py`` with ``argv``, its launches counted from 0 over
+    the run (exactly ``want``)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launcher
+
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = launcher.main(argv)
+    torch.cuda.synchronize()
+    out = dict(out, launches=dict(_build.LAUNCHES),
+               s=time.perf_counter() - t0,
+               log=[ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith(("planner:", "[plan]"))])
+    require(out["launches"] == want,
+            f"{argv}: launched {out['launches']}, expected {want}")
+    return out
+
+
+def phase_planner():
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.plan import LayerStrategy, ParallelPlan
+    from repro_torch.core.planner import calibrate
+    from repro_torch.kernels import bounds
+
+    card = _card()
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq, micro = 8, 1024, 2
+    n, passes = cfg.num_layers, PLAN_STEPS * micro
+    want = {**SERVE_ONLY, "paged_decode": 0, "rmsnorm": passes * (2 * n + 1),
+            "rmsnorm_bwd": passes * (2 * n + 1),
+            "flash_attention": passes * n, "flash_attention_bwd": passes * n}
+    base = ["--arch", TRAIN_ARCH, "--steps", str(PLAN_STEPS), "--batch",
+            str(batch), "--seq", str(seq), "--seed", "0"]
+    saved = {k: os.environ.pop(k, None)
+             for k in ("REPRO_CAL_CACHE", "REPRO_NO_CALIBRATE")}
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            os.environ["REPRO_CAL_CACHE"] = cache
+            calibrate._MEM_CACHE.clear()
+            t0 = time.perf_counter()
+            hw = calibrate.calibrated_hw(n_chips=1)
+            cal_s = time.perf_counter() - t0
+            files = sorted(os.listdir(cache))
+            require(len(files) == 1 and files[0].startswith("torchcal-"),
+                    f"calibration cache holds {files}")
+            total = torch.cuda.get_device_properties(0).total_memory
+            cal = dict(card=card, peak_flops=hw.peak_flops,
+                       hbm_bw=hw.hbm_bw, hbm_cap=hw.hbm_cap,
+                       device_total_memory=total, s=cal_s,
+                       flops_share=hw.peak_flops
+                       / bounds.PEAK_FLOPS["bfloat16"],
+                       bw_share=hw.hbm_bw / bounds.PEAK_BYTES,
+                       link_bw=hw.link_bw, cache_file=files[0])
+            print(f"[planner_calibration] {json.dumps(cal)}")
+            for what in ("flops_share", "bw_share"):
+                require(CAL_GATE[0] <= cal[what] <= CAL_GATE[1],
+                        f"calibrated {what} {cal[what]:.3f} outside "
+                        f"{CAL_GATE}: {cal}")
+            require(hw.hbm_cap == total, f"hbm_cap {hw.hbm_cap} is not the "
+                    f"device's {total} bytes")
+
+            path = os.path.join(cache, "plan.json")
+            planned = _planned_run(
+                base + ["--microbatch", str(micro), "--schedule",
+                        "megatron", "--no-remat", "--planner",
+                        "--save-plan", path], want)
+            plan = ParallelPlan.load(path)
+            with open(path) as f:
+                require(json.load(f) == plan.to_dict()
+                        and ParallelPlan.from_dict(plan.to_dict()) == plan,
+                        f"{path} does not read back equal")
+            require(plan.layers == (LayerStrategy(1, "megatron"),) * n,
+                    f"planned {plan.summary()}")
+            replay = _planned_run(base + ["--no-remat", "--plan", path],
+                                  want)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    losses = [(r["first_loss"], r["last_loss"]) for r in (planned, replay)]
+    require(losses[0] == losses[1], f"--plan replay losses {losses[1]} "
+            f"differ from the planned run's {losses[0]}")
+    measured = statistics.median(planned["device_step_ms"][1:])
+    out = dict(calibration=cal, plan=plan.to_dict(),
+               summary=plan.summary(), predicted_ms=planned["predicted_ms"],
+               measured_step_ms=measured,
+               ratio=measured / planned["predicted_ms"],
+               replay_step_ms=statistics.median(
+                   replay["device_step_ms"][1:]),
+               planned=planned, replay=replay,
+               launches={k: planned["launches"].get(k, 0)
+                         + replay["launches"].get(k, 0) for k in want})
+    brief = {k: v for k, v in out.items()
+             if k not in ("planned", "replay", "plan")}
+    print(f"[planner] {json.dumps(brief)}")
+    return out
+
+
 def _path_launches(report) -> dict:
     """Each main path's launches per kernel, counted from 0 over the path's
     run: serve (phase 4), one-device training (phase 7), tensor-parallel
     training (phase 10), ring-attention training (phase 13), rank 0
     over all schedules and steps for the last two, the families'
-    training (phase 16, both families' Trainer and launcher runs) and the
-    RG-LRU hybrid's training (phase 19, both schedules)."""
+    training (phase 16, both families' Trainer and launcher runs), the
+    RG-LRU hybrid's training (phase 19, both schedules) and the planned
+    training (phase 20, the planned run and its replay)."""
     paths = {}
     if "serve" in report:
         paths["serve"] = report["serve"]["launches"]
@@ -2981,6 +3117,8 @@ def _path_launches(report) -> dict:
             for k, v in r["launches"].items():
                 tot[k] = tot.get(k, 0) + v
         paths["hybrid"] = tot
+    if "planner" in report:
+        paths["planner"] = report["planner"]["launches"]
     return paths
 
 
@@ -3118,7 +3256,8 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           16: ("family_train", phase_family_train),
           17: ("hybrid_kernels", phase_hybrid_kernels),
           18: ("hybrid_consistency", phase_hybrid_consistency),
-          19: ("hybrid_train", phase_hybrid_train)}
+          19: ("hybrid_train", phase_hybrid_train),
+          20: ("planner", phase_planner)}
 
 
 def main(argv=None) -> int:

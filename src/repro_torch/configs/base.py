@@ -1,11 +1,11 @@
-"""Architecture and training configuration: the port's own copies of the
-part of ``repro.configs.base.ArchConfig`` that its families use (dense
-global-attention models, MoE, the Mamba2 SSD mixer and the Griffin
-hybrid of RG-LRU and local attention), and of the ``TrainHParams``
-fields its training path honours.  Field names and derived values match
-the JAX package's, so a config means the same model in both; the fields
-of the other families (encoders, cross attention) arrive with their
-layer kinds."""
+"""Architecture, shape and training configuration: the port's own copies
+of ``repro.configs.base.ArchConfig`` (every field; the model path runs
+dense global-attention models, MoE, the Mamba2 SSD mixer and the Griffin
+hybrid of RG-LRU and local attention, and raises for encoders and cross
+attention, ROADMAP.md A10b), of ``ShapeConfig`` and the named shapes, and
+of the ``TrainHParams`` fields its training path and the planner read.
+Field names, defaults and derived values match the JAX package's, so a
+config means the same model in both."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +17,7 @@ GLOBAL_ATTN = "global"      # full causal self attention
 LOCAL_ATTN = "local"        # sliding-window causal self attention
 RGLRU = "rglru"             # RG-LRU recurrent block (Griffin / RecurrentGemma)
 SSD = "ssd"                 # Mamba2 state-space-duality mixer
+CROSS_ATTN = "cross"        # self-attn + cross-attn to encoder/vision states
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,6 +59,11 @@ class ArchConfig:
     ssm_conv: int = 4
     # RG-LRU params
     rglru_width: int = 0             # 0 -> d_model
+    # encoder/decoder (whisper) — decoder uses num_layers
+    encoder_layers: int = 0
+    # cross-attn context (vision/audio frontend stub)
+    context_len: int = 0             # number of frontend embedding tokens
+    context_dim: int = 0             # frontend embedding dim (0 -> d_model)
     tie_embeddings: bool = False
     post_norms: bool = False         # sandwich norms
     norm_eps: float = 1e-5
@@ -89,6 +95,9 @@ class ArchConfig:
             vocab_size=512,
             head_dim=32,
             window=64,
+            context_len=min(self.context_len, 16) if self.context_len else 0,
+            context_dim=64 if self.context_dim else 0,
+            encoder_layers=min(self.encoder_layers, 2),
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_headdim=32,
             rglru_width=128 if self.rglru_width else 0,
@@ -100,33 +109,72 @@ class ArchConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
 class TrainHParams:
-    """The port's copy of the fields of ``repro.configs.base.TrainHParams``
-    that its 1-D tensor-parallel training path honours, with JAX's
-    defaults.  ZeRO, gradient compression, the 2-D layout and pipelines
-    are not offered yet (ROADMAP.md A2-A4, A7)."""
+    """The port's copy of ``repro.configs.base.TrainHParams``: the fields
+    its 1-D tensor-parallel training path honours and the ones the planner
+    and plans read, with JAX's defaults.  ``microbatch`` 0 means auto here
+    (JAX: no accumulation).  What the port does not run yet raises at
+    construction: the 2-D layout (A7), gradient compression (A4) and
+    virtual pipeline stages (A8); ``zero1`` has no effect without data
+    parallelism (A4), which is what both values mean at one data rank."""
     schedule: str = "oases"          # megatron | wang | merak | oases | fused
     remat: bool = True
     fine_remat: bool = True          # §3.2 fine-grained recomputation
+    use_planner: bool = False        # read by nothing; kept for JAX parity
+    tmp_layout: str = "auto"         # auto | 1d (| 2d: A7)
     split: int = 2                   # sub-batch split factor (paper: 2)
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     warmup_steps: int = 100
     total_steps: int = 1000
     grad_clip: float = 1.0
+    zero1: bool = True
+    grad_compress: bool = False
     microbatch: int = 0               # 0 = auto; > 1 = gradient accumulation
+    virtual_stages: int = 1
     loss_chunk: int = 512             # tokens per chunk of the cross entropy
     seq_parallel: bool = False       # Megatron-SP: AG/RS instead of AR
     seq_shard: int = 1               # ring-attention sequence shards (1 = off)
 
     def __post_init__(self):
-        # an unknown schedule or shard factor is rejected at construction,
-        # as in JAX
-        from repro_torch.core.schedule import validate_schedule
+        # an unknown schedule, layout or shard factor is rejected at
+        # construction, as in JAX
+        from repro_torch.core.plan import TMP_LAYOUTS, validate_schedule
         validate_schedule(self.schedule)
+        if self.tmp_layout not in TMP_LAYOUTS:
+            raise ValueError(
+                f"unknown tmp_layout {self.tmp_layout!r}: valid layouts "
+                f"are {', '.join(TMP_LAYOUTS)}")
         s = self.seq_shard
         if not isinstance(s, int) or isinstance(s, bool) or s < 1 \
                 or s & (s - 1):
             raise ValueError(
                 f"bad seq_shard {s!r}: ring-attention sequence shards "
                 f"must be a positive power-of-two int (1 = off)")
+        for what, on, item in (
+                ("the 2-D layout (tmp_layout='2d')",
+                 self.tmp_layout == "2d", "A7"),
+                ("gradient compression (grad_compress=True)",
+                 self.grad_compress, "A4"),
+                (f"virtual pipeline stages (virtual_stages="
+                 f"{self.virtual_stages})", self.virtual_stages != 1, "A8")):
+            if on:
+                raise NotImplementedError(
+                    f"the PyTorch port does not run {what} yet "
+                    f"(ROADMAP.md {item})")

@@ -1,6 +1,6 @@
 """The paper's dense GPT family (Appendix B, Tables 4-5) and the serving
 fixtures, as in ``repro.configs.gpt_oases``."""
-from repro_torch.configs.base import ArchConfig, GLOBAL_ATTN
+from repro_torch.configs.base import ArchConfig, GLOBAL_ATTN, ShapeConfig
 
 
 def _gpt(name, hidden, layers, heads):
@@ -40,3 +40,9 @@ SERVING_MODELS = {
     "gpt-serve-h4096": _gpt("gpt-serve-h4096", 4096, 64, 32),
     "gpt-draft-h2048": _gpt("gpt-draft-h2048", 2048, 12, 16),
 }
+
+PAPER_SEQ_LEN = 1024
+
+
+def paper_shape(global_batch: int) -> ShapeConfig:
+    return ShapeConfig(f"paper_b{global_batch}", PAPER_SEQ_LEN, global_batch, "train")

@@ -44,14 +44,8 @@ import torch
 from repro_torch.core import remat
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.comm import Comm, Pending, SoloComm
-
-SCHEDULES = ("megatron", "wang", "merak", "oases", "fused")
-
-
-def validate_schedule(schedule: str):
-    if schedule not in SCHEDULES:
-        raise ValueError(f"unknown schedule {schedule!r}: valid schedules "
-                         f"are {', '.join(SCHEDULES)}")
+# one schedule set for the schedules, the plans and the planner
+from repro_torch.core.plan import SCHEDULES, validate_schedule  # noqa: F401
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,7 @@ gradient norm spanning the group."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -47,6 +48,56 @@ def resolve_hp(hp: TrainHParams, global_batch: int, *, seq_len: int,
         return dataclasses.replace(
             hp, microbatch=auto_microbatch(global_batch, seq_len, d_model,
                                            num_layers, act_shard=shard))
+    return hp
+
+
+def check_plan(cfg: ArchConfig, plan, tp: int = 1):
+    """-> ``plan``, once it is checked to be one the port runs on a 1-D
+    group of ``tp`` ranks: every layer one (degree, schedule, seq)
+    strategy, the degree ``tp`` (None: the group), no pipeline and a
+    recorded mesh, if any, of one data rank and ``tp`` model ranks
+    (ValueError otherwise).  Raises NotImplementedError with the plan's
+    summary otherwise, naming the ROADMAP.md item: A7 (mixed plans, other
+    or 2-D degrees), A8 (pipelines), A4 (data parallelism); and, without
+    it, for the knobs :class:`TrainHParams` refuses (the 2-D layout A7,
+    gradient compression A4, virtual stages A8)."""
+    plan.validate_for(cfg)
+
+    def refuse(what: str, item: str):
+        raise NotImplementedError(
+            f"{plan.summary()}: the PyTorch port runs plans whose layers "
+            f"share one (degree, schedule, seq) strategy of degree --tp "
+            f"{tp}, not {what} (ROADMAP.md {item})")
+
+    if plan.is_mixed:
+        refuse("per-layer mixed strategies", "A7")
+    layer = plan.layers[0]
+    if layer.degree not in (None, tp):
+        refuse(f"degree {layer.degree!r}", "A7")
+    if plan.pp > 1:
+        refuse(f"pp={plan.pp} pipeline stages", "A8")
+    if plan.mesh_shape:
+        model = math.prod(n for a, n in zip(plan.mesh_axes, plan.mesh_shape)
+                          if a.startswith("model"))
+        rest = math.prod(plan.mesh_shape) // model
+        if rest != 1:
+            refuse(f"a mesh of {rest} data ranks", "A4")
+        if model != tp:
+            raise ValueError(f"{plan.summary()} was made for a model group "
+                             f"of {model} ranks: run it with --tp {model}")
+    plan.apply(TrainHParams())      # the knobs' refusals: 2-D A7, A4, A8
+    return plan
+
+
+def unpack_plan(cfg: ArchConfig, hp: TrainHParams, plan,
+                tp: int = 1) -> TrainHParams:
+    """Project an executable :class:`~repro_torch.core.plan.ParallelPlan`
+    onto the hyper-parameters the step builder consumes (JAX's
+    ``unpack_plan``: ``plan.apply``) after :func:`check_plan`.  A uniform
+    ring-attention ``seq`` q becomes ``seq_shard`` q."""
+    hp = check_plan(cfg, plan, tp).apply(hp)
+    if plan.layers[0].seq > 1:
+        hp = dataclasses.replace(hp, seq_shard=plan.layers[0].seq)
     return hp
 
 

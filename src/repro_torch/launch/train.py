@@ -18,14 +18,35 @@ CPU.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 2 --tp 2 --schedule oases
 
+    # the Oases planner: calibrate the card, solve the ILP for this
+    # workload, train under the plan and write it; then replay the file
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
+        --steps 3 --batch 8 --seq 1024 --microbatch 2 --schedule megatron \\
+        --no-remat --planner --save-plan plan.json
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
+        --steps 3 --batch 8 --seq 1024 --no-remat --plan plan.json
+
 With ``--tp`` N > 1 the launcher spawns N rank processes
 (:mod:`repro_torch.launch.ranks`): gloo on the CPU, the port's peer
 collectives on the card.  Prints the JSON of ``repro.launch.train``
 (``final_step``, ``first_loss``, ``last_loss``, ``slow_steps``), from
-rank 0.  Sequence parallelism without ring attention is reachable
-through ``TrainHParams(seq_parallel=True)`` (JAX's CLI has no flag for
-it either).  Data parallelism, the planner, checkpoints, telemetry and
-fault injection are not offered yet.
+rank 0, with the plan's summary (``plan``), the planner's prediction
+(``predicted_ms``, under ``--planner``) and, on the card, each step's
+device time (``device_step_ms``, CUDA events); :func:`main` returns it.
+
+Every run executes a :class:`~repro_torch.core.plan.ParallelPlan`
+(:func:`repro_torch.launch.mesh.resolve_launch`): the flags desugared,
+a ``--plan`` file, or under ``--planner`` the ILP's decision
+(:mod:`repro_torch.core.planner`), calibrated on the card by default
+(``--no-calibrate``: the H100_80GB_HBM3 fixture; the CPU has no card to
+calibrate).  The launcher resolves the plan once, in its own process,
+before the ranks start, and hands it to every rank.  The port runs
+uniform 1-D plans: a plan that mixes strategies, or whose degree is not
+``--tp``, raises naming ROADMAP.md A7, as does ``--tmp-layout 2d``.
+Sequence parallelism without ring attention is reachable through
+``TrainHParams(seq_parallel=True)`` (JAX's CLI has no flag for it
+either).  Data parallelism, pipelines, checkpoints, telemetry and fault
+injection are not offered yet.
 """
 from __future__ import annotations
 
@@ -36,32 +57,93 @@ from typing import Optional, Sequence
 import torch
 
 
-def _train(comm, device, args) -> dict:
-    """One rank's run (the whole run at tp=1)."""
-    from repro_torch.configs.base import TrainHParams
-    from repro_torch.configs.registry import get_config
+def _train(comm, device, args, cfg, hp, plan) -> dict:
+    """One rank's run (the whole run at tp=1) under the resolved plan."""
     from repro_torch.runtime import Trainer
 
     # f32 products stay full f32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    trainer = Trainer(cfg, hp, global_batch=args.batch, seq_len=args.seq,
+                      device=device, comm=comm, plan=plan)
+    res = trainer.train(args.steps, seed=args.seed)
+    out = {"final_step": res["final_step"],
+           "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
+           "slow_steps": len(res["slow_steps"])}
+    if "device_step_ms" in res:
+        out["device_step_ms"] = res["device_step_ms"]
+    return out
+
+
+def _planner_hw(args):
+    """The planner's HWConfig for ``--tp`` ranks: calibrated on the card
+    (cached per host), or the H100_80GB_HBM3 fixture under
+    ``--no-calibrate``.  Either way the link terms are the fixture's."""
+    from repro_torch.core.planner.calibrate import (calibrated_hw, describe,
+                                                    fixture_hw)
+    if args.calibrate:
+        hw = calibrated_hw(n_chips=args.tp)
+        print(f"planner: calibrated hw {describe(hw)}; link terms from "
+              f"H100_80GB_HBM3 (one card has no link to measure)")
+    else:
+        hw = fixture_hw(n_chips=args.tp)
+        print(f"planner: H100_80GB_HBM3 fixture {describe(hw)} "
+              f"(--no-calibrate)")
+    return hw
+
+
+def _resolve(args):
+    """-> (cfg, hp, plan, predicted_ms or None): the flags, a ``--plan``
+    file or the planner's decision as one ParallelPlan, resolved and
+    checked in this process before any rank exists.  ``hp`` is the flags'
+    (its auto microbatch resolved), not yet projected through the plan."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import resolve_launch
+    from repro_torch.launch.steps import check_plan, resolve_hp
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced().replace(dtype="float32")
     hp = TrainHParams(schedule=args.schedule, remat=not args.no_remat,
                       fine_remat=not args.coarse_remat,
+                      use_planner=args.planner, tmp_layout=args.tmp_layout,
                       learning_rate=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 1),
                       microbatch=args.microbatch, seq_shard=args.seq_shard)
-    trainer = Trainer(cfg, hp, global_batch=args.batch, seq_len=args.seq,
-                      device=device, comm=comm)
-    res = trainer.train(args.steps, seed=args.seed)
-    return {"final_step": res["final_step"],
-            "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
-            "slow_steps": len(res["slow_steps"])}
+    # the port's microbatch 0 is "auto": resolve it before planning, so the
+    # cost model and the plan written carry the count the steps run
+    hp = resolve_hp(hp, args.batch, seq_len=args.seq, d_model=cfg.d_model,
+                    num_layers=cfg.num_layers, tp=args.tp)
+    plan = resolve_launch(cfg, hp, tp=args.tp, plan_file=args.plan)
+    predicted_ms = None
+    if args.planner and not args.plan:
+        from repro_torch.core.planner import plan as plan_search
+        pr = plan_search(cfg, ShapeConfig("cli", args.seq, args.batch,
+                                          "train"),
+                         hp, _planner_hw(args),
+                         # the port's layouts are 1-D until A7
+                         layout="1d",
+                         options=tuple(n for n in (2, 4, 8, 16)
+                                       if n <= args.tp) or (args.tp,),
+                         schedules="auto"
+                         if args.planner_schedules == "auto" else None,
+                         seq=args.planner_seq)
+        print(f"planner: {pr.summary()}")
+        predicted_ms = pr.predicted_s * 1e3
+        plan = dataclasses.replace(plan, layers=pr.plan.layers)
+    # refuse what the port cannot run before any rank exists; each rank's
+    # Trainer projects hp through the plan
+    check_plan(cfg, plan, args.tp)
+    if args.save_plan:
+        plan.save(args.save_plan)
+        print(f"[plan] wrote {args.save_plan}: {plan.summary()}")
+    return cfg, hp, plan, predicted_ms
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     from repro_torch.core.schedule import SCHEDULES
 
     ap = argparse.ArgumentParser()
@@ -85,19 +167,62 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--schedule", default="oases", choices=SCHEDULES)
     ap.add_argument("--no-remat", action="store_true",
                     help="keep every activation (no recomputation)")
-    ap.add_argument("--coarse-remat", action="store_true",
+    ap.add_argument("--coarse-remat", "--no-fine-remat",
+                    dest="coarse_remat", action="store_true",
                     help="recompute whole layers, collectives included")
-    args = ap.parse_args(argv)
+    ap.add_argument("--tmp-layout", default="auto",
+                    choices=["auto", "1d", "2d"],
+                    help="partition layout: auto and 1d are the port's 1-D "
+                         "group; 2d raises (ROADMAP.md A7)")
+    ap.add_argument("--planner", action="store_true",
+                    help="the plan from the ILP (degrees in (2, 4, 8, 16) "
+                         "up to --tp, or --tp)")
+    ap.add_argument("--calibrate", action="store_true", default=True,
+                    help="profile-guided --planner inputs (the DEFAULT: "
+                         "the card's measured bf16 rate, memory rate and "
+                         "capacity, cached per host)")
+    ap.add_argument("--no-calibrate", dest="calibrate",
+                    action="store_false",
+                    help="plan with the H100_80GB_HBM3 fixture instead "
+                         "(the CPU has no card to calibrate)")
+    ap.add_argument("--plan", default="", metavar="plan.json",
+                    help="execute a ParallelPlan file (planner output / "
+                         "--save-plan, of either package); overrides the "
+                         "parallelism flags in one shot")
+    ap.add_argument("--save-plan", default="", metavar="out.json",
+                    help="write the resolved ParallelPlan (desugared "
+                         "flags or the ILP decision under --planner) for "
+                         "later --plan runs")
+    ap.add_argument("--planner-schedules", default="current",
+                    choices=["current", "auto"],
+                    help="--planner search space: degrees under the "
+                         "--schedule ('current') or the full per-layer "
+                         "(degree, schedule) space of the paper ('auto')")
+    ap.add_argument("--planner-seq", default="none",
+                    choices=["none", "auto"],
+                    help="--planner seq axis: 'auto' lets the ILP shard "
+                         "long sequences over KV rings per attention "
+                         "layer instead of (only) sharding heads")
+    return ap.parse_args(argv)
 
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parse_args(argv)
+    cfg, hp, plan, predicted_ms = _resolve(args)
+    run = (args, cfg, hp, plan)
     if args.tp > 1:
         from repro_torch.launch import train as this  # picklable by name
         from repro_torch.launch.ranks import run_ranks
         out = run_ranks(this._train, args.tp, device=args.device,
-                        args=(args,), timeout=3600)[0]
+                        args=run, timeout=3600)[0]
     else:
         from repro_torch.core.device import resolve_device
-        out = _train(None, resolve_device(args.device), args)
+        out = _train(None, resolve_device(args.device), *run)
+    out["plan"] = plan.summary()
+    if predicted_ms is not None:
+        out["predicted_ms"] = predicted_ms
     print(json.dumps(out, indent=1))
+    return out
 
 
 if __name__ == "__main__":

@@ -66,6 +66,7 @@ def check_supported(cfg: ArchConfig):
         ("post-norms", cfg.post_norms),
         ("MoE in SSD layers",
          cfg.moe is not None and SSD in cfg.layer_pattern),
+        ("encoders", cfg.encoder_layers),
     ) if on]
     if unsupported:
         raise NotImplementedError(

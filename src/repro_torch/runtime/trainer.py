@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
 from repro_torch.core.comm import Comm, SoloComm
+from repro_torch.core.plan import ParallelPlan
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import steps as steps_mod
@@ -55,17 +56,25 @@ class Trainer:
     weights from its seed.  ``comm``: the model group this rank belongs to
     (None: tp=1); the trainer keeps this rank's shard of the weights (the
     attention weights whole under ring attention, ``hp.seq_shard``), and
-    only rank 0 logs."""
+    only rank 0 logs.  ``plan``: the executable
+    :class:`~repro_torch.core.plan.ParallelPlan` to train under (JAX's
+    ``Trainer(plan=...)``): projected onto ``hp`` through
+    :func:`~repro_torch.launch.steps.unpack_plan`, which refuses what the
+    port cannot run."""
 
     def __init__(self, cfg: ArchConfig, hp: TrainHParams, *,
                  global_batch: int, seq_len: int,
                  device: Optional[Union[str, torch.device]] = None,
                  params: Optional[Dict[str, Any]] = None,
                  log_fn: Optional[Callable[[str], None]] = print,
-                 comm: Optional[Comm] = None):
+                 comm: Optional[Comm] = None,
+                 plan: Optional[ParallelPlan] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.comm = comm or SoloComm()
+        if plan is not None:
+            hp = steps_mod.unpack_plan(cfg, hp, plan, self.comm.size)
+        self.plan = plan
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.log = log_fn if self.comm.rank == 0 else None
@@ -94,7 +103,8 @@ class Trainer:
     def train(self, total_steps: int, *, seed: int = 0) -> Dict:
         """Run steps ``[done, total_steps)``; returns ``final_step``, the
         per-step ``losses`` and ``step_times`` (s, host clock around a step
-        that ends when its loss reaches the host) and ``slow_steps``."""
+        that ends when its loss reaches the host), ``slow_steps`` and, on
+        the card, ``device_step_ms`` (CUDA events around each step)."""
         if self.params is None:
             self.params = self._own(
                 prm.init_params(self.cfg, seed=seed, device=self.device))
@@ -104,14 +114,23 @@ class Trainer:
                           seq_len=self.seq_len,
                           vocab_size=self.cfg.vocab_size,
                           microbatch=self.hp.microbatch)
-        losses, step_times = [], []
+        losses, step_times, device_ms = [], [], []
+        cuda = self.device.type == "cuda"
         step = start = self.opt_state["step"]
         for step in range(start, total_steps):
             batch = self.batch(dcfg, step)
+            if cuda:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record()
             t0 = time.perf_counter()
             metrics = self.step_fn(self.params, self.opt_state, batch)
+            if cuda:
+                events[1].record()
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            if cuda:
+                device_ms.append(events[0].elapsed_time(events[1]))
             self.comm.check()
             if self.straggler.observe(step, dt) and self.log:
                 self.log(f"[straggler] step {step} took {dt:.2f}s "
@@ -121,6 +140,9 @@ class Trainer:
             if step % 10 == 0 and self.log:
                 self.log(f"[trainer] step {step} loss {loss:.4f} "
                          f"{dt * 1e3:.0f} ms")
-        return {"final_step": self.opt_state["step"], "losses": losses,
-                "slow_steps": self.straggler.slow_steps,
-                "step_times": step_times}
+        out = {"final_step": self.opt_state["step"], "losses": losses,
+               "slow_steps": self.straggler.slow_steps,
+               "step_times": step_times}
+        if cuda:
+            out["device_step_ms"] = device_ms
+        return out

@@ -37,7 +37,9 @@ def test_port_has_the_slice_modules():
                  "configs.mamba2_130m", "configs.granite_moe_3b",
                  "models.ssd", "models.moe", "models.rglru", "kernels.ssd",
                  "kernels.moe_gmm", "kernels.rglru",
-                 "configs.recurrentgemma_9b"):
+                 "configs.recurrentgemma_9b", "core.plan", "core.planner",
+                 "core.planner.costmodel", "core.planner.ilp",
+                 "core.planner.calibrate", "core.pipeline", "launch.mesh"):
         assert f"repro_torch.{name}" in mods, name
 
 
