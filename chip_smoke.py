@@ -31,7 +31,11 @@ Phases (any failure raises and the script exits non-zero):
    launches over this phase must be steps x 64 (paged decode) and
    steps x 129 (RMSNorm).  After step 470 (8 active slots at positions
    up to ~470), 4 of its steps are timed plainly and 4 under ``torch.profiler``:
-   device time against host wall per step.
+   device time against host wall per step.  The engine records into a
+   JSONL ``Recorder`` (``repro_torch.obs``): every line validates, the
+   ``serving.decoded_tokens`` sum is the decoded tokens,
+   ``serving.decode_step_s`` holds the engine's step times one for one
+   and ``serving.ttft_s`` one sample a request.
 5. Training kernels against their plain versions on the card, in f32
    (TF32 off) and bf16: flash attention forward (out, lse) and backward
    (dq, dk, dv; run twice, the bits must agree) at the training shapes (b 4, s 1024, 32 heads of 64;
@@ -86,7 +90,14 @@ Phases (any failure raises and the script exits non-zero):
    across schedules within the bf16 tolerance, every leaf's gradient
    present and finite after step 1 on every rank, launches per step
    (``fused``: 96 ring launches a rank, none replayed), step times, peak
-   memory per rank and a one-step profile per schedule.
+   memory per rank and a one-step profile per schedule, with the device
+   ms inside each ``tmp.<schedule>.*`` range, forward and backward, and
+   the share outside every range.  The card is calibrated once here
+   (a fresh ``REPRO_CAL_CACHE``) before the ranks start; rank 0 records
+   into a JSONL sink per schedule, and its end-of-run overlap probe must
+   give one ``overlap.group`` event per plan group (the schedule's tag,
+   ``measured_exposed_frac`` in [0, 1]) and both ``overlap.*`` gauges;
+   the readings are recorded, not gated.
 11. Ring attention against its plain version on the card, with 2 and 4
    rank processes sharing the card over ``PeerComm``: the kernel's out and
    lse on every rank against the plain version computed from all ranks'
@@ -198,7 +209,11 @@ Phases (any failure raises and the script exits non-zero):
    the plan ``[1/megatron] * 24``, its JSON read back equal, both runs'
    losses bit-identical, each run's launches exactly phase 7's count;
    the ILP's prediction beside the measured median step (CUDA events,
-   the last 2 steps) and their ratio, recorded, not gated.
+   the last 2 steps) and their ratio, recorded, not gated.  The planned
+   run writes ``--telemetry``: ``python -m repro_torch.obs.report DIR
+   --validate`` exits 0, the ``planner.plan`` event carries the run's
+   ``predicted_ms``, ``trainer.step_time_s`` one sample a step, and the
+   probe says ``overlap.skip`` (tp=1).
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -210,6 +225,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -682,17 +698,22 @@ def _serve_requests(np, vocab, n=16):
 
 
 def phase_serve():
+    import tempfile
+
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
+    from repro_torch.obs import Recorder
     from repro_torch.serving import Request, ServingEngine
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(ARCH)
+    tel = tempfile.TemporaryDirectory()
+    rec = Recorder(tel.name)
     eng = ServingEngine(cfg, slots=8, max_seq=2048, page_size=16,
-                        prefix_cache=True)
+                        prefix_cache=True, telemetry=rec)
     require(eng.device.type == "cuda", f"engine chose {eng.device}")
     t0 = time.perf_counter()
     eng.load(seed=0)
@@ -710,6 +731,9 @@ def phase_serve():
     wall_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     steps = stats["steps"]
+    rec.close()
+    telemetry = _check_serve_telemetry(tel.name, eng, stats, len(reqs))
+    tel.cleanup()
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.num_layers
     require(launches["paged_decode"] == steps * n_layers,
@@ -747,11 +771,44 @@ def phase_serve():
                step_ms_p10=float(np.percentile(step_ms, 10)),
                step_ms_p90=float(np.percentile(step_ms, 90)),
                load_s=load_s, peak_mem_gb=peak / 1e9, launches=launches,
-               sample_output=reqs[0].out_tokens[:8])
+               sample_output=reqs[0].out_tokens[:8], telemetry=telemetry)
     print(f"[serve] {json.dumps(out)}")
     print(f"[profile] {json.dumps(profile)}")
     out["profile"] = profile
     return out
+
+
+def _check_serve_telemetry(path, eng, stats, n_requests) -> dict:
+    """The engine's JSONL (``serving.*``, JAX's names) against the phase's
+    own numbers: every line validates, the ``serving.decoded_tokens`` sum
+    is the decoded tokens, ``serving.decode_step_s`` holds the engine's
+    step times one for one, ``serving.ttft_s`` one sample a request."""
+    from repro_torch.obs import report, schema
+    with open(Path(path) / "telemetry.jsonl") as f:
+        records = schema.validate_lines(f)
+    by = {}
+    for r in records:
+        by.setdefault(r["name"], []).append(r)
+    decoded = sum(r["value"] for r in by.get("serving.decoded_tokens", ()))
+    steps = [r["value"] for r in by.get("serving.decode_step_s", ())]
+    ttft = [r["value"] for r in by.get("serving.ttft_s", ())]
+    require(decoded == stats["decoded_tokens"],
+            f"serving.decoded_tokens sums to {decoded}, the engine decoded "
+            f"{stats['decoded_tokens']}")
+    require(steps == eng.step_s, f"serving.decode_step_s holds "
+            f"{len(steps)} samples, the engine timed {len(eng.step_s)} "
+            f"steps (or their values differ)")
+    require(len(ttft) == n_requests and sorted(
+        r["tags"]["rid"] for r in by["serving.ttft_s"]) == list(
+            range(n_requests)),
+            f"serving.ttft_s: {len(ttft)} samples for {n_requests} requests")
+    return dict(records=len(records),
+                names=sorted(by), decode_step_samples=len(steps),
+                ttft_s_median=statistics.median(ttft),
+                ttft_s_max=max(ttft),
+                admission_deferred=sum(r["value"] for r in by.get(
+                    "serving.admission_deferred", ())),
+                report_lines=len(report.render(records).splitlines()))
 
 
 def _profile_steps(eng, steps: int = 4):
@@ -762,7 +819,6 @@ def _profile_steps(eng, steps: int = 4):
     of the plain steps.  Returns the summary and the range of
     ``eng.step_s`` the profiler slowed."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     at_step = eng.stats["steps"]
@@ -782,15 +838,7 @@ def _profile_steps(eng, steps: int = 4):
             eng.step()
         torch.cuda.synchronize()
         wall_prof_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us, evt.count, evt.key))
-    kernels.sort(reverse=True)
+    kernels = _device_kernels(prof)
     device_ms = sum(k[0] for k in kernels) / 1e3 / steps
     return dict(
         at_step=at_step, steps=steps, active_slots=len(act),
@@ -807,6 +855,63 @@ def _profile_steps(eng, steps: int = 4):
         top=[dict(name=k[2][:90], ms_per_step=k[0] / 1e3 / steps,
                   calls_per_step=k[1] / steps) for k in kernels[:14]]
     ), (n0, n0 + steps)
+
+
+# the profiler ranges the port opens (obs.phase_scope, obs.trace_annotation):
+# on the device timeline they are spans, not kernels
+_RANGE_RE = re.compile(r"^(tmp\.|train_step$|engine_tick$)")
+
+
+def _device_kernels(prof) -> list:
+    """(device us, calls, name) of each kernel in a profile, most time
+    first; the ranges' own device spans (user annotations) left out."""
+    from torch.autograd import DeviceType
+    kernels = []
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)
+                or _RANGE_RE.match(evt.key)):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels.append((us, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    return kernels
+
+
+def _range_ms(prof, device_ms) -> dict:
+    """Device ms of the kernels launched inside each ``tmp.<schedule>.*``
+    range (the innermost range holding a launch takes it), forward (the
+    thread of the ``train_step`` range) and backward (the autograd
+    engine's thread, which also replays the forward under recomputation),
+    and the share of ``device_ms`` inside none.  ``linked_ms``: the
+    device ms the profiler tied to any host event (a kernel it did not
+    tie counts as outside every range)."""
+    from torch.autograd import DeviceType
+    evts = prof.events()
+    main = {e.thread for e in evts if e.name == "train_step"}
+    ranges, inside, linked = {}, 0.0, 0.0
+    for e in evts:
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = sum(k.duration for k in getattr(e, "kernels", ())
+                 if not _RANGE_RE.match(k.name))
+        if not us:
+            continue
+        linked += us / 1e3
+        a = e
+        while a is not None and not a.name.startswith("tmp."):
+            a = a.cpu_parent
+        if a is None:
+            continue
+        key = f"{a.name} {'fwd' if e.thread in main else 'bwd'}"
+        ranges[key] = ranges.get(key, 0.0) + us / 1e3
+        inside += us / 1e3
+    return dict(by_range_ms=dict(sorted(ranges.items())), inside_ms=inside,
+                linked_ms=linked,
+                outside_share=(1 - inside / device_ms) if device_ms
+                else "not measured")
 
 
 # the port's kernels a profile sums by name (the CUDA kernels' own names)
@@ -1180,7 +1285,6 @@ def _profile_train_step(tr):
     """One more step (not counted above) under ``torch.profiler``: device
     busy time against the host wall of the step, and the top kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import DataConfig
@@ -1195,15 +1299,7 @@ def _profile_train_step(tr):
         tr.step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us, evt.count, evt.key))
-    kernels.sort(reverse=True)
+    kernels = _device_kernels(prof)
     device_ms = sum(k[0] for k in kernels) / 1e3
     return dict(
         wall_ms_profiled=wall_ms,
@@ -1516,24 +1612,38 @@ def _tp_consistency_rank(comm, device, variants):
 
 
 def phase_tp_train():
+    import tempfile
+
     import torch
+    from repro_torch.core.planner import calibrate
     from repro_torch.launch.ranks import run_ranks
 
     torch.cuda.empty_cache()
     steps, batch, seq, micro = TP_STEPS, 8, 1024, 2
+    tel = tempfile.TemporaryDirectory()
+    with _cal_cache():
+        # the probe's hardware, calibrated here before the ranks share the
+        # card (rank 0 must not time the card under the other rank)
+        hw = calibrate.calibrated_hw(n_chips=2)
     t0 = time.perf_counter()
     per_rank = run_ranks(_tp_train_rank, 2, timeout=900,
-                         args=(TP_SCHEDULES, steps, batch, seq, micro))
+                         args=(TP_SCHEDULES, steps, batch, seq, micro, hw,
+                               tel.name))
     wall = time.perf_counter() - t0
     out = {"arch": TRAIN_ARCH, "tp": 2, "dtype": "bfloat16", "layers": 24,
            "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
-           "wall_s": wall, "schedules": {}}
+           "wall_s": wall, "probe_hw": {"peak_flops": hw.peak_flops,
+                                        "hbm_bw": hw.hbm_bw,
+                                        "link_bw": hw.link_bw},
+           "schedules": {}}
     firsts = {}
     for sched in TP_SCHEDULES:
         rs = [r[sched] for r in per_rank]
         r0 = rs[0]
         row = dict(r0, peak_mem_gb=[r["peak_mem_gb"] for r in rs],
-                   step_ms_median=[r["step_ms_median"] for r in rs])
+                   step_ms_median=[r["step_ms_median"] for r in rs],
+                   probe=_check_tp_telemetry(Path(tel.name) / sched, sched,
+                                             steps))
         out["schedules"][sched] = row
         brief = {k: v for k, v in row.items() if k != "profile"}
         print(f"[tp_train] {sched} {json.dumps(brief)}")
@@ -1553,6 +1663,7 @@ def phase_tp_train():
         require(rings == want, f"tp=2 {sched}: {rings} ring launches a "
                                f"step, expected {want}")
         firsts[sched] = r0["losses"][0]
+    tel.cleanup()
     spread = max(firsts.values()) - min(firsts.values())
     out["first_loss_spread"] = spread
     out["first_loss_atol"] = TP_LOSS_ATOL
@@ -1561,16 +1672,56 @@ def phase_tp_train():
     return out
 
 
-def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
+def _check_tp_telemetry(path, sched, steps) -> dict:
+    """Rank 0's JSONL of one schedule: every line validates, one
+    ``trainer.step_time_s`` a step (no other rank wrote), one
+    ``overlap.group`` event per plan group with the schedule's tag and a
+    measured exposed fraction in [0, 1], and both ``overlap.*`` gauges.
+    -> the probe's readings."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import plan_groups
+    from repro_torch.obs import schema
+    require(sorted(p.name for p in path.iterdir()) == ["telemetry.jsonl"],
+            f"{path}: {sorted(p.name for p in path.iterdir())}")
+    with open(path / "telemetry.jsonl") as f:
+        records = schema.validate_lines(f)
+    names = [r["name"] for r in records]
+    require(names.count("trainer.step_time_s") == steps,
+            f"tp=2 {sched}: {names.count('trainer.step_time_s')} step "
+            f"records for {steps} steps of rank 0")
+    n = get_config(TRAIN_ARCH).num_layers
+    want = len(plan_groups(get_config(TRAIN_ARCH), [2] * n, [sched] * n))
+    groups = [r["tags"] for r in records if r["name"] == "overlap.group"]
+    require(len(groups) == want and all(
+        g["schedule"] == sched and 0.0 <= g["measured_exposed_frac"] <= 1.0
+        for g in groups), f"tp=2 {sched}: overlap.group events {groups}")
+    gauges = {r["name"]: r["value"] for r in records
+              if r["name"].startswith("overlap.") and r["kind"] == "gauge"}
+    require(set(gauges) == {"overlap.measured_exposed_frac",
+                            "overlap.model_residual"},
+            f"tp=2 {sched}: overlap gauges {gauges}")
+    stale = [r for r in records if r["name"] == "calibration_stale"]
+    return dict(groups=groups, gauges=gauges,
+                calibration_stale=[r["tags"] for r in stale],
+                errors=[r.get("msg") for r in records
+                        if r["name"] == "overlap.error"])
+
+
+def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro, hw,
+                   tel_dir):
     """One rank of phase 10: the port's Trainer on this rank's shard, per
-    schedule; a one-step profile on rank 0 (rank 1 runs the same step)."""
+    schedule, rank 0 recording into ``tel_dir/<schedule>`` with the
+    overlap probe on ``hw``; a one-step profile on rank 0 (rank 1 runs the
+    same step)."""
     import gc
+    import os
 
     import torch
     from repro_torch.configs.base import TrainHParams
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import params as prm
+    from repro_torch.obs import Recorder
     from repro_torch.runtime import Trainer
 
     cfg = get_config(TRAIN_ARCH)
@@ -1582,8 +1733,10 @@ def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
         hp = TrainHParams(schedule=sched, learning_rate=3e-4,
                           total_steps=steps, warmup_steps=1,
                           microbatch=micro)
+        rec = (Recorder(os.path.join(tel_dir, sched)) if comm.rank == 0
+               else None)
         tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None,
-                     device=device, comm=comm)
+                     device=device, comm=comm, telemetry=rec, probe_hw=hw)
         _build.reset_launches()
         first = tr.train(1, seed=0)
         bad = [k for k, t in prm.flatten(tr.params).items()
@@ -1592,6 +1745,8 @@ def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro):
         torch.cuda.synchronize(device)
         launches = dict(_build.LAUNCHES)
         times = first["step_times"] + rest["step_times"]
+        if rec is not None:
+            rec.close()
         prof = _profile_tp_step(tr, comm)
         out[sched] = dict(
             losses=first["losses"] + rest["losses"], bad_grads=bad,
@@ -1608,13 +1763,15 @@ def _profile_tp_step(tr, comm):
     """One more step (not counted above): rank 0 under ``torch.profiler``
     (its own process's kernels), the other ranks plainly; they meet at a
     host barrier once rank 0 has read its trace.  Device busy time, idle
-    share against the step's wall, and the time in the collective kernels
+    share against the step's wall, the time in the collective kernels
     (the peer collectives and the ring matmul) and in the ring-attention
-    kernels."""
+    kernels, and the device ms inside each ``tmp.<schedule>.*`` range,
+    forward and backward, with the share outside every range
+    (:func:`_range_ms`)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import obs
     from repro_torch.data.pipeline import DataConfig
     dcfg = DataConfig(global_batch=tr.global_batch, seq_len=tr.seq_len,
                       vocab_size=tr.cfg.vocab_size,
@@ -1629,22 +1786,16 @@ def _profile_tp_step(tr, comm):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.step_fn(tr.params, tr.opt_state, batch)
+        with obs.trace_annotation("train_step"):
+            tr.step_fn(tr.params, tr.opt_state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        kernels.append((us, evt.count, evt.key))
-    kernels.sort(reverse=True)
+    kernels = _device_kernels(prof)
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    ranges = _range_ms(prof, device_ms) if kernels else "not measured"
     # reading the trace kept this rank off the card for long: the other
     # ranks waited at the barrier, not inside a peer kernel
     comm.barrier()
-    device_ms = sum(k[0] for k in kernels) / 1e3
     coll = [k for k in kernels
             if "collective_kernel" in k[2] or "ring_mm_rs" in k[2]]
     ring = [k for k in kernels if any(
@@ -1661,6 +1812,7 @@ def _profile_tp_step(tr, comm):
         else "not measured",
         ring_attention_calls=sum(k[1] for k in ring),
         kernel_launches=sum(k[1] for k in kernels),
+        ranges=ranges,
         by_kernel_ms=_named_ms(kernels),
         top=[dict(name=k[2][:90], ms=k[0] / 1e3, calls=k[1])
              for k in kernels[:16]])
@@ -2964,6 +3116,30 @@ PLAN_STEPS = 3
 CAL_GATE = (0.3, 1.05)
 
 
+@contextlib.contextmanager
+def _cal_cache():
+    """A fresh calibration cache for the block: ``REPRO_CAL_CACHE`` a new
+    temporary directory (yielded), ``REPRO_NO_CALIBRATE`` unset, the
+    in-process memo empty; the environment restored after."""
+    import os
+    import tempfile
+
+    from repro_torch.core.planner import calibrate
+    saved = {k: os.environ.pop(k, None)
+             for k in ("REPRO_CAL_CACHE", "REPRO_NO_CALIBRATE")}
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            os.environ["REPRO_CAL_CACHE"] = cache
+            calibrate._MEM_CACHE.clear()
+            yield cache
+    finally:
+        calibrate._MEM_CACHE.clear()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
 def _card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3000,7 +3176,6 @@ def _planned_run(argv, want) -> dict:
 
 def phase_planner():
     import os
-    import tempfile
 
     import torch
     from repro_torch.configs.registry import get_config
@@ -3017,53 +3192,45 @@ def phase_planner():
             "flash_attention": passes * n, "flash_attention_bwd": passes * n}
     base = ["--arch", TRAIN_ARCH, "--steps", str(PLAN_STEPS), "--batch",
             str(batch), "--seq", str(seq), "--seed", "0"]
-    saved = {k: os.environ.pop(k, None)
-             for k in ("REPRO_CAL_CACHE", "REPRO_NO_CALIBRATE")}
-    try:
-        with tempfile.TemporaryDirectory() as cache:
-            os.environ["REPRO_CAL_CACHE"] = cache
-            calibrate._MEM_CACHE.clear()
-            t0 = time.perf_counter()
-            hw = calibrate.calibrated_hw(n_chips=1)
-            cal_s = time.perf_counter() - t0
-            files = sorted(os.listdir(cache))
-            require(len(files) == 1 and files[0].startswith("torchcal-"),
-                    f"calibration cache holds {files}")
-            total = torch.cuda.get_device_properties(0).total_memory
-            cal = dict(card=card, peak_flops=hw.peak_flops,
-                       hbm_bw=hw.hbm_bw, hbm_cap=hw.hbm_cap,
-                       device_total_memory=total, s=cal_s,
-                       flops_share=hw.peak_flops
-                       / bounds.PEAK_FLOPS["bfloat16"],
-                       bw_share=hw.hbm_bw / bounds.PEAK_BYTES,
-                       link_bw=hw.link_bw, cache_file=files[0])
-            print(f"[planner_calibration] {json.dumps(cal)}")
-            for what in ("flops_share", "bw_share"):
-                require(CAL_GATE[0] <= cal[what] <= CAL_GATE[1],
-                        f"calibrated {what} {cal[what]:.3f} outside "
-                        f"{CAL_GATE}: {cal}")
-            require(hw.hbm_cap == total, f"hbm_cap {hw.hbm_cap} is not the "
-                    f"device's {total} bytes")
+    with _cal_cache() as cache:
+        t0 = time.perf_counter()
+        hw = calibrate.calibrated_hw(n_chips=1)
+        cal_s = time.perf_counter() - t0
+        files = sorted(os.listdir(cache))
+        require(len(files) == 1 and files[0].startswith("torchcal-"),
+                f"calibration cache holds {files}")
+        total = torch.cuda.get_device_properties(0).total_memory
+        cal = dict(card=card, peak_flops=hw.peak_flops,
+                   hbm_bw=hw.hbm_bw, hbm_cap=hw.hbm_cap,
+                   device_total_memory=total, s=cal_s,
+                   flops_share=hw.peak_flops
+                   / bounds.PEAK_FLOPS["bfloat16"],
+                   bw_share=hw.hbm_bw / bounds.PEAK_BYTES,
+                   link_bw=hw.link_bw, cache_file=files[0])
+        print(f"[planner_calibration] {json.dumps(cal)}")
+        for what in ("flops_share", "bw_share"):
+            require(CAL_GATE[0] <= cal[what] <= CAL_GATE[1],
+                    f"calibrated {what} {cal[what]:.3f} outside "
+                    f"{CAL_GATE}: {cal}")
+        require(hw.hbm_cap == total, f"hbm_cap {hw.hbm_cap} is not the "
+                f"device's {total} bytes")
 
-            path = os.path.join(cache, "plan.json")
-            planned = _planned_run(
-                base + ["--microbatch", str(micro), "--schedule",
-                        "megatron", "--no-remat", "--planner",
-                        "--save-plan", path], want)
-            plan = ParallelPlan.load(path)
-            with open(path) as f:
-                require(json.load(f) == plan.to_dict()
-                        and ParallelPlan.from_dict(plan.to_dict()) == plan,
-                        f"{path} does not read back equal")
-            require(plan.layers == (LayerStrategy(1, "megatron"),) * n,
-                    f"planned {plan.summary()}")
-            replay = _planned_run(base + ["--no-remat", "--plan", path],
-                                  want)
-    finally:
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
+        path = os.path.join(cache, "plan.json")
+        tel = os.path.join(cache, "telemetry")
+        planned = _planned_run(
+            base + ["--microbatch", str(micro), "--schedule",
+                    "megatron", "--no-remat", "--planner",
+                    "--save-plan", path, "--telemetry", tel], want)
+        telemetry = _check_plan_telemetry(tel, planned["predicted_ms"])
+        plan = ParallelPlan.load(path)
+        with open(path) as f:
+            require(json.load(f) == plan.to_dict()
+                    and ParallelPlan.from_dict(plan.to_dict()) == plan,
+                    f"{path} does not read back equal")
+        require(plan.layers == (LayerStrategy(1, "megatron"),) * n,
+                f"planned {plan.summary()}")
+        replay = _planned_run(base + ["--no-remat", "--plan", path],
+                              want)
     losses = [(r["first_loss"], r["last_loss"]) for r in (planned, replay)]
     require(losses[0] == losses[1], f"--plan replay losses {losses[1]} "
             f"differ from the planned run's {losses[0]}")
@@ -3074,13 +3241,44 @@ def phase_planner():
                ratio=measured / planned["predicted_ms"],
                replay_step_ms=statistics.median(
                    replay["device_step_ms"][1:]),
-               planned=planned, replay=replay,
+               telemetry=telemetry, planned=planned, replay=replay,
                launches={k: planned["launches"].get(k, 0)
                          + replay["launches"].get(k, 0) for k in want})
     brief = {k: v for k, v in out.items()
              if k not in ("planned", "replay", "plan")}
     print(f"[planner] {json.dumps(brief)}")
     return out
+
+
+def _check_plan_telemetry(path, predicted_ms) -> dict:
+    """The planned run's ``--telemetry`` directory: ``python -m
+    repro_torch.obs.report DIR --validate`` exits 0, the ``planner.plan``
+    event carries the launcher's ``predicted_ms`` (rounded as the event
+    rounds it), ``trainer.step_time_s`` one sample a step, and the probe
+    says ``overlap.skip`` (tp=1: no collective)."""
+    import os
+
+    from repro_torch.obs import report
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", path, "--validate"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    require(res.returncode == 0, f"report --validate {path}: rc "
+            f"{res.returncode} {res.stdout} {res.stderr}")
+    records = report.load(path)
+    names = [r["name"] for r in records]
+    plans = [r["tags"] for r in records if r["name"] == "planner.plan"]
+    require(len(plans) == 1
+            and plans[0]["predicted_ms"] == round(predicted_ms, 3),
+            f"planner.plan {plans} against predicted {predicted_ms} ms")
+    require(names.count("trainer.step_time_s") == PLAN_STEPS,
+            f"{names.count('trainer.step_time_s')} step records for "
+            f"{PLAN_STEPS} steps")
+    require("overlap.skip" in names, f"no overlap.skip at tp=1: {names}")
+    return dict(validate=res.stdout.strip(), records=len(records),
+                planner_plan=plans[0],
+                step_time_s=[r["value"] for r in records
+                             if r["name"] == "trainer.step_time_s"])
 
 
 def _path_launches(report) -> dict:

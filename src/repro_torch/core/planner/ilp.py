@@ -34,10 +34,18 @@ from repro_torch.core.planner import costmodel as cm
 
 
 def _telemetry_plan(entry: str, pr):
-    """Where JAX records a finished solve through its telemetry recorder
-    (``repro.obs``: the solve time and a planner.plan event).  The port
-    has no telemetry yet (ROADMAP.md A11, which fills this in): returns
-    ``pr`` unchanged."""
+    """Record a finished solve through the process-global telemetry
+    recorder (:mod:`repro_torch.obs`): the solve time histogram and a
+    planner.plan event carrying the chosen plan and its predicted
+    iteration time.  A no-op unless a recorder is configured (the
+    launchers' ``--telemetry``)."""
+    from repro_torch import obs
+    rec = obs.get_recorder()
+    rec.observe("planner.solve_ms", pr.solve_ms, entry=entry)
+    rec.event("planner.plan", entry=entry,
+              predicted_ms=round(pr.predicted_s * 1e3, 3),
+              solve_ms=round(pr.solve_ms, 1), status=str(pr.status),
+              msg=f"[planner] {entry}: {pr.summary()}")
     return pr
 
 

@@ -32,6 +32,14 @@ collective run beside the next compute (the communication stream of
 processes, the processes are time-sliced and nothing overlaps; the
 structure is there all the same.  Not taken yet: the 2-D layout and the
 Pallas switch (ROADMAP.md A2, A7).
+
+Phase ranges (:mod:`repro_torch.obs.tracing`, JAX's names):
+``tmp.<schedule>.row_matmul`` around each exit, ``gather_matmul`` around
+each column-parallel entry and ``sub<j>`` around sub-batch j's part in
+:func:`apply_layer`, each over its backward too, while a profiler
+records.  ``tmp.<schedule>.proj`` waits for ``TmpCtx.proj`` (the 2-D
+layout, A7).  Under ``oases`` an exit's collective is waited for at the
+residual add, outside its ``row_matmul`` range.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import torch
 from repro_torch.core import remat
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.comm import Comm, Pending, SoloComm
+from repro_torch.obs.tracing import phase_scope, scoped
 # one schedule set for the schedules, the plans and the planner
 from repro_torch.core.plan import SCHEDULES, validate_schedule  # noqa: F401
 
@@ -113,12 +122,15 @@ class TmpCtx:
         ``replay`` (fine recomputation replaying the part) it computes and
         communicates nothing, and the handle's tensor is left unset: the
         replay needs only what is saved."""
-        if self.sp:
+        phase = f"tmp.{self.schedule}.row_matmul"
+        with phase_scope(phase):
+            if self.sp:
+                return tmpc.row_exit(
+                    x, w, lambda x, w: self._sp_exit(x, w, seq_dim, replay),
+                    comm=self.comm, gather_dim=seq_dim, phase=phase)
             return tmpc.row_exit(
-                x, w, lambda x, w: self._sp_exit(x, w, seq_dim, replay),
-                comm=self.comm, gather_dim=seq_dim)
-        return tmpc.row_exit(x, w, lambda x, w: self._exit(x, w, seq_dim,
-                                                          replay))
+                x, w, lambda x, w: self._exit(x, w, seq_dim, replay),
+                phase=phase)
 
     def local_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
                      replay: bool = False) -> Pending:
@@ -174,6 +186,10 @@ class TmpCtx:
         """Column-parallel block entry: one product per weight.  ``x``
         passes through f; under SP its sequence is gathered first
         (``fused``: one all-gather feeds every product)."""
+        return scoped(f"tmp.{self.schedule}.gather_matmul",
+                      self._gather_matmul, x, tuple(ws), seq_dim)
+
+    def _gather_matmul(self, x, ws, seq_dim) -> tuple:
         if self.sp:
             if self.schedule == "fused":
                 from repro_torch.kernels import collective_matmul as cm
@@ -243,21 +259,30 @@ def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
         return exit_op(part.body(p, x, pos, keep), p[part.exit],
                        replay=keep is not None and keep.replay)
 
+    def body(part, x, pos):
+        if fine:
+            return remat.checkpoint_body(part.body, p, x, pos)
+        return part.body(p, x, pos, None)
+
+    def exit_part(part, x, pos):
+        run = functools.partial(part_exit, part)
+        if fine:
+            return remat.checkpoint_part(run, p, x, pos)
+        return run(None, p, x, pos)
+
     aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     for part in parts:
+        # sub-batch ranges: Alg. 1's (compute_j, collective_j) chunks are
+        # attributable per sub-batch in a profile
+        run = functools.partial(exit_part if part.exit else body, part)
+        outs = [scoped(f"tmp.{ctx.schedule}.sub{j}", run, x, pos)
+                for j, (x, pos) in enumerate(zip(xs, positions))]
         if part.exit is None:
-            outs = [remat.checkpoint_body(part.body, p, x, pos) if fine
-                    else part.body(p, x, pos, None)
-                    for x, pos in zip(xs, positions)]
             xs = [x + d for x, (d, _) in zip(xs, outs)]
             for _, a in outs:
                 aux = aux + a
             continue
-        run = functools.partial(part_exit, part)
-        pend = [remat.checkpoint_part(run, p, x, pos) if fine
-                else run(None, p, x, pos)
-                for x, pos in zip(xs, positions)]
-        xs = [x + d.wait() for x, d in zip(xs, pend)]
+        xs = [x + d.wait() for x, d in zip(xs, outs)]
     if ctx.schedule == "merak":
         xs = [tmpc.pass_barrier(x) for x in xs]
     return xs, aux

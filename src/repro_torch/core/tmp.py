@@ -38,6 +38,7 @@ is partial per rank: the training step all-reduces those
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
@@ -46,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.comm import Comm, Pending, SoloComm
 from repro_torch.kernels.ref import wide
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.obs.tracing import phase_scope
 
 
 def axes_index(comm: Comm) -> int:
@@ -93,12 +95,14 @@ class _RowExit(torch.autograd.Function):
     ``dw = x.T @ dy``) whatever ``run`` did.  The SP form (``gather_dim``
     set: ``run`` reduce-scatters along it) first all-gathers ``dy`` along
     that dim over ``comm`` (JAX's ``_rs_bwd``).  ``box`` receives the
-    handle, as for :class:`_ReduceFromTmp`."""
+    handle, as for :class:`_ReduceFromTmp`.  ``phase``: the profiler
+    range the backward runs under (the forward's, ``tmp.<schedule>.
+    row_matmul``), or None."""
 
     @staticmethod
-    def forward(ctx, x, w, run, box, comm, gather_dim):
+    def forward(ctx, x, w, run, box, comm, gather_dim, phase):
         ctx.save_for_backward(x, w)
-        ctx.comm, ctx.gather_dim = comm, gather_dim
+        ctx.comm, ctx.gather_dim, ctx.phase = comm, gather_dim, phase
         p = run(x, w)
         box.append(p)
         return p.result
@@ -106,26 +110,30 @@ class _RowExit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        if ctx.gather_dim is not None:
-            dy = ctx.comm.all_gather(dy.contiguous(), ctx.gather_dim)
-        dx = torch.matmul(dy, w.t())
-        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
-                          dy.reshape(-1, dy.shape[-1]))
-        return dx, dw, None, None, None, None
+        with (phase_scope(ctx.phase) if ctx.phase
+              else contextlib.nullcontext()):
+            if ctx.gather_dim is not None:
+                dy = ctx.comm.all_gather(dy.contiguous(), ctx.gather_dim)
+            dx = torch.matmul(dy, w.t())
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                              dy.reshape(-1, dy.shape[-1]))
+        return dx, dw, None, None, None, None, None
 
 
 def row_exit(x: torch.Tensor, w: torch.Tensor, run, *,
              comm: Optional[Comm] = None,
-             gather_dim: Optional[int] = None) -> Pending:
+             gather_dim: Optional[int] = None,
+             phase: Optional[str] = None) -> Pending:
     """The exit product ``x @ w`` and its collective as one differentiable
     op: ``run(x, w)`` computes them (a schedule's way) and returns a
     :class:`Pending`; the gradient is that of g after ``x @ w``, or under
     SP (``gather_dim``: ``run`` reduce-scatters along it over ``comm``)
     that of the reduce-scatter.  Only x and w are saved, so fine
     recomputation can replay an exit without its product or collective
-    (``repro_torch.core.remat``)."""
+    (``repro_torch.core.remat``).  The backward runs under the profiler
+    range ``phase`` (None: none)."""
     box: List[Pending] = []
-    y = _RowExit.apply(x, w, run, box, comm, gather_dim)
+    y = _RowExit.apply(x, w, run, box, comm, gather_dim, phase)
     return Pending(y, box[0].wait)
 
 

@@ -9,8 +9,14 @@ continuous-batching engine, on the card (default) or the CPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --page-size 8 --prefix-cache
 
-Prints the engine's stats as JSON.  Mesh, pipeline, plan, draft and
-telemetry flags of ``repro.launch.serve`` are not offered yet.
+    # structured telemetry (JSONL: TTFT, decode step, queue depth, slot
+    # occupancy, free pages, prefix hit rate) and its report
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --telemetry tel
+    PYTHONPATH=src python -m repro_torch.obs.report tel
+
+Prints the engine's stats as JSON.  Mesh, pipeline, plan and draft flags
+of ``repro.launch.serve`` are not offered yet.
 """
 from __future__ import annotations
 
@@ -23,8 +29,7 @@ import torch
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    from repro_torch.configs.registry import get_config
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch import obs
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -46,7 +51,44 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--telemetry", default="", metavar="DIR",
+                    help="write structured telemetry (JSONL) under DIR: "
+                         "TTFT, per-token decode latency, queue depth, "
+                         "slot occupancy; render with `python -m "
+                         "repro_torch.obs.report DIR`")
+    ap.add_argument("--telemetry-flush", type=int, default=64,
+                    metavar="N",
+                    help="JSONL records buffered between file flushes "
+                         "(must be positive; 1 = write-through)")
     args = ap.parse_args(argv)
+
+    telemetry = prev = None
+    if args.telemetry:
+        if args.telemetry_flush <= 0:
+            raise SystemExit(
+                f"--telemetry-flush must be a positive number of records, "
+                f"got {args.telemetry_flush} (use 1 for write-through)")
+        # global install: the engine resolves it on each tick
+        telemetry = obs.Recorder(args.telemetry,
+                                 flush_every=args.telemetry_flush,
+                                 console=print)
+        prev = obs.set_recorder(telemetry)
+    try:
+        stats, eng, reqs = _serve(args)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+            obs.set_recorder(prev)
+    print(json.dumps({**stats,
+                      "device": str(eng.device),
+                      "prefill_len": eng.prefill_len,
+                      "sample_output": reqs[0].out_tokens[:8]}, indent=1))
+
+
+def _serve(args):
+    """-> (stats, engine, requests): random requests through the engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import Request, ServingEngine
 
     # f32 products stay full f32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -72,11 +114,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     max_new_tokens=args.max_new_tokens)
         reqs.append(r)
         eng.submit(r)
-    stats = eng.run_until_drained()
-    print(json.dumps({**stats,
-                      "device": str(eng.device),
-                      "prefill_len": eng.prefill_len,
-                      "sample_output": reqs[0].out_tokens[:8]}, indent=1))
+    return eng.run_until_drained(), eng, reqs
 
 
 if __name__ == "__main__":

@@ -26,6 +26,11 @@ CPU.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
         --steps 3 --batch 8 --seq 1024 --no-remat --plan plan.json
 
+    # structured telemetry (JSONL) and its report
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 3 --tp 2 --telemetry tel
+    PYTHONPATH=src python -m repro_torch.obs.report tel [--validate]
+
 With ``--tp`` N > 1 the launcher spawns N rank processes
 (:mod:`repro_torch.launch.ranks`): gloo on the CPU, the port's peer
 collectives on the card.  Prints the JSON of ``repro.launch.train``
@@ -45,8 +50,17 @@ uniform 1-D plans: a plan that mixes strategies, or whose degree is not
 ``--tp``, raises naming ROADMAP.md A7, as does ``--tmp-layout 2d``.
 Sequence parallelism without ring attention is reachable through
 ``TrainHParams(seq_parallel=True)`` (JAX's CLI has no flag for it
-either).  Data parallelism, pipelines, checkpoints, telemetry and fault
-injection are not offered yet.
+either).
+
+``--telemetry DIR`` appends the run's records to ``DIR/telemetry.jsonl``
+(:mod:`repro_torch.obs`): the planner's, written by the launcher's
+process and flushed before any rank starts, then rank 0's (the trainer's
+per-step records and the end-of-run overlap probe); ranks above 0 record
+in memory only, and no two processes hold the file open at once.  The
+probe's hardware is resolved once here, as ``--planner``'s: calibrated
+on the card (cached per host) or, under ``--no-calibrate``, the fixture.
+Data parallelism, pipelines, checkpoints and fault injection are not
+offered yet.
 """
 from __future__ import annotations
 
@@ -57,16 +71,32 @@ from typing import Optional, Sequence
 import torch
 
 
-def _train(comm, device, args, cfg, hp, plan) -> dict:
-    """One rank's run (the whole run at tp=1) under the resolved plan."""
+def _train(comm, device, args, cfg, hp, plan, probe_hw=None) -> dict:
+    """One rank's run (the whole run at tp=1) under the resolved plan.
+    With ``--telemetry`` the run records into the launcher's recorder at
+    tp=1 and into rank 0's own, appending to the same file, at tp > 1
+    (the launcher closed its file before the ranks started)."""
+    from repro_torch import obs
     from repro_torch.runtime import Trainer
 
     # f32 products stay full f32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    telemetry = None
+    if args.telemetry and comm is None:
+        telemetry = obs.get_recorder()
+    elif args.telemetry and comm.rank == 0:
+        telemetry = obs.configure(args.telemetry,
+                                  flush_every=args.telemetry_flush,
+                                  console=print)
     trainer = Trainer(cfg, hp, global_batch=args.batch, seq_len=args.seq,
-                      device=device, comm=comm, plan=plan)
-    res = trainer.train(args.steps, seed=args.seed)
+                      device=device, comm=comm, plan=plan,
+                      telemetry=telemetry, probe_hw=probe_hw)
+    try:
+        res = trainer.train(args.steps, seed=args.seed)
+    finally:
+        if telemetry is not None and comm is not None:
+            telemetry.close()
     out = {"final_step": res["final_step"],
            "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
            "slow_steps": len(res["slow_steps"])}
@@ -90,6 +120,22 @@ def _planner_hw(args):
         print(f"planner: H100_80GB_HBM3 fixture {describe(hw)} "
               f"(--no-calibrate)")
     return hw
+
+
+def _probe_hw(args):
+    """The overlap probe's HWConfig, resolved in this process before any
+    rank shares the card, as :func:`_planner_hw` resolves the planner's
+    (``calibrated_hw`` memoizes: after ``--planner`` it is the same
+    config).  On the CPU without ``--no-calibrate`` there is no card to
+    calibrate: None, and the trainer calls ``calibrated_hw`` itself (which
+    honours ``REPRO_NO_CALIBRATE``; without it the probe records its
+    failure as ``overlap.error``)."""
+    if args.calibrate and args.device == "cpu":
+        return None
+    from repro_torch.core.planner.calibrate import calibrated_hw, fixture_hw
+    if args.calibrate:
+        return calibrated_hw(n_chips=args.tp)
+    return fixture_hw(n_chips=args.tp)
 
 
 def _resolve(args):
@@ -203,21 +249,53 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="--planner seq axis: 'auto' lets the ILP shard "
                          "long sequences over KV rings per attention "
                          "layer instead of (only) sharding heads")
-    return ap.parse_args(argv)
+    ap.add_argument("--telemetry", default="", metavar="DIR",
+                    help="write structured telemetry (JSONL) under DIR; "
+                         "render with `python -m repro_torch.obs.report "
+                         "DIR`. Also enables the end-of-run "
+                         "overlap-efficiency probe (measured vs modeled "
+                         "exposed comm)")
+    ap.add_argument("--telemetry-flush", type=int, default=64,
+                    metavar="N",
+                    help="JSONL records buffered between file flushes "
+                         "(must be positive; 1 = write-through)")
+    args = ap.parse_args(argv)
+    if args.telemetry and args.telemetry_flush <= 0:
+        raise SystemExit(
+            f"--telemetry-flush must be a positive number of records, "
+            f"got {args.telemetry_flush} (use 1 for write-through)")
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    from repro_torch import obs
+
     args = parse_args(argv)
-    cfg, hp, plan, predicted_ms = _resolve(args)
-    run = (args, cfg, hp, plan)
-    if args.tp > 1:
-        from repro_torch.launch import train as this  # picklable by name
-        from repro_torch.launch.ranks import run_ranks
-        out = run_ranks(this._train, args.tp, device=args.device,
-                        args=run, timeout=3600)[0]
-    else:
-        from repro_torch.core.device import resolve_device
-        out = _train(None, resolve_device(args.device), *run)
+    rec = prev = None
+    if args.telemetry:
+        # global install: the planner's records reach it through
+        # obs.get_recorder(); console=print keeps the familiar log lines
+        rec = obs.Recorder(args.telemetry, flush_every=args.telemetry_flush,
+                           console=print)
+        prev = obs.set_recorder(rec)
+    try:
+        cfg, hp, plan, predicted_ms = _resolve(args)
+        run = (args, cfg, hp, plan,
+               _probe_hw(args) if args.telemetry else None)
+        if args.tp > 1:
+            from repro_torch.launch import train as this  # picklable by name
+            from repro_torch.launch.ranks import run_ranks
+            if rec is not None:
+                rec.close()     # rank 0 appends to the file next
+            out = run_ranks(this._train, args.tp, device=args.device,
+                            args=run, timeout=3600)[0]
+        else:
+            from repro_torch.core.device import resolve_device
+            out = _train(None, resolve_device(args.device), *run)
+    finally:
+        if rec is not None:
+            rec.close()
+            obs.set_recorder(prev)
     out["plan"] = plan.summary()
     if predicted_ms is not None:
         out["predicted_ms"] = predicted_ms

@@ -426,6 +426,44 @@ def layer_units(cfg: ArchConfig, params: Dict[str, Any]
     return units + [[(kind, p)] for kind, p in zip(tail, params["tail"])]
 
 
+@dataclass(frozen=True)
+class PlanGroup:
+    """One scan group of the grouped (planner-mode) layout: ``count``
+    consecutive layers sharing (kind, degree, schedule, seq)."""
+    kind: str
+    degree: Any              # None | int | (dx, dy)
+    schedule: str
+    count: int
+    seq: int = 1             # ring-attention seq shards
+
+
+def plan_groups(cfg: ArchConfig, degrees: Sequence,
+                schedules: Optional[Sequence[str]] = None,
+                seqs: Optional[Sequence[int]] = None) -> List[PlanGroup]:
+    """Group consecutive layers sharing (kind, degree, schedule, seq) into
+    scan groups: the executable unit of a per-layer plan
+    (``repro.models.params.plan_groups``).  A schedule or seq-shard change
+    breaks the group even at equal degree (each group runs under its own
+    ``TmpCtx``/sub-batch split).  The overlap probe groups by it; the
+    port's trainer runs one group until ROADMAP.md A7."""
+    pat = cfg.layer_pattern
+    scheds = list(schedules) if schedules is not None \
+        else [None] * cfg.num_layers
+    sq = list(seqs) if seqs is not None else [1] * cfg.num_layers
+    groups = []
+    i = 0
+    while i < cfg.num_layers:
+        j = i
+        while (j < cfg.num_layers and degrees[j] == degrees[i]
+               and scheds[j] == scheds[i] and sq[j] == sq[i]
+               and pat[j % len(pat)] == pat[i % len(pat)]):
+            j += 1
+        groups.append(PlanGroup(pat[i % len(pat)], degrees[i],
+                                scheds[i] or "oases", j - i, sq[i]))
+        i = j
+    return groups
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
     """Random weights from ``seed``, drawn in place on ``device`` in the

@@ -1,8 +1,10 @@
 """Training loop on one rank of a 1-D model group (the core of
 ``repro.runtime.trainer``): weights, optimizer state, the step loop over
-``make_batch`` and straggler detection.  Checkpointing, heartbeats,
-failure injection and elastic re-meshing are not ported yet (ROADMAP.md
-A4, A11)."""
+``make_batch``, straggler detection and structured telemetry
+(:mod:`repro_torch.obs`: per-step records and, with a sink, the
+end-of-run overlap probe).  Checkpointing, heartbeats, failure injection
+and elastic re-meshing are not ported yet (ROADMAP.md A4; the elastic
+runtime, A11)."""
 from __future__ import annotations
 
 import math
@@ -12,7 +14,8 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch import obs
+from repro_torch.configs.base import ArchConfig, ShapeConfig, TrainHParams
 from repro_torch.core.comm import Comm, SoloComm
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.core.device import resolve_device
@@ -60,7 +63,16 @@ class Trainer:
     :class:`~repro_torch.core.plan.ParallelPlan` to train under (JAX's
     ``Trainer(plan=...)``): projected onto ``hp`` through
     :func:`~repro_torch.launch.steps.unpack_plan`, which refuses what the
-    port cannot run."""
+    port cannot run.
+
+    ``telemetry``: the :mod:`repro_torch.obs` recorder (JAX's default: an
+    in-memory ``Recorder`` whose console is ``log_fn``, so the familiar
+    ``[trainer]`` lines keep printing; ``obs.NULL`` disables it, a
+    JSONL-sinking ``Recorder`` persists the run and turns on the
+    end-of-run overlap probe).  ``probe_hw``: the probe's
+    :class:`~repro_torch.core.planner.costmodel.HWConfig` (None:
+    ``calibrated_hw`` for the group, as JAX's trainer; a launcher whose
+    ranks share a card resolves it before they start)."""
 
     def __init__(self, cfg: ArchConfig, hp: TrainHParams, *,
                  global_batch: int, seq_len: int,
@@ -68,7 +80,8 @@ class Trainer:
                  params: Optional[Dict[str, Any]] = None,
                  log_fn: Optional[Callable[[str], None]] = print,
                  comm: Optional[Comm] = None,
-                 plan: Optional[ParallelPlan] = None):
+                 plan: Optional[ParallelPlan] = None,
+                 telemetry=None, probe_hw=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.comm = comm or SoloComm()
@@ -78,6 +91,9 @@ class Trainer:
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.log = log_fn if self.comm.rank == 0 else None
+        self.rec = (telemetry if telemetry is not None
+                    else obs.Recorder(console=self.log))
+        self.probe_hw = probe_hw
         self.straggler = StragglerDetector()
         self.step_fn = steps_mod.build_train_step(
             cfg, hp, global_batch=global_batch, seq_len=seq_len,
@@ -100,6 +116,40 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in make_batch(dcfg, step).items()}
 
+    def _overlap_report(self, step: int):
+        """End-of-run overlap-efficiency probe (:mod:`repro_torch.obs.
+        probe`): decompose the median measured step time against the
+        calibrated cost model's per-layer-group prediction and emit
+        overlap.group / residual / calibration_stale telemetry.  Only runs
+        when the recorder has a JSONL sink (``--telemetry``): on a cache
+        miss ``calibrated_hw`` times the card, a cost the default
+        in-memory recorder must never pay."""
+        if getattr(self.rec, "out_dir", None) is None:
+            return
+        h = getattr(self.rec, "hists", {}).get("trainer.step_time_s")
+        if not h or len(h) < 2:
+            return
+        xs = sorted(list(h)[1:])        # drop the first (build) step
+        med = xs[len(xs) // 2]
+        try:
+            from repro_torch.core.planner.calibrate import (calibrated_hw,
+                                                            describe)
+            hw = (self.probe_hw if self.probe_hw is not None
+                  else calibrated_hw(n_chips=max(self.comm.size, 1)))
+            plan = self.plan or ParallelPlan.from_hparams(
+                self.hp, self.cfg.num_layers)
+            degrees = [self.comm.size if d is None else d
+                       for d in plan.degrees]
+            probe = obs.OverlapProbe.for_run(
+                self.cfg, ShapeConfig("probe", self.seq_len,
+                                      self.global_batch, "train"),
+                self.hp, hw, degrees, list(plan.schedules),
+                hw_note=describe(hw))
+            probe.report(med, self.rec, step=step)
+        except Exception as e:   # the probe must never kill a finished run
+            self.rec.event("overlap.error",
+                           msg=f"[overlap] probe failed: {e!r}")
+
     def train(self, total_steps: int, *, seed: int = 0) -> Dict:
         """Run steps ``[done, total_steps)``; returns ``final_step``, the
         per-step ``losses`` and ``step_times`` (s, host clock around a step
@@ -117,29 +167,46 @@ class Trainer:
         losses, step_times, device_ms = [], [], []
         cuda = self.device.type == "cuda"
         step = start = self.opt_state["step"]
-        for step in range(start, total_steps):
-            batch = self.batch(dcfg, step)
-            if cuda:
-                events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                events[0].record()
-            t0 = time.perf_counter()
-            metrics = self.step_fn(self.params, self.opt_state, batch)
-            if cuda:
-                events[1].record()
-            loss = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            if cuda:
-                device_ms.append(events[0].elapsed_time(events[1]))
-            self.comm.check()
-            if self.straggler.observe(step, dt) and self.log:
-                self.log(f"[straggler] step {step} took {dt:.2f}s "
-                         f"(ewma {self.straggler.mean:.2f}s)")
-            losses.append(loss)
-            step_times.append(dt)
-            if step % 10 == 0 and self.log:
-                self.log(f"[trainer] step {step} loss {loss:.4f} "
-                         f"{dt * 1e3:.0f} ms")
+        try:
+            for step in range(start, total_steps):
+                batch = self.batch(dcfg, step)
+                if cuda:
+                    events = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                    events[0].record()
+                t0 = time.perf_counter()
+                with obs.trace_annotation("train_step"):
+                    metrics = self.step_fn(self.params, self.opt_state,
+                                           batch)
+                    if cuda:
+                        events[1].record()
+                    loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                if cuda:
+                    device_ms.append(events[0].elapsed_time(events[1]))
+                self.comm.check()
+                self.rec.observe("trainer.step_time_s", dt, step=step)
+                self.rec.gauge("trainer.tokens_per_s",
+                               self.global_batch * self.seq_len / dt,
+                               step=step)
+                self.rec.gauge("trainer.loss", loss, step=step)
+                if self.straggler.observe(step, dt):
+                    self.rec.event(
+                        "trainer.straggler", step=step,
+                        dt_s=round(dt, 4),
+                        ewma_s=round(self.straggler.mean, 4),
+                        msg=f"[straggler] step {step} took {dt:.2f}s "
+                            f"(ewma {self.straggler.mean:.2f}s)")
+                losses.append(loss)
+                step_times.append(dt)
+                if step % 10 == 0:
+                    self.rec.event(
+                        "trainer.step", step=step,
+                        msg=f"[trainer] step {step} loss {loss:.4f} "
+                            f"{dt * 1e3:.0f} ms")
+            self._overlap_report(step)
+        finally:
+            self.rec.flush()
         out = {"final_step": self.opt_state["step"], "losses": losses,
                "slow_steps": self.straggler.slow_steps,
                "step_times": step_times}

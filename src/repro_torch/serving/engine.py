@@ -7,8 +7,11 @@ teacher-forced through decode steps, as in the JAX engine), and finished
 sequences free their slots.  The host logic (admission, reservations,
 prefix reuse, copy-on-write, release audits, ``stats``) is the JAX
 engine's, line for line, so both engines emit the same tokens in the same
-number of steps.  Speculative decoding, the dense cache and telemetry are
-not ported yet (ROADMAP.md queue A).
+number of steps.  Telemetry (:mod:`repro_torch.obs`) records JAX's
+``serving.*`` metrics: queue depth, slot occupancy, free pages and the
+prefix hit rate each tick, the decode step time, TTFT and decoded tokens,
+and the drain's wall time and throughput.  Speculative decoding (and its
+metrics) and the dense cache are not ported yet (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import GLOBAL_ATTN, ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import lm
@@ -45,12 +49,16 @@ class ServingEngine:
     reuses cached prompt blocks across requests.
 
     ``device``: ``None`` means the card and raises when there is none;
-    pass ``"cpu"`` to run the plain PyTorch versions of the kernels."""
+    pass ``"cpu"`` to run the plain PyTorch versions of the kernels.
+
+    ``telemetry``: a :mod:`repro_torch.obs` recorder; None resolves the
+    process-global one on each tick, so a launcher's ``--telemetry``
+    reaches an engine built before it."""
 
     def __init__(self, cfg: ArchConfig, *, slots: int, max_seq: int,
                  eos_id: int = 2, prefill_len: Optional[int] = None,
                  paged: bool = True, pages: int = 0, page_size: int = 16,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, device=None, telemetry=None):
         if not paged:
             raise NotImplementedError(
                 "the PyTorch port serves the paged KV cache only; the dense "
@@ -93,6 +101,12 @@ class ServingEngine:
         # host wall time of each decode step (ends in the device->host copy
         # of the next tokens, so it includes the device work)
         self.step_s: List[float] = []
+        self._telemetry = telemetry
+
+    @property
+    def rec(self):
+        return (self._telemetry if self._telemetry is not None
+                else obs.get_recorder())
 
     def load(self, seed: int = 0, params: Optional[Dict[str, Any]] = None):
         """Random weights from ``seed`` (or the given weights, e.g. from
@@ -118,6 +132,7 @@ class ServingEngine:
                 f"exceeds prefill_len={self.prefill_len} (engine admission "
                 f"contract; raise --prefill-len / max_seq or chunk the "
                 f"prompt)")
+        req._submit_t = time.perf_counter()   # TTFT clock starts here
         self.queue.append(req)
 
     def _next_request(self) -> Optional[Request]:
@@ -142,6 +157,7 @@ class ServingEngine:
                 # cache-full backpressure: park the request at the head of
                 # the line until a release frees enough blocks
                 self._pending = req
+                self.rec.counter("serving.admission_deferred", 1)
                 return
             self.paged.admit(s, len(req.prompt), req.max_new_tokens,
                              shared=shared)
@@ -211,10 +227,19 @@ class ServingEngine:
     def step(self):
         """One engine iteration: admit, then decode one token for all
         slots."""
+        rec = self.rec
         self._admit()
-        self._plain_step()
+        rec.gauge("serving.queue_depth", self.queued)
+        rec.gauge("serving.slot_occupancy",
+                  sum(a is not None for a in self.active) / self.slots)
+        rec.gauge("serving.free_pages", self.paged.free_pages)
+        if self.paged.prefix_enabled and self.stats["prompt_tokens"]:
+            rec.gauge("serving.prefix_hit_rate",
+                      self.stats["prefix_hit_tokens"]
+                      / self.stats["prompt_tokens"])
+        self._plain_step(rec)
 
-    def _plain_step(self):
+    def _plain_step(self, rec):
         t0 = time.perf_counter()
         cow: List[Tuple[int, int]] = []
         for s in range(self.slots):
@@ -224,11 +249,15 @@ class ServingEngine:
         tables, cow_src, cow_dst = self._paged_args(cow)
         tokens = torch.from_numpy(self.cur_tok.copy()).to(self.device)
         pos = torch.from_numpy(self.pos.copy()).to(self.device)
-        next_tok = lm.decode_step(self.cfg, self.params, self.state, tokens,
-                                  pos, tables, cow_src, cow_dst)
-        next_tok = next_tok.cpu().numpy()
-        self.step_s.append(time.perf_counter() - t0)
+        with obs.trace_annotation("engine_tick"):
+            next_tok = lm.decode_step(self.cfg, self.params, self.state,
+                                      tokens, pos, tables, cow_src, cow_dst)
+            next_tok = next_tok.cpu().numpy()
+        now = time.perf_counter()
+        self.step_s.append(now - t0)
+        rec.observe("serving.decode_step_s", now - t0)
         self.stats["steps"] += 1
+        decoded = 0
         for s in range(self.slots):
             req = self.active[s]
             if req is None:
@@ -241,14 +270,20 @@ class ServingEngine:
                 req._prompt_cursor = cur + 1
                 continue
             tok = int(next_tok[s])
+            if not req.out_tokens and hasattr(req, "_submit_t"):
+                rec.observe("serving.ttft_s", now - req._submit_t,
+                            rid=req.rid)
             req.out_tokens.append(tok)
             self.stats["decoded_tokens"] += 1
+            decoded += 1
             self.cur_tok[s] = tok
             if (tok == self.eos_id
                     or len(req.out_tokens) >= req.max_new_tokens
                     or self.pos[s] >= self.max_seq - 1):
                 req.done = True
                 self._release_slot(s)
+        if decoded:
+            rec.counter("serving.decoded_tokens", decoded)
 
     def run_until_drained(self, max_steps: int = 10_000) -> Dict:
         t0 = time.perf_counter()
@@ -258,6 +293,10 @@ class ServingEngine:
                 break
             self.step()
         dt = time.perf_counter() - t0
+        rec = self.rec
+        rec.gauge("serving.drain_s", dt)
+        rec.gauge("serving.tok_per_s",
+                  self.stats["decoded_tokens"] / max(dt, 1e-9))
         out = {**self.stats, "wall_s": dt,
                "tok_per_s": self.stats["decoded_tokens"] / max(dt, 1e-9)}
         self.paged.check()
@@ -266,6 +305,8 @@ class ServingEngine:
                             free_pages=self.paged.free_pages,
                             index_size=self.paged.index_size)
         if self.paged.prefix_enabled:
-            out["prefix_hit_rate"] = (self.stats["prefix_hit_tokens"]
-                                      / max(self.stats["prompt_tokens"], 1))
+            hit = (self.stats["prefix_hit_tokens"]
+                   / max(self.stats["prompt_tokens"], 1))
+            rec.gauge("serving.prefix_hit_rate", hit)
+            out["prefix_hit_rate"] = hit
         return out

@@ -39,7 +39,9 @@ def test_port_has_the_slice_modules():
                  "kernels.moe_gmm", "kernels.rglru",
                  "configs.recurrentgemma_9b", "core.plan", "core.planner",
                  "core.planner.costmodel", "core.planner.ilp",
-                 "core.planner.calibrate", "core.pipeline", "launch.mesh"):
+                 "core.planner.calibrate", "core.pipeline", "launch.mesh",
+                 "obs", "obs.recorder", "obs.schema", "obs.tracing",
+                 "obs.report", "obs.probe"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -224,3 +224,62 @@ def test_cache_file_never_the_jax_packages():
 def test_measuring_needs_a_card():
     with pytest.raises(RuntimeError, match="--no-calibrate"):
         HWConfig.measure_fields(device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# telemetry (--telemetry DIR)
+# ---------------------------------------------------------------------------
+def _records(d):
+    from repro_torch.obs import report
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        assert report.main([d, "--validate"]) == 0
+    assert "telemetry records OK" in buf.getvalue()
+    return report.load(d)
+
+
+def test_train_telemetry_tp1_skips_the_probe(tmp_path):
+    """tp=1 has no collective: the probe says so (``overlap.skip``); the
+    step records, the planner's event and the console lines are there."""
+    from repro_torch.obs import get_recorder
+    from repro_torch.obs.recorder import NULL
+    d = str(tmp_path / "tel")
+    out, text = _main(BASE + ["--steps", "3", "--planner", "--no-calibrate",
+                              "--telemetry", d])
+    assert get_recorder() is NULL          # the launcher restores it
+    recs = _records(d)
+    names = [r["name"] for r in recs]
+    assert names.count("trainer.step_time_s") == 3
+    assert names.count("trainer.loss") == 3 and "overlap.skip" in names
+    plan_ev = [r for r in recs if r["name"] == "planner.plan"]
+    assert len(plan_ev) == 1
+    assert plan_ev[0]["tags"]["predicted_ms"] == round(out["predicted_ms"], 3)
+    assert names.index("planner.plan") < names.index("trainer.step_time_s")
+    assert "[trainer] step 0 loss" in text and "[planner] plan:" in text
+
+
+def test_train_telemetry_tp2_only_rank0_writes(tmp_path, monkeypatch):
+    """At tp=2 on gloo ranks the launcher's planner records come first,
+    then rank 0's, once each: the ranks above 0 wrote nothing, and the
+    probe's overlap records are there."""
+    monkeypatch.setenv("REPRO_NO_CALIBRATE", "1")
+    d = str(tmp_path / "tel")
+    out, _ = _main(BASE + ["--tp", "2", "--schedule", "megatron",
+                           "--planner", "--telemetry", d])
+    recs = _records(d)
+    names = [r["name"] for r in recs]
+    assert names[:2] == ["planner.solve_ms", "planner.plan"]
+    assert names.count("trainer.step_time_s") == 2
+    assert names.count("trainer.loss") == 2
+    losses = [r["value"] for r in recs if r["name"] == "trainer.loss"]
+    assert (losses[0], losses[-1]) == (out["first_loss"], out["last_loss"])
+    groups = [r for r in recs if r["name"] == "overlap.group"]
+    assert len(groups) == 1 and groups[0]["tags"]["schedule"] == "megatron"
+    assert 0.0 <= groups[0]["tags"]["measured_exposed_frac"] <= 1.0
+    for g in ("overlap.measured_exposed_frac", "overlap.model_residual"):
+        assert names.count(g) == 1
+
+
+def test_train_telemetry_flush_must_be_positive(tmp_path):
+    with pytest.raises(SystemExit, match="telemetry-flush"):
+        _main(BASE + ["--telemetry", str(tmp_path), "--telemetry-flush",
+                      "0"])

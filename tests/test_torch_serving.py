@@ -247,3 +247,80 @@ def test_serve_launcher_cpu(capsys):
     assert 3 <= out["decoded_tokens"] <= 12
     assert out["paged"]["free_pages"] + out["paged"]["index_size"] >= 1
     assert all(0 <= t < 512 for t in out["sample_output"])
+
+
+def _gauges(recorder, names):
+    """Each gauge's values in record order."""
+    return {n: [r["value"] for r in recorder.ring if r["name"] == n]
+            for n in names}
+
+
+def test_engine_telemetry_matches_jax():
+    """JAX's and the port's paged engines, fed the same requests with
+    explicit recorders and a page pool small enough to defer admissions:
+    equal tick-by-tick gauges, decoded tokens, TTFT and decode-step counts
+    and deferrals."""
+    from repro.obs import Recorder as JRecorder
+    from repro_torch.obs import Recorder
+
+    jcfg, tcfg = _cfgs()
+    kw = dict(slots=3, max_seq=64, paged=True, page_size=8, pages=9,
+              prefix_cache=True)
+    jrec, trec = JRecorder(ring_size=8192), Recorder(ring_size=8192)
+    jeng = JServingEngine(jcfg, _mesh(), telemetry=jrec, **kw)
+    jeng.load(seed=0)
+    teng = ServingEngine(tcfg, device="cpu", telemetry=trec, **kw)
+    teng.load(params=tprm.from_flat(tcfg, jprm.tree_to_flat(jeng.params)))
+    reqs = _requests(np.random.default_rng(11), jcfg.vocab_size)
+    for i, p, m in reqs:
+        jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=m))
+        teng.submit(Request(rid=i, prompt=p, max_new_tokens=m))
+    jeng.run_until_drained()
+    tstats = teng.run_until_drained()
+
+    ticks = ("serving.queue_depth", "serving.slot_occupancy",
+             "serving.free_pages", "serving.prefix_hit_rate")
+    mine, theirs = _gauges(trec, ticks), _gauges(jrec, ticks)
+    assert mine == theirs
+    assert len(mine["serving.queue_depth"]) == tstats["steps"]
+    assert trec.counters["serving.admission_deferred"] == \
+        jrec.counters["serving.admission_deferred"] >= 1
+    assert trec.counters["serving.decoded_tokens"] == \
+        jrec.counters["serving.decoded_tokens"] == tstats["decoded_tokens"]
+    for name, n in (("serving.ttft_s", len(reqs)),
+                    ("serving.decode_step_s", tstats["steps"])):
+        assert len(trec.hists[name]) == len(jrec.hists[name]) == n, name
+    assert list(trec.hists["serving.decode_step_s"]) == teng.step_s
+    ttft_rids = [r["tags"]["rid"] for r in trec.ring
+                 if r["name"] == "serving.ttft_s"]
+    assert ttft_rids == [r["tags"]["rid"] for r in jrec.ring
+                         if r["name"] == "serving.ttft_s"]
+    for name in ("serving.tok_per_s", "serving.drain_s",
+                 "serving.prefix_hit_rate"):
+        assert name in trec.gauges and name in jrec.gauges
+    assert trec.gauges["serving.prefix_hit_rate"] == \
+        jrec.gauges["serving.prefix_hit_rate"] == tstats["prefix_hit_rate"]
+
+
+def test_serve_launcher_telemetry(tmp_path, capsys):
+    from repro_torch.obs import get_recorder, report
+    from repro_torch.obs.recorder import NULL
+    d = str(tmp_path / "tel")
+    tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                 "--requests", "3", "--slots", "2", "--max-seq", "32",
+                 "--page-size", "8", "--max-new-tokens", "4",
+                 "--telemetry", d, "--telemetry-flush", "1"])
+    out = json.loads(capsys.readouterr().out)
+    assert get_recorder() is NULL          # the launcher restores it
+    assert report.main([d, "--validate"]) == 0
+    assert "telemetry records OK" in capsys.readouterr().out
+    recs = report.load(d)
+    steps = [r for r in recs if r["name"] == "serving.decode_step_s"]
+    assert len(steps) == out["steps"]
+    assert sum(r["value"] for r in recs
+               if r["name"] == "serving.decoded_tokens") == \
+        out["decoded_tokens"]
+    assert len([r for r in recs if r["name"] == "serving.ttft_s"]) == 3
+    with pytest.raises(SystemExit, match="telemetry-flush"):
+        tserve.main(["--reduced", "--device", "cpu", "--telemetry", d,
+                     "--telemetry-flush", "0"])
