@@ -26,10 +26,10 @@ Phases (any failure raises and the script exits non-zero):
    layers in f32 through the port's ``ServingEngine`` on the card (kernels)
    and on the CPU (plain versions) from the same weights: tokens must be
    identical and KV pools (page 0 aside) agree within 1e-4.
-4. Serve ``gpt-serve-h4096`` at full width and depth in bf16 (8 slots,
-   max_seq 2048, page 16, prefix cache on, 16 requests); each kernel's
-   launches over this phase must be steps x 64 (paged decode) and
-   steps x 129 (RMSNorm).  After step 470 (8 active slots at positions
+4. Serve ``gpt-serve-h4096`` at full width and 32 of its 64 layers in
+   bf16 (8 slots, max_seq 2048, page 16, prefix cache on, 16 requests);
+   each kernel's launches over this phase must be steps x 32 (paged
+   decode) and steps x 65 (RMSNorm).  After step 470 (8 active slots at positions
    up to ~470), 4 of its steps are timed plainly and 4 under ``torch.profiler``:
    device time against host wall per step.  The engine records into a
    JSONL ``Recorder`` (``repro_torch.obs``): every line validates, the
@@ -83,13 +83,13 @@ Phases (any failure raises and the script exits non-zero):
    coarse recomputation, against phase 6's tp=1 card run on the same
    weights: loss within 1e-5 relative, gathered gradients within
    ``grads_err`` 1e-4; the memory each forward keeps for its backward.
-10. Tensor-parallel training: ``gpt-h2048`` at full width and depth in
-   bf16, tp=2 (two rank processes on the card), batch 8 x 1024 in 2
-   microbatches, fine recomputation, 4 AdamW steps under each of
-   ``megatron``, ``oases`` and ``fused``: finite losses, first losses
+10. Tensor-parallel training: ``gpt-h2048`` at full width and 6 of its
+   24 layers in bf16, tp=2 (two rank processes on the card), batch 8 x
+   1024 in 2 microbatches, fine recomputation, 4 AdamW steps under each
+   of ``megatron``, ``oases`` and ``fused``: finite losses, first losses
    across schedules within the bf16 tolerance, every leaf's gradient
    present and finite after step 1 on every rank, launches per step
-   (``fused``: 96 ring launches a rank, none replayed), step times, peak
+   (``fused``: 24 ring launches a rank, none replayed), step times, peak
    memory per rank and a one-step profile per schedule, with the device
    ms inside each ``tmp.<schedule>.*`` range, forward and backward, and
    the share outside every range.  The card is calibrated once here
@@ -119,13 +119,14 @@ Phases (any failure raises and the script exits non-zero):
    launches once per layer and sub-batch (none in the fine replay), the
    ring matmul only under ``fused``; the memory each forward keeps for its
    backward.
-13. Ring-attention training: ``internlm2-1.8b`` at full width and depth in
-   bf16, tp=2, ``seq_shard`` 2, batch 4 x 4096 in 2 microbatches, fine
-   recomputation, 3 AdamW steps under ``oases`` and ``fused``: finite
-   losses equal on both ranks, first losses across the schedules within
-   the bf16 tolerance, every leaf's gradient present and finite after step
-   1, launches a step (ring attention 24 x microbatches x sub-batches, the
-   ring matmul 48 under ``fused``), step time, tokens/s, peak memory per
+13. Ring-attention training: ``internlm2-1.8b`` at full width and 6 of
+   its 24 layers in bf16, tp=2, ``seq_shard`` 2, batch 4 x 4096 in 2
+   microbatches, fine recomputation, 3 AdamW steps under ``oases`` and
+   ``fused``: finite losses equal on both ranks, first losses across the
+   schedules within the bf16 tolerance, every leaf's gradient present and
+   finite after step 1, launches a step (ring attention 6 x
+   microbatches x sub-batches, the ring matmul 12 under ``fused``), step
+   time, tokens/s, peak memory per
    rank and a one-step profile per schedule.
 
 14. Family kernels against their plain versions on the card, f32 (TF32
@@ -183,7 +184,10 @@ Phases (any failure raises and the script exits non-zero):
    (one block and a two-layer RG-LRU tail) in f32, batch 1 x 2304
    (longer than the window), under ``megatron`` without recomputation and
    ``oases`` with fine recomputation, on the card (kernels) and the CPU
-   (plain versions) from the same weights: loss within 1e-6 relative,
+   (plain versions) from the same weights, both also against an f64 pass
+   on the card (the witness: the plain versions, which the wrappers take
+   for that pass alone, and cuBLAS's f64 products, independent of the
+   f32 path's): loss within 1e-6 relative,
    every gradient leaf within ``grads_err`` 1e-4 (the five worst leaves
    reported), launches exactly the count of the code's path; for the
    last local-attention and RG-LRU layers' backward, how far the card's
@@ -214,6 +218,40 @@ Phases (any failure raises and the script exits non-zero):
    --validate`` exits 0, the ``planner.plan`` event carries the run's
    ``predicted_ms``, ``trainer.step_time_s`` one sample a step, and the
    probe says ``overlap.skip`` (tp=1).
+21. Per-layer plans and the 2-D layout, consistency: ``gpt-h2048`` at
+   full width, 4 layers, f32, batch 4 x 256, 4 rank processes on the card
+   (sub-group communicators, each a ``PeerComm`` with its own workspace),
+   fine recomputation, on the factored mesh ``(1, 2, 2)`` (one spawn):
+   ``[4, 4, 2, 2]`` x ``[oases, oases, megatron, megatron]``, the 2-D
+   ``(2, 2)`` degree on every layer under ``fused``, and ``[(2, 2), (2,
+   2), 4, 4]`` x ``[fused, fused, wang, wang]``,
+   each against a tp=1 card run of the same weights: loss within 1e-5
+   relative, each leaf's gradient (summed over its extra data-parallel
+   ranks) within ``grads_err`` 1e-4 of its block of the tp=1 gradient,
+   every replica's weights bit-identical after one AdamW step, launches
+   exactly as worked out from the plan groups (flash and RMSNorm forward
+   and backward, the ring kernel under ``fused``); the comm counts of the
+   forward and the backward reported.
+22. Per-layer plans and the 2-D layout, training: ``gpt-h2048`` at full
+   width and depth in bf16, 4 rank processes, batch 8 x 1024 in one
+   microbatch (two microbatches' f32 sums do not fit beside four ranks'
+   optimizer state on one card), fine recomputation, 3 AdamW steps a
+   run, each run
+   resolved by ``launch/train.py``'s own path (its flags, ``_resolve``)
+   and trained by its Trainer on every rank: a plan file with layers
+   0-11 at degree 4 under ``oases`` and 12-23 at degree 2 under
+   ``megatron`` (``--tp 4 --mesh factored --plan``), the 2-D layout
+   (``--tmp-layout 2d --mesh 1x2x2 --schedule fused``) and the ILP's plan
+   (``--tp 4 --mesh factored --planner``, calibrated on the card), its
+   prediction beside the measured median step, recorded, not gated:
+   finite losses equal on every rank, first losses across the runs
+   within the bf16 tolerance, every leaf's gradient present and finite
+   after step 1 on every rank, launches a step exactly as worked out
+   from the plan groups, step times, peak memory per rank and a one-step
+   profile of rank 0 (device ms inside each ``tmp.<schedule>.*`` range,
+   ``proj`` among them, and the share outside every range); rank 0
+   records into a JSONL sink, whose probe gives one ``overlap.group``
+   event per plan group.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -226,6 +264,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import re
@@ -239,6 +278,9 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 ARCH = "gpt-serve-h4096"
+# phase 4's depth: 32 of the 64 layers (full width), cut to make room for
+# phases 21-22 in the smoke's time
+SERVE_LAYERS = 32
 PAGED_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
 RMS_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}
 POOL_TOL = 1e-4          # f32 KV pools, card vs CPU, through 2 layers
@@ -709,7 +751,7 @@ def phase_serve():
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(ARCH)
+    cfg = get_config(ARCH).replace(num_layers=SERVE_LAYERS)
     tel = tempfile.TemporaryDirectory()
     rec = Recorder(tel.name)
     eng = ServingEngine(cfg, slots=8, max_seq=2048, page_size=16,
@@ -1325,6 +1367,9 @@ TP_SCHEDULES = ("megatron", "oases", "fused")
 TP_VARIANTS = [(s, True, True) for s in TP_SCHEDULES] + [
     ("oases", False, True), ("oases", True, False)]
 TP_STEPS = 4
+# phase 10's depth: 6 of gpt-h2048's 24 layers (full width), cut to make
+# room for phases 21-22 in the smoke's time (phase 22 trains all 24)
+TP_TRAIN_LAYERS = 6
 # first losses of the three schedules, bf16, 24 layers (absolute, on a
 # loss of ~10.9): each of the 48 exits of a pass may round its residual
 # delta differently (one bf16 ulp, 2**-8 relative: fused keeps f32
@@ -1575,9 +1620,7 @@ def _tp_consistency_rank(comm, device, variants):
                                   vocab_size=cfg.vocab_size), 0)
     tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     ref = torch.load(TP1_REF)["grads"]
-    dims = prm.shard_dims(cfg, n)
-    want = {k: (g if dims[k] is None else g.chunk(n, dims[k])[rank])
-            for k, g in ref.items()}
+    want = prm.layout_1d(cfg, n).shard_flat(ref, rank)
     # the process's first product allocates cuBLAS's workspace (32 MiB)
     # from the caching allocator: before the first reading, not inside it
     torch.matmul(torch.ones(8, 8, device=device),
@@ -1630,7 +1673,8 @@ def phase_tp_train():
                          args=(TP_SCHEDULES, steps, batch, seq, micro, hw,
                                tel.name))
     wall = time.perf_counter() - t0
-    out = {"arch": TRAIN_ARCH, "tp": 2, "dtype": "bfloat16", "layers": 24,
+    out = {"arch": TRAIN_ARCH, "tp": 2, "dtype": "bfloat16",
+           "layers": TP_TRAIN_LAYERS,
            "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
            "wall_s": wall, "probe_hw": {"peak_flops": hw.peak_flops,
                                         "hbm_bw": hw.hbm_bw,
@@ -1659,7 +1703,7 @@ def phase_tp_train():
                     f"tp=2 {sched}: ranks report different losses "
                     f"{[x['losses'] for x in rs]}")
         rings = r0["launches_per_step"]["ring_matmul_rs"]
-        want = 2 * 24 * micro if sched == "fused" else 0
+        want = 2 * TP_TRAIN_LAYERS * micro if sched == "fused" else 0
         require(rings == want, f"tp=2 {sched}: {rings} ring launches a "
                                f"step, expected {want}")
         firsts[sched] = r0["losses"][0]
@@ -1724,7 +1768,7 @@ def _tp_train_rank(comm, device, schedules, steps, batch, seq, micro, hw,
     from repro_torch.obs import Recorder
     from repro_torch.runtime import Trainer
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TP_TRAIN_LAYERS)
     out = {}
     for sched in schedules:
         gc.collect()
@@ -1822,11 +1866,12 @@ def _profile_tp_step(tr, comm):
 
 def _peak_gb(comm, device) -> float:
     """Peak device memory of a rank: PyTorch's allocator's peak plus the
-    peer workspace (allocated outside it)."""
+    peer workspaces of its communicators (allocated outside it)."""
     import torch
     from repro_torch.kernels.peer_comm import SLOTS
     return (torch.cuda.max_memory_allocated(device)
-            + SLOTS * comm.ws.slot_bytes) / 1e9
+            + sum(SLOTS * c.ws.slot_bytes for c in comm.comms()
+                  if hasattr(c, "ws"))) / 1e9
 
 
 # ---------------------------------------------------------------------------
@@ -1855,6 +1900,9 @@ SP_VARIANTS = [("megatron", True, True, True, False),
                ("oases", True, False, True, True)]
 SP_SCHEDULES = ("oases", "fused")
 SP_STEPS = 3
+# phase 13's depth: 6 of internlm2-1.8b's 24 layers (full width), cut to
+# make room for phases 21-22 in the smoke's time
+SP_TRAIN_LAYERS = 6
 # phase 12's tp=1 card loss and gradients
 SP_REF = ROOT / "build" / "chip_smoke" / "sp_tp1_consistency.pt"
 
@@ -2093,7 +2141,7 @@ def _sp_consistency_rank(comm, device, variants):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import _build
-    from repro_torch.launch.steps import reduce_partial_grads
+    from repro_torch.launch.steps import reduce_grads
     from repro_torch.models import lm
     from repro_torch.models import params as prm
 
@@ -2113,7 +2161,7 @@ def _sp_consistency_rank(comm, device, variants):
         shard = n if ring else 1
         hp = TrainHParams(schedule=sched, remat=remat, fine_remat=fine,
                           seq_parallel=sp, seq_shard=shard)
-        dims = prm.shard_dims(cfg, n, shard)
+        want_flat = prm.layout_1d(cfg, n, shard).shard_flat(ref, rank)
         params = prm.unflatten({
             k: t.to(device).requires_grad_() for k, t in prm.flatten(
                 prm.shard_params(cfg, base, rank, n, seq_shard=shard))
@@ -2132,11 +2180,11 @@ def _sp_consistency_rank(comm, device, variants):
         grads = [t.grad for t in flat.values()]
         partial = prm.partial_grad_leaves(cfg, seq_parallel=ctx.sp,
                                           seq_shard=ctx.seq_shard)
-        reduce_partial_grads(grads, [k in partial for k in flat], comm)
+        reduce_grads(grads, [i for i, k in enumerate(flat) if k in partial],
+                     comm)
         leaf = {}
         for k, g in zip(flat, grads):
-            want = ref[k] if dims[k] is None else ref[k].chunk(n,
-                                                              dims[k])[rank]
+            want = want_flat[k]
             g = g.detach().cpu()
             leaf[k] = (float((g - want).abs().max()),
                        float(want.abs().max()))
@@ -2158,7 +2206,8 @@ def phase_sp_train():
                          args=(SP_SCHEDULES, steps, batch, seq, micro))
     wall = time.perf_counter() - t0
     out = {"arch": SP_ARCH, "tp": 2, "seq_shard": 2, "dtype": "bfloat16",
-           "layers": 24, "batch": batch, "seq": seq, "microbatch": micro,
+           "layers": SP_TRAIN_LAYERS, "batch": batch, "seq": seq,
+           "microbatch": micro,
            "steps": steps, "wall_s": wall, "schedules": {}}
     firsts = {}
     for sched in SP_SCHEDULES:
@@ -2175,8 +2224,9 @@ def phase_sp_train():
         print(f"[sp_train] {sched} {json.dumps(brief)}")
         print(f"[sp_train_profile] {sched} {json.dumps(r0['profile'])}")
         split = 2 if sched == "oases" else 1
-        want = {"ring_attention": 24 * micro * split,
-                "ring_matmul_rs": 24 * micro if sched == "fused" else 0}
+        n = SP_TRAIN_LAYERS
+        want = {"ring_attention": n * micro * split,
+                "ring_matmul_rs": n * micro if sched == "fused" else 0}
         for r in rs:
             require(len(r["losses"]) == steps
                     and all(math.isfinite(v) for v in r["losses"]),
@@ -2212,7 +2262,7 @@ def _sp_train_rank(comm, device, schedules, steps, batch, seq, micro):
     from repro_torch.models import params as prm
     from repro_torch.runtime import Trainer
 
-    cfg = get_config(SP_ARCH)
+    cfg = get_config(SP_ARCH).replace(num_layers=SP_TRAIN_LAYERS)
     out = {}
     for sched in schedules:
         gc.collect()
@@ -2958,6 +3008,20 @@ def phase_hybrid_kernels():
     return results
 
 
+@contextlib.contextmanager
+def _plain_on_card():
+    """For the block, every kernel wrapper takes its plain version, on the
+    card's tensors too (``_build.on_cpu`` answers True): phase 18's f64
+    witness, which no kernel computes."""
+    from repro_torch.kernels import _build
+    on_cpu = _build.on_cpu
+    _build.on_cpu = lambda what, *tensors: True
+    try:
+        yield
+    finally:
+        _build.on_cpu = on_cpu
+
+
 def phase_hybrid_consistency():
     import torch
     from repro_torch.configs.base import TrainHParams
@@ -2976,7 +3040,11 @@ def phase_hybrid_consistency():
     batch = make_batch(DataConfig(global_batch=batch_size, seq_len=seq,
                                   vocab_size=cfg.vocab_size), 0)
     megatron = TrainHParams(**FAMILY_SCHEDULES["megatron"])
-    wit = _loss_pass(cfg, base, batch, megatron, "cpu", "float64")
+    # the witness on the card in f64: the plain versions (no kernel takes
+    # f64) and cuBLAS's f64 products, independent of the f32 path's
+    with _plain_on_card():
+        wit = _loss_pass(cfg, base, batch, megatron, "cuda", "float64")
+    torch.cuda.empty_cache()
     # rounded once to f32 (6e-8 of each value) to hold less host memory
     witness = {k: t.float() for k, t in wit["grads"].items()}
     out = {"witness": dict(loss=wit["loss"], s=wit["s"])}
@@ -3281,6 +3349,397 @@ def _check_plan_telemetry(path, predicted_ms) -> dict:
                              if r["name"] == "trainer.step_time_s"])
 
 
+# ---------------------------------------------------------------------------
+# per-layer plans and the 2-D layout (phases 21-22)
+# ---------------------------------------------------------------------------
+PLAN_FACTORED = ((1, 2, 2), ("data", "t1", "t2"))
+# phase 21: gpt-h2048 at full width, 4 layers, f32, batch 4 x 256
+PLAN_CONSISTENCY = (4, 4, 256)
+# each (degrees, schedules) on the factored mesh, in one spawn
+PLAN_CASES = {
+    "mixed": ([4, 4, 2, 2], ["oases", "oases", "megatron", "megatron"]),
+    "2d_fused": ([(2, 2)] * 4, ["fused"] * 4),
+    "mixed_2d": ([(2, 2), (2, 2), 4, 4], ["fused", "fused", "wang", "wang"])}
+PLAN_REF = ROOT / "build" / "chip_smoke" / "plan_tp1_consistency.pt"
+# phase 22: gpt-h2048 at full width and depth, bf16, 4 ranks, one
+# microbatch: two microbatches' f32 gradient sums (+3.4 GB a rank under the
+# ILP's [2/oases]*24) do not fit beside four ranks' f32 master and moments
+# on one card (out of memory at 16-17.5 GB allocated a rank)
+PLAN_TRAIN = (8, 1024, 1)          # batch, seq, microbatches
+PLAN_TRAIN_STEPS = 3
+
+
+def _group_launches(groups, micro_batch: int, passes: int,
+                    remat: bool, fine: bool) -> dict:
+    """The launches of ``passes`` forward + backward passes of a microbatch
+    of ``micro_batch`` rows, worked out from the plan groups (each
+    ``(count, schedule, dx, dy, extra)``: layers, schedule, width and
+    contraction degrees, extra data-parallel ranks): every layer's
+    attention and both norms per sub-batch (the effective split of the
+    group's share of the batch), forward once more where recomputation
+    replays the part; the final norm once; the ring kernel at every fused
+    exit over x (dx > 1) and, in 2-D, at every entry product over y (5 a
+    layer), replayed only under coarse recomputation."""
+    from repro_torch.core.remat import policy
+    from repro_torch.core.schedule import effective_split
+    fwd = bwd = ring = 0
+    for count, sched, dx, dy, extra in groups:
+        split = effective_split(sched, 2, micro_batch // extra)
+        pol = policy(sched, remat=remat, fine=fine)
+        runs = 1 if pol == "none" else 2
+        fwd += count * split * runs
+        bwd += count * split
+        if sched == "fused":
+            per = (2 if dx > 1 else 0) + (5 if dy > 1 else 0)
+            ring += count * split * per * (2 if pol == "coarse" else 1)
+    never = {k: 0 for k in SERVE_ONLY if not k.startswith("peer_")}
+    return {**never, "paged_decode": 0,
+            "flash_attention": passes * fwd,
+            "flash_attention_bwd": passes * bwd,
+            "rmsnorm": passes * (2 * fwd + 1),
+            "rmsnorm_bwd": passes * (2 * bwd + 1),
+            "ring_matmul_rs": passes * ring}
+
+
+def _groups_of(step_fn, cfg):
+    """(count, schedule, dx, dy, extra) of each plan group of a built step
+    (one group for the stacked layout)."""
+    ctx = step_fn.ctx
+    if step_fn.groups is None:
+        return [(cfg.num_layers, ctx.schedule, ctx.tp, ctx.tp_y, 1)]
+    info = step_fn.layout.info
+    return [(g.count, c.schedule, c.tp, c.tp_y,
+             info._size(info.extra_dp_axes(g.degree)))
+            for g, c in step_fn.groups]
+
+
+def phase_plan_consistency():
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+
+    layers, b, s = PLAN_CONSISTENCY
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=layers, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=b, seq_len=s,
+                                  vocab_size=cfg.vocab_size), 0)
+    # the tp=1 card run of the same weights (kernels, f32 products)
+    params = prm.unflatten({k: t.to("cuda").requires_grad_()
+                            for k, t in prm.flatten(base).items()})
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    loss, _ = lm.train_loss(cfg, params, tb, TrainHParams())
+    loss.backward()
+    ref = dict(loss=loss.item(), s=time.perf_counter() - t0,
+               grads={k: t.grad.cpu() for k, t in
+                      prm.flatten(params).items()})
+    PLAN_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, PLAN_REF)
+    del params, loss, base
+    torch.cuda.empty_cache()
+    out = {"arch": TRAIN_ARCH, "layers": layers, "dtype": "float32",
+           "batch": b, "seq": s, "ranks": 4, "loss_tp1": ref["loss"],
+           "cases": {}}
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_plan_consistency_rank, mesh=PLAN_FACTORED,
+                         args=(PLAN_CASES,), timeout=600)
+    wall = time.perf_counter() - t0
+    for name in PLAN_CASES:
+        _check_plan_case(name, [r[name] for r in per_rank], ref, out, wall)
+    return out
+
+
+def _check_plan_case(name, rs, ref, out, wall):
+    """Phase 21's gates for one plan: loss and gradients against the tp=1
+    run, replicas' bits after the AdamW step, exact launches."""
+    leaf_err = {k: max(r["leaf"][k][0] for r in rs)
+                / (max(r["leaf"][k][1] for r in rs) + 1e-8)
+                for k in rs[0]["leaf"]}
+    gerr = max(leaf_err.values())
+    loss_rel = max(abs(r["loss"] - ref["loss"]) for r in rs) \
+        / abs(ref["loss"])
+    # every rank holding the same block of a leaf holds the same bits
+    mismatched = []
+    for k in rs[0]["digest"]:
+        seen = {}
+        for r in rs:
+            block, digest = r["digest"][k]
+            if seen.setdefault(tuple(block), digest) != digest:
+                mismatched.append(k)
+    row = dict(summary=rs[0]["summary"], losses=[r["loss"] for r in rs],
+               loss_rel_err=loss_rel, grads_err=gerr,
+               worst_leaf=max(leaf_err, key=leaf_err.get),
+               replicas_bit_identical=not mismatched,
+               launches=rs[0]["launches"], want=rs[0]["want"],
+               counts_fwd=rs[0]["fwd"], counts_bwd=rs[0]["bwd"],
+               rank_s=[r["s"] for r in rs], spawn_wall_s=wall)
+    out["cases"][name] = row
+    print(f"[plan_consistency] {name} {json.dumps(row)}")
+    require(loss_rel <= LOSS_RTOL, f"{name}: loss {row['losses']} vs tp=1 "
+                                   f"{ref['loss']}: rel {loss_rel}")
+    require(gerr <= GRADS_TOL, f"{name}: grads_err {gerr} > {GRADS_TOL}")
+    require(not mismatched, f"{name}: replicas differ after the AdamW step "
+                            f"in {mismatched[:5]}")
+    for r in rs:
+        got = {k: r["launches"].get(k, 0) for k in r["want"]}
+        require(got == r["want"], f"{name}: rank launched {got}, expected "
+                                  f"{r['want']}")
+
+
+def _plan_consistency_rank(comm, device, cases):
+    """One rank of phase 21: per plan, this rank's shard of the phase's
+    weights in the plan's layout, its loss, and each leaf's gradient
+    (summed over the leaf's extra data-parallel ranks, as the step sums
+    it) against the same block of the tp=1 card gradient; the comm counts
+    and launches of the forward and backward; then one AdamW step
+    (``build_train_step``) and each leaf's block and a digest of its
+    bits."""
+    import hashlib
+
+    import torch
+    from repro_torch.configs.base import TrainHParams
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models import params as prm
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers, b, s = PLAN_CONSISTENCY
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=layers, dtype="float32")
+    base = prm.init_params(cfg, seed=0, device=torch.device("cpu"))
+    batch = make_batch(DataConfig(global_batch=b, seq_len=s,
+                                  vocab_size=cfg.vocab_size), 0)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ref = torch.load(PLAN_REF)["grads"]
+    out = {}
+    for name, (degrees, scheds) in cases.items():
+        hp = TrainHParams(learning_rate=1e-3, warmup_steps=1, microbatch=1)
+        setup = steps.train_setup(cfg, hp, seq_len=s, comm=comm,
+                                  degrees=degrees, schedules=scheds)
+        lay = setup.layout
+        want_flat = lay.shard_flat(
+            prm.relayout_flat(cfg, ref, {}, {"degrees": lay.degrees,
+                                             "schedules": lay.schedules})
+            if lay.grouped else ref, comm.rank)
+        params = prm.unflatten({k: t.to(device).requires_grad_() for k, t
+                                in prm.flatten(lay.shard(base,
+                                                         comm.rank)).items()})
+        _build.reset_launches()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        loss, _ = lm.train_loss(cfg, params, tb, setup.hp, setup.ctx,
+                                setup.groups)
+        fwd = dict(comm.counts)
+        comm.reset_counts()
+        loss.backward()
+        bwd = dict(comm.counts)
+        torch.cuda.synchronize(device)
+        launches = dict(_build.LAUNCHES)
+        leaf = {}
+        for k, t in prm.flatten(params).items():
+            g = comm.sub(lay.grad_replicas(k)).all_reduce(t.grad).cpu()
+            leaf[k] = (float((g - want_flat[k]).abs().max()),
+                       float(want_flat[k].abs().max()))
+        elapsed = time.perf_counter() - t0
+        step = steps.build_train_step(
+            cfg, hp, global_batch=b, seq_len=s, comm=comm, degrees=degrees,
+            schedules=scheds)
+        step(params, adamw.init_opt_state(params), tb)
+        digest = {}
+        for k, t in prm.flatten(params).items():
+            block = [comm.info.axes_index(comm.rank, axes)
+                     for axes in lay.specs[k].dims()]
+            digest[k] = (block, hashlib.sha1(
+                t.detach().cpu().contiguous().view(torch.int32).numpy()
+                .tobytes()).hexdigest())
+        out[name] = dict(
+            loss=loss.item(), leaf=leaf, fwd=fwd, bwd=bwd, s=elapsed,
+            launches=launches, digest=digest,
+            summary=(lay.degrees, lay.schedules, lay.layout),
+            want=_group_launches(_groups_of(step, cfg), b, 1, True, True))
+        del params, loss, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan_train():
+    import tempfile
+
+    import torch
+    from repro_torch.core.planner import calibrate
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.ranks import run_ranks
+
+    torch.cuda.empty_cache()
+    batch, seq, micro = PLAN_TRAIN
+    steps = PLAN_TRAIN_STEPS
+    tmp = tempfile.TemporaryDirectory()
+    plan_path = Path(tmp.name) / "plan.json"
+    n = 24
+    plan_path.write_text(json.dumps({
+        "layers": [[4, "oases"]] * (n // 2) + [[2, "megatron"]] * (n // 2),
+        "microbatch": micro}))
+    base = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--microbatch", str(micro),
+            "--seed", "0"]
+    flags = {"mixed_plan": ["--tp", "4", "--mesh", "factored", "--plan",
+                            str(plan_path)],
+             "2d_fused": ["--tmp-layout", "2d", "--mesh", "1x2x2",
+                          "--schedule", "fused"],
+             "planner": ["--tp", "4", "--mesh", "factored", "--planner"]}
+    out = {"arch": TRAIN_ARCH, "dtype": "bfloat16", "layers": n,
+           "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
+           "ranks": 4, "card": _card(), "runs": {}}
+    # each run resolved by the launcher's own path in this process (the
+    # planner calibrated once, before the ranks share the card), then
+    # trained in a spawn of its own: four ranks' optimizer state leaves
+    # no room for what an earlier run's processes still hold
+    runs, resolved = {}, {}
+    with _cal_cache():
+        for name, extra in flags.items():
+            args = launcher.parse_args(base + extra)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cfg, hp, mesh, plan, predicted = launcher._resolve(args)
+                hw = calibrate.calibrated_hw(n_chips=mesh.size)
+            tel = str(Path(tmp.name) / name)
+            resolved[name] = (plan, predicted, tel, [
+                ln for ln in buf.getvalue().splitlines()
+                if ln.startswith(("planner:", "[plan]"))])
+            print(f"[plan_train] {name} resolved {plan.summary()} "
+                  f"{json.dumps(resolved[name][3])}", flush=True)
+            runs[name] = ((mesh.shape, mesh.axis_names), cfg, hp, plan, tel)
+    # the calibration's buffers go back to the card before four ranks
+    # share it
+    torch.cuda.empty_cache()
+    firsts = {}
+    for name, (mesh, *run) in runs.items():
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_plan_train_rank, mesh=mesh, timeout=900,
+                             args=(*run, steps, batch, seq, hw))
+        wall = time.perf_counter() - t0
+        firsts[name] = _check_plan_run(name, per_rank, resolved[name],
+                                       steps, wall, out)
+    tmp.cleanup()
+    spread = max(firsts.values()) - min(firsts.values())
+    out["first_loss_spread"] = spread
+    out["first_loss_atol"] = TP_LOSS_ATOL
+    require(spread <= TP_LOSS_ATOL, f"first losses {firsts}: spread "
+                                    f"{spread} > {TP_LOSS_ATOL}")
+    out["launches"] = {}
+    for row in out["runs"].values():
+        for k, v in row["launches_per_step"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + int(
+                round(v * steps))
+    return out
+
+
+def _check_plan_run(name, rs, resolved, steps, wall, out) -> float:
+    """Phase 22's gates for one run; -> its first loss."""
+    plan, predicted, tel, log = resolved
+    r0 = rs[0]
+    med = statistics.median(r0["device_step_ms"][1:])
+    row = dict(
+        plan=plan.summary(), groups=r0["groups"], losses=r0["losses"],
+        step_ms_median=[r["step_ms_median"] for r in rs],
+        device_step_ms=r0["device_step_ms"], device_step_ms_median=med,
+        predicted_ms=predicted,
+        predicted_over_measured=predicted / med if predicted else None,
+        peak_mem_gb=[r["peak_mem_gb"] for r in rs],
+        launches_per_step=r0["launches_per_step"],
+        want_per_step=r0["want"], spawn_wall_s=wall, planner_log=log,
+        probe=_check_plan_telemetry_groups(Path(tel), steps,
+                                           len(r0["groups"])))
+    print(f"[plan_train] {name} {json.dumps(row)}")
+    print(f"[plan_train_profile] {name} {json.dumps(r0['profile'])}")
+    row["profile"] = r0["profile"]
+    out["runs"][name] = row
+    for r in rs:
+        require(len(r["losses"]) == steps
+                and all(math.isfinite(v) for v in r["losses"]),
+                f"{name}: losses {r['losses']}")
+        require(not r["bad_grads"], f"{name}: missing or non-finite "
+                f"gradients after step 1: {r['bad_grads']}")
+        require(r["losses"] == r0["losses"], f"{name}: ranks report "
+                f"different losses {[x['losses'] for x in rs]}")
+        got = {k: r["launches_per_step"].get(k, 0) for k in r["want"]}
+        require(got == r["want"], f"{name}: launched {got} a step, "
+                                  f"expected {r['want']}")
+    return r0["losses"][0]
+
+
+def _check_plan_telemetry_groups(path, steps, groups) -> dict:
+    """Rank 0's JSONL of one phase 22 run: every line validates, one
+    ``trainer.step_time_s`` a step and one ``overlap.group`` event per
+    plan group.  -> the probe's readings."""
+    from repro_torch.obs import schema
+    files = sorted(p.name for p in path.iterdir())
+    require(files == ["telemetry.jsonl"], f"{path}: {files}")
+    with open(path / "telemetry.jsonl") as f:
+        records = schema.validate_lines(f)
+    names = [r["name"] for r in records]
+    require(names.count("trainer.step_time_s") == steps,
+            f"{path}: {names.count('trainer.step_time_s')} step records")
+    got = [r["tags"] for r in records if r["name"] == "overlap.group"]
+    require(len(got) == groups, f"{path}: {len(got)} overlap.group events "
+                                f"for {groups} plan groups: {got}")
+    return dict(groups=got, gauges={
+        r["name"]: r["value"] for r in records
+        if r["name"].startswith("overlap.") and r["kind"] == "gauge"},
+        errors=[r.get("msg") for r in records
+                if r["name"] == "overlap.error"])
+
+
+def _plan_train_rank(comm, device, cfg, hp, plan, tel, steps, batch, seq,
+                     hw):
+    """One rank of a phase 22 run: the launcher's Trainer
+    (``launch/train.py``'s ``_train``: the resolved plan over the mesh's
+    communicators, rank 0 recording into ``tel`` with the overlap probe
+    on ``hw``), its first step's gradients checked, launches a step
+    against the plan groups' count, step times, peak memory and a
+    one-step profile of rank 0."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.obs import Recorder
+    from repro_torch.runtime import Trainer
+
+    torch.cuda.reset_peak_memory_stats(device)
+    rec = Recorder(tel) if comm.rank == 0 else None
+    tr = Trainer(cfg, hp, global_batch=batch, seq_len=seq, log_fn=None,
+                 device=device, comm=comm, plan=plan, telemetry=rec,
+                 probe_hw=hw)
+    _build.reset_launches()
+    first = tr.train(1, seed=0)
+    bad = [k for k, t in prm.flatten(tr.params).items()
+           if t.grad is None or not bool(torch.isfinite(t.grad).all())]
+    rest = tr.train(steps, seed=0)
+    torch.cuda.synchronize(device)
+    launches = dict(_build.LAUNCHES)
+    if rec is not None:
+        rec.close()
+    times = first["step_times"] + rest["step_times"]
+    micro = max(tr.hp.microbatch, 1)
+    groups = _groups_of(tr.step_fn, cfg)
+    return dict(
+        losses=first["losses"] + rest["losses"], bad_grads=bad,
+        device_step_ms=first["device_step_ms"] + rest["device_step_ms"],
+        step_ms_median=statistics.median(1e3 * t for t in times[1:]),
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        want=_group_launches(groups, batch // micro, micro, tr.hp.remat,
+                             tr.hp.fine_remat),
+        groups=groups, microbatch=micro,
+        peak_mem_gb=_peak_gb(comm, device),
+        profile=_profile_tp_step(tr, comm))
+
+
 def _path_launches(report) -> dict:
     """Each main path's launches per kernel, counted from 0 over the path's
     run: serve (phase 4), one-device training (phase 7), tensor-parallel
@@ -3317,6 +3776,8 @@ def _path_launches(report) -> dict:
         paths["hybrid"] = tot
     if "planner" in report:
         paths["planner"] = report["planner"]["launches"]
+    if "plan_train" in report:
+        paths["plans"] = report["plan_train"]["launches"]
     return paths
 
 
@@ -3455,7 +3916,9 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           17: ("hybrid_kernels", phase_hybrid_kernels),
           18: ("hybrid_consistency", phase_hybrid_consistency),
           19: ("hybrid_train", phase_hybrid_train),
-          20: ("planner", phase_planner)}
+          20: ("planner", phase_planner),
+          21: ("plan_consistency", phase_plan_consistency),
+          22: ("plan_train", phase_plan_train)}
 
 
 def main(argv=None) -> int:

@@ -127,17 +127,17 @@ SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 @dataclass(frozen=True)
 class TrainHParams:
     """The port's copy of ``repro.configs.base.TrainHParams``: the fields
-    its 1-D tensor-parallel training path honours and the ones the planner
-    and plans read, with JAX's defaults.  ``microbatch`` 0 means auto here
-    (JAX: no accumulation).  What the port does not run yet raises at
-    construction: the 2-D layout (A7), gradient compression (A4) and
-    virtual pipeline stages (A8); ``zero1`` has no effect without data
+    its tensor-parallel training path honours (1-D and 2-D) and the ones
+    the planner and plans read, with JAX's defaults.  ``microbatch`` 0
+    means auto here (JAX: no accumulation).  What the port does not run
+    yet raises at construction: gradient compression (A4) and virtual
+    pipeline stages (A8); ``zero1`` has no effect without data
     parallelism (A4), which is what both values mean at one data rank."""
     schedule: str = "oases"          # megatron | wang | merak | oases | fused
     remat: bool = True
     fine_remat: bool = True          # §3.2 fine-grained recomputation
     use_planner: bool = False        # read by nothing; kept for JAX parity
-    tmp_layout: str = "auto"         # auto | 1d (| 2d: A7)
+    tmp_layout: str = "auto"         # auto | 1d | 2d
     split: int = 2                   # sub-batch split factor (paper: 2)
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
@@ -168,8 +168,6 @@ class TrainHParams:
                 f"bad seq_shard {s!r}: ring-attention sequence shards "
                 f"must be a positive power-of-two int (1 = off)")
         for what, on, item in (
-                ("the 2-D layout (tmp_layout='2d')",
-                 self.tmp_layout == "2d", "A7"),
                 ("gradient compression (grad_compress=True)",
                  self.grad_compress, "A4"),
                 (f"virtual pipeline stages (virtual_stages="

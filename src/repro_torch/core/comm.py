@@ -24,12 +24,20 @@ every rank.
   one communication stream; its reduce-scatter sums and writes only this
   rank's chunk (the kernel's scatter mode).  On one card the ranks are processes sharing
   ``cuda:0``; NCCL refuses two ranks on one device.
+* :class:`MeshComm` — the ranks of a run as a mesh
+  (:class:`~repro_torch.core.axes.RankMesh`): ``sub(axes)`` is the
+  communicator of the ranks that share every coordinate outside
+  ``axes`` (a ``DistComm`` over a ``torch.distributed`` sub-group, or a
+  ``PeerComm`` with its own workspace and store prefix), built once per
+  axes tuple and cached.  Its own ops run over the whole mesh.  In every
+  sub-communicator ``rank`` and ``size`` are the rank's index in the
+  group (``axes_index`` over the ordered axes) and the group's size.
 """
 from __future__ import annotations
 
 import json
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -148,20 +156,25 @@ def _rank_order(parts: List[torch.Tensor], op: str) -> torch.Tensor:
 
 
 class DistComm(Comm):
-    """Over the default ``torch.distributed`` process group (gloo for CPU
-    tensors)."""
+    """Over a ``torch.distributed`` process group (gloo for CPU tensors):
+    the default group, or ``group`` whose members are the global ranks
+    ``members`` in group-rank order."""
 
-    def __init__(self):
+    def __init__(self, group=None, members: Optional[Sequence[int]] = None):
         super().__init__()
         import torch.distributed as dist
         self._dist = dist
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+        self._group = group
+        if members is None:
+            members = range(dist.get_world_size())
+        self._members = list(members)
+        self.rank = self._members.index(dist.get_rank())
+        self.size = len(self._members)
 
     def _gather_list(self, x, async_op):
         parts = [torch.empty_like(x) for _ in range(self.size)]
         work = self._dist.all_gather(parts, x.contiguous(),
-                                     async_op=async_op)
+                                     group=self._group, async_op=async_op)
         return parts, work
 
     def _all_reduce_async(self, x, op):
@@ -183,14 +196,16 @@ class DistComm(Comm):
         return torch.cat(parts, dim=dim)
 
     def barrier(self):
-        self._dist.barrier()
+        self._dist.barrier(group=self._group)
 
     def _ring_shift(self, x):
         if self.size == 1:
             return x
         out = torch.empty_like(x)
-        reqs = [self._dist.isend(x.contiguous(), (self.rank + 1) % self.size),
-                self._dist.irecv(out, (self.rank - 1) % self.size)]
+        nxt = self._members[(self.rank + 1) % self.size]
+        prv = self._members[(self.rank - 1) % self.size]
+        reqs = [self._dist.isend(x.contiguous(), nxt, group=self._group),
+                self._dist.irecv(out, prv, group=self._group)]
         for r in reqs:
             r.wait()
         return out
@@ -332,3 +347,127 @@ class PeerComm(Comm):
 
     def close(self):
         self.ws.close()
+
+
+Factory = Callable[[Tuple[str, ...], int, List[int]], Optional[Comm]]
+
+
+class MeshComm(Comm):
+    """The communicators of a rank mesh, as seen from one rank.
+
+    ``factory(axes, index, members)`` builds the communicator of one
+    group over ``axes`` (``index``: the group's place in
+    ``mesh.groups(axes)``; ``members``: its global ranks in group-rank
+    order), or returns None where this rank is not a member.  Every rank
+    calls it for every group of an axes tuple, in the same order, the
+    first time any rank asks for that tuple (gloo's ``new_group`` wants
+    every process in every call); :meth:`build` asks for a list of tuples
+    in one pass.  Axes of size one are dropped from a tuple first, so
+    ``("data", "model")`` on a ``(1, tp)`` mesh is ``("model",)``.
+
+    The mesh's own ops (``all_reduce`` ... ``barrier``) run over the
+    whole mesh, so a MeshComm stands wherever a 1-D group's Comm did.
+    ``counts`` sums every sub-communicator's counts."""
+
+    def __init__(self, mesh, rank: int, factory: Factory):
+        from repro_torch.core.axes import mesh_info
+        self.mesh, self.info = mesh, mesh_info(mesh)
+        self.rank, self.size = rank, mesh.size
+        self._factory = factory
+        self._subs: Dict[Tuple[str, ...], Comm] = {}
+        self.world = self.sub(mesh.axis_names)
+
+    def _key(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        s = self.mesh.sizes
+        unknown = [a for a in axes if a not in s]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in the mesh "
+                             f"{self.mesh.axis_names}")
+        return tuple(a for a in axes if s[a] > 1)
+
+    def sub(self, axes: Sequence[str]) -> Comm:
+        """The communicator over ``axes`` that holds this rank."""
+        key = self._key(axes)
+        if key not in self._subs:
+            if not key:
+                self._subs[key] = SoloComm()
+            else:
+                mine = None
+                for i, members in enumerate(self.mesh.groups(key)):
+                    c = self._factory(key, i, members)
+                    if self.rank in members:
+                        mine = c
+                self._subs[key] = mine
+        return self._subs[key]
+
+    def build(self, axes_list: Sequence[Sequence[str]]) -> "MeshComm":
+        """Build the communicators of every axes tuple in ``axes_list``,
+        in order (the plan's tuples; the same list on every rank)."""
+        for axes in axes_list:
+            self.sub(axes)
+        return self
+
+    def comms(self) -> List[Comm]:
+        """The distinct communicators built so far."""
+        out: List[Comm] = []
+        for c in self._subs.values():
+            if all(c is not o for o in out):
+                out.append(c)
+        return out
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        tot = dict.fromkeys(KINDS, 0)
+        for c in self.comms():
+            for k, v in c.counts.items():
+                tot[k] += v
+        return tot
+
+    def reset_counts(self):
+        for c in self.comms():
+            c.reset_counts()
+
+    # the whole mesh's ops
+    def all_reduce_async(self, x, op="sum"):
+        return self.world.all_reduce_async(x, op)
+
+    def reduce_scatter(self, x, dim):
+        return self.world.reduce_scatter(x, dim)
+
+    def all_gather(self, x, dim):
+        return self.world.all_gather(x, dim)
+
+    def ring_shift(self, x):
+        return self.world.ring_shift(x)
+
+    def agree(self, key, choose):
+        return self.world.agree(key, choose)
+
+    def barrier(self):
+        self.world.barrier()
+
+    def check(self):
+        for c in self.comms():
+            c.check()
+
+    def close(self):
+        for c in self.comms():
+            c.close()
+
+
+def peer_comm(comm: Comm) -> "PeerComm":
+    """The PeerComm a kernel runs over: ``comm`` itself, or a MeshComm's
+    whole-mesh communicator; TypeError otherwise."""
+    if isinstance(comm, MeshComm):
+        comm = comm.world
+    if not isinstance(comm, PeerComm):
+        raise TypeError(f"the kernel needs a PeerComm, got "
+                        f"{type(comm).__name__}")
+    return comm
+
+
+def solo_mesh() -> MeshComm:
+    """The one-rank mesh ``(1, 1)`` of ``("data", "model")``."""
+    from repro_torch.core.axes import RankMesh
+    return MeshComm(RankMesh((1, 1), ("data", "model")), 0,
+                    lambda axes, i, members: SoloComm())

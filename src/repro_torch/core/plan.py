@@ -5,9 +5,9 @@ packages (the same fields and JSON).
 A :class:`ParallelPlan` is the single serializable object that carries a
 run's parallelism decisions end to end: the planner emits one, the
 launcher desugars legacy flags into one (``launch/mesh.py``) and the
-trainer executes one.  The port runs the uniform 1-D plans
-(``launch/steps.py::unpack_plan``); per-layer mixed plans and the 2-D
-layout are ROADMAP.md A7.
+trainer executes one (``launch/steps.py::check_plan`` says which: per-layer
+mixed degrees and schedules, 1-D and 2-D, on one data rank; pipelines,
+per-layer seqs and data parallelism are ROADMAP.md A8, A9 and A4).
 
 The paper's search space (§4, Table 6) is *per layer*: each layer carries
 its own ``(degree, schedule)`` strategy, where ``degree`` is a TMP degree

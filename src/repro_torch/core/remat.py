@@ -11,8 +11,11 @@ PyTorch.
   input and weight, so the replay recomputes the body and skips the exit
   product and its collective.  What is kept is each part's input (the
   residual stream; the collective's output only feeds the residual add
-  after it), and the replay contains no collective.  JAX gets the same
-  from ``save_only_these_names`` on the collective outputs.
+  after it), and the replay contains no collective.  A collective inside
+  a body (the y sums of a 2-D entry, ring attention) keeps its output
+  in the first run (:class:`Keep`) and hands it back in the replay.
+  JAX gets the same from ``save_only_these_names`` on the collective
+  outputs.
 * ``none``   — nothing is recomputed.
 
 ``merak`` always takes ``coarse`` (Fig. 3b); the other schedules take
@@ -43,24 +46,41 @@ class Keep:
     """The state one checkpointed part shares between its first run and
     its replay: ``replay`` is False in the first run and True in the
     replay, and :meth:`value` hands an op's result from the first to the
-    second.  The part's closure lives until the backward, so it keeps only
-    what the replay must not recompute (ring attention's out and lse), and
-    never the first run's collective handle: that would keep the
-    collective's output alive."""
+    second, call by call in program order.  The part's closure lives
+    until the backward, so it keeps only what the replay must not
+    recompute (the outputs of the collectives inside the body: ring
+    attention's out and lse, a 2-D entry's y sums), and never the first
+    run's exit handle: that would keep the exit's output alive."""
 
     def __init__(self):
         self.replay = False
-        self._kept: Optional[Tuple[torch.Tensor, ...]] = None
+        self._kept: List[Tuple[torch.Tensor, ...]] = []
+        self._next = 0
+
+    def rewind(self):
+        """Start a run of the part: the replay hands the kept values back
+        from the first."""
+        self._next = 0
 
     def value(self, compute: Callable[[], Tuple[torch.Tensor, ...]]
               ) -> Tuple[torch.Tensor, ...]:
         """``compute()`` in the first run, kept (detached); the kept
         tensors in the replay, which computes nothing."""
         if self.replay:
-            return self._kept
+            self._next += 1
+            return self._kept[self._next - 1]
         out = compute()
-        self._kept = tuple(t.detach() for t in out)
+        self._kept.append(tuple(t.detach() for t in out))
         return out
+
+
+def kept(keep: Optional[Keep], compute: Callable[[], torch.Tensor]
+         ) -> torch.Tensor:
+    """``compute()``, through ``keep`` (:meth:`Keep.value`) when a fine
+    checkpoint runs the part (``keep`` not None)."""
+    if keep is None:
+        return compute()
+    return keep.value(lambda: (compute(),))[0]
 
 
 def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
@@ -74,6 +94,7 @@ def checkpoint_part(run: Callable[..., Pending], *args) -> Pending:
     box: List[Pending] = []
 
     def once(*a):
+        keep.rewind()
         pend = run(keep, *a)
         if not keep.replay:
             keep.replay = True

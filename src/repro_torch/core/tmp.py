@@ -51,7 +51,8 @@ from repro_torch.obs.tracing import phase_scope
 
 
 def axes_index(comm: Comm) -> int:
-    """This shard's index in the model group."""
+    """This shard's index in the group (``repro.core.tmp.axes_index`` of
+    the group's ordered axes: a sub-communicator's rank is that index)."""
     return comm.rank
 
 
@@ -94,15 +95,19 @@ class _RowExit(torch.autograd.Function):
     every rank, so the backward is local (``dx = dy @ w.T``,
     ``dw = x.T @ dy``) whatever ``run`` did.  The SP form (``gather_dim``
     set: ``run`` reduce-scatters along it) first all-gathers ``dy`` along
-    that dim over ``comm`` (JAX's ``_rs_bwd``).  ``box`` receives the
-    handle, as for :class:`_ReduceFromTmp`.  ``phase``: the profiler
-    range the backward runs under (the forward's, ``tmp.<schedule>.
-    row_matmul``), or None."""
+    that dim over ``comm`` (JAX's ``_rs_bwd``).  The 2-D form
+    (``cols_comm`` set: ``run`` all-gathers w's output columns over it)
+    keeps this rank's columns of ``dy`` and sums ``dx`` over
+    ``cols_comm``: x is replicated there but met only this rank's
+    columns.  ``box`` receives the handle, as for
+    :class:`_ReduceFromTmp`.  ``phase``: the profiler range the backward
+    runs under (the forward's), or None."""
 
     @staticmethod
-    def forward(ctx, x, w, run, box, comm, gather_dim, phase):
+    def forward(ctx, x, w, run, box, comm, gather_dim, cols_comm, phase):
         ctx.save_for_backward(x, w)
         ctx.comm, ctx.gather_dim, ctx.phase = comm, gather_dim, phase
+        ctx.cols_comm = cols_comm
         p = run(x, w)
         box.append(p)
         return p.result
@@ -110,30 +115,38 @@ class _RowExit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        cols = ctx.cols_comm
         with (phase_scope(ctx.phase) if ctx.phase
               else contextlib.nullcontext()):
             if ctx.gather_dim is not None:
                 dy = ctx.comm.all_gather(dy.contiguous(), ctx.gather_dim)
+            if cols is not None:
+                dy = dy.chunk(cols.size, -1)[cols.rank]
             dx = torch.matmul(dy, w.t())
+            if cols is not None:
+                dx = cols.all_reduce(dx)
             dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
                               dy.reshape(-1, dy.shape[-1]))
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def row_exit(x: torch.Tensor, w: torch.Tensor, run, *,
              comm: Optional[Comm] = None,
              gather_dim: Optional[int] = None,
+             cols_comm: Optional[Comm] = None,
              phase: Optional[str] = None) -> Pending:
     """The exit product ``x @ w`` and its collective as one differentiable
     op: ``run(x, w)`` computes them (a schedule's way) and returns a
-    :class:`Pending`; the gradient is that of g after ``x @ w``, or under
+    :class:`Pending`; the gradient is that of g after ``x @ w``, under
     SP (``gather_dim``: ``run`` reduce-scatters along it over ``comm``)
-    that of the reduce-scatter.  Only x and w are saved, so fine
+    that of the reduce-scatter, and in 2-D (``cols_comm``: ``run``
+    all-gathers the output columns over it) that of the gather, with
+    ``dx`` summed over ``cols_comm``.  Only x and w are saved, so fine
     recomputation can replay an exit without its product or collective
     (``repro_torch.core.remat``).  The backward runs under the profiler
     range ``phase`` (None: none)."""
     box: List[Pending] = []
-    y = _RowExit.apply(x, w, run, box, comm, gather_dim, phase)
+    y = _RowExit.apply(x, w, run, box, comm, gather_dim, cols_comm, phase)
     return Pending(y, box[0].wait)
 
 
@@ -223,15 +236,44 @@ def sp_reduce_scatter(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
 
 
 def batch_split(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
-    """``repro.core.tmp.batch_split``: this rank's chunk of the replicated
-    x along ``dim`` (a free slice; the backward all-gathers, see the
-    module docstring for why not JAX's zero-padded chunk)."""
+    """``repro.core.tmp.batch_split``: this rank's chunk of the x
+    replicated over ``comm`` (a sub-group's communicator: the chunk at
+    ``axes_index`` of its ordered axes) along ``dim`` (a free slice; the
+    backward all-gathers, see the module docstring for why not JAX's
+    zero-padded chunk)."""
     if comm.size == 1:
         return x
     if x.shape[dim] % comm.size:
         raise ValueError(f"batch_split: dim {dim} of size {x.shape[dim]} "
                          f"is not divisible by the group size {comm.size}")
     return _BatchSplit.apply(x, comm, dim)
+
+
+class _BatchGather(torch.autograd.Function):
+    """Every rank's chunk concatenated forward, this rank's chunk of the
+    cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.comm.size, ctx.dim)[ctx.comm.rank].contiguous(),
+                None, None)
+
+
+def batch_gather(x: torch.Tensor, comm: Comm, dim: int) -> torch.Tensor:
+    """The inverse of :func:`batch_split`: every rank's chunk of ``dim``
+    concatenated in rank order, replicated over the group.  The backward
+    is a free slice: the gathered tensor's cotangent is whole on every
+    rank (f/g), so each rank keeps its chunk's.  (JAX reshards with
+    ``sp_all_gather``, whose reduce-scatter backward suits its partial
+    cotangents; under f/g it would count each chunk ``size`` times.)"""
+    if comm.size == 1:
+        return x
+    return _BatchGather.apply(x, comm, dim)
 
 
 def pass_barrier(x: torch.Tensor) -> torch.Tensor:

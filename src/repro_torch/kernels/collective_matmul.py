@@ -203,10 +203,8 @@ def matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, comm: Comm,
     decomposition, which computes the same function."""
     if _build.on_cpu("matmul_reducescatter", x, w):
         return ring_matmul_reducescatter(x, w, comm, scatter_dim)
-    from repro_torch.core.comm import PeerComm
-    if not isinstance(comm, PeerComm):
-        raise TypeError("matmul_reducescatter on CUDA tensors needs a "
-                        f"PeerComm, got {type(comm).__name__}")
+    from repro_torch.core.comm import peer_comm
+    comm = peer_comm(comm)
     n = comm.size
     if n < 2 or x.shape[scatter_dim] % n:
         raise ValueError(

@@ -289,10 +289,8 @@ def ring_forward_kernel(q, k, v, comm: Comm, *, causal: bool = True,
     -> (out [b, sq, h, hd] in q's dtype, lse [b, h, sq] f32).  Contiguous
     positions; runs on the communicator's stream, like every peer kernel,
     so the peer kernels of a rank run in program order."""
-    from repro_torch.core.comm import PeerComm
-    if not isinstance(comm, PeerComm):
-        raise TypeError("ring_attention on CUDA tensors needs a PeerComm "
-                        f"group, got {type(comm).__name__}")
+    from repro_torch.core.comm import peer_comm
+    comm = peer_comm(comm)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

@@ -1,13 +1,18 @@
-"""Run one function on every rank of a 1-D model group, each rank its own
+"""Run one function on every rank of a rank mesh, each rank its own
 process (``torch.multiprocessing`` with ``spawn``: CUDA cannot fork).
 
-``run_ranks(fn, tp, device=...)`` starts tp processes; each joins a
-``torch.distributed`` TCP store on ``localhost``, builds its communicator
-and calls ``fn(comm, device, *args)``; the results come back in rank
-order.  On the CPU the communicator is a
-:class:`~repro_torch.core.comm.DistComm` over gloo; on CUDA it is a
-:class:`~repro_torch.core.comm.PeerComm` on ``cuda:(rank % cards)``, so
-with one card visible every rank shares ``cuda:0``.  The kernel library is
+``run_ranks(fn, tp, device=..., mesh=...)`` starts one process per rank
+of ``mesh`` (shape, axis names; default the 1-D ``(1, tp)`` mesh of
+``("data", "model")``); each joins a ``torch.distributed`` TCP store on
+``localhost``, builds its :class:`~repro_torch.core.comm.MeshComm` and
+calls ``fn(comm, device, *args)``; the results come back in rank order.
+The MeshComm's own ops run over every rank, so a body written for one
+1-D group runs unchanged; ``comm.sub(axes)`` is the communicator of a
+sub-group.  On the CPU each communicator is a
+:class:`~repro_torch.core.comm.DistComm` over a gloo group; on CUDA a
+:class:`~repro_torch.core.comm.PeerComm` with its own workspace, on
+``cuda:(rank % cards)``, so with one card visible every rank shares
+``cuda:0``.  The kernel library is
 built once in the calling process before the ranks start (its build lock
 covers the threads of one process only).
 
@@ -17,13 +22,14 @@ hung collective fails instead of hanging its caller.
 """
 from __future__ import annotations
 
+import math
 import os
 import queue as queue_mod
 import socket
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,12 +54,34 @@ def _leave(store, rank: int, tp: int, timeout_s: float = 300.0):
         time.sleep(0.001)
 
 
-def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
-                fn: Callable, args: Sequence, out_q):
+def _factory(device: str, rank: int, store, dev):
+    """The MeshComm factory of a transport: a gloo sub-group (every rank
+    calls ``new_group`` for every group) or, on CUDA, a PeerComm of the
+    members with the store prefix ``tp/<axes>/<group>``."""
     import torch.distributed as dist
 
     from repro_torch.core.comm import DistComm, PeerComm
+
+    def make(axes, index, members):
+        if device == "cpu":
+            group = (None if members == list(range(dist.get_world_size()))
+                     else dist.new_group(members))
+            return DistComm(group, members) if rank in members else None
+        if rank not in members:
+            return None
+        return PeerComm(members.index(rank), len(members), store,
+                        prefix=f"tp/{'.'.join(axes)}/{index}", device=dev)
+    return make
+
+
+def _rank_entry(rank: int, mesh, port: int, device: str, threads: int,
+                fn: Callable, args: Sequence, out_q):
+    import torch.distributed as dist
+
+    from repro_torch.core.axes import RankMesh
+    from repro_torch.core.comm import MeshComm
     comm = None
+    tp = math.prod(mesh[0])
     try:
         store = dist.TCPStore("127.0.0.1", port, tp, rank == 0,
                               timeout=timedelta(seconds=300))
@@ -61,12 +89,12 @@ def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
             torch.set_num_threads(threads)
             dist.init_process_group("gloo", store=store, rank=rank,
                                     world_size=tp)
-            comm = DistComm()
             dev = torch.device("cpu")
         else:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-            comm = PeerComm(rank, tp, store, prefix="tp", device=dev)
+        comm = MeshComm(RankMesh(*mesh), rank,
+                        _factory(device, rank, store, dev))
         result = fn(comm, dev, *args)
         comm.check()
         comm.close()
@@ -86,14 +114,26 @@ def _rank_entry(rank: int, tp: int, port: int, device: str, threads: int,
             dist.destroy_process_group()
 
 
-def run_ranks(fn: Callable, tp: int, *, device: Optional[str] = None,
+def run_ranks(fn: Callable, tp: int = 0, *, device: Optional[str] = None,
               args: Sequence = (), timeout: float = 600.0,
-              threads: Optional[int] = None) -> List[Any]:
-    """``[fn(comm_r, device_r, *args) for r in range(tp)]``, each in its own
-    process.  ``device``: ``"cpu"`` or CUDA (None).  ``fn`` and ``args``
-    must pickle (``fn`` by its import path).  ``threads``: torch threads a
-    CPU rank uses (default: the cores shared out)."""
+              threads: Optional[int] = None,
+              mesh: Optional[Tuple[Sequence[int], Sequence[str]]] = None
+              ) -> List[Any]:
+    """``[fn(comm_r, device_r, *args) for r in range(n)]``, each in its own
+    process, where n is the size of ``mesh`` (``(shape, axis_names)``;
+    default ``((1, tp), ("data", "model"))``; ``tp``, when given with a
+    mesh, must be its size).  ``device``: ``"cpu"`` or CUDA (None).
+    ``fn`` and ``args`` must pickle (``fn`` by its import path).
+    ``threads``: torch threads a CPU rank uses (default: the cores shared
+    out)."""
     import torch.multiprocessing as mp
+    if mesh is None:
+        mesh = ((1, tp), ("data", "model"))
+    mesh = (tuple(int(n) for n in mesh[0]), tuple(mesh[1]))
+    if tp and tp != math.prod(mesh[0]):
+        raise ValueError(f"run_ranks: tp={tp} but the mesh {mesh[0]} has "
+                         f"{math.prod(mesh[0])} ranks")
+    tp = math.prod(mesh[0])
     device = "cpu" if device == "cpu" else "cuda"
     if device == "cuda":
         if not torch.cuda.is_available():
@@ -106,7 +146,7 @@ def run_ranks(fn: Callable, tp: int, *, device: Optional[str] = None,
     out_q = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_entry,
-                         args=(r, tp, port, device, threads, fn,
+                         args=(r, mesh, port, device, threads, fn,
                                tuple(args), out_q), daemon=True)
              for r in range(tp)]
     for p in procs:

@@ -1,6 +1,6 @@
 """Training launcher of the PyTorch port: AdamW steps of one model on a
-1-D tensor-parallel group of ``--tp`` ranks, on the card (default) or the
-CPU.
+mesh of rank processes (``--mesh``, ``--tp``), on the card (default) or
+the CPU.
 
     # on the GPU (builds the CUDA kernels at the first step)
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
@@ -18,6 +18,15 @@ CPU.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 2 --tp 2 --schedule oases
 
+    # a per-layer plan on the factored mesh (t1, t2) of four ranks: layers
+    # at degree 4 and at degree 2 (whose two groups of two split the batch)
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 2 --tp 4 --mesh factored --plan p.json
+
+    # the 2-D layout: heads and d_ff over model_x, d_model over model_y
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 2 --mesh 1x2x2 --tmp-layout 2d
+
     # the Oases planner: calibrate the card, solve the ILP for this
     # workload, train under the plan and write it; then replay the file
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-h2048 \\
@@ -31,10 +40,16 @@ CPU.
         --device cpu --steps 3 --tp 2 --telemetry tel
     PYTHONPATH=src python -m repro_torch.obs.report tel [--validate]
 
-With ``--tp`` N > 1 the launcher spawns N rank processes
+The mesh (:mod:`repro_torch.launch.mesh`) sets the ranks: ``auto`` is
+the 1-D ``(1, --tp)`` mesh, ``factored`` splits ``--tp`` into binary
+t-axes (per-layer degrees and 2-D degrees mix there), ``1xM`` and
+``1xMxxMy`` are explicit 1-D and 2-D meshes (M or Mx x My ranks; ``--tp``
+then 1 or that size), and a ``--plan`` file's recorded mesh is rebuilt.
+With more than one rank the launcher spawns one process per rank
 (:mod:`repro_torch.launch.ranks`): gloo on the CPU, the port's peer
-collectives on the card.  Prints the JSON of ``repro.launch.train``
-(``final_step``, ``first_loss``, ``last_loss``, ``slow_steps``), from
+collectives on the card, over each sub-group the plan uses.  Prints the
+JSON of ``repro.launch.train`` (``final_step``, ``first_loss``,
+``last_loss``, ``slow_steps``), from
 rank 0, with the plan's summary (``plan``), the planner's prediction
 (``predicted_ms``, under ``--planner``) and, on the card, each step's
 device time (``device_step_ms``, CUDA events); :func:`main` returns it.
@@ -45,12 +60,16 @@ a ``--plan`` file, or under ``--planner`` the ILP's decision
 (:mod:`repro_torch.core.planner`), calibrated on the card by default
 (``--no-calibrate``: the H100_80GB_HBM3 fixture; the CPU has no card to
 calibrate).  The launcher resolves the plan once, in its own process,
-before the ranks start, and hands it to every rank.  The port runs
-uniform 1-D plans: a plan that mixes strategies, or whose degree is not
-``--tp``, raises naming ROADMAP.md A7, as does ``--tmp-layout 2d``.
-Sequence parallelism without ring attention is reachable through
-``TrainHParams(seq_parallel=True)`` (JAX's CLI has no flag for it
-either).
+before the ranks start, and hands it to every rank.  Plans mix
+degrees (1-D up to the mesh's model group; 2-D ``(dx, dy)``) and
+schedules per layer on one data rank (``launch/steps.py::check_plan``);
+a ``data`` axis above 1, pipelines and per-layer ring-attention seqs
+raise, naming ROADMAP.md A4, A8 and A9, and the MoE, SSD and RG-LRU
+families at more than one rank A10c.  Under ``--planner`` on a mesh
+that is not factored a plan of mixed degrees is printed and the uniform
+layout trains (JAX's rule).  Sequence parallelism without ring attention
+is reachable through ``TrainHParams(seq_parallel=True)`` (JAX's CLI has
+no flag for it either).
 
 ``--telemetry DIR`` appends the run's records to ``DIR/telemetry.jsonl``
 (:mod:`repro_torch.obs`): the planner's, written by the launcher's
@@ -105,24 +124,24 @@ def _train(comm, device, args, cfg, hp, plan, probe_hw=None) -> dict:
     return out
 
 
-def _planner_hw(args):
-    """The planner's HWConfig for ``--tp`` ranks: calibrated on the card
+def _planner_hw(args, n: int):
+    """The planner's HWConfig for ``n`` ranks: calibrated on the card
     (cached per host), or the H100_80GB_HBM3 fixture under
     ``--no-calibrate``.  Either way the link terms are the fixture's."""
     from repro_torch.core.planner.calibrate import (calibrated_hw, describe,
                                                     fixture_hw)
     if args.calibrate:
-        hw = calibrated_hw(n_chips=args.tp)
+        hw = calibrated_hw(n_chips=n)
         print(f"planner: calibrated hw {describe(hw)}; link terms from "
               f"H100_80GB_HBM3 (one card has no link to measure)")
     else:
-        hw = fixture_hw(n_chips=args.tp)
+        hw = fixture_hw(n_chips=n)
         print(f"planner: H100_80GB_HBM3 fixture {describe(hw)} "
               f"(--no-calibrate)")
     return hw
 
 
-def _probe_hw(args):
+def _probe_hw(args, n: int):
     """The overlap probe's HWConfig, resolved in this process before any
     rank shares the card, as :func:`_planner_hw` resolves the planner's
     (``calibrated_hw`` memoizes: after ``--planner`` it is the same
@@ -134,19 +153,21 @@ def _probe_hw(args):
         return None
     from repro_torch.core.planner.calibrate import calibrated_hw, fixture_hw
     if args.calibrate:
-        return calibrated_hw(n_chips=args.tp)
-    return fixture_hw(n_chips=args.tp)
+        return calibrated_hw(n_chips=n)
+    return fixture_hw(n_chips=n)
 
 
 def _resolve(args):
-    """-> (cfg, hp, plan, predicted_ms or None): the flags, a ``--plan``
-    file or the planner's decision as one ParallelPlan, resolved and
-    checked in this process before any rank exists.  ``hp`` is the flags'
-    (its auto microbatch resolved), not yet projected through the plan."""
+    """-> (cfg, hp, mesh, plan, predicted_ms or None): the flags, a
+    ``--plan`` file or the planner's decision as one ParallelPlan on one
+    rank mesh, resolved and checked in this process before any rank
+    exists.  ``hp`` is the flags' (its auto microbatch resolved), not yet
+    projected through the plan."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, TrainHParams
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.axes import mesh_info
     from repro_torch.launch.mesh import resolve_launch
     from repro_torch.launch.steps import check_plan, resolve_hp
 
@@ -159,34 +180,46 @@ def _resolve(args):
                       learning_rate=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 1),
                       microbatch=args.microbatch, seq_shard=args.seq_shard)
+    mesh, plan = resolve_launch(cfg, hp, mesh=args.mesh, tp=args.tp or 1,
+                                plan_file=args.plan)
+    info = mesh_info(mesh)
     # the port's microbatch 0 is "auto": resolve it before planning, so the
     # cost model and the plan written carry the count the steps run
     hp = resolve_hp(hp, args.batch, seq_len=args.seq, d_model=cfg.d_model,
-                    num_layers=cfg.num_layers, tp=args.tp)
-    plan = resolve_launch(cfg, hp, tp=args.tp, plan_file=args.plan)
+                    num_layers=cfg.num_layers, tp=info.tp)
+    if not args.plan:
+        plan = dataclasses.replace(plan, microbatch=hp.microbatch)
     predicted_ms = None
     if args.planner and not args.plan:
         from repro_torch.core.planner import plan as plan_search
         pr = plan_search(cfg, ShapeConfig("cli", args.seq, args.batch,
                                           "train"),
-                         hp, _planner_hw(args),
-                         # the port's layouts are 1-D until A7
-                         layout="1d",
+                         hp, _planner_hw(args, mesh.size),
+                         layout=args.tmp_layout,
                          options=tuple(n for n in (2, 4, 8, 16)
-                                       if n <= args.tp) or (args.tp,),
+                                       if n <= info.tp) or (info.tp,),
                          schedules="auto"
                          if args.planner_schedules == "auto" else None,
                          seq=args.planner_seq)
         print(f"planner: {pr.summary()}")
         predicted_ms = pr.predicted_s * 1e3
-        plan = dataclasses.replace(plan, layers=pr.plan.layers)
+        runs_here = all(d in (None, info.tp) for d in pr.plan.degrees)
+        if info.factored or pr.plan.planned_degrees is None or runs_here:
+            plan = dataclasses.replace(plan, layers=pr.plan.layers)
+        else:
+            print("planner: mesh is not factored — plan shown for "
+                  "inspection only, training uses the uniform layout")
     # refuse what the port cannot run before any rank exists; each rank's
     # Trainer projects hp through the plan
-    check_plan(cfg, plan, args.tp)
+    if args.tp and args.tp != info.tp:
+        raise ValueError(f"{plan.summary()}: its mesh {mesh.shape} "
+                         f"{mesh.axis_names} has a model group of {info.tp} "
+                         f"ranks: run it with --tp {info.tp}")
+    check_plan(cfg, plan, mesh)
     if args.save_plan:
         plan.save(args.save_plan)
         print(f"[plan] wrote {args.save_plan}: {plan.summary()}")
-    return cfg, hp, plan, predicted_ms
+    return cfg, hp, mesh, plan, predicted_ms
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -208,8 +241,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
-    ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ranks (processes)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="model-group ranks (processes) of an auto or "
+                         "factored mesh (default 1; with an explicit mesh "
+                         "or a plan file's mesh, their model group)")
+    ap.add_argument("--mesh", default="auto",
+                    help="auto (1 x --tp) | factored (binary t-axes of "
+                         "--tp: per-layer degrees) | 1xM | 1xMxxMy (2-D "
+                         "model_x x model_y)")
     ap.add_argument("--schedule", default="oases", choices=SCHEDULES)
     ap.add_argument("--no-remat", action="store_true",
                     help="keep every activation (no recomputation)")
@@ -218,11 +257,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="recompute whole layers, collectives included")
     ap.add_argument("--tmp-layout", default="auto",
                     choices=["auto", "1d", "2d"],
-                    help="partition layout: auto and 1d are the port's 1-D "
-                         "group; 2d raises (ROADMAP.md A7)")
+                    help="partition layout: 1d (classic), 2d (hybrid "
+                         "model_x*model_y), auto (follow the mesh; the "
+                         "planner searches both spaces)")
     ap.add_argument("--planner", action="store_true",
                     help="the plan from the ILP (degrees in (2, 4, 8, 16) "
-                         "up to --tp, or --tp)")
+                         "up to the mesh's model group, or that group)")
     ap.add_argument("--calibrate", action="store_true", default=True,
                     help="profile-guided --planner inputs (the DEFAULT: "
                          "the card's measured bf16 rate, memory rate and "
@@ -279,16 +319,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                            console=print)
         prev = obs.set_recorder(rec)
     try:
-        cfg, hp, plan, predicted_ms = _resolve(args)
+        cfg, hp, mesh, plan, predicted_ms = _resolve(args)
         run = (args, cfg, hp, plan,
-               _probe_hw(args) if args.telemetry else None)
-        if args.tp > 1:
+               _probe_hw(args, mesh.size) if args.telemetry else None)
+        if mesh.size > 1:
             from repro_torch.launch import train as this  # picklable by name
             from repro_torch.launch.ranks import run_ranks
             if rec is not None:
                 rec.close()     # rank 0 appends to the file next
-            out = run_ranks(this._train, args.tp, device=args.device,
-                            args=run, timeout=3600)[0]
+            out = run_ranks(this._train, device=args.device, args=run,
+                            timeout=3600,
+                            mesh=(mesh.shape, mesh.axis_names))[0]
         else:
             from repro_torch.core.device import resolve_device
             out = _train(None, resolve_device(args.device), *run)

@@ -3,15 +3,18 @@
 KV cache (``decode_fn``, tp=1, GLOBAL_ATTN + SwiGLU).
 
 A GLOBAL_ATTN layer is an attention part and an FFN part: each rank runs
-its ``h_local`` heads and ``d_ff / tp`` columns; the entries go through
+its ``h_local`` heads and ``d_ff / dx`` columns (dx: the width-sharding
+degree, the whole group in 1-D); the entries go through
 ``ctx.gather_matmul`` and the exits through ``ctx.row_matmul``, which
-take the sequence-parallel forms under SP; with ``seq_shard`` > 1 the
-attention part is the ring part.  The FFN is SwiGLU or, in the MoE
-family, the MoE FFN (tp=1: an exit-less part).  A LOCAL_ATTN layer is a
-GLOBAL_ATTN layer whose attention sees only the last ``cfg.window``
-positions; an RGLRU layer is the RG-LRU part and the FFN (tp=1).  An SSD
-layer is the Mamba2 mixer alone (tp=1).  Plain matrix products stay
-``torch.matmul``, as the JAX package left them to XLA."""
+take the sequence-parallel forms under SP and the per-axis forms in 2-D
+(the exits gather their output columns back to ``d_model``); with
+``seq_shard`` > 1 the attention part is the ring part.  The FFN is
+SwiGLU or, in the MoE family, the MoE FFN (tp=1: an exit-less part).  A
+LOCAL_ATTN layer is a GLOBAL_ATTN layer whose attention sees only the
+last ``cfg.window`` positions; an RGLRU layer is the RG-LRU part and the
+FFN (tp=1).  An SSD layer is the Mamba2 mixer alone (tp=1).  Plain
+matrix products stay ``torch.matmul``, as the JAX package left them to
+XLA."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -50,31 +53,35 @@ def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 
 def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
-         h: torch.Tensor, positions: torch.Tensor):
+         h: torch.Tensor, positions: torch.Tensor, keep=None):
     """h [b, s, d] (replicated; under SP this rank's sequence chunk, which
     the entry gathers) -> this rank's q [b, s, h_local, hd] and k, v
     [b, s, kv_local, hd] over the whole sequence, rope on q and k
-    (``blocks.py`` ``_qkv``, 1-D).  KV weights the group does not divide
-    are replicated: every rank projects the kv-head group its q heads
-    need, and the weights pass through f so that their gradient sums the
-    ranks' shares."""
+    (``blocks.py`` ``_qkv``).  Heads shard over x (``ctx.tp`` = dx); in
+    2-D the projections' rows shard over y and the entry slices h to
+    match.  KV weights x does not divide are replicated over x: every
+    rank projects the kv-head group its q heads need (all of them with
+    one KV head; in 2-D from its y-sliced h, the products summed over y
+    as every entry's), and the weights pass through f over x so that
+    their gradient sums the ranks' shares.  ``keep``: fine
+    recomputation's state of the part."""
     plan = attn_plan(cfg, ctx.tp)
     hd = cfg.resolved_head_dim
     b = h.shape[0]
     wk, wv = p["wk"], p["wv"]
-    if plan.sharded and not plan.kv_sharded \
-            and plan.kv_slice < cfg.num_kv_heads:
+    if plan.sharded and not plan.kv_sharded:
+        if plan.kv_slice == cfg.num_kv_heads != cfg.num_heads \
+                and plan.h_local % cfg.num_kv_heads:
+            raise NotImplementedError(
+                f"{cfg.name}: tp={ctx.tp} with {cfg.num_heads} q / "
+                f"{cfg.num_kv_heads} kv heads needs the non-aligned GQA "
+                f"fallback, not ported (ROADMAP.md A2)")
         group = cfg.num_heads // cfg.num_kv_heads
-        start = (tmpc.axes_index(ctx.comm) * plan.h_local) // group
+        start = (tmpc.axes_index(ctx.x_comm) * plan.h_local) // group
         cols = slice(start * hd, (start + plan.kv_slice) * hd)
-        wk = tmpc.copy_to_tmp(wk, ctx.comm)[:, cols]
-        wv = tmpc.copy_to_tmp(wv, ctx.comm)[:, cols]
-    elif plan.sharded and not plan.kv_sharded:
-        raise NotImplementedError(
-            f"{cfg.name}: tp={ctx.tp} with {cfg.num_heads} q / "
-            f"{cfg.num_kv_heads} kv heads needs the non-aligned GQA "
-            f"fallback, not ported (ROADMAP.md A2)")
-    q, k, v = ctx.gather_matmul(h, (p["wq"], wk, wv))
+        wk = tmpc.copy_to_tmp(wk, ctx.x_comm)[:, cols]
+        wv = tmpc.copy_to_tmp(wv, ctx.x_comm)[:, cols]
+    q, k, v = ctx.gather_matmul(h, (p["wq"], wk, wv), keep=keep)
     s = q.shape[1]
     q = q.reshape(b, s, plan.h_local, hd)
     k = k.reshape(b, s, -1, hd)
@@ -90,9 +97,10 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
     MoE configs), RGLRU gives :func:`rglru_part` and the MLP part, SSD
     gives :func:`ssd_part` alone.  A part's body runs from its input to
     its exit product's input; the schedule runs the exit (``wo``, ``wd``)
-    and its collective.  Under SP a part's input is this rank's sequence
-    chunk: the entry gathers the sequence and the exit scatters it.  With
-    ``seq_shard`` > 1 the attention part is :func:`ring_part`'s."""
+    and its collectives (in 2-D gathering the output columns).  Under SP
+    a part's input is this rank's sequence chunk: the entry gathers the
+    sequence and the exit scatters it.  With ``seq_shard`` > 1 the
+    attention part is :func:`ring_part`'s."""
     if kind == SSD:
         return [ssd_part(cfg)]
     if kind not in (GLOBAL_ATTN, LOCAL_ATTN, RGLRU):
@@ -101,7 +109,7 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
 
     def attn_body(p, x, positions, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, ctx, p, h, positions)
+        q, k, v = _qkv(cfg, ctx, p, h, positions, keep)
         o = chunked_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap)
         b, s = o.shape[:2]
@@ -109,17 +117,19 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
 
     def mlp_body(p, x, positions, keep):
         g, u = ctx.gather_matmul(rms_norm(x, p["ln2"], cfg.norm_eps),
-                                 (p["wg"], p["wu"]))
+                                 (p["wg"], p["wu"]), keep=keep)
         return F.silu(g) * u
 
+    # a 2-D exit gathers its output columns back to d_model
+    full_out = cfg.d_model if ctx.is_2d else None
     if kind == RGLRU:
         first = rglru_part(cfg)
     elif ctx.seq_shard > 1:
         first = ring_part(cfg, ctx)
     else:
-        first = Part(attn_body, "wo")
+        first = Part(attn_body, "wo", full_out=full_out)
     return [first, moe_part(cfg) if cfg.moe is not None
-            else Part(mlp_body, "wd")]
+            else Part(mlp_body, "wd", full_out=full_out)]
 
 
 def rglru_part(cfg: ArchConfig) -> Part:
@@ -203,7 +213,7 @@ def ring_part(cfg: ArchConfig, ctx: TmpCtx) -> Part:
                                                   cfg.num_kv_heads, hd),
                  positions, cfg.rope_theta)
         v = torch.matmul(h, p["wv"]).reshape(b, s_loc, cfg.num_kv_heads, hd)
-        o = ring_attention(q, k, v, comm=ctx.comm, causal=True,
+        o = ring_attention(q, k, v, comm=ctx.group, causal=True,
                            softcap=cfg.attn_softcap, keep=keep)
         return o.reshape(b, s_loc, -1)
 

@@ -1,109 +1,160 @@
 """The model: the training loss of ``repro.models.lm.build_train_loss``
-on a 1-D tensor-parallel group (with sequence parallelism and ring
-attention), and the paged decode step of
+over a rank mesh (1-D TMP with sequence parallelism and ring attention,
+the 2-D layout, and per-layer plans whose groups mix degrees and
+schedules), and the paged decode step of
 ``build_decode`` on one device (embed, copy-on-write, the layer loop,
 final norm, head, greedy token)."""
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, TrainHParams
 from repro_torch.core import remat
-from repro_torch.core.comm import Comm, SoloComm
+from repro_torch.core import tmp as tmpc
+from repro_torch.core.comm import Comm, MeshComm, SoloComm
 from repro_torch.core.schedule import (TmpCtx, apply_layer, effective_split,
                                        merge_tree, split_tree)
 from repro_torch.core.tmp import (greedy_token, rms_norm,
                                   vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
-from repro_torch.models.params import (check_servable, check_supported,
-                                       check_tp, head_weight, layer_units,
-                                       stack_layout)
+from repro_torch.models.params import (PlanGroup, check_families,
+                                       check_servable, check_supported,
+                                       check_tp,
+                                       head_weight, layer_units,
+                                       plan_groups)
+
+
+def normalize_strategy(cfg: ArchConfig, hp: TrainHParams,
+                       degrees: Optional[Sequence] = None,
+                       schedules: Optional[Sequence[str]] = None,
+                       seqs: Optional[Sequence[int]] = None):
+    """One normalization of the per-layer strategy inputs
+    (``lm._normalize_strategy``) -> ``(degrees, schedules, seqs, hp)``:
+
+    * uniform per-layer schedules collapse into ``hp.schedule`` (the
+      stacked path) when no degrees are pinned;
+    * mixed schedules with no pinned degrees promote to the grouped path
+      with mesh-following ``degree=None`` groups;
+    * per-layer ring-attention ``seqs`` collapse into ``hp.seq_shard``
+      when uniform over the whole stack (else they ride the grouped
+      path); a uniform ``hp.seq_shard`` over a grouped plan re-expands
+      into per-layer seqs;
+    * the grouped path always carries an explicit schedule list, so the
+      spec grouping (:func:`~repro_torch.models.params.model_specs`) and
+      the execution grouping agree by construction."""
+    if seqs is not None:
+        seqs = list(seqs)
+        if len(seqs) != cfg.num_layers:
+            raise ValueError(
+                f"per-layer seqs have {len(seqs)} entries for a "
+                f"{cfg.num_layers}-layer model")
+        if len(set(seqs)) == 1:
+            hp = dataclasses.replace(hp, seq_shard=seqs[0])
+            seqs = None
+    if schedules is not None:
+        schedules = list(schedules)
+        if len(schedules) != cfg.num_layers:
+            raise ValueError(
+                f"per-layer schedules have {len(schedules)} entries for "
+                f"a {cfg.num_layers}-layer model")
+        if len(set(schedules)) == 1:
+            hp = dataclasses.replace(hp, schedule=schedules[0])
+            schedules = None
+        elif degrees is None:
+            degrees = [None] * cfg.num_layers
+    if seqs is not None and degrees is None:
+        degrees = [None] * cfg.num_layers
+    if degrees is not None:
+        degrees = list(degrees)
+        if schedules is None:
+            schedules = [hp.schedule] * cfg.num_layers
+    if degrees is not None and seqs is None and hp.seq_shard > 1:
+        seqs = [hp.seq_shard] * cfg.num_layers
+        hp = dataclasses.replace(hp, seq_shard=1)
+    return degrees, schedules, seqs, hp
 
 
 def train_layout(cfg: ArchConfig, hp: TrainHParams, tp: int,
-                 seq_len: int) -> Tuple[bool, int, List[str]]:
+                 seq_len: int, *, grouped: bool = False,
+                 twod: bool = False,
+                 width: Optional[int] = None) -> Tuple[bool, int, List[str]]:
     """(seq_parallel, seq_shard, blockers) of a run, as JAX's
-    ``build_train_loss`` decides them (``lm.py:330-375``): ring attention
+    ``build_train_loss`` decides them (``lm.py:325-375``): ring attention
     (``hp.seq_shard`` > 1) that cannot run raises (``check_tp``) and
     implies SP; ``hp.seq_parallel`` with a blocker (a group of one, a
-    sequence the group does not divide) runs without SP, and ``blockers``
-    names why."""
-    check_tp(cfg, tp, seq_shard=hp.seq_shard, seq_len=seq_len)
+    sequence the group does not divide, a per-layer plan, the 2-D
+    layout) runs without SP, and ``blockers`` names why.  ``tp``: the
+    model group's size; ``width``: the degree heads and d_ff divide by
+    (dx in 2-D; default tp)."""
+    check_families(cfg, tp)
     blockers = []
     if tp <= 1:
         blockers.append("the mesh has no model axes (tp=1)")
+    if grouped:
+        blockers.append("per-layer strategies run the grouped path "
+                        "(groups shard their own sequences)")
     if seq_len % max(tp, 1):
         blockers.append(f"seq_len {seq_len} is not divisible by the model "
                         f"group size {tp}")
+    if twod:
+        blockers.append("the 2D layout's block entries/exits are "
+                        "per-axis collectives, not the SP AG/RS pair")
+    if hp.seq_shard > 1 and (grouped or twod):
+        raise ValueError("seq_shard (ring attention) cannot run here: "
+                         + "; ".join(blockers))
+    if not grouped:
+        check_tp(cfg, tp if width is None else width,
+                 seq_shard=hp.seq_shard, seq_len=seq_len)
     sp = bool((hp.seq_parallel or hp.seq_shard > 1) and not blockers)
     return sp, hp.seq_shard, blockers
 
 
 def train_ctx(cfg: ArchConfig, hp: TrainHParams, comm: Comm,
-              seq_len: int) -> TmpCtx:
-    """The :class:`~repro_torch.core.schedule.TmpCtx` of a run: ``hp``'s
-    schedule and sequence layout (:func:`train_layout`) over ``comm``.
-    SP that a blocker turns off warns, as JAX's ``_sp_degraded`` does."""
-    sp, shard, blockers = train_layout(cfg, hp, comm.size, seq_len)
+              seq_len: int, *, grouped: bool = False) -> TmpCtx:
+    """The :class:`~repro_torch.core.schedule.TmpCtx` of a run over the
+    whole model group: ``hp``'s schedule, layout (``hp.tmp_layout``) and
+    sequence layout (:func:`train_layout`) over ``comm`` (a MeshComm, or
+    one 1-D group's Comm).  Under a per-layer plan (``grouped``) it is
+    the context of the embedding and the loss.  SP that a blocker turns
+    off warns, as JAX's ``_sp_degraded`` does."""
+    base = TmpCtx(comm, layout=hp.tmp_layout)
+    sp, shard, blockers = train_layout(cfg, hp, base.tp_total, seq_len,
+                                       grouped=grouped, twod=base.is_2d,
+                                       width=base.tp)
     if hp.seq_parallel and not sp:
         warnings.warn(f"seq_parallel degraded: {'; '.join(blockers)}",
                       RuntimeWarning, stacklevel=2)
     return TmpCtx(comm, schedule=hp.schedule, seq_parallel=sp,
-                  seq_shard=shard)
+                  seq_shard=shard, layout=hp.tmp_layout)
 
 
-def train_loss(cfg: ArchConfig, params: Dict[str, Any],
-               batch: Dict[str, torch.Tensor], hp: TrainHParams,
-               ctx: Optional[TmpCtx] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars,
-    the same on every rank: the body of ``build_train_loss`` on a 1-D
-    model group (``ctx``, as :func:`train_ctx` makes it; None: tp=1).
-    ``params`` are this rank's shards
-    (:func:`~repro_torch.models.params.shard_params`).
+def group_ctxs(cfg: ArchConfig, hp: TrainHParams, comm: MeshComm,
+               degrees: Sequence, schedules: Sequence[str]
+               ) -> List[Tuple[PlanGroup, TmpCtx]]:
+    """The plan groups of a per-layer plan (:func:`~repro_torch.models.
+    params.plan_groups`), each with its own ``TmpCtx``: the group's
+    degree and schedule over ``comm``, ``hp.tmp_layout``, no SP.  Each
+    group's layers must run at their width degree (``check_tp``)."""
+    out = []
+    for g in plan_groups(cfg, degrees, schedules):
+        ctx = TmpCtx(comm, schedule=g.schedule, degree=g.degree,
+                     layout=hp.tmp_layout)
+        check_tp(cfg, ctx.tp)
+        out.append((g, ctx))
+    return out
 
-    The vocab-parallel embedding (under SP completed by a reduce-scatter
-    along the sequence, so the residual stream is this rank's chunk), the
-    batch cut into :func:`~repro_torch.core.schedule.effective_split`
-    sub-batches, the layer loop through
-    :func:`~repro_torch.core.schedule.apply_layer` under the recomputation
-    policy of ``hp`` (``repro_torch.core.remat``), the merge, the SP
-    all-gather of the sequence, the final norm and the vocab-parallel
-    cross entropy over the head (``embed.T`` when tied).  ``aux`` is the
-    parts' auxiliary loss (the MoE router's) summed over layers and
-    sub-batches and divided by the layer count, and is added to the
-    loss, as in JAX (``lm.py:438-440``); 0 for dense and SSD models."""
-    check_supported(cfg)
-    tokens, labels = batch["tokens"], batch["labels"]
-    b, s = tokens.shape
-    if ctx is None:
-        ctx = train_ctx(cfg, hp, SoloComm(), s)
-    if ctx.schedule != hp.schedule:
-        raise ValueError(f"TmpCtx schedule {ctx.schedule!r} != hp.schedule "
-                         f"{hp.schedule!r}")
-    sp, shard, _ = train_layout(cfg, hp, ctx.tp, s)
-    if (ctx.sp, ctx.seq_shard) != (sp, shard):
-        raise ValueError(
-            f"TmpCtx (seq_parallel={ctx.sp}, seq_shard={ctx.seq_shard}) "
-            f"does not match hp's layout (seq_parallel={sp}, "
-            f"seq_shard={shard}) at seq {s}: build it with train_ctx")
-    x = vocab_parallel_embed(tokens, params["embed"], ctx.comm,
-                             sp_seq_dim=1 if ctx.sp else None)
-    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    split = effective_split(hp.schedule, hp.split, b)
-    xs = split_tree(x, split)
-    pos = torch.arange(s, device=tokens.device)
-    if ctx.seq_shard > 1:         # the ring part's chunk of the sequence
-        pos = pos.chunk(ctx.tp)[ctx.comm.rank]
-    positions = [pos[None, :].expand(t.shape[0], -1) for t in xs]
-    n, pat, tail = stack_layout(cfg)
-    parts = {k: blocks.train_parts(cfg, ctx, k) for k in set(pat) | set(tail)}
-    pol = remat.policy(hp.schedule, remat=hp.remat, fine=hp.fine_remat)
+
+def _layer_loop(cfg, hp, layers, xs, positions, ctx):
+    """Run ``layers`` (a list of units, each a list of (kind, leaves))
+    under ``ctx`` and ``hp``'s recomputation policy -> (xs, aux)."""
+    parts = {kind: blocks.train_parts(cfg, ctx, kind)
+             for unit in layers for kind, _ in unit}
+    pol = remat.policy(ctx.schedule, remat=hp.remat, fine=hp.fine_remat)
 
     def unit_fn(unit, *xs_in):
         xs_u, aux_u = list(xs_in), 0.0
@@ -113,18 +164,127 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
             aux_u = aux_u + aux_l
         return (*xs_u, aux_u)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for unit in layer_units(cfg, params):
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for unit in layers:
         if pol == "coarse":
             *xs, aux_u = remat.checkpoint_layer(unit_fn, unit, *xs)
         else:
             *xs, aux_u = unit_fn(unit, *xs)
         aux = aux + aux_u
-    x = ctx.gather_seq(merge_tree(xs))
+    return list(xs), aux
+
+
+def _positions(xs, s, device, pos=None):
+    pos = torch.arange(s, device=device) if pos is None else pos
+    return [pos[None, :].expand(t.shape[0], -1) for t in xs]
+
+
+def _grouped_layers(cfg, hp, params, x, mesh: MeshComm, groups):
+    """The layer loop of a per-layer plan (``lm._grouped_scan``): each
+    plan group runs its layers under its own ``TmpCtx`` and sub-batch
+    split of the *local* batch.  The batch is cut over the extra
+    data-parallel axes of a group's degree (the model axes a lower-degree
+    group does not shard over), so a group change reshards it: the
+    chunks are gathered over the old axes, then cut over the new ones
+    (a chunk's place is the linearized index over the whole ordered
+    tuple, so gathering or cutting only the changed axes would permute
+    the batch against the labels).  Ends gathered, for the loss.
+    -> (x, aux)."""
+    cur = mesh.sub(())
+
+    def reshard(x, axes):
+        nonlocal cur
+        new = mesh.sub(axes)
+        if new is not cur:
+            x = tmpc.batch_gather(x, cur, 0)
+            if x.shape[0] % new.size:
+                raise ValueError(
+                    f"a batch of {x.shape[0]} rows does not split over the "
+                    f"{new.size} extra data-parallel ranks {tuple(axes)} "
+                    f"of a lower-degree group")
+            x = tmpc.batch_split(x, new, 0)
+            cur = new
+        return x
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gi, (g, ctx) in enumerate(groups):
+        x = reshard(x, mesh.info.extra_dp_axes(g.degree))
+        xs = split_tree(x, effective_split(ctx.schedule, hp.split,
+                                           x.shape[0]))
+        # unbound, as ``layer_units`` does: the backward stacks the layers'
+        # gradients once (a slice's would be a whole-stack tensor a layer)
+        per = {k: t.unbind(0) for k, t in params["groups"][gi].items()}
+        layers = [[(g.kind, {k: ts[i] for k, ts in per.items()})]
+                  for i in range(g.count)]
+        xs, aux_g = _layer_loop(cfg, hp, layers, xs,
+                                _positions(xs, x.shape[1], x.device), ctx)
+        aux = aux + aux_g
+        x = merge_tree(xs)
+    return reshard(x, ()), aux
+
+
+def train_loss(cfg: ArchConfig, params: Dict[str, Any],
+               batch: Dict[str, torch.Tensor], hp: TrainHParams,
+               ctx: Optional[TmpCtx] = None,
+               groups: Optional[List[Tuple[PlanGroup, TmpCtx]]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars,
+    the same on every rank: the body of ``build_train_loss`` over the
+    model group (``ctx``, as :func:`train_ctx` makes it; None: tp=1).
+    ``params`` are this rank's shards (:class:`~repro_torch.models.
+    params.ModelLayout`); under a per-layer plan they hold ``groups``
+    and ``groups`` gives each plan group's context (:func:`group_ctxs`).
+
+    The vocab-parallel embedding (under SP completed by a reduce-scatter
+    along the sequence, so the residual stream is this rank's chunk), the
+    batch cut into :func:`~repro_torch.core.schedule.effective_split`
+    sub-batches, the layer loop through
+    :func:`~repro_torch.core.schedule.apply_layer` under the recomputation
+    policy of ``hp`` (``repro_torch.core.remat``), the merge, the SP
+    all-gather of the sequence, the final norm and the vocab-parallel
+    cross entropy over the head (``embed.T`` when tied).  A per-layer
+    plan runs its groups in turn (:func:`_grouped_layers`), each with its
+    own split of its share of the batch.  ``aux`` is the parts'
+    auxiliary loss (the MoE router's) summed over layers and sub-batches
+    and divided by the layer count, and is added to the loss, as in JAX
+    (``lm.py:438-440``); 0 for dense and SSD models."""
+    check_supported(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    grouped = "groups" in params
+    if grouped != (groups is not None):
+        raise ValueError("grouped weights and plan groups go together")
+    if ctx is None:
+        ctx = train_ctx(cfg, hp, SoloComm(), s)
+    if ctx.schedule != hp.schedule:
+        raise ValueError(f"TmpCtx schedule {ctx.schedule!r} != hp.schedule "
+                         f"{hp.schedule!r}")
+    sp, shard, _ = train_layout(cfg, hp, ctx.tp_total, s, grouped=grouped,
+                                twod=ctx.is_2d, width=ctx.tp)
+    if (ctx.sp, ctx.seq_shard) != (sp, shard):
+        raise ValueError(
+            f"TmpCtx (seq_parallel={ctx.sp}, seq_shard={ctx.seq_shard}) "
+            f"does not match hp's layout (seq_parallel={sp}, "
+            f"seq_shard={shard}) at seq {s}: build it with train_ctx")
+    x = vocab_parallel_embed(tokens, params["embed"], ctx.group,
+                             sp_seq_dim=1 if ctx.sp else None)
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if grouped:
+        x, aux = _grouped_layers(cfg, hp, params, x, ctx.comm, groups)
+    else:
+        xs = split_tree(x, effective_split(hp.schedule, hp.split, b))
+        pos = None
+        if ctx.seq_shard > 1:         # the ring part's chunk of the sequence
+            pos = torch.arange(s, device=tokens.device).chunk(
+                ctx.tp_total)[ctx.group.rank]
+        xs, aux = _layer_loop(cfg, hp, layer_units(cfg, params), xs,
+                              _positions(xs, s, x.device, pos), ctx)
+        x = ctx.gather_seq(merge_tree(xs))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(
         x, head_weight(params), labels, chunk=hp.loss_chunk,
-        softcap=cfg.final_softcap, comm=ctx.comm, sp=ctx.sp)
+        softcap=cfg.final_softcap, comm=ctx.group, sp=ctx.sp)
     aux = aux / max(cfg.num_layers, 1)
     return loss_sum / count + aux, aux
 

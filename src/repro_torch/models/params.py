@@ -1,22 +1,31 @@
-"""Parameter and paged-cache shapes, init, and the bridge to the JAX
-package's flat checkpoint view.
+"""Parameter and paged-cache shapes, partition specs, init, and the
+bridge to the JAX package's flat checkpoint view.
 
-The port's weights are a plain dict with the JAX tree's structure (at
-tp > 1 each rank holds its shard of every sharded leaf, see
-:func:`shard_params`):
+The port's weights are a plain dict with the JAX tree's structure (over
+a rank mesh each rank holds its shard of every sharded leaf, see
+:class:`ModelLayout`):
 ``{"blocks": [{...}, ...], "embed", "final_ln", "lm_head", "tail": [...]}``
 as ``repro.models.params.model_specs`` lays them out: ``blocks`` holds one
 dict per position of the layer pattern, each leaf with the stacked
 ``[n, ...]`` leading dim of the ``n`` whole pattern repeats, and ``tail``
 one unstacked dict per layer left over (:func:`stack_layout`; a
-single-kind pattern has one block dict and no tail).  There is no
+single-kind pattern has one block dict and no tail).  A per-layer plan
+(grouped layout) holds ``groups`` instead: one dict per plan group
+(:func:`plan_groups`), each leaf stacked ``[count, ...]``.  There is no
 ``lm_head`` with tied embeddings: the head is ``embed.T``.  Flat names
 are the JAX ``keystr`` paths (``"['blocks'][0]['wq']"``,
-``"['tail'][1]['w_a']"``), so :func:`from_flat` reads
-``repro.models.params.tree_to_flat`` output without remapping.
+``"['groups'][1]['wd']"``, ``"['tail'][1]['w_a']"``), so
+:func:`from_flat` reads ``repro.models.params.tree_to_flat`` output
+without remapping, and :func:`relayout_flat` moves weights between the
+stacked and any plan's grouped layout (JAX's weight carrier).
+
+A leaf's partition spec (:attr:`Spec.pspec`) is JAX's ``PartitionSpec``
+in the port's terms: per dim, the tuple of mesh axes it is sharded over
+(``()``: whole).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -26,8 +35,13 @@ import torch
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ArchConfig)
+from repro_torch.core.axes import (Axes, MeshInfo, RankMesh, deg_total,
+                                   mesh_info)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+PSpec = Tuple[Axes, ...]
 
 
 @dataclass(frozen=True)
@@ -37,10 +51,20 @@ class Spec:
     # init stddev; 0 -> zeros; -1 -> the constant -1 for f32 leaves and 1
     # otherwise (JAX ``init_params``' gate/decay init)
     scale: float = 0.02
+    # per dim, the mesh axes it shards over (() for every dim: whole)
+    pspec: PSpec = ()
+
+    def dims(self) -> PSpec:
+        """The spec of every dim (``()`` where whole)."""
+        return tuple(self.pspec) + ((),) * (len(self.shape)
+                                            - len(self.pspec))
+
+    def sharded_axes(self) -> Axes:
+        return tuple(a for axes in self.dims() for a in axes)
 
 
 # the ROADMAP.md items that name what the families of slices 5-6 lack
-FAMILY_TP_ITEM = ("ROADMAP.md A10, MoE and SSD at tp > 1: MoE 'tmp' and "
+FAMILY_TP_ITEM = ("ROADMAP.md A10c, MoE and SSD at tp > 1: MoE 'tmp' and "
                   "'ep', the replicated SSD mixer")
 FAMILY_SERVE_ITEM = "ROADMAP.md A10, MoE and SSD serving"
 HYBRID_TP_ITEM = ("ROADMAP.md A10c, RG-LRU and local attention at tp > 1: "
@@ -127,6 +151,19 @@ def attn_plan(cfg: ArchConfig, tp: int) -> AttnPlan:
     return AttnPlan(True, h_local, False, kv_slice)
 
 
+def check_families(cfg: ArchConfig, tp: int):
+    """MoE and SSD configs, and RG-LRU and local-attention configs, train
+    on a model group of one rank only (ROADMAP.md A10c)."""
+    if tp > 1 and is_hybrid(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port trains RG-LRU and local-attention "
+            f"models at tp=1 only, got tp={tp} ({HYBRID_TP_ITEM})")
+    if tp > 1 and is_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port trains MoE and SSD models at tp=1 "
+            f"only, got tp={tp} ({FAMILY_TP_ITEM})")
+
+
 def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
              seq_len: Optional[int] = None):
     """The 1-D layout the port runs: heads (unless ring attention
@@ -137,14 +174,7 @@ def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
     attention (``seq_shard`` > 1) raises
     where JAX's ``build_train_loss`` raises (``models/lm.py:345-363``),
     with its messages; the sequence checks need ``seq_len``."""
-    if tp > 1 and is_hybrid(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port trains RG-LRU and local-attention "
-            f"models at tp=1 only, got tp={tp} ({HYBRID_TP_ITEM})")
-    if tp > 1 and is_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port trains MoE and SSD models at tp=1 "
-            f"only, got tp={tp} ({FAMILY_TP_ITEM})")
+    check_families(cfg, tp)
     bad = [what for what, n in (("num_heads",
                                  cfg.num_heads if seq_shard == 1 else tp),
                                 ("d_ff", cfg.d_ff),
@@ -177,35 +207,6 @@ def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
 RING_REPLICATED = ("wq", "wk", "wv", "wo")
 
 
-def shard_dims(cfg: ArchConfig, tp: int,
-               seq_shard: int = 1) -> Dict[str, Optional[int]]:
-    """Flat name -> the dim each rank holds 1/tp of (None: replicated), in
-    the 1-D layout of ``model_specs``: wq/wk/wv/wg/wu by output column,
-    wo/wd by input row, embed and lm_head by vocabulary, norm scales
-    replicated; wk/wv replicated when tp does not divide the KV heads;
-    wq/wk/wv/wo replicated under ring attention (``seq_shard`` > 1, JAX
-    ``params.py:98-113``)."""
-    if tp == 1:
-        return dict.fromkeys(model_specs(cfg))
-    plan = attn_plan(cfg, tp)
-    col, row = -1, -2
-    layer = {"ln": None, "ln2": None, "wq": col, "wo": row, "wg": col,
-             "wu": col, "wd": row,
-             "wk": col if plan.kv_sharded else None,
-             "wv": col if plan.kv_sharded else None}
-    if seq_shard > 1:
-        layer.update(dict.fromkeys(RING_REPLICATED))
-    out: Dict[str, Optional[int]] = {}
-    for key in model_specs(cfg):
-        if key.startswith("['blocks'][0]"):
-            d = layer[key[len("['blocks'][0]['"):-2]]
-        else:
-            d = {"['embed']": 0, "['final_ln']": None,
-                 "['lm_head']": -1}[key]
-        out[key] = d
-    return out
-
-
 def partial_grad_leaves(cfg: ArchConfig, *, seq_parallel: bool,
                         seq_shard: int = 1) -> List[str]:
     """Flat names of the leaves whose gradient each rank computes only in
@@ -220,47 +221,186 @@ def partial_grad_leaves(cfg: ArchConfig, *, seq_parallel: bool,
     return ([f"['blocks'][0]['{n}']" for n in names] + ["['final_ln']"])
 
 
+def _take(t, dim: int, n: int, i: int):
+    """Block i of n along ``dim`` (numpy or torch)."""
+    k = t.shape[dim] // n
+    idx = [slice(None)] * t.ndim
+    idx[dim] = slice(i * k, (i + 1) * k)
+    return t[tuple(idx)]
+
+
+@dataclass(frozen=True)
+class ModelLayout:
+    """Where the leaves of a model lie on a rank mesh: the partition spec
+    of every leaf (:func:`model_specs`) for the mesh ``info`` (None: one
+    rank), the per-layer ``degrees`` and ``schedules`` of a plan (None:
+    the stacked layout), the ``layout`` (auto, 1d, 2d) and ring
+    attention's ``seq_shard``.  ``shard`` cuts whole weights into a
+    rank's shards and ``gather`` puts every rank's pieces back together
+    (JAX's ``shard_map`` in and out specs)."""
+    cfg: ArchConfig
+    info: Optional[MeshInfo] = None
+    degrees: Optional[Tuple] = None
+    schedules: Optional[Tuple[str, ...]] = None
+    layout: str = "auto"
+    seq_shard: int = 1
+
+    def __post_init__(self):
+        for f in ("degrees", "schedules"):
+            v = getattr(self, f)
+            if v is not None:
+                object.__setattr__(self, f, tuple(
+                    tuple(d) if isinstance(d, list) else d for d in v))
+        object.__setattr__(self, "specs", model_specs(
+            self.cfg, self.info, degrees=self.degrees,
+            schedules=self.schedules, layout=self.layout,
+            seq_shard=self.seq_shard))
+
+    @property
+    def mesh(self) -> RankMesh:
+        return (self.info.mesh if self.info is not None
+                else RankMesh((1,), ("data",)))
+
+    @property
+    def grouped(self) -> bool:
+        return self.degrees is not None
+
+    def groups(self) -> List["PlanGroup"]:
+        return plan_groups(self.cfg, list(self.degrees), self.schedules)
+
+    def grad_replicas(self, name: str) -> Axes:
+        """The mesh axes over which the gradient of leaf ``name`` is
+        partial and must be summed: the extra data-parallel axes of its
+        plan group (each rank there holds the same shard and saw other
+        batch rows).  Every model axis the leaf is replicated over is not
+        one: there every rank computes the whole gradient (f/g)."""
+        top, g, _ = _parse(name)
+        if top != "groups":
+            return ()
+        return self.info.extra_dp_axes(self.groups()[g].degree)
+
+    def holders(self, name: str) -> int:
+        """How many ranks hold the same shard of leaf ``name``."""
+        return self.mesh.size // self.mesh.axes_size(
+            self.specs[name].sharded_axes())
+
+    def holds_first(self, name: str, rank: int) -> bool:
+        """Whether ``rank`` is the first of the ranks that hold its shard
+        of ``name`` (its coordinates on the leaf's replicated axes are
+        0): the one that counts the shard in a norm."""
+        used = set(self.specs[name].sharded_axes())
+        c = self.mesh.coords(rank)
+        return not any(c[a] for a in self.mesh.axis_names if a not in used)
+
+    def shard_flat(self, flat: Dict[str, Any], rank: int) -> Dict[str, Any]:
+        """Flat name -> ``rank``'s block of each whole leaf of ``flat``
+        (in this layout's names: :func:`relayout_flat` moves stacked
+        weights there first)."""
+        out = {}
+        for key, spec in self.specs.items():
+            t = flat[key]
+            for dim, axes in enumerate(spec.dims()):
+                if axes:
+                    t = _take(t, dim, self.mesh.axes_size(axes),
+                              self.mesh.axes_index(rank, axes))
+            out[key] = t
+        return out
+
+    def shard(self, params: Dict[str, Any], rank: int) -> Dict[str, Any]:
+        """``rank``'s weights of the whole stacked ``params`` (for example
+        JAX's, through :func:`from_flat`): moved into this layout's groups
+        (:func:`relayout_flat`), then cut (:meth:`shard_flat`), detached.
+        Over more than one rank every leaf is a copy; at one rank a leaf
+        the layout leaves whole is the caller's tensor."""
+        flat = flatten(params)
+        if self.grouped:
+            flat = relayout_flat(self.cfg, flat, {}, {
+                "degrees": self.degrees, "schedules": self.schedules})
+        out = {}
+        for k, t in self.shard_flat(flat, rank).items():
+            t = t.detach()
+            out[k] = (t.clone() if self.mesh.size > 1 or t._base is not None
+                      else t)
+        return unflatten(out)
+
+    def gather(self, per_rank: Sequence[Dict[str, Any]], *,
+               partial: bool = False) -> Dict[str, Any]:
+        """Flat name -> the whole leaf in the *stacked* layout, from every
+        rank's flat pieces in this layout (:meth:`gather_flat`, then back
+        out of the groups): with ``partial``, gradients before the step's
+        sums, summed over each leaf's :meth:`grad_replicas`."""
+        summed = ({k: self.grad_replicas(k) for k in self.specs}
+                  if partial else None)
+        flat = self.gather_flat(per_rank, summed=summed)
+        if self.grouped:
+            flat = relayout_flat(self.cfg, flat, {
+                "degrees": self.degrees, "schedules": self.schedules}, {})
+        return flat
+
+    def gather_flat(self, per_rank: Sequence[Dict[str, Any]], *,
+                    summed: Optional[Dict[str, Axes]] = None
+                    ) -> Dict[str, Any]:
+        """Flat name -> the whole leaf, from every rank's flat pieces
+        (rank order, numpy arrays or tensors): each block put back where
+        its rank's coordinates place it, taken from the first of its
+        holders, or summed over the axes ``summed[name]`` names (partial
+        gradients before the step's sums), in rank order."""
+        summed = summed or {}
+        mesh = self.mesh
+        out = {}
+        for key, spec in self.specs.items():
+            dims = spec.dims()
+            used = {a for axes in dims for a in axes}
+            add = set(summed.get(key, ()))
+            skip = [a for a in mesh.axis_names if a not in used | add]
+            acc = None
+            for r, flat in enumerate(per_rank):
+                c = mesh.coords(r)
+                if any(c[a] for a in skip):
+                    continue
+                part = flat[key]
+                if acc is None:
+                    acc = (np.zeros(spec.shape, part.dtype)
+                           if isinstance(part, np.ndarray)
+                           else part.new_zeros(spec.shape))
+                idx = tuple(
+                    slice(mesh.axes_index(r, axes) * part.shape[d],
+                          (mesh.axes_index(r, axes) + 1) * part.shape[d])
+                    if axes else slice(None) for d, axes in enumerate(dims))
+                acc[idx] += part
+            out[key] = acc
+        return out
+
+
+def layout_1d(cfg: ArchConfig, tp: int, seq_shard: int = 1) -> ModelLayout:
+    """The layout of a 1-D group of ``tp`` ranks (the ``(1, tp)`` mesh of
+    ``("data", "model")``)."""
+    return ModelLayout(cfg, mesh_info(RankMesh((1, tp), ("data", "model"))),
+                       seq_shard=seq_shard)
+
+
 def shard_params(cfg: ArchConfig, params: Dict[str, Any], rank: int,
                  tp: int, *, seq_shard: int = 1) -> Dict[str, Any]:
     """One rank's weights of the full ``params`` (for example JAX's,
-    through :func:`from_flat`): each sharded leaf cut into tp equal parts
-    along its :func:`shard_dims` dim, this rank's part copied; replicated
-    leaves copied whole."""
+    through :func:`from_flat`) on a 1-D group of ``tp`` ranks: each
+    sharded leaf cut into tp equal parts along its sharded dim, this
+    rank's part copied; replicated leaves copied whole."""
     check_tp(cfg, tp, seq_shard=seq_shard)
-    dims = shard_dims(cfg, tp, seq_shard)
-    out = {}
-    for key, t in flatten(params).items():
-        d = dims[key]
-        part = t if d is None else t.chunk(tp, dim=d)[rank]
-        out[key] = part.detach().clone()
-    return unflatten(out)
+    flat = layout_1d(cfg, tp, seq_shard).shard_flat(flatten(params), rank)
+    return unflatten({k: t.detach().clone() for k, t in flat.items()})
 
 
 def gather_grads(cfg: ArchConfig, per_rank: List[Dict[str, Any]], *,
                  seq_shard: int = 1, partial: Sequence[str] = ()
                  ) -> Dict[str, Any]:
     """Flat name -> the whole gradient, from every rank's flat gradients
-    (rank order): sharded leaves concatenated along their dim, replicated
-    leaves taken from rank 0 (every rank holds the same whole gradient),
-    the ``partial`` ones (:func:`partial_grad_leaves`, before the step's
-    all-reduce) summed over the ranks in rank order."""
-    tp = len(per_rank)
-    dims = shard_dims(cfg, tp, seq_shard)
-    out = {}
-    for key, d in dims.items():
-        parts = [g[key] for g in per_rank]
-        if key in partial:
-            acc = parts[0]
-            for p in parts[1:]:
-                acc = acc + p
-            out[key] = acc
-        elif d is None:
-            out[key] = parts[0]
-        elif isinstance(parts[0], np.ndarray):
-            out[key] = np.concatenate(parts, axis=d)
-        else:
-            out[key] = torch.cat(parts, dim=d)
-    return out
+    on a 1-D group (rank order): sharded leaves concatenated along their
+    dim, replicated leaves taken from rank 0 (every rank holds the same
+    whole gradient), the ``partial`` ones (:func:`partial_grad_leaves`,
+    before the step's all-reduce) summed over the ranks in rank order."""
+    lay = layout_1d(cfg, len(per_rank), seq_shard)
+    return lay.gather_flat(per_rank,
+                           summed={k: ("model",) for k in partial})
 
 
 def ssd_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
@@ -279,8 +419,8 @@ def stack_layout(cfg: ArchConfig) -> Tuple[int, Tuple[str, ...], List[str]]:
     return n, pat, tail
 
 
-def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
-    """One layer of ``kind`` at tp=1 (``params.py`` ``layer_specs``):
+def _layer_shapes(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
+    """One layer of ``kind``, whole (``params.py`` ``layer_specs``):
     GLOBAL_ATTN and LOCAL_ATTN (``_attn_specs``) and RGLRU
     (``_rglru_specs``: the two entry projections, the [4, w] conv, the five
     f32 gate vectors, ``w_out``), each with a SwiGLU (``_mlp_specs``) or
@@ -341,25 +481,126 @@ def layer_specs(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
     return out
 
 
-def model_specs(cfg: ArchConfig) -> Dict[str, Spec]:
-    """Flat name -> Spec, in the JAX tree's flatten order: the stacked
-    blocks (one per pattern position), embed, final_ln, lm_head, then the
-    tail's layers."""
+def info_xy(info: Optional[MeshInfo], degree, layout: str = "auto"
+            ) -> Tuple[Axes, Axes, int, int]:
+    """(x_axes, y_axes, dx, dy) — the layer's width- vs contraction-
+    sharding axes and their sizes (``params.py`` ``info_xy``);
+    ``layout='1d'`` flattens everything into x."""
+    if info is None:
+        return (), (), 1, 1
+    if layout == "1d":
+        x_ax, y_ax = info.tp_axes(deg_total(degree)), ()
+    else:
+        x_ax, y_ax = info.xy_axes(degree)
+    return x_ax, y_ax, info._size(x_ax), info._size(y_ax)
+
+
+def _attn_specs(cfg: ArchConfig, info, degree, layout: str,
+                seq_shard: int) -> Dict[str, PSpec]:
+    """JAX's ``_attn_specs``: heads over x, the contraction rows over y
+    when dy divides d_model; ``wo``'s output columns over y only where
+    the exit gathers them (x-sharded heads, or dx 1); everything whole
+    under ring attention."""
+    x_ax, y_ax, dx, dy = info_xy(info, degree, layout)
+    if seq_shard > 1:
+        return dict.fromkeys(RING_REPLICATED, ())
+    plan = attn_plan(cfg, dx)
+    d_sh = y_ax if (dy > 1 and cfg.d_model % dy == 0) else ()
+    o_d_sh = d_sh if (plan.sharded or dx == 1) else ()
+    q = (d_sh, x_ax if plan.sharded else ())
+    kv = (d_sh, x_ax if plan.kv_sharded else ())
+    return {"wq": q, "wk": kv, "wv": kv,
+            "wo": (x_ax if plan.sharded else (), o_d_sh)}
+
+
+def _mlp_specs(cfg: ArchConfig, info, degree,
+               layout: str) -> Dict[str, PSpec]:
+    """JAX's ``_mlp_specs``: d_ff over x, the contraction rows over y,
+    ``wd``'s output columns over y where the exit gathers them."""
+    x_ax, y_ax, dx, dy = info_xy(info, degree, layout)
+    f_sh = x_ax if (dx > 1 and cfg.d_ff % dx == 0) else ()
+    d_sh = y_ax if (dy > 1 and cfg.d_model % dy == 0) else ()
+    out_sh = d_sh if (f_sh or dx == 1) else ()
+    return {"wg": (d_sh, f_sh), "wu": (d_sh, f_sh), "wd": (f_sh, out_sh)}
+
+
+def layer_specs(cfg: ArchConfig, kind: str, info: Optional[MeshInfo] = None,
+                degree=None, *, layout: str = "auto",
+                seq_shard: int = 1) -> Dict[str, Spec]:
+    """One layer of ``kind`` with its partition specs on the mesh ``info``
+    (None: one rank) at ``degree`` (``params.py`` ``layer_specs``).  The
+    port shards the dense attention and SwiGLU layers; the families run
+    whole (their sharded forms are ROADMAP.md A10c)."""
+    out = _layer_shapes(cfg, kind)
+    pspecs: Dict[str, PSpec] = {}
+    if info is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN):
+        pspecs.update(_attn_specs(cfg, info, degree, layout, seq_shard))
+    if info is not None and cfg.moe is None and kind != SSD:
+        pspecs.update(_mlp_specs(cfg, info, degree, layout))
+    return {k: dataclasses.replace(s, pspec=pspecs.get(k, ()))
+            for k, s in out.items()}
+
+
+def _stacked(s: Spec, n: int) -> Spec:
+    return Spec((n,) + s.shape, s.f32, s.scale, ((),) + s.dims())
+
+
+def model_specs(cfg: ArchConfig, info: Optional[MeshInfo] = None, *,
+                degrees: Optional[Sequence] = None,
+                schedules: Optional[Sequence[str]] = None,
+                layout: str = "auto",
+                seq_shard: int = 1) -> Dict[str, Spec]:
+    """Flat name -> Spec, in the JAX tree's flatten order (sorted keys:
+    ``blocks``, ``embed``, ``final_ln``, ``groups``, ``lm_head``,
+    ``tail``), with partition specs on the mesh ``info`` (None: one rank).
+
+    Stacked layout (``degrees`` None): the stacked blocks (one per
+    pattern position) and the tail's layers.  Grouped layout (a plan's
+    per-layer ``degrees``, each None, an int or ``(dx, dy)``, and
+    ``schedules``): ``groups``, consecutive layers sharing (kind, degree,
+    schedule) stacked ``[count, ...]`` (:func:`plan_groups`).  The
+    embedding and the head are vocab-sharded over the whole model group
+    in every layout (``repro.models.params.model_specs``)."""
     check_supported(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab()
-    n, pat, tail = stack_layout(cfg)
+    tp_ax = info.tp_axes(None) if info is not None else ()
     out = {}
-    for j, kind in enumerate(pat if n else ()):
-        for name, s in sorted(layer_specs(cfg, kind).items()):
-            out[f"['blocks'][{j}]['{name}']"] = Spec((n,) + s.shape, s.f32,
-                                                     s.scale)
-    out["['embed']"] = Spec((vp, d))
+    if degrees is None:
+        n, pat, tail = stack_layout(cfg)
+        for j, kind in enumerate(pat if n else ()):
+            for name, s in sorted(layer_specs(
+                    cfg, kind, info, layout=layout,
+                    seq_shard=seq_shard).items()):
+                out[f"['blocks'][{j}]['{name}']"] = _stacked(s, n)
+    out["['embed']"] = Spec((vp, d), pspec=(tp_ax, ()))
     out["['final_ln']"] = Spec((d,), f32=True, scale=0.0)
+    if degrees is not None:
+        if len(degrees) != cfg.num_layers:
+            raise ValueError(f"per-layer degrees have {len(degrees)} "
+                             f"entries for a {cfg.num_layers}-layer model")
+        if info is None or not info.factored:
+            tp = info.tp if info is not None else 1
+            bad = [g for g in degrees if g is not None and deg_total(g) != tp]
+            if bad:
+                raise ValueError(
+                    f"per-layer degrees {sorted(set(map(str, bad)))} "
+                    f"differ from the mesh model group ({tp}) — "
+                    f"mixed degrees need the factored mesh "
+                    f"(launch/mesh.py::make_factored_mesh); on a plain "
+                    f"mesh only per-layer SCHEDULES may vary")
+        for g, grp in enumerate(plan_groups(cfg, degrees, schedules)):
+            for name, s in sorted(layer_specs(
+                    cfg, grp.kind, info, grp.degree,
+                    layout=layout).items()):
+                out[f"['groups'][{g}]['{name}']"] = _stacked(s, grp.count)
     if not cfg.tie_embeddings:
-        out["['lm_head']"] = Spec((d, vp))
-    for i, kind in enumerate(tail):
-        for name, s in sorted(layer_specs(cfg, kind).items()):
-            out[f"['tail'][{i}]['{name}']"] = s
+        out["['lm_head']"] = Spec((d, vp), pspec=((), tp_ax))
+    if degrees is None:
+        for i, kind in enumerate(tail):
+            for name, s in sorted(layer_specs(
+                    cfg, kind, info, layout=layout,
+                    seq_shard=seq_shard).items()):
+                out[f"['tail'][{i}]['{name}']"] = s
     return out
 
 
@@ -386,6 +627,7 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         if i is None:
             params[top] = t
             continue
+        params.setdefault(top, [])
         while len(params[top]) <= i:
             params[top].append({})
         params[top][i][name] = t
@@ -393,17 +635,16 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flat name -> leaf, in the JAX tree's flatten order."""
+    """Flat name -> leaf, in the JAX tree's flatten order (sorted keys;
+    lists in order; a layer's leaves sorted)."""
     flat = {}
-    for j, blk in enumerate(params["blocks"]):
-        for name in sorted(blk):
-            flat[f"['blocks'][{j}]['{name}']"] = blk[name]
-    for name in ("embed", "final_ln", "lm_head"):
-        if name in params:
-            flat[f"['{name}']"] = params[name]
-    for i, layer in enumerate(params.get("tail", ())):
-        for name in sorted(layer):
-            flat[f"['tail'][{i}]['{name}']"] = layer[name]
+    for top in sorted(params):
+        if isinstance(params[top], list):
+            for j, layer in enumerate(params[top]):
+                for name in sorted(layer):
+                    flat[f"['{top}'][{j}]['{name}']"] = layer[name]
+        else:
+            flat[f"['{top}']"] = params[top]
     return flat
 
 
@@ -444,8 +685,9 @@ def plan_groups(cfg: ArchConfig, degrees: Sequence,
     scan groups: the executable unit of a per-layer plan
     (``repro.models.params.plan_groups``).  A schedule or seq-shard change
     breaks the group even at equal degree (each group runs under its own
-    ``TmpCtx``/sub-batch split).  The overlap probe groups by it; the
-    port's trainer runs one group until ROADMAP.md A7."""
+    ``TmpCtx``/sub-batch split).  The grouped layout
+    (:func:`model_specs`), the trainer's layer loop
+    (``models/lm.py``) and the overlap probe all group by it."""
     pat = cfg.layer_pattern
     scheds = list(schedules) if schedules is not None \
         else [None] * cfg.num_layers
@@ -462,6 +704,103 @@ def plan_groups(cfg: ArchConfig, degrees: Sequence,
                                 scheds[i] or "oases", j - i, sq[i]))
         i = j
     return groups
+
+
+def _stack(arrs):
+    return (np.stack(arrs) if isinstance(arrs[0], np.ndarray)
+            else torch.stack(arrs))
+
+
+def split_layer_flat(cfg: ArchConfig, flat: Dict[str, Any], *,
+                     degrees: Optional[Sequence] = None,
+                     schedules: Optional[Sequence[str]] = None
+                     ) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
+    """Decompose a flat params-like dict (numpy arrays or tensors) into
+    ``(static, per_layer)``: ``static`` keeps the non-layer leaves as they
+    are; ``per_layer[l]`` maps each layer leaf's name suffix (for example
+    ``"['wq']"``) to layer ``l``'s array in layer order
+    (``repro.models.params.split_layer_flat`` without pipelines)."""
+    static: Dict[str, Any] = {}
+    by_slot: Dict[Tuple[str, int], Dict[str, Any]] = {}
+    for key, arr in flat.items():
+        top, idx, name = _parse(key)
+        if idx is None:
+            static[key] = arr
+        else:
+            by_slot.setdefault((top, idx), {})[f"['{name}']"] = arr
+    per_layer: List[Dict[str, Any]] = [dict() for _ in
+                                       range(cfg.num_layers)]
+    if degrees is not None:
+        groups = plan_groups(cfg, degrees, schedules)
+        base = 0
+        for g, grp in enumerate(groups):
+            for name, arr in by_slot.get(("groups", g), {}).items():
+                if arr.shape[0] != grp.count:
+                    raise ValueError(
+                        f"group {g} leaf {name} has leading dim "
+                        f"{arr.shape[0]}, plan group expects {grp.count}")
+                for o in range(grp.count):
+                    per_layer[base + o][name] = arr[o]
+            base += grp.count
+        if base != cfg.num_layers:
+            raise ValueError(f"plan groups cover {base} layers, config "
+                             f"has {cfg.num_layers}")
+        return static, per_layer
+    n, pat, _ = stack_layout(cfg)
+    for (top, idx), leaves in sorted(by_slot.items()):
+        if top == "groups":
+            raise ValueError(
+                "checkpoint holds grouped (planner-mode) layers but no "
+                "per-layer plan was recorded — cannot recover the layer "
+                "order")
+        for name, arr in leaves.items():
+            if top == "blocks":
+                for r in range(n):
+                    per_layer[r * len(pat) + idx][name] = arr[r]
+            else:                                    # tail
+                per_layer[n * len(pat) + idx][name] = arr
+    return static, per_layer
+
+
+def pack_layer_flat(cfg: ArchConfig, static: Dict[str, Any],
+                    per_layer: Sequence[Dict[str, Any]], *,
+                    degrees: Optional[Sequence] = None,
+                    schedules: Optional[Sequence[str]] = None
+                    ) -> Dict[str, Any]:
+    """Inverse of :func:`split_layer_flat`: repack per-layer dicts into
+    the target layout's flat view (stacked, or a plan's groups)."""
+    flat = dict(static)
+    if degrees is not None:
+        base = 0
+        for g, grp in enumerate(plan_groups(cfg, degrees, schedules)):
+            for name in per_layer[base]:
+                flat[f"['groups'][{g}]{name}"] = _stack(
+                    [per_layer[base + o][name] for o in range(grp.count)])
+            base += grp.count
+        return flat
+    n, pat, tail = stack_layout(cfg)
+    for p in range(len(pat) if n else 0):
+        for name in per_layer[p]:
+            flat[f"['blocks'][{p}]{name}"] = _stack(
+                [per_layer[r * len(pat) + p][name] for r in range(n)])
+    for t in range(len(tail)):
+        for name, arr in per_layer[n * len(pat) + t].items():
+            flat[f"['tail'][{t}]{name}"] = arr
+    return flat
+
+
+def relayout_flat(cfg: ArchConfig, flat: Dict[str, Any], src: Dict,
+                  dst: Dict) -> Dict[str, Any]:
+    """Re-stack a flat params-like dict from the ``src`` plan layout into
+    the ``dst`` one (JAX's weight carrier): each side
+    ``{"degrees", "schedules"}`` (both optional; degrees None is the
+    stacked layout).  Pure restacking: values move, none change."""
+    static, per_layer = split_layer_flat(
+        cfg, flat, degrees=src.get("degrees"),
+        schedules=src.get("schedules"))
+    return pack_layer_flat(cfg, static, per_layer,
+                           degrees=dst.get("degrees"),
+                           schedules=dst.get("schedules"))
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,

@@ -7,9 +7,9 @@ the per-schedule exposed-cost terms of ``estimate_iteration``); this
 probe measures it online:
 
 1. :func:`plan_group_model` mirrors the cost model's per-schedule pass
-   formulas per executable layer group (``models/params.plan_groups``;
-   the port's trainer runs uniform plans, one group, until ROADMAP.md
-   A7), yielding per-group compute
+   formulas per executable layer group (``models/params.plan_groups``,
+   the groups the trainer runs a per-layer plan in), yielding per-group
+   compute
    seconds, physical collective seconds, and the *predicted* exposed-
    communication fraction.
 2. :class:`OverlapProbe.report` takes a *measured* iteration time (the

@@ -1,7 +1,7 @@
 """AdamW (``repro.optim.adamw`` at dp=1) on each rank's shards: f32
-master weights, m and v; global-norm clipping, the norm spanning the
-tensor-parallel group; linear warmup and cosine decay to 10%; weight
-decay on leaves with more than one dimension.
+master weights, m and v; global-norm clipping, the norm spanning every
+rank and counting each distinct shard once; linear warmup and cosine
+decay to 10%; weight decay on leaves with more than one dimension.
 
 Unlike the JAX version, which returns new trees, :func:`apply_updates`
 updates the master weights, m, v and the model parameters IN PLACE, and
@@ -64,33 +64,39 @@ def _sq(g: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(grads: List[torch.Tensor], comm: Optional[Comm] = None,
-                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
-    """The norm of the whole model's gradient.  Over a model group
-    (``comm`` of size > 1) the squares of the sharded leaves are summed
-    over the ranks and the replicated leaves, whose gradient every rank
-    holds whole, count once, so every rank clips by the same factor."""
+                counted: Optional[Sequence[Optional[bool]]] = None
+                ) -> torch.Tensor:
+    """The norm of the whole model's gradient, counting each distinct
+    shard once, so every rank clips by the same factor.  Over several
+    ranks (``comm`` of size > 1, the whole mesh), ``counted`` says per
+    leaf: None, every rank holds the whole gradient (added once, here);
+    True, this rank counts its shard in the sum all-reduced over the
+    ranks; False, another holder of the same shard counts it (a leaf
+    sharded over some axes and replicated over others)."""
     if comm is None or comm.size == 1:
         return torch.sqrt(sum(_sq(g) for g in grads))
     zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    local = sum((_sq(g) for g, s in zip(grads, sharded) if s), zero)
-    rep = sum((_sq(g) for g, s in zip(grads, sharded) if not s), zero)
+    local = sum((_sq(g) for g, c in zip(grads, counted) if c), zero)
+    rep = sum((_sq(g) for g, c in zip(grads, counted) if c is None), zero)
     return torch.sqrt(comm.all_reduce(local.reshape(1))[0] + rep)
 
 
 def apply_updates(params: Dict[str, Any], grads: List[torch.Tensor],
                   opt_state: Dict[str, Any], cfg: AdamWConfig, *,
                   compress: bool = False, comm: Optional[Comm] = None,
-                  sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                  counted: Optional[Sequence[Optional[bool]]] = None
+                  ) -> torch.Tensor:
     """One AdamW step, in place; ``grads`` in :func:`flat_leaves` order
     (any float dtype).  Returns the global norm of the unclipped grads.
-    Over a model group, ``sharded`` marks the leaves each rank holds a
-    shard of (:func:`~repro_torch.models.params.shard_dims`)."""
+    Over several ranks, ``counted`` says which shards this rank counts
+    in the norm (:func:`global_norm`; ``ModelLayout.holders`` and
+    ``holds_first``)."""
     if compress:
         raise NotImplementedError(
             "int8 gradient compression is not ported yet (ROADMAP.md A4)")
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = global_norm(grads, comm, sharded)
+    gnorm = global_norm(grads, comm, counted)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - b1 ** step

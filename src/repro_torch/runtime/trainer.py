@@ -1,4 +1,4 @@
-"""Training loop on one rank of a 1-D model group (the core of
+"""Training loop on one rank of a rank mesh (the core of
 ``repro.runtime.trainer``): weights, optimizer state, the step loop over
 ``make_batch``, straggler detection and structured telemetry
 (:mod:`repro_torch.obs`: per-step records and, with a sink, the
@@ -56,13 +56,17 @@ class Trainer:
     raises without one) or ``device="cpu"``.  ``params`` (whole weights,
     for example JAX's through :func:`repro_torch.models.params.from_flat`)
     are moved to the device; without them :meth:`train` draws whole
-    weights from its seed.  ``comm``: the model group this rank belongs to
-    (None: tp=1); the trainer keeps this rank's shard of the weights (the
-    attention weights whole under ring attention, ``hp.seq_shard``), and
-    only rank 0 logs.  ``plan``: the executable
+    weights from its seed.  ``comm``: this rank's communicators (a
+    :class:`~repro_torch.core.comm.MeshComm`, or one 1-D model group's
+    Comm; None: one rank); the trainer keeps this rank's shard of the
+    weights in the step's layout (the attention weights whole under ring
+    attention, ``hp.seq_shard``; a per-layer plan's groups), and only
+    rank 0 logs.  ``plan``: the executable
     :class:`~repro_torch.core.plan.ParallelPlan` to train under (JAX's
-    ``Trainer(plan=...)``): projected onto ``hp`` through
-    :func:`~repro_torch.launch.steps.unpack_plan`, which refuses what the
+    ``Trainer(plan=...)``): checked against the mesh and projected onto
+    ``hp`` and its per-layer degrees and schedules
+    (:func:`~repro_torch.launch.steps.unpack_plan`,
+    :func:`~repro_torch.launch.steps.plan_layers`), refusing what the
     port cannot run.
 
     ``telemetry``: the :mod:`repro_torch.obs` recorder (JAX's default: an
@@ -85,8 +89,10 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.comm = comm or SoloComm()
+        degrees = schedules = None
         if plan is not None:
-            hp = steps_mod.unpack_plan(cfg, hp, plan, self.comm.size)
+            steps_mod.check_plan(cfg, plan, steps_mod.plan_mesh(self.comm))
+            degrees, schedules, _, hp = steps_mod.plan_layers(cfg, hp, plan)
         self.plan = plan
         self.global_batch = global_batch
         self.seq_len = seq_len
@@ -97,20 +103,18 @@ class Trainer:
         self.straggler = StragglerDetector()
         self.step_fn = steps_mod.build_train_step(
             cfg, hp, global_batch=global_batch, seq_len=seq_len,
-            comm=self.comm)
+            comm=self.comm, degrees=degrees, schedules=schedules)
         self.hp = self.step_fn.hp
         self.params = None if params is None else self._own(params)
         self.opt_state: Optional[Dict[str, Any]] = None
 
     def _own(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's shard of the whole weights on this trainer's device,
-        as trainable leaves."""
-        if self.comm.size > 1:
-            params = prm.shard_params(self.cfg, params, self.comm.rank,
-                                      self.comm.size,
-                                      seq_shard=self.step_fn.ctx.seq_shard)
-        return prm.unflatten({k: t.detach().to(self.device).requires_grad_()
-                              for k, t in prm.flatten(params).items()})
+        """This rank's shard of the whole (stacked) weights in the step's
+        layout (``ModelLayout.shard``) on this trainer's device, as
+        trainable leaves."""
+        shard = self.step_fn.layout.shard(params, self.comm.rank)
+        return prm.unflatten({k: t.to(self.device).requires_grad_()
+                              for k, t in prm.flatten(shard).items()})
 
     def batch(self, dcfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)
@@ -138,8 +142,9 @@ class Trainer:
                   else calibrated_hw(n_chips=max(self.comm.size, 1)))
             plan = self.plan or ParallelPlan.from_hparams(
                 self.hp, self.cfg.num_layers)
-            degrees = [self.comm.size if d is None else d
-                       for d in plan.degrees]
+            base = self.step_fn.ctx      # None: the whole model group
+            whole = (base.tp, base.tp_y) if base.is_2d else base.tp_total
+            degrees = [whole if d is None else d for d in plan.degrees]
             probe = obs.OverlapProbe.for_run(
                 self.cfg, ShapeConfig("probe", self.seq_len,
                                       self.global_batch, "train"),

@@ -1,5 +1,6 @@
-"""Rank bodies of ``tests/test_torch_tmp.py`` and
-``tests/test_torch_sp.py``: each runs inside one rank process of
+"""Rank bodies of ``tests/test_torch_tmp.py``, ``tests/test_torch_sp.py``,
+``tests/test_torch_plans.py`` and ``tests/test_torch_2d.py``: each runs
+inside one rank process of
 ``repro_torch.launch.ranks.run_ranks`` (gloo on the CPU) and returns numpy
 results to the test.  No JAX here: the ranks import the port only."""
 import time
@@ -323,3 +324,76 @@ def reduce_scatter_cases(comm, device, cases):
             equal=bool(torch.equal(got, want)), shape=tuple(got.shape),
             calls=comm.counts["reduce_scatter"] - before)
     return out
+
+
+def plan_variants(comm, device, arch, flat, batch, variants, cfg_kw=None):
+    """Per named variant ``{"degrees", "schedules", "schedule",
+    "layout", "remat", "fine"}`` (all optional) on this rank's mesh:
+    the loss, this rank's flat gradients in the variant's layout (before
+    the step's sums), the comm counts of the forward and the backward,
+    and the normalized layout (degrees, schedules) to gather them by.
+    ``cfg_kw`` replaces fields of the reduced config."""
+    from repro_torch.launch import steps
+    cfg = reduced(arch).replace(**(cfg_kw or {}))
+    full = prm.from_flat(cfg, flat)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name, kw in variants.items():
+        hp = TrainHParams(schedule=kw.get("schedule", "oases"),
+                          remat=kw.get("remat", True),
+                          fine_remat=kw.get("fine", True),
+                          tmp_layout=kw.get("layout", "auto"))
+        setup = steps.train_setup(cfg, hp, seq_len=tb["tokens"].shape[1],
+                                  comm=comm, degrees=kw.get("degrees"),
+                                  schedules=kw.get("schedules"))
+        params = setup.layout.shard(full, comm.rank)
+        for t in prm.flat_leaves(params):
+            t.requires_grad_()
+        comm.reset_counts()
+        loss, _ = lm.train_loss(cfg, params, tb, setup.hp, setup.ctx,
+                                setup.groups)
+        fwd = dict(comm.counts)
+        comm.reset_counts()
+        loss.backward()
+        out[name] = dict(
+            loss=loss.item(), fwd=fwd, bwd=dict(comm.counts),
+            layout=(setup.layout.degrees, setup.layout.schedules),
+            grads={k: t.grad.numpy().copy()
+                   for k, t in prm.flatten(params).items()})
+    return out
+
+
+def plan_trainer(comm, device, arch, flat, kw, plan, steps, batch, seq):
+    """The Trainer under a plan (its dict) from whole weights: losses, the
+    grad norms, and this rank's weights and optimizer state as raw bits
+    after the last step."""
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.runtime import Trainer
+    cfg = reduced(arch)
+    tr = Trainer(cfg, TrainHParams(**kw), global_batch=batch, seq_len=seq,
+                 device=device, log_fn=None, comm=comm,
+                 params=prm.from_flat(cfg, flat),
+                 plan=ParallelPlan.from_dict(plan))
+    res = tr.train(steps)
+
+    def bits(t):
+        return t.detach().float().numpy().view(np.uint32).copy()
+    st = tr.opt_state
+    return dict(losses=res["losses"],
+                weights={k: bits(t) for k, t in
+                         prm.flatten(tr.params).items()},
+                master=[bits(t) for t in st["master"]],
+                m=[bits(t) for t in st["m"]])
+
+
+def split_raises(comm, device, arch, degrees, batch):
+    """The message of the step builder's refusal of a batch the extra
+    data-parallel ranks of a group do not divide."""
+    from repro_torch.launch import steps
+    try:
+        steps.build_train_step(reduced(arch), TrainHParams(microbatch=1),
+                               global_batch=batch, seq_len=16, comm=comm,
+                               degrees=degrees)
+    except ValueError as e:
+        return str(e)
+    return ""

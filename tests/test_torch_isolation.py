@@ -41,7 +41,7 @@ def test_port_has_the_slice_modules():
                  "core.planner.costmodel", "core.planner.ilp",
                  "core.planner.calibrate", "core.pipeline", "launch.mesh",
                  "obs", "obs.recorder", "obs.schema", "obs.tracing",
-                 "obs.report", "obs.probe"):
+                 "obs.report", "obs.probe", "core.axes"):
         assert f"repro_torch.{name}" in mods, name
 
 

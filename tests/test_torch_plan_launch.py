@@ -5,8 +5,9 @@ planner's calibration cache, on the CPU:
   losses, at tp=1 and at tp=2 on gloo ranks; the plan is resolved once in
   the launcher's process and handed to the ranks;
 * a plan the port cannot run raises with the plan's summary and the
-  ROADMAP.md item (A7 for mixed plans, other degrees and the 2-D layout,
-  A8 for pipelines, A4 for data parallelism);
+  ROADMAP.md item (A9 for per-layer ring-attention seqs, A8 for
+  pipelines, A4 for data parallelism, A10c for the families at more than
+  one rank);
 * the port's ``microbatch`` 0 means auto: the launcher resolves it before
   planning and ``plan.apply`` never turns it into JAX's "none";
 * ``calibrated_hw`` writes one cache file of its own and reads it back,
@@ -43,9 +44,10 @@ def _main(argv):
 
 @pytest.mark.parametrize("tp", [1, 2])
 def test_planned_run_replays_the_flag_run(tp, tmp_path):
-    """The ILP's plan (uniform degree tp, oases) trains as the flags do,
-    and its file replays the run."""
-    flags = BASE + ["--tp", str(tp), "--schedule", "oases"]
+    """The ILP's plan (uniform degree tp, oases; the 1-D search space)
+    trains as the flags do, and its file replays the run."""
+    flags = BASE + ["--tp", str(tp), "--schedule", "oases",
+                    "--tmp-layout", "1d"]
     path = str(tmp_path / "plan.json")
     ref, _ = _main(flags)
     planned, text = _main(flags + ["--planner", "--no-calibrate",
@@ -64,9 +66,12 @@ def test_planned_run_replays_the_flag_run(tp, tmp_path):
 
 
 @pytest.mark.parametrize("payload,item", [
-    ({"layers": [[None, "oases"], [None, "megatron"]]}, "A7"),
-    ({"layers": [[4, "oases"], [4, "oases"]]}, "A7"),
-    ({"layers": [[[1, 2], "oases"], [[1, 2], "oases"]]}, "A7"),
+    ({"layers": [[None, "oases", 2], [None, "oases", 1]]}, "A9"),
+    ({"layers": [[[1, 2], "oases"], [[1, 2], "oases"]],
+      "mesh_shape": [2, 1, 2], "mesh_axes": ["data", "model_x", "model_y"]},
+     "A4"),
+    ({"layers": [[None, "oases"]] * 2, "mesh_shape": [2, 1, 1],
+      "mesh_axes": ["pipe", "data", "model"]}, "A8"),
     ({"layers": [[None, "oases"]] * 2, "pp": 2}, "A8"),
     ({"layers": [[None, "oases"]] * 2, "mesh_shape": [2, 1],
       "mesh_axes": ["data", "model"]}, "A4"),
@@ -86,11 +91,11 @@ def test_plan_for_another_group_size_raises(tmp_path):
                  mesh_shape=(1, 2), mesh_axes=("data", "model")).save(
         str(path))
     with pytest.raises(ValueError, match="--tp 2"):
-        _main(BASE + ["--plan", str(path)])
+        _main(BASE + ["--tp", "1", "--plan", str(path)])
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"tmp_layout": "2d"}, "A7"), ({"grad_compress": True}, "A4"),
+    ({"pp": 2}, "A8"), ({"grad_compress": True}, "A4"),
     ({"virtual_stages": 2}, "A8")])
 def test_plan_knobs_refused_before_the_ranks(knob, item, tmp_path,
                                              monkeypatch):
@@ -109,13 +114,17 @@ def test_plan_knobs_refused_before_the_ranks(knob, item, tmp_path,
 
 
 def test_2d_layout_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        _main(BASE + ["--tmp-layout", "2d"])
+    """The 2-D layout of a family the port trains at one rank only (MoE)
+    raises naming A10c, before any rank starts."""
+    with pytest.raises(NotImplementedError, match="A10c"):
+        _main(["--arch", "granite-moe-3b-a800m"] + BASE
+              + ["--mesh", "1x2x2", "--tmp-layout", "2d"])
 
 
 def test_trainer_takes_a_plan():
     """``Trainer(plan=...)`` projects the plan onto its hyper-parameters
-    (as JAX's) and refuses a mixed plan before building anything."""
+    (as JAX's), runs a mixed plan as plan groups, and refuses per-layer
+    ring-attention seqs before building anything."""
     cfg = get_config("internlm2-1.8b").reduced().replace(dtype="float32")
     plan = ParallelPlan(layers=(LayerStrategy(None, "megatron"),) * 2,
                         split=1, microbatch=2)
@@ -126,9 +135,15 @@ def test_trainer_takes_a_plan():
         "megatron", 1, 2)
     mixed = ParallelPlan(layers=(LayerStrategy(None, "megatron"),
                                  LayerStrategy(None, "oases")))
-    with pytest.raises(NotImplementedError, match="A7"):
+    tr = Trainer(cfg, TrainHParams(), global_batch=4, seq_len=16,
+                 device="cpu", log_fn=None, plan=mixed)
+    assert [(g.schedule, ctx.schedule) for g, ctx in tr.step_fn.groups] \
+        == [("megatron", "megatron"), ("oases", "oases")]
+    seqs = ParallelPlan(layers=(LayerStrategy(None, "oases", 2),
+                                LayerStrategy(None, "oases")))
+    with pytest.raises(NotImplementedError, match="A9"):
         Trainer(cfg, TrainHParams(), global_batch=4, seq_len=16,
-                device="cpu", log_fn=None, plan=mixed)
+                device="cpu", log_fn=None, plan=seqs)
 
 
 def test_uniform_ring_plan_becomes_seq_shard():
@@ -154,7 +169,7 @@ def test_apply_keeps_the_ports_auto_microbatch(tmp_path):
                                 "4", "--seq", "4096", "--device", "cpu",
                                 "--save-plan", path])
     with contextlib.redirect_stdout(io.StringIO()):
-        _cfg, hp, made, _ = launcher._resolve(args)
+        _cfg, hp, _mesh, made, _ = launcher._resolve(args)
     assert hp.microbatch == made.microbatch == auto
     assert ParallelPlan.load(path).microbatch == auto
 

@@ -405,11 +405,14 @@ def test_hparams_defaults_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(tmp_layout="2d"), "A7"), (dict(grad_compress=True), "A4"),
-    (dict(virtual_stages=2), "A8")])
+    (dict(grad_compress=True), "A4"), (dict(virtual_stages=2), "A8")])
 def test_hparams_refuse_what_the_port_does_not_run(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tbase.TrainHParams(**kw)
+
+
+def test_hparams_take_the_2d_layout():
+    assert tbase.TrainHParams(tmp_layout="2d").tmp_layout == "2d"
 
 
 def test_hparams_validate_names():
