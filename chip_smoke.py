@@ -252,6 +252,15 @@ Phases (any failure raises and the script exits non-zero):
    ``proj`` among them, and the share outside every range); rank 0
    records into a JSONL sink, whose probe gives one ``overlap.group``
    event per plan group.
+23. The dry run (``launch/dryrun.run_cell``, ``launch/hlo_cost.py``) of
+   each training cell phases 7, 16, 19 and 22 measured in this run, at
+   its exact configuration (rank 0 of phase 22's four), traced on fake
+   tensors in worker processes side by side: dot flops, HBM bytes, link
+   bytes, the three roofline terms, the bound (the largest) against the
+   measured step, the planner's prediction (phase 20) and the estimated
+   against the measured peak.  Gates: bound / measured in (0, 1.05] and
+   the record's argument bytes equal to the bytes the phase's params,
+   AdamW state and batch held.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -264,6 +273,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import io
 import json
 import math
@@ -634,8 +645,8 @@ def _rmsnorm_row(rows: int, d: int, dname: str) -> dict:
     atol, rtol = RMS_TOL[dname]
     err, ok = max_err(out, want, atol, rtol)
     w = (1.0 + s).to(dtype)
-    bound = _bound(2 * rows * d * x.element_size() + d * 4, 4 * rows * d,
-                   dname)
+    from repro_torch.kernels.bounds import rmsnorm_work
+    bound = _bound(*rmsnorm_work(rows, d, x.element_size()), dname)
     row = dict(rows=rows, d=d, dtype=dname,
                geometry=fwd_geometry(rows, d, x.element_size()),
                max_abs_err=err, atol=atol,
@@ -1176,7 +1187,8 @@ def _rmsnorm_bwd_row(rows: int, d: int, dname: str) -> dict:
                       {"dx": (dx, want_dx), "dscale": (dsc, want_dsc)},
                       RMS_BWD_TOL[dname])
     elt = x.element_size()
-    bound = _bound(3 * rows * d * elt + 2 * d * 4, 12 * rows * d, dname)
+    from repro_torch.kernels.bounds import rmsnorm_bwd_work
+    bound = _bound(*rmsnorm_bwd_work(rows, d, elt), dname)
     xr = x.detach().requires_grad_()
     sr = sc.detach().requires_grad_()
     ly = F.rms_norm(xr, (d,), weight=(1.0 + sr).to(dtype), eps=1e-5)
@@ -1316,11 +1328,27 @@ def phase_train():
                step_ms_median=med, tokens_per_s=batch * seq / (med / 1e3),
                model_tflop_per_step=flops / 1e12,
                mfu=flops / (med / 1e3) / H100_BF16_FLOPS,
-               peak_mem_gb=peak / 1e9, launches=launches)
+               peak_mem_gb=peak / 1e9, launches=launches,
+               arg_bytes=_state_bytes(tr))
     print(f"[train] {json.dumps(out)}")
     out["profile"] = _profile_train_step(tr)
     print(f"[train_profile] {json.dumps(out['profile'])}")
     return out
+
+
+def _state_bytes(tr) -> int:
+    """Bytes a Trainer's params, AdamW state and one step's batch hold on
+    the card: what phase 23's dry run must count as its argument bytes."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import params as prm
+    st = tr.opt_state
+    batch = tr.batch(DataConfig(global_batch=tr.global_batch,
+                                seq_len=tr.seq_len,
+                                vocab_size=tr.cfg.vocab_size,
+                                microbatch=tr.hp.microbatch), 0)
+    return sum(t.numel() * t.element_size() for t in (
+        *prm.flat_leaves(tr.params), *st["master"], *st["m"], *st["v"],
+        *batch.values()))
 
 
 def _profile_train_step(tr):
@@ -1389,7 +1417,8 @@ def _mm_tol(k: int, dname: str):
 
 
 def _mm_bound(m, k, n, elt, dname):
-    return _bound((m * k + k * n + m * n) * elt, 2 * m * k * n, dname)
+    from repro_torch.kernels.bounds import gemm_work
+    return _bound(*gemm_work(m, k, n, elt), dname)
 
 
 def phase_tmp_kernels():
@@ -2584,11 +2613,12 @@ def phase_family_consistency():
     return out
 
 
-def _loss_pass(cfg, base, batch, hp, dev, dtype="float32"):
+def _loss_pass(cfg, base, batch, hp, dev, dtype="float32",
+               grads_on="cpu"):
     """One forward + backward of ``lm.train_loss`` on ``dev`` from the
     weights ``base`` (a CPU tree) cast to ``dtype`` -> loss, aux, seconds,
-    launches, the MoE routing of every call, and the gradients on the
-    CPU."""
+    launches, the MoE routing of every call, and the gradients on
+    ``grads_on``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.models import lm
@@ -2615,7 +2645,7 @@ def _loss_pass(cfg, base, batch, hp, dev, dtype="float32"):
     return dict(
         loss=loss.item(), aux=aux.item(), s=time.perf_counter() - t0,
         launches=dict(_build.LAUNCHES), routing=log,
-        grads={k: None if t.grad is None else t.grad.detach().cpu()
+        grads={k: None if t.grad is None else t.grad.detach().to(grads_on)
                for k, t in prm.flatten(params).items()})
 
 
@@ -2626,7 +2656,7 @@ def _worst(errs, n=5):
 
 def _family_pair(cfg, base, batch, hp, split, arch, sched, *,
                  loss_rtol=LOSS_RTOL, grads_tol=GRADS_TOL, cpu=None,
-                 witness=None):
+                 witness=None, grads_on="cpu"):
     """One f32 forward + backward of ``lm.train_loss`` on the card and on
     the CPU from the same weights and batch: routing token by token (every
     MoE call, recomputations included), loss, aux, gradients and the card's
@@ -2634,11 +2664,12 @@ def _family_pair(cfg, base, batch, hp, split, arch, sched, *,
     unless the phase sets its own).  ``cpu``: a CPU pass (``_loss_pass``)
     the phase already holds, in place of a new one.  ``witness``: the
     gradients of an f64 pass, against which both passes are measured
-    too."""
+    too.  ``grads_on``: where the card pass leaves its gradients and the
+    comparisons run (the other gradients must lie there too)."""
     import torch
 
     name = f"{arch} {sched}"
-    g = _loss_pass(cfg, base, batch, hp, "cuda")
+    g = _loss_pass(cfg, base, batch, hp, "cuda", grads_on=grads_on)
     c = cpu if cpu is not None else _loss_pass(cfg, base, batch, hp, "cpu")
     bad = [k for k, t in g["grads"].items()
            if t is None or not bool(torch.isfinite(t).all())]
@@ -2756,7 +2787,8 @@ def phase_family_train():
                    tokens_per_s=batch * seq / (med / 1e3),
                    peak_mem_gb=peak / 1e9, launches=launches,
                    launches_per_step={k: v / steps for k, v in
-                                      launches.items() if v})
+                                      launches.items() if v},
+                   arg_bytes=_state_bytes(tr))
         print(f"[family_train] {json.dumps(res)}")
         res["profile"] = _profile_train_step(tr)
         print(f"[family_train_profile] {arch} {json.dumps(res['profile'])}")
@@ -3033,6 +3065,7 @@ def phase_hybrid_consistency():
     layers, batch_size, seq = HYBRID_CONSISTENCY
     cfg = get_config(HYBRID_ARCH).replace(num_layers=layers,
                                           dtype="float32")
+    marks = [("start", time.perf_counter())]
     # drawn on the card (fast), held on the CPU
     base = prm.unflatten({k: t.cpu() for k, t in prm.flatten(
         prm.init_params(cfg, seed=0, device=torch.device("cuda"))).items()})
@@ -3040,26 +3073,35 @@ def phase_hybrid_consistency():
     batch = make_batch(DataConfig(global_batch=batch_size, seq_len=seq,
                                   vocab_size=cfg.vocab_size), 0)
     megatron = TrainHParams(**FAMILY_SCHEDULES["megatron"])
+    marks.append(("weights", time.perf_counter()))
     # the witness on the card in f64: the plain versions (no kernel takes
-    # f64) and cuBLAS's f64 products, independent of the f32 path's
+    # f64) and cuBLAS's f64 products, independent of the f32 path's.
+    # Every gradient is compared on the card (the same f32 subtraction
+    # and maximum as on the host, without copying 8 GB sets across and
+    # first-touching them in host memory)
     with _plain_on_card():
-        wit = _loss_pass(cfg, base, batch, megatron, "cuda", "float64")
-    torch.cuda.empty_cache()
-    # rounded once to f32 (6e-8 of each value) to hold less host memory
+        wit = _loss_pass(cfg, base, batch, megatron, "cuda", "float64",
+                         grads_on="cuda")
+    # rounded once to f32 (6e-8 of each value) to hold less memory
     witness = {k: t.float() for k, t in wit["grads"].items()}
     out = {"witness": dict(loss=wit["loss"], s=wit["s"])}
     del wit
+    torch.cuda.empty_cache()
+    marks.append(("witness", time.perf_counter()))
     # one CPU pass for both card schedules: at batch 1 (split 1) they
     # compute the same sums in the same order
-    cpu = _loss_pass(cfg, base, batch, megatron, "cpu")
+    cpu = _loss_pass(cfg, base, batch, megatron, "cpu", grads_on="cuda")
+    marks.append(("cpu_pass", time.perf_counter()))
     for sched, hkw in FAMILY_SCHEDULES.items():
         hp = TrainHParams(**hkw)
         split = effective_split(hp.schedule, hp.split, batch_size)
         out[sched] = _family_pair(
             cfg, base, batch, hp, split, HYBRID_ARCH, sched,
             loss_rtol=HYBRID_LOSS_RTOL, grads_tol=HYBRID_GRADS_TOL, cpu=cpu,
-            witness=witness if sched == "megatron" else None)
+            witness=witness if sched == "megatron" else None,
+            grads_on="cuda")
         torch.cuda.empty_cache()
+        marks.append((sched, time.perf_counter()))
     card = out["megatron"]["witness"]["card"]["grads_err"]
     require(card <= HYBRID_GRADS_TOL,
             f"card vs the f64 witness: grads_err {card} > "
@@ -3068,7 +3110,8 @@ def phase_hybrid_consistency():
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        ctl = _loss_pass(cfg, base, batch, megatron, "cuda")
+        ctl = _loss_pass(cfg, base, batch, megatron, "cuda",
+                         grads_on="cuda")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     errs = {k: grads_err({k: w}, {k: ctl["grads"][k]})
@@ -3076,8 +3119,14 @@ def phase_hybrid_consistency():
     out["tf32_control"] = dict(grads_err=max(errs.values()),
                                worst_leaves=_worst(errs, 3),
                                loss=ctl["loss"])
+    marks.append(("tf32_control", time.perf_counter()))
+    # where the phase's wall time goes (host seconds a step)
+    out["wall_s"] = {name: b - a for (_, a), (name, b)
+                     in zip(marks, marks[1:])}
+    out["cpu_threads"] = torch.get_num_threads()
     print(f"[hybrid_witness] {json.dumps(out['witness'])} "
-          f"{json.dumps(out['tf32_control'])}")
+          f"{json.dumps(out['tf32_control'])} wall_s "
+          f"{json.dumps(out['wall_s'])} threads {out['cpu_threads']}")
     require(out["tf32_control"]["grads_err"] > HYBRID_GRADS_TOL,
             f"the TF32 control's grads_err "
             f"{out['tf32_control']['grads_err']} does not exceed "
@@ -3141,7 +3190,8 @@ def phase_hybrid_train():
                    mfu=flops / (med / 1e3) / H100_BF16_FLOPS,
                    peak_mem_gb=peak / 1e9, launches=launches,
                    launches_per_step={k: v / steps for k, v in
-                                      launches.items() if v})
+                                      launches.items() if v},
+                   arg_bytes=_state_bytes(tr))
         print(f"[hybrid_train] {json.dumps(res)}")
         res["profile"] = _profile_train_step(tr)
         print(f"[hybrid_train_profile] {sched} "
@@ -3617,8 +3667,14 @@ def phase_plan_train():
                   f"{json.dumps(resolved[name][3])}", flush=True)
             runs[name] = ((mesh.shape, mesh.axis_names), cfg, hp, plan, tel)
     # the calibration's buffers go back to the card before four ranks
-    # share it
+    # share it, and so does whatever an earlier phase's objects still
+    # hold in reference cycles that the collector has not yet freed
+    held = torch.cuda.memory_allocated()
+    gc.collect()
     torch.cuda.empty_cache()
+    print(f"[plan_train] parent allocated {held / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after collecting",
+          flush=True)
     firsts = {}
     for name, (mesh, *run) in runs.items():
         t0 = time.perf_counter()
@@ -3650,6 +3706,7 @@ def _check_plan_run(name, rs, resolved, steps, wall, out) -> float:
         plan=plan.summary(), groups=r0["groups"], losses=r0["losses"],
         step_ms_median=[r["step_ms_median"] for r in rs],
         device_step_ms=r0["device_step_ms"], device_step_ms_median=med,
+        arg_bytes=r0["arg_bytes"],
         predicted_ms=predicted,
         predicted_over_measured=predicted / med if predicted else None,
         peak_mem_gb=[r["peak_mem_gb"] for r in rs],
@@ -3736,7 +3793,7 @@ def _plan_train_rank(comm, device, cfg, hp, plan, tel, steps, batch, seq,
         want=_group_launches(groups, batch // micro, micro, tr.hp.remat,
                              tr.hp.fine_remat),
         groups=groups, microbatch=micro,
-        peak_mem_gb=_peak_gb(comm, device),
+        peak_mem_gb=_peak_gb(comm, device), arg_bytes=_state_bytes(tr),
         profile=_profile_tp_step(tr, comm))
 
 
@@ -3900,6 +3957,141 @@ def _kernels_line(report) -> dict:
     return {"kernels": rows}
 
 
+# ---------------------------------------------------------------------------
+# the dry run (phase 23)
+# ---------------------------------------------------------------------------
+# the gate on a traced step's roofline bound against the measured step: a
+# bound above the measured time (beyond noise) means the count is wrong
+DRY_RATIO = (0.0, 1.05)
+# the report of the running smoke, for phase 23 to read the earlier phases
+_RUN: dict = {}
+
+
+def _dry_cell(spec):
+    """One cell's ``launch/dryrun.run_cell`` (a worker process: the trace
+    is CPU work on fake tensors and touches no card)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(spec["cfg"], ShapeConfig("cell", spec["seq"],
+                                                   spec["batch"], "train"),
+                          **spec["kw"])
+    rec["trace_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _dry_specs(report, tmp):
+    """(phase, name, spec, measured row) of each training cell phases 7,
+    16, 19 and 22 measured in this run, at its exact configuration."""
+    from repro_torch.configs.registry import get_config
+    out = []
+    if "train" in report:
+        r = report["train"]
+        out.append((7, TRAIN_ARCH, dict(
+            cfg=get_config(TRAIN_ARCH), batch=r["batch"], seq=r["seq"],
+            kw=dict(microbatch=r["microbatch"], mesh_shape="1x1",
+                    **TP1_SCHEDULE)), r))
+    for arch, r in report.get("family_train", {}).items():
+        layers = FAMILY_TRAIN[arch][0]
+        cfg = get_config(arch)
+        out.append((16, arch, dict(
+            cfg=cfg.replace(num_layers=layers) if layers else cfg,
+            batch=r["batch"], seq=r["seq"],
+            kw=dict(microbatch=r["microbatch"], mesh_shape="1x1",
+                    **TP1_SCHEDULE)), r))
+    for sched, r in report.get("hybrid_train", {}).items():
+        layers, batch, seq = HYBRID_TRAIN
+        out.append((19, f"{HYBRID_ARCH}/{sched}", dict(
+            cfg=get_config(HYBRID_ARCH).replace(num_layers=layers),
+            batch=batch, seq=seq,
+            kw=dict(mesh_shape="1x1", **HYBRID_SCHEDULES[sched])), r))
+    runs = report.get("plan_train", {}).get("runs", {})
+    if "mixed_plan" in runs:
+        from repro_torch.launch import train as launcher
+        batch, seq, micro = PLAN_TRAIN
+        n = get_config(TRAIN_ARCH).num_layers
+        first = Path(tmp) / "plan_flags.json"
+        first.write_text(json.dumps({
+            "layers": [[4, "oases"]] * (n // 2) + [[2, "megatron"]] * (n // 2),
+            "microbatch": micro}))
+        # phase 22's launcher resolution, saved with the mesh it resolved
+        args = launcher.parse_args(
+            ["--arch", TRAIN_ARCH, "--batch", str(batch), "--seq", str(seq),
+             "--microbatch", str(micro), "--tp", "4", "--mesh", "factored",
+             "--plan", str(first), "--no-calibrate"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            cfg, hp, mesh, plan, _ = launcher._resolve(args)
+        path = Path(tmp) / "plan_mesh.json"
+        dataclasses.replace(plan, mesh_shape=tuple(mesh.shape),
+                            mesh_axes=tuple(mesh.axis_names)).save(str(path))
+        out.append((22, f"{TRAIN_ARCH}/mixed_plan", dict(
+            cfg=cfg, batch=batch, seq=seq,
+            kw=dict(plan_file=str(path), microbatch=micro, rank=0,
+                    schedule=hp.schedule, remat=hp.remat,
+                    fine_remat=hp.fine_remat)), runs["mixed_plan"]))
+    return out
+
+
+def phase_dryrun():
+    """The dry run (``launch/dryrun.run_cell``) of each training cell
+    measured earlier in this run, traced in worker processes side by side:
+    each cell's dot flops, HBM bytes, link bytes and terms, the bound (the
+    largest term) against the measured step, the planner's prediction
+    where phase 20 made one, and the estimated peak against the measured
+    one.  Gates: bound / measured in ``DRY_RATIO`` and the record's
+    argument bytes equal to the bytes the phase's params, AdamW state and
+    batch held."""
+    import multiprocessing as mp
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    report = _RUN.get("report", {})
+    card = _card()
+    tmp = tempfile.TemporaryDirectory()
+    specs = _dry_specs(report, tmp.name)
+    require(specs, "phase 23 needs phases 7, 16, 19 or 22 in the same run")
+    predicted = report.get("planner", {}).get("predicted_ms")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(specs),
+                             mp_context=mp.get_context("spawn")) as ex:
+        recs = list(ex.map(_dry_cell, [s for _, _, s, _ in specs]))
+    wall = time.perf_counter() - t0
+    tmp.cleanup()
+    out = {"card": card, "trace_wall_s": wall, "cells": {}}
+    for (phase, name, _, row), rec in zip(specs, recs):
+        require(rec["status"] == "OK", f"{name}: {rec}")
+        measured = row.get("device_step_ms_median", row.get("step_ms_median"))
+        bound_ms = 1e3 * max(rec["terms_s"].values())
+        peak = row["peak_mem_gb"]
+        cell = dict(
+            phase=phase, card=card, microbatch=rec["microbatch"],
+            plan=rec["plan"], dot_flops=rec["hlo"]["dot_flops"],
+            hbm_bytes=rec["hlo"]["hbm_bytes"],
+            collective_link_bytes=rec["hlo"]["collective_link_bytes"],
+            terms_s=rec["terms_s"], dominant=rec["dominant"],
+            bound_ms=bound_ms, measured_step_ms=measured,
+            bound_over_measured=bound_ms / measured,
+            predicted_ms=(predicted if phase == 7 else None),
+            peak_est_gb=rec["mem"]["peak_est_bytes"] / 1e9,
+            peak_measured_gb=peak[0] if isinstance(peak, list) else peak,
+            argument_bytes=rec["mem"]["argument_bytes"],
+            held_bytes=row["arg_bytes"], trace_s=rec["trace_s"],
+            roofline_fraction=rec["roofline_fraction"],
+            useful_flops_ratio=rec["useful_flops_ratio"])
+        print(f"[dryrun] {name} {json.dumps(cell)}", flush=True)
+        out["cells"][name] = cell
+    for name, c in out["cells"].items():
+        require(DRY_RATIO[0] < c["bound_over_measured"] <= DRY_RATIO[1],
+                f"{name}: bound {c['bound_ms']:.3f} ms over the measured "
+                f"{c['measured_step_ms']:.3f} ms is "
+                f"{c['bound_over_measured']:.3f}, outside {DRY_RATIO}")
+        require(c["argument_bytes"] == c["held_bytes"],
+                f"{name}: the dry run counts {c['argument_bytes']} argument "
+                f"bytes, the phase held {c['held_bytes']}")
+    return out
+
+
 PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           3: ("consistency", phase_consistency), 4: ("serve", phase_serve),
           5: ("train_kernels", phase_train_kernels),
@@ -3918,7 +4110,8 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           19: ("hybrid_train", phase_hybrid_train),
           20: ("planner", phase_planner),
           21: ("plan_consistency", phase_plan_consistency),
-          22: ("plan_train", phase_plan_train)}
+          22: ("plan_train", phase_plan_train),
+          23: ("dryrun", phase_dryrun)}
 
 
 def main(argv=None) -> int:
@@ -3950,6 +4143,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device_name": torch.cuda.get_device_name(0), "phases": {}}
+    _RUN["report"] = report
     for p in phases:
         name, fn = PHASES[p]
         tp = time.perf_counter()

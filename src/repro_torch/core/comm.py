@@ -24,6 +24,10 @@ every rank.
   one communication stream; its reduce-scatter sums and writes only this
   rank's chunk (the kernel's scatter mode).  On one card the ranks are processes sharing
   ``cuda:0``; NCCL refuses two ranks on one device.
+* :class:`TraceComm` — one rank of a group that moves no data, for the
+  dry run (``launch/hlo_cost.py``): each op returns a tensor of the real
+  result's shape and hands (kind, payload bytes, group size) to a
+  recorder.
 * :class:`MeshComm` — the ranks of a run as a mesh
   (:class:`~repro_torch.core.axes.RankMesh`): ``sub(axes)`` is the
   communicator of the ranks that share every coordinate outside
@@ -347,6 +351,56 @@ class PeerComm(Comm):
 
     def close(self):
         self.ws.close()
+
+
+class TraceComm(Comm):
+    """One rank of a group of ``size`` that moves no data: the counting
+    communicator of the dry run.  Each op returns a new tensor of the real
+    result's shape and dtype (``all_gather`` the concatenation, a
+    ``reduce_scatter`` this rank's chunk, ``all_reduce`` and
+    ``ring_shift`` x's shape; fake tensors under the tracer) and calls
+    ``record(kind, payload_bytes, size)`` with the payload as JAX's HLO
+    states it: the all-reduce's operand, the all-gather's gathered output,
+    the reduce-scatter's scattered output, the shifted tensor.
+    ``agree`` returns ``choose()``."""
+
+    def __init__(self, rank: int, size: int,
+                 record: Callable[[str, int, int], None]):
+        super().__init__()
+        self.rank, self.size = rank, size
+        self._record = record
+
+    def _out(self, kind: str, shape, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty(shape)
+        self._record(kind, (out if kind != "all_reduce" else x).numel()
+                     * x.element_size(), self.size)
+        return out
+
+    def _all_reduce_async(self, x, op):
+        return Pending(self._out("all_reduce", x.shape, x), None)
+
+    def _reduce_scatter(self, x, dim):
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        return self._out("reduce_scatter", shape, x)
+
+    def _all_gather(self, x, dim):
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        return self._out("all_gather", shape, x)
+
+    def _ring_shift(self, x):
+        return self._out("ring_shift", x.shape, x)
+
+
+def trace_mesh(mesh, rank: int,
+               record: Callable[[str, int, int], None]) -> "MeshComm":
+    """Rank ``rank`` of ``mesh`` as a :class:`MeshComm` of
+    :class:`TraceComm` groups: no process is spawned."""
+    def factory(axes, index, members):
+        return TraceComm(members.index(rank) if rank in members else 0,
+                         len(members), record)
+    return MeshComm(mesh, rank, factory)
 
 
 Factory = Callable[[Tuple[str, ...], int, List[int]], Optional[Comm]]

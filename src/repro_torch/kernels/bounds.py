@@ -34,19 +34,27 @@ def bound(nbytes: float, flops: float, dtype: str) -> Tuple[float, str]:
                                        else "operations")
 
 
+def ring_attention_work(b: int, sq: int, h: int, kvh: int, hd: int,
+                        shards: int, pairs: int, elt: int
+                        ) -> Tuple[int, int]:
+    """(bytes, flops) of one rank's ring-attention forward: reads q and
+    the ``shards`` KV shards of sq positions it needs, writes out and lse;
+    q.k and p.v, 4 hd flops a visible pair (``pairs`` a head) and head."""
+    return (b * (2 * sq * h * hd * elt + h * sq * 4
+                 + shards * 2 * sq * kvh * hd * elt),
+            4 * hd * pairs * h * b)
+
+
 def _ring_row(label: str, b: int, s: int, n: int) -> Dict:
     """``ring_attention.py:218`` ``_ring_attn_kernel`` (forward) on the
     last device of n: internlm2-1.8b (16 q / 8 kv heads of 128), causal,
     q and each KV shard s / n positions.  The last device sees all n KV
-    shards (n - 1 whole, the diagonal one half): q.k and p.v, 4 hd flops
-    a visible pair and head; reads q and the n KV shards, writes out and
-    lse.  bf16."""
+    shards (n - 1 whole, the diagonal one half).  bf16
+    (:func:`ring_attention_work`)."""
     h, kvh, hd = 16, 8, 128
     blk = s // n
     pairs = (n - 1) * blk * blk + blk * (blk + 1) // 2
-    flops = 4 * hd * pairs * h * b
-    nbytes = b * (2 * blk * h * hd * 2 + h * blk * 4
-                  + n * 2 * blk * kvh * hd * 2)
+    nbytes, flops = ring_attention_work(b, blk, h, kvh, hd, n, pairs, 2)
     return _row("ring_attention", label, nbytes, flops, "bfloat16")
 
 
@@ -61,6 +69,40 @@ def ring_attention_slice() -> Dict:
     the last rank (``chip_smoke.py`` phases 11 and 13)."""
     return _ring_row("internlm2-1.8b, b 2, s 4096, seq_shard 2, last rank",
                      2, 4096, 2)
+
+
+def rmsnorm_work(rows: int, d: int, elt: int) -> Tuple[int, int]:
+    """(bytes, operations) of the RMSNorm forward on [rows, d]: reads x
+    (``elt`` bytes a value) and the f32 scale once, writes y; 4 operations
+    an element (the bound of ``chip_smoke.py``'s rmsnorm rows and the
+    counter's unit)."""
+    return 2 * rows * d * elt + d * 4, 4 * rows * d
+
+
+def rmsnorm_bwd_work(rows: int, d: int, elt: int) -> Tuple[int, int]:
+    """(bytes, operations) of the RMSNorm backward: reads x and dy and the
+    scale, writes dx and dscale; 12 operations an element
+    (the bound of ``chip_smoke.py``'s rmsnorm_bwd rows and the
+    counter's unit)."""
+    return 3 * rows * d * elt + 2 * d * 4, 12 * rows * d
+
+
+def gemm_work(m: int, k: int, n: int, elt: int) -> Tuple[int, int]:
+    """(bytes, flops) of [m, k] @ [k, n]: reads both operands once, writes
+    the product; 2 m k n flops (the bound of ``chip_smoke.py``'s GEMM-tile
+    rows and the counter's unit)."""
+    return (m * k + k * n + m * n) * elt, 2 * m * k * n
+
+
+def paged_decode_work(b: int, h: int, kvh: int, hd: int, rows: int,
+                      positions: int, tables: int, elt: int
+                      ) -> Tuple[int, int]:
+    """(bytes, flops) of the paged decode: reads the ``rows`` distinct
+    K/V rows its slots map, q, the ``tables`` int32 entries and the b
+    positions, writes out; q.k and p.v over ``positions`` (every slot's
+    positions up to its own) for each of the h heads."""
+    return (2 * rows * kvh * hd * elt + 2 * b * h * hd * elt + tables * 4
+            + b * 4, 4 * positions * h * hd)
 
 
 def moe_gmm_work(e: int, c: int, d: int, f: int, elt: int

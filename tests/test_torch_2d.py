@@ -18,6 +18,7 @@ exits summed over x and gathered over y.
   runs none of them (the y sums' outputs are kept), coarse replays every
   forward one.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import numpy as np
 import pytest
 

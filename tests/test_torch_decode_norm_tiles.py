@@ -25,6 +25,7 @@ in order into one partial row; the partial rows are summed per column by
 rows of O(1) terms in another order).  Inputs are made with numpy from a
 seed.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import importlib.util
 import inspect
 import re

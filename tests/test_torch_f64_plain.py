@@ -9,6 +9,7 @@ Tolerances: 1e-10 of each result's largest |value| for the f64 formulas
 |value| between the f32 and the f64 model passes (``grads_err``, the
 f32 rounding of five small layers).
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ against the plain version (``chip_smoke.py``'s
 ``jax.grad`` of ``chunked_attention``; P or dS rounded once to bf16 does
 not stay within that gate.  Inputs are made with numpy from a seed.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ flash forward against the plain version (``chip_smoke.py``'s
 bf16 ulp of JAX's Pallas kernel in interpret mode; P rounded once to bf16
 does not stay within that gate.  Inputs are made with numpy from a seed.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

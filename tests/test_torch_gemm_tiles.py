@@ -15,6 +15,7 @@ dx = dy w^T with w as a K-major B, dw = x^T dy with x as an MN-major A
 ``jax.grad`` of the expert einsum.  Inputs are made with numpy from a
 seed.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import importlib.util
 import json
 import re

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``repro_torch``, not
 ``chip_smoke.py`` and no script of ``tools/`` imports JAX or the JAX
 package."""
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import os
 import pkgutil
 import re
@@ -41,7 +42,8 @@ def test_port_has_the_slice_modules():
                  "core.planner.costmodel", "core.planner.ilp",
                  "core.planner.calibrate", "core.pipeline", "launch.mesh",
                  "obs", "obs.recorder", "obs.schema", "obs.tracing",
-                 "obs.report", "obs.probe", "core.axes"):
+                 "obs.report", "obs.probe", "core.axes", "launch.hlo_cost",
+                 "launch.dryrun"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -7,6 +7,7 @@ Tolerances: f32 1e-5 abs for attention and its gradients (sums in another
 order), 1e-6 for RMSNorm and its gradients; bf16 RMSNorm within one bf16
 ulp (rtol 2**-7) after the cast.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ routing decisions identical and the aux within 1e-6; loss 1e-5 relative
 and ``grads_err`` <= 1e-4 (``tests/_scripts/runner.py``'s formula);
 trainer losses 1e-4 relative over 3 steps.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

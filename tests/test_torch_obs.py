@@ -13,6 +13,7 @@
 * The port alone: the trainer's per-step records, and the phase ranges
   of one reduced CPU step under ``torch.profiler``, backward included.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import json
 import os

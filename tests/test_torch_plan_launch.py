@@ -13,6 +13,7 @@ planner's calibration cache, on the CPU:
 * ``calibrated_hw`` writes one cache file of its own and reads it back,
   and honours ``REPRO_NO_CALIBRATE``.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import contextlib
 import dataclasses
 import io

@@ -13,6 +13,7 @@ equal as JSON.  The port's configs are built from the JAX configs' fields,
 so archs the port's registry lacks (A10b) run here too.  Plan files written
 by either package load in the other.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import json
 import math

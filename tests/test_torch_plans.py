@@ -21,6 +21,7 @@
 
 One spawn per mesh runs every case (``tests/_torch_ranks.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import json
 import types
 

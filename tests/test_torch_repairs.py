@@ -12,6 +12,7 @@ package and to the formulas they replace, on the CPU:
 * ``Comm.reduce_scatter`` on gloo ranks (the plain all-reduce and slice)
   equals the rank-order f32 sum's chunk bit for bit at tp 2 and 4.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import copy
 
 import pytest

@@ -5,6 +5,7 @@ kernel's autograd Function (its CPU path) against ``jax.grad`` of
 ``rglru_scan``, the reduced ``recurrentgemma-9b`` loss and every gradient
 leaf under ``megatron`` and ``oases`` with fine and coarse recomputation,
 the trainer, the launcher, and the refusals (tp > 1, serving).  Inputs
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 from numpy, handed to both frameworks.
 
 The model cases replace ``reduced()``'s 6 layers by 8 and run seq 128:

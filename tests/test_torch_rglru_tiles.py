@@ -13,6 +13,7 @@ is the next tile's carry, and the carry entering each tile is what the
 forward keeps for the backward.  Backward, tiles from the last to the
 first: the tile's h recomputed from its saved state by the forward's own
 code (:func:`tile_forward`); each sub-chunk's D (its gradient walked back
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 from 0, times its first a) folded with the same A from the carry of the
 tile after, in reverse sub-chunk order; dh walked back per step and the
 chain rule per element; each thread's five gate-gradient sums over its

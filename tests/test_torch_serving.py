@@ -7,6 +7,7 @@ Tolerance for KV pools: 1e-5 abs (f32, same math in another summation
 order).  Page 0 is left out of pool comparisons: inactive slots write the
 null page and which write wins is unspecified.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import dataclasses
 import json
 

@@ -33,6 +33,7 @@ fine against coarse and no recomputation 1e-6 (the same arithmetic,
 replayed); SP against all-reduce: loss 2e-4, ``grads_err`` 5e-3
 (``sp_equivalence.py``).
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import json
 import os
 import subprocess

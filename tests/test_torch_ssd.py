@@ -17,6 +17,7 @@ gradient's largest |value| against ``jax.grad`` (f32 sums in another
 order) and 1e-10 relative against autograd of the plain forward in f64
 (the same sums in f64).
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,7 @@ arithmetic, replayed); rings against references 2e-5 f32 and 3e-2 bf16
 (``fused_equivalence.py``); tile matmul 1e-5 f32 and one bf16 ulp (its
 f32 sums in another order, cast once); Trainer losses 1e-4 relative.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import gc
 import json
 import weakref

@@ -9,6 +9,7 @@ Tolerances: loss 1e-5 relative and ``grads_err`` <= 1e-4 (the formula of
 abs value), f32 sums in another order; AdamW state 1e-6; trainer losses
 1e-4 relative over 3 steps.
 """
+import _torch_threads  # noqa: F401  (one torch thread: see the module)
 import json
 
 import jax
