@@ -1,8 +1,9 @@
 """Architecture, shape and training configuration: the port's own copies
 of ``repro.configs.base.ArchConfig`` (every field; the model path runs
-dense global-attention models, MoE, the Mamba2 SSD mixer and the Griffin
-hybrid of RG-LRU and local attention, and raises for encoders and cross
-attention, ROADMAP.md A10b), of ``ShapeConfig`` and the named shapes, and
+dense global- and local-attention models with post-norms and softcaps,
+MoE, the Mamba2 SSD mixer, the Griffin hybrid of RG-LRU and local
+attention, cross attention to a stub context and whisper's encoder), of
+``ShapeConfig`` and the named shapes, and
 of the ``TrainHParams`` fields its training path and the planner read.
 Field names, defaults and derived values match the JAX package's, so a
 config means the same model in both."""
@@ -38,7 +39,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | hybrid | moe | ssm
+    family: str                      # dense | hybrid | vlm | audio | moe | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -75,6 +76,10 @@ class ArchConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     def padded_vocab(self, multiple: int = 256) -> int:
         return _round_up(self.vocab_size, multiple)

@@ -1,0 +1,17 @@
+"""internlm2-20b — dense GQA transformer [arXiv:2403.17297; hf]."""
+from repro_torch.configs.base import ArchConfig, GLOBAL_ATTN
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=92544,
+    head_dim=128,
+    layer_pattern=(GLOBAL_ATTN,),
+    rope_theta=1_000_000.0,
+    source="arXiv:2403.17297; hf",
+)

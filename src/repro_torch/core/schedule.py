@@ -361,14 +361,18 @@ def effective_split(schedule: str, split: int, local_batch: int) -> int:
 
 @dataclass(frozen=True)
 class Part:
-    """One residual part of a layer: ``body(p, x, positions, keep) -> a``,
-    the compute from the part's input up to the exit product's input, and
+    """One residual part of a layer: ``body(p, x, aux, keep) -> a``, the
+    compute from the part's input up to the exit product's input, and
     ``exit``, the name of the exit weight (``a @ p[exit]``, followed by the
-    schedule's collective unless ``collective`` is False).  ``keep`` is the
+    schedule's collective unless ``collective`` is False).  ``aux`` is the
+    sub-batch's ``{"positions": [b, s], "ctx": [b, L, d] or None}`` (JAX's
+    per-sub-batch aux: the cross part reads the context).  ``keep`` is the
     fine-recomputation state of the call
     (:class:`~repro_torch.core.remat.Keep`, None outside it): a body that
     holds an op whose replay must not run again (ring attention) passes it
-    to that op.
+    to that op.  ``post(p, delta) -> delta``: a step after the exit and
+    its collective, before the residual add (gemma2's post-norm, the cross
+    part's ``tanh`` gate); it runs outside fine recomputation's replay.
 
     An exit-less part (``exit`` None) has a body that returns the residual
     delta itself and its auxiliary loss, ``(delta, aux)``: the MoE FFN,
@@ -379,54 +383,57 @@ class Part:
     exit: Optional[str] = None
     collective: bool = True
     full_out: Optional[int] = None
+    post: Optional[Callable] = None
 
 
 def apply_layer(parts: Sequence[Part], p, xs: List[torch.Tensor],
-                positions: List[torch.Tensor], ctx: TmpCtx, *,
+                auxs: List[dict], ctx: TmpCtx, *,
                 fine: bool = False
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Run one layer's residual parts over the sub-batches in Alg. 1's
-    program order: for each part, (compute_j, collective_j) for every
-    sub-batch j, then the residual adds.  Under ``oases`` collective_j is
-    started and waited for only at sub-batch j's residual add, so it is
-    independent of compute_{j+1}.  ``fine`` runs each part's body and exit
-    under a checkpoint whose replay skips the exit
-    (:func:`repro_torch.core.remat.checkpoint_part`); an exit-less part's
-    replay is its whole body (:func:`repro_torch.core.remat.
-    checkpoint_body`).  -> (xs, aux): the parts' auxiliary losses summed
-    over parts and sub-batches (f32 scalar, JAX's ``aux_total``)."""
-    def part_exit(part, keep, p, x, pos):
+    """Run one layer's residual parts over the sub-batches (``auxs``:
+    each sub-batch's aux, see :class:`Part`) in Alg. 1's program order:
+    for each part, (compute_j, collective_j) for every sub-batch j, then
+    the residual adds (each after the part's ``post`` step).  Under
+    ``oases`` collective_j is started and waited for only at sub-batch
+    j's residual add, so it is independent of compute_{j+1}.  ``fine``
+    runs each part's body and exit under a checkpoint whose replay skips
+    the exit (:func:`repro_torch.core.remat.checkpoint_part`); an
+    exit-less part's replay is its whole body (:func:`repro_torch.core.
+    remat.checkpoint_body`).  -> (xs, aux): the parts' auxiliary losses
+    summed over parts and sub-batches (f32 scalar, JAX's ``aux_total``)."""
+    def part_exit(part, keep, p, x, sub):
         replay = keep is not None and keep.replay
-        a = part.body(p, x, pos, keep)
+        a = part.body(p, x, sub, keep)
         if not part.collective:
             return ctx.local_matmul(a, p[part.exit], replay=replay)
         kw = {} if part.full_out is None else {"full_out": part.full_out}
         return ctx.row_matmul(a, p[part.exit], replay=replay, **kw)
 
-    def body(part, x, pos):
+    def body(part, x, sub):
         if fine:
-            return remat.checkpoint_body(part.body, p, x, pos)
-        return part.body(p, x, pos, None)
+            return remat.checkpoint_body(part.body, p, x, sub)
+        return part.body(p, x, sub, None)
 
-    def exit_part(part, x, pos):
+    def exit_part(part, x, sub):
         run = functools.partial(part_exit, part)
         if fine:
-            return remat.checkpoint_part(run, p, x, pos)
-        return run(None, p, x, pos)
+            return remat.checkpoint_part(run, p, x, sub)
+        return run(None, p, x, sub)
 
     aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
     for part in parts:
         # sub-batch ranges: Alg. 1's (compute_j, collective_j) chunks are
         # attributable per sub-batch in a profile
         run = functools.partial(exit_part if part.exit else body, part)
-        outs = [scoped(f"tmp.{ctx.schedule}.sub{j}", run, x, pos)
-                for j, (x, pos) in enumerate(zip(xs, positions))]
+        outs = [scoped(f"tmp.{ctx.schedule}.sub{j}", run, x, a)
+                for j, (x, a) in enumerate(zip(xs, auxs))]
         if part.exit is None:
             xs = [x + d for x, (d, _) in zip(xs, outs)]
             for _, a in outs:
                 aux = aux + a
             continue
-        xs = [x + d.wait() for x, d in zip(xs, outs)]
+        post = part.post or (lambda p, d: d)
+        xs = [x + post(p, d.wait()) for x, d in zip(xs, outs)]
     if ctx.schedule == "merak":
         xs = [tmpc.pass_barrier(x) for x in xs]
     return xs, aux

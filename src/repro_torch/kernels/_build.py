@@ -68,14 +68,14 @@ _SIGNATURES = {
     # rows_per_block, nblocks, eps, dtype, stream
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I,
                           _P],
-    # q, k, v, out, lse, b, s, h, kvh, hd, causal, window, scale, softcap,
-    # dtype, stream
-    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                        _F, _I, _P],
-    # q, k, v, out, lse, dout, delta, dq, dk, dv, b, s, h, kvh, hd, causal,
-    # window, scale, softcap, dtype, stream
+    # q, k, v, out, lse, b, sq, sk, h, kvh, hd, causal, window, scale,
+    # softcap, dtype, stream
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _I, _P],
+    # q, k, v, out, lse, dout, delta, dq, dk, dv, b, sq, sk, h, kvh, hd,
+    # causal, window, scale, softcap, dtype, stream
     "repro_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _I, _I, _F, _F, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # x, w, out, m, k, n, bm, bn, bk, dtype, tc, stream
     "repro_tile_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ws, rank, n, slot, x, w, out, chunk, k, d, bm, bn, bk, base, dtype,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -259,9 +259,21 @@ def rglru_bwd() -> Dict:
                 mufu_ms=mufu_ms(RGLRU_MUFU["backward"] * 2 * 4096 * 4096))
 
 
-def visible_pairs(s: int, window=None) -> int:
-    """(query, key) pairs a causal mask (with a window, if any) leaves
-    visible over a sequence of s, per head."""
+def visible_pairs(s: int, window=None, *, sk: Optional[int] = None,
+                  causal: bool = True) -> int:
+    """(query, key) pairs a head attends: queries at ``arange(s)``
+    against keys at ``arange(sk)`` (default s) under a causal mask (with
+    a window, if any), or every pair (``causal`` False, no window)."""
+    sk = s if sk is None else sk
+    if not causal and window is None:
+        return s * sk
+    if sk != s or not causal:
+        total = 0
+        for p in range(s):
+            hi = min(p, sk - 1) if causal else sk - 1
+            lo = 0 if window is None else max(0, p - window + 1)
+            total += max(0, hi - lo + 1)
+        return total
     if window is None:
         return s * (s + 1) // 2
     w = min(window, s)
@@ -269,16 +281,18 @@ def visible_pairs(s: int, window=None) -> int:
 
 
 def flash_work(b: int, s: int, h: int, kvh: int, hd: int, pairs: int,
-               elt: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """((bytes, flops) forward, (bytes, flops) backward) of causal flash
-    attention with ``pairs`` visible pairs a head: the forward reads q, k,
-    v and writes out and lse, q.k and p.v over the pairs; the backward
-    reads q, k, v, out, dout and lse, writes dq, dk, dv, four products
-    over the pairs (the recomputation of the scores is a design's choice,
-    not the work's)."""
-    q, kv, lse = b * s * h * hd, b * s * kvh * hd, b * h * s * 4
-    return ((2 * (q + kv) * elt + lse, 4 * hd * pairs * b * h),
-            (4 * (q + kv) * elt + lse, 8 * hd * pairs * b * h))
+               elt: int, sk: Optional[int] = None
+               ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((bytes, flops) forward, (bytes, flops) backward) of flash
+    attention of s queries against sk keys (default s) with ``pairs``
+    visible pairs a head: the forward reads q, k, v and writes out and
+    lse, q.k and p.v over the pairs; the backward reads q, k, v, out,
+    dout and lse, writes dq, dk, dv, four products over the pairs (the
+    recomputation of the scores is a design's choice, not the work's)."""
+    sk = s if sk is None else sk
+    q, kv, lse = b * s * h * hd, b * sk * kvh * hd, b * h * s * 4
+    return ((2 * q * elt + 2 * kv * elt + lse, 4 * hd * pairs * b * h),
+            (4 * q * elt + 4 * kv * elt + lse, 8 * hd * pairs * b * h))
 
 
 def flash_hd256() -> Dict:

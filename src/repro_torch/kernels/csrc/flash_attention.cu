@@ -10,7 +10,12 @@
 // tiles itself, keeping m/l/acc in registers; key tiles the mask hides
 // entirely are never loaded (causal: the loop stops after the diagonal
 // tile).  The JAX wrapper pads q/k/v to the block size; this kernel masks
-// the ragged edge itself (rows and keys >= s).
+// the ragged edges itself (query rows >= sq, keys >= sk).  Queries sit at
+// positions arange(sq) and keys at arange(sk), as the TPU kernel's q_pos
+// and k_pos: sk != sq is cross attention (whisper's 448 against 1,500,
+// llama-3.2-vision's 2,048 against 6,404), causal 0 attends every key
+// (cross attention, whisper's encoder); the grids cover sq (forward, dQ)
+// and sk (dK/dV), and the tensor maps of K and V span sk rows.
 //
 // The TPU kernel has no backward: JAX lets XLA differentiate
 // `chunked_attention`.  The port needs one, so the backward here is the
@@ -36,7 +41,7 @@
 // 2.5-4x the counted tensor-core flops; 40-208 KB of shared memory).  The
 // tiles' roundings are pinned on the CPU by tests/test_torch_flash_tiles.py
 // and tests/test_torch_flash_bwd_tiles.py, the kernels checked on the card
-// by chip_smoke.py phases 5, 14 and 17.  f32 inputs keep the CUDA-core
+// by chip_smoke.py phases 5, 14, 17 and 24.  f32 inputs keep the CUDA-core
 // tiles (flash_fwd.cuh and the two backward kernels below): a tensor-core
 // product of f32 inputs is TF32, ~1e-3 off, where the f32 gates (card vs
 // CPU, 1e-5) need full f32 sums.
@@ -72,13 +77,14 @@ namespace {
 using namespace repro::flash;
 
 struct Params {
-  int b, s, h, kvh, g;
+  int b, sq, sk, h, kvh, g;
   int causal, window;  // window 0: none
   float scale, softcap;
 
-  // positions arange(s) for queries and keys
+  // queries at positions arange(sq), keys at arange(sk) (the TPU
+  // kernel's q_pos and k_pos): sk != sq for cross attention
   __device__ __forceinline__ Mask mask() const {
-    return Mask{0, s, 0, s, causal, window, softcap};
+    return Mask{0, sq, 0, sk, causal, window, softcap};
   }
 };
 
@@ -96,7 +102,8 @@ __device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& p,
 template <int HD>
 constexpr int key_tile() { return HD > 128 ? 32 : kTile; }
 
-// rows [r0, r0 + 64) of a [b, h, s] f32 row statistic -> smem; 0 past s
+// rows [r0, r0 + 64) of a [b, h, s] f32 row statistic (s = sq) -> smem;
+// 0 past s
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           int bi, int hi, int h, int r0, int s) {
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
@@ -134,11 +141,11 @@ __global__ void __launch_bounds__(kThreads)
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
 
-  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
+  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.sq, p.scale);
   Carry<HD> c;
   c.init();
   fold_keys<HD>(qs, ks, vs, ps, k, v, bi, hi / p.g, p.kvh, q0, p.mask(), c);
-  store_rows<HD>(c, out, lse, bi, hi, p.h, p.s, q0);
+  store_rows<HD>(c, out, lse, bi, hi, p.h, p.sq, q0);
 }
 
 // the maps of q, k and v for the tensor-core forward
@@ -156,7 +163,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int hi = blockIdx.y;
   tc_block<HD>(&maps.q, OwnShard{&maps.k, &maps.v, p.mask()}, blockIdx.z, hi,
-               hi / p.g, q0, p.scale, out, lse, p.h, p.s);
+               hi / p.g, q0, p.scale, out, lse, p.h, p.sq);
 }
 
 // delta[b, h, s] = rowsum(dout * out) in f32; one warp per (b, s, h) row
@@ -253,8 +260,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int tx = threadIdx.x & 15;   // q columns tx + 16 * j
   const int ty = threadIdx.x >> 4;   // key rows ty * RK + i
 
-  load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-  load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+  load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.sk, 1.f);
+  load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.sk, 1.f);
 
   float adk[RK][NC], adv[RK][NC];
 #pragma unroll
@@ -262,17 +269,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
 
-  const int nq = (p.s + kTile - 1) / kTile;
+  const int nq = (p.sq + kTile - 1) / kTile;
   for (int gi = 0; gi < p.g; ++gi) {
     const int hi = kh * p.g + gi;
     for (int qt = 0; qt < nq; ++qt) {
       const int q0 = qt * kTile;
       if (!tile_runs(q0, k0, p, KT)) continue;
       __syncthreads();  // the previous q tile is consumed (first: ks/vs ready)
-      load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
-      load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
-      load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
-      load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
+      load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.sq, p.scale);
+      load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.sq, 1.f);
+      load_rows(lse_s, lse, bi, hi, p.h, q0, p.sq);
+      load_rows(delta_s, delta, bi, hi, p.h, q0, p.sq);
       __syncthreads();
 
       float st[RK][4], dpt[RK][4];
@@ -341,8 +348,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
   for (int i = 0; i < RK; ++i) {
     const int kj = k0 + ty * RK + i;
-    if (kj >= p.s) continue;
-    const int64_t o = ((static_cast<int64_t>(bi) * p.s + kj) * p.kvh + kh) * HD;
+    if (kj >= p.sk) continue;
+    const int64_t o = ((static_cast<int64_t>(bi) * p.sk + kj) * p.kvh + kh) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       dk[o + tx + 16 * c] = adk[i][c];
@@ -377,10 +384,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int tx = threadIdx.x & 15;   // key columns tx + 16 * j
   const int ty = threadIdx.x >> 4;   // query rows ty * 4 + i
 
-  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.s, p.scale);
-  load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.s, 1.f);
-  load_rows(lse_s, lse, bi, hi, p.h, q0, p.s);
-  load_rows(delta_s, delta, bi, hi, p.h, q0, p.s);
+  load_tile<float, HD>(qs, q, bi, q0, hi, p.h, p.sq, p.scale);
+  load_tile<float, HD>(dos, dout, bi, q0, hi, p.h, p.sq, 1.f);
+  load_rows(lse_s, lse, bi, hi, p.h, q0, p.sq);
+  load_rows(delta_s, delta, bi, hi, p.h, q0, p.sq);
 
   float adq[4][NC];
 #pragma unroll
@@ -388,14 +395,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) adq[i][c] = 0.f;
 
-  const int nk = (p.s + KT - 1) / KT;
+  const int nk = (p.sk + KT - 1) / KT;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * KT;
     if (p.causal && k0 > q0 + kTile - 1) break;
     if (!tile_runs(q0, k0, p, KT)) continue;
     __syncthreads();  // the previous key tile is consumed (first: q side ready)
-    load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.s, 1.f);
-    load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.s, 1.f);
+    load_tile<float, HD, KT>(ks, k, bi, k0, kh, p.kvh, p.sk, 1.f);
+    load_tile<float, HD, KT>(vs, v, bi, k0, kh, p.kvh, p.sk, 1.f);
     __syncthreads();
 
     float sc[4][KC], dp[4][KC];
@@ -454,8 +461,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
-    if (qi >= p.s) continue;
-    const int64_t o = ((static_cast<int64_t>(bi) * p.s + qi) * p.h + hi) * HD;
+    if (qi >= p.sq) continue;
+    const int64_t o = ((static_cast<int64_t>(bi) * p.sq + qi) * p.h + hi) * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       dq[o + tx + 16 * c] = adq[i][c] * p.scale;
@@ -472,14 +479,14 @@ template <int HD>
 int fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse,
            const Params& p, cudaStream_t st) {
   FwdMaps maps;
-  int e = encode_rows(&maps.q, q, p.b, p.s, p.h, HD);
-  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.s, p.kvh, HD);
-  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.s, p.kvh, HD);
+  int e = encode_rows(&maps.q, q, p.b, p.sq, p.h, HD);
+  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.sk, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.sk, p.kvh, HD);
   if (e != 0) return e;
   const size_t smem = TcGeo<HD>::kSmem;
   cudaError_t ce = allow_smem(flash_fwd_tc_kernel<HD>, smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
-  const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
+  const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
   flash_fwd_tc_kernel<HD><<<grid, kTcThreads, smem, st>>>(
       maps, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), p);
   return static_cast<int>(cudaGetLastError());
@@ -494,7 +501,7 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
     const size_t smem = fwd_smem<HD>();
     cudaError_t e = allow_smem(flash_fwd_kernel<HD>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid((p.s + kTile - 1) / kTile, p.h, p.b);
+    const dim3 grid((p.sq + kTile - 1) / kTile, p.h, p.b);
     flash_fwd_kernel<HD><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out),
@@ -506,13 +513,13 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 template <typename T, int HD>
 int bwd_delta(const void* out, const void* dout, void* delta, const Params& p,
               cudaStream_t st) {
-  const int64_t rows = static_cast<int64_t>(p.b) * p.s * p.h;
+  const int64_t rows = static_cast<int64_t>(p.b) * p.sq * p.h;
   const int64_t warps_per_block = kThreads / 32;
   const dim3 dgrid(static_cast<unsigned>((rows + warps_per_block - 1) /
                                          warps_per_block));
   flash_bwd_delta_kernel<T, HD><<<dgrid, kThreads, 0, st>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<float*>(delta), rows, p.s, p.h);
+      static_cast<float*>(delta), rows, p.sq, p.h);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,15 +528,16 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* out,
            const void* lse, const void* dout, void* delta, void* dq, void* dk,
            void* dv, const Params& p, cudaStream_t st) {
   BwdMaps maps;
-  int e = encode_rows(&maps.q, q, p.b, p.s, p.h, HD);
-  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.s, p.kvh, HD);
-  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.s, p.kvh, HD);
-  if (e == 0) e = encode_rows(&maps.dout, dout, p.b, p.s, p.h, HD);
+  int e = encode_rows(&maps.q, q, p.b, p.sq, p.h, HD);
+  if (e == 0) e = encode_rows(&maps.k, k, p.b, p.sk, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.v, v, p.b, p.sk, p.kvh, HD);
+  if (e == 0) e = encode_rows(&maps.dout, dout, p.b, p.sq, p.h, HD);
   if (e == 0) e = bwd_delta<__nv_bfloat16, HD>(out, dout, delta, p, st);
   if (e != 0) return e;
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  const unsigned tiles = (p.s + kTile - 1) / kTile;
+  const unsigned q_tiles = (p.sq + kTile - 1) / kTile;
+  const unsigned k_tiles = (p.sk + kTile - 1) / kTile;
 
   const size_t kv_smem = bwd_kv_smem<HD>();
   cudaError_t ce = allow_smem(flash_bwd_dkdv_tc_kernel<HD>, kv_smem);
@@ -539,7 +547,7 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* out,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
   if (ce != cudaSuccess) return static_cast<int>(ce);
-  flash_bwd_dkdv_tc_kernel<HD><<<dim3(tiles, p.kvh * bwd_kv_parts<HD>(), p.b),
+  flash_bwd_dkdv_tc_kernel<HD><<<dim3(k_tiles, p.kvh * bwd_kv_parts<HD>(), p.b),
                                  kBwdThreads, kv_smem, st>>>(
       maps, lse_f, delta_f, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), p);
@@ -549,7 +557,7 @@ int bwd_tc(const void* q, const void* k, const void* v, const void* out,
   const size_t q_smem = bwd_q_smem<HD>();
   ce = allow_smem(flash_bwd_dq_tc_kernel<HD>, q_smem);
   if (ce != cudaSuccess) return static_cast<int>(ce);
-  flash_bwd_dq_tc_kernel<HD><<<dim3(tiles, p.h, p.b), kTcThreads, q_smem,
+  flash_bwd_dq_tc_kernel<HD><<<dim3(q_tiles, p.h, p.b), kTcThreads, q_smem,
                                st>>>(maps, lse_f, delta_f,
                                      static_cast<__nv_bfloat16*>(dq), p);
   return static_cast<int>(cudaGetLastError());
@@ -568,7 +576,7 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
   const size_t smem = dkdv_smem<HD, KT>();
   e = allow_smem(flash_bwd_dkdv_kernel<HD, KT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 kgrid((p.s + KT - 1) / KT, p.kvh, p.b);
+  const dim3 kgrid((p.sk + KT - 1) / KT, p.kvh, p.b);
   flash_bwd_dkdv_kernel<HD, KT><<<kgrid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -580,7 +588,7 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
   const size_t qsmem = dq_smem<HD, KT>();
   e = allow_smem(flash_bwd_dq_kernel<HD, KT>, qsmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 qgrid((p.s + kTile - 1) / kTile, p.h, p.b);
+  const dim3 qgrid((p.sq + kTile - 1) / kTile, p.h, p.b);
   flash_bwd_dq_kernel<HD, KT><<<qgrid, kThreads, qsmem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -589,27 +597,28 @@ int bwd_f32(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool make_params(int b, int s, int h, int kvh, int causal, int window,
-                 float scale, float softcap, Params* p) {
-  if (b <= 0 || s <= 0 || h <= 0 || kvh <= 0 || h % kvh || h > 65535 ||
-      b > 65535 || window < 0)
+bool make_params(int b, int sq, int sk, int h, int kvh, int causal,
+                 int window, float scale, float softcap, Params* p) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || h <= 0 || kvh <= 0 || h % kvh ||
+      h > 65535 || b > 65535 || window < 0)
     return false;
-  *p = Params{b, s, h, kvh, h / kvh, causal, window, scale, softcap};
+  *p = Params{b, sq, sk, h, kvh, h / kvh, causal, window, scale, softcap};
   return true;
 }
 
 }  // namespace
 
-// q, out: [b, s, h, hd]; k, v: [b, s, kvh, hd], all of dtype code `dtype`
-// and contiguous; lse: [b, h, s] f32.  window 0 means no window.
-// Returns a cudaError_t code (0 on success).
+// q, out: [b, sq, h, hd]; k, v: [b, sk, kvh, hd], all of dtype code
+// `dtype` and contiguous; lse: [b, h, sq] f32.  Queries sit at positions
+// arange(sq), keys at arange(sk); causal 0 attends every key, window 0
+// means no window.  Returns a cudaError_t code (0 on success).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* out, void* lse, int b, int s, int h,
-                               int kvh, int hd, int causal, int window,
-                               float scale, float softcap, int dtype,
-                               void* stream) {
+                               void* out, void* lse, int b, int sq, int sk,
+                               int h, int kvh, int hd, int causal,
+                               int window, float scale, float softcap,
+                               int dtype, void* stream) {
   Params p;
-  if (!make_params(b, s, h, kvh, causal, window, scale, softcap, &p))
+  if (!make_params(b, sq, sk, h, kvh, causal, window, scale, softcap, &p))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32) {
@@ -630,18 +639,19 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// Backward of repro_flash_fwd: dq [b, s, h, hd]; dk, dv [b, s, kvh, hd] in
-// the inputs' dtype; delta: [b, h, s] f32 scratch.  Three launches (delta,
-// dK/dV, dQ) on `stream`.  Returns a cudaError_t code (0 on success).
+// Backward of repro_flash_fwd: dq [b, sq, h, hd]; dk, dv [b, sk, kvh, hd]
+// in the inputs' dtype; delta: [b, h, sq] f32 scratch.  Three launches
+// (delta, dK/dV, dQ) on `stream`.  Returns a cudaError_t code (0 on
+// success).
 extern "C" int repro_flash_bwd(const void* q, const void* k, const void* v,
                                const void* out, const void* lse,
                                const void* dout, void* delta, void* dq,
-                               void* dk, void* dv, int b, int s, int h,
-                               int kvh, int hd, int causal, int window,
-                               float scale, float softcap, int dtype,
-                               void* stream) {
+                               void* dk, void* dv, int b, int sq, int sk,
+                               int h, int kvh, int hd, int causal,
+                               int window, float scale, float softcap,
+                               int dtype, void* stream) {
   Params p;
-  if (!make_params(b, s, h, kvh, causal, window, scale, softcap, &p))
+  if (!make_params(b, sq, sk, h, kvh, causal, window, scale, softcap, &p))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32) {

@@ -345,15 +345,15 @@ __device__ __forceinline__ void bwd_kv_consume(
     }
   }
 
-  // dv (warpgroup 0) or dk = scale * sum (warpgroup 1), [b, s, kvh, HD]
+  // dv (warpgroup 0) or dk = scale * sum (warpgroup 1), [b, sk, kvh, HD]
   __nv_bfloat16* dst = wg == 0 ? dv : dk;
   const float mul = wg == 0 ? 1.f : scale;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kj = k0 + r0 + 8 * r;
-    if (kj >= s) continue;
+    if (kj >= m.sk) continue;
     __nv_bfloat16* drow =
-        dst + ((static_cast<int64_t>(bi) * s + kj) * kvh + kh) * HD +
+        dst + ((static_cast<int64_t>(bi) * m.sk + kj) * kvh + kh) * HD +
         part * NC * G::kChunk;
 #pragma unroll
     for (int c = 0; c < NC; ++c)

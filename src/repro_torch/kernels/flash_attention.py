@@ -121,12 +121,12 @@ def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: Optional[int]):
     """Shapes the plain versions and the kernels share; raises otherwise."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
-            or k.shape[0] != q.shape[0] or k.shape[1] != q.shape[1] \
-            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2] or min(q.shape[1], k.shape[1]) < 1:
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)} do not match self-attention shapes "
-            f"[b, s, h, hd] and [b, s, kvh, hd] with kvh | h")
+            f"{tuple(v.shape)} do not match the shapes [b, sq, h, hd] and "
+            f"[b, sk, kvh, hd] with kvh | h")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
 
@@ -172,22 +172,23 @@ def _kernel_check(tensors, extra=(), *, tma: int = 0):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         softcap: float = 0.0, scale: Optional[float] = None):
-    """Self-attention over positions ``arange(s)``: q [b, s, h, hd]; k, v
-    [b, s, kvh, hd] -> (out [b, s, h, hd], lse [b, h, s] f32).  No autograd
-    (see :func:`flash_attention`)."""
+    """Queries at positions ``arange(sq)`` against keys at ``arange(sk)``
+    (self-attention: sk = sq; cross attention: any sk, ``causal=False``):
+    q [b, sq, h, hd]; k, v [b, sk, kvh, hd] -> (out [b, sq, h, hd], lse
+    [b, h, sq] f32).  No autograd (see :func:`flash_attention`)."""
     _flash_check(q, k, v, window)
     if _flash_on_cpu("flash_attention", (q, k, v), tma=3):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
-    b, s, h, hd = q.shape
+    b, sq, h, hd = q.shape
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, s, h, k.shape[2], hd, int(causal), window or 0,
-        scale, softcap, _DTYPES[q.dtype], _build.stream_ptr(q))
+        lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2], hd, int(causal),
+        window or 0, scale, softcap, _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "flash_attention kernel launch")
     _build.LAUNCHES["flash_attention"] += 1
     return out, lse
@@ -199,15 +200,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None, softcap: float = 0.0,
                         scale: Optional[float] = None):
     """Gradient of :func:`flash_attention_fwd` given its ``out`` and
-    ``lse``: -> (dq, dk, dv) in the inputs' dtype."""
+    ``lse``: -> (dq [b, sq, h, hd], dk, dv [b, sk, kvh, hd]) in the
+    inputs' dtype."""
     _flash_check(q, k, v, window)
-    b, s, h, hd = q.shape
+    b, sq, h, hd = q.shape
     if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (b, h, s) or lse.dtype != wide_dtype(q):
+            or lse.shape != (b, h, sq) or lse.dtype != wide_dtype(q):
         raise ValueError(
             f"flash_attention_bwd: out {tuple(out.shape)}, dout "
             f"{tuple(dout.shape)} must be {tuple(q.shape)} and lse "
-            f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {s}) "
+            f"{tuple(lse.shape)} {lse.dtype} must be ({b}, {h}, {sq}) "
             f"{wide_dtype(q)}")
     if _flash_on_cpu("flash_attention_bwd", (q, k, v, dout, out), lse,
                      tma=4):
@@ -218,13 +220,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.repro_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], hd, int(causal),
-        window or 0, scale, softcap, _DTYPES[q.dtype], _build.stream_ptr(q))
+        dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h, k.shape[2], hd,
+        int(causal), window or 0, scale, softcap, _DTYPES[q.dtype],
+        _build.stream_ptr(q))
     _build.check(rc, "flash_attention_bwd kernel launch")
     _build.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -255,8 +258,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Differentiable self-attention with the TPU kernel's arithmetic
-    (``repro.kernels.flash_attention.flash_attention``): q [b, s, h, hd];
-    k, v [b, s, kvh, hd] -> [b, s, h, hd] in q's dtype."""
+    """Differentiable attention with the TPU kernel's arithmetic
+    (``repro.kernels.flash_attention.flash_attention``): q [b, sq, h, hd];
+    k, v [b, sk, kvh, hd] -> [b, sq, h, hd] in q's dtype; queries at
+    positions ``arange(sq)``, keys at ``arange(sk)``."""
     return FlashAttentionFunction.apply(q, k, v, causal, window, softcap,
                                         scale)

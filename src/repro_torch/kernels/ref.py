@@ -98,8 +98,9 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
 
 def _attn_mask(q0: int, q1: int, s: int, causal: bool,
                window: Optional[int], device) -> torch.Tensor:
-    """[q1 - q0, s] bool: key j visible from query i (absolute positions
-    ``arange(s)``, as ``chunked_attention`` with default positions)."""
+    """[q1 - q0, s] bool: key j of ``arange(s)`` visible from query i of
+    ``arange(q0, q1)`` (absolute positions, as ``chunked_attention`` with
+    default positions)."""
     qi = torch.arange(q0, q1, device=device)[:, None]
     kj = torch.arange(s, device=device)[None, :]
     valid = torch.ones(q1 - q0, s, dtype=torch.bool, device=device)
@@ -118,12 +119,13 @@ Q_CHUNK = 256
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: float = 0.0, scale: Optional[float] = None):
-    """Self-attention over positions ``arange(s)`` with the arithmetic of
-    the TPU kernel ``flash_attention.py:30``: ``q * scale`` in f32, capped
-    f32 scores masked to NEG_INF, f32 softmax state, ``l`` floored at 1e-30.
+    """Queries at positions ``arange(sq)`` against keys at ``arange(sk)``
+    with the arithmetic of the TPU kernel ``flash_attention.py:30``:
+    ``q * scale`` in f32, capped f32 scores masked to NEG_INF, f32 softmax
+    state, ``l`` floored at 1e-30.
 
-    q [b, s, h, hd]; k, v [b, s, kvh, hd] -> (out [b, s, h, hd] in q's
-    dtype, lse [b, h, s] f32 with ``lse = m + log(l)``)."""
+    q [b, sq, h, hd]; k, v [b, sk, kvh, hd] -> (out [b, sq, h, hd] in q's
+    dtype, lse [b, h, sq] f32 with ``lse = m + log(l)``)."""
     return _attention_ref(q, k, v, 0, causal=causal, window=window,
                           softcap=softcap, scale=scale)
 
@@ -146,9 +148,10 @@ def _attention_ref(q, k, v, q_off: int, *, causal, window, softcap, scale):
         sc = torch.matmul(qc, kf.transpose(-1, -2))        # [b, kvh, g, c, sk]
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
-        valid = _attn_mask(q_off + q0, q_off + q1, sk, causal, window,
-                           q.device)
-        sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
+        if causal or window is not None:
+            valid = _attn_mask(q_off + q0, q_off + q1, sk, causal, window,
+                               q.device)
+            sc = torch.where(valid, sc, torch.full_like(sc, NEG_INF))
         m = sc.amax(dim=-1, keepdim=True)
         p = torch.exp(sc - m)
         l = p.sum(dim=-1, keepdim=True)
@@ -187,16 +190,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     ``chunked_attention``).  P is recomputed from ``lse`` one query chunk
     at a time; ``delta = rowsum(dout * out)``; with a softcap, dS is
     multiplied by ``1 - tanh(s / c)^2``.  dk/dv sum over the g query heads
-    of a kv head.  All in f32; -> (dq, dk, dv) in the inputs' dtype."""
+    of a kv head.  All in f32; -> (dq [b, sq, h, hd], dk, dv [b, sk, kvh,
+    hd]) in the inputs' dtype."""
     b, s, h, hd = q.shape
-    kvh = k.shape[2]
+    kvh, sk = k.shape[2], k.shape[1]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    kf = wide(k).permute(0, 2, 1, 3)[:, :, None]        # [b, kvh, 1, s, hd]
+    kf = wide(k).permute(0, 2, 1, 3)[:, :, None]       # [b, kvh, 1, sk, hd]
     vf = wide(v).permute(0, 2, 1, 3)[:, :, None]
     dq = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
-    dk = torch.zeros(b, kvh, s, hd, dtype=wide_dtype(q), device=q.device)
-    dv = torch.zeros(b, kvh, s, hd, dtype=wide_dtype(q), device=q.device)
+    dk = torch.zeros(b, kvh, sk, hd, dtype=wide_dtype(q), device=q.device)
+    dv = torch.zeros(b, kvh, sk, hd, dtype=wide_dtype(q), device=q.device)
 
     def heads(t, q0, q1):                          # -> [b, kvh, g, c, hd]
         return wide(t[:, q0:q1]).reshape(b, q1 - q0, kvh, g, hd) \
@@ -208,13 +212,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         doc = heads(dout, q0, q1)
         delta = (doc * heads(out, q0, q1)).sum(dim=-1, keepdim=True)
         lse_c = lse[:, :, q0:q1].reshape(b, kvh, g, q1 - q0, 1)
-        raw = torch.matmul(qc, kf.transpose(-1, -2))       # [b, kvh, g, c, s]
+        raw = torch.matmul(qc, kf.transpose(-1, -2))      # [b, kvh, g, c, sk]
         sc = raw
         if softcap:
             t = torch.tanh(raw / softcap)
             sc = softcap * t
-        valid = _attn_mask(q0, q1, s, causal, window, q.device)
-        p = torch.where(valid, torch.exp(sc - lse_c), torch.zeros_like(sc))
+        p = torch.exp(sc - lse_c)
+        if causal or window is not None:
+            valid = _attn_mask(q0, q1, sk, causal, window, q.device)
+            p = torch.where(valid, p, torch.zeros_like(sc))
         dp = torch.matmul(doc, vf.transpose(-1, -2))
         ds = p * (dp - delta)
         if softcap:

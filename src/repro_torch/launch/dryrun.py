@@ -40,10 +40,10 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SHAPES,
-                                      SSD, ArchConfig, ShapeConfig,
-                                      TrainHParams)
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
+                                      RGLRU, SHAPES, SSD, ArchConfig,
+                                      ShapeConfig, TrainHParams)
+from repro_torch.configs.registry import ASSIGNED, get_config
 from repro_torch.core.axes import RankMesh, mesh_info
 from repro_torch.core.comm import trace_mesh
 from repro_torch.launch import hlo_cost
@@ -61,23 +61,6 @@ HBM_BW = 3.35e12             # bytes/s, HBM3
 LINK_BW = 450e9              # bytes/s, NVLink 4 each direction (900 GB/s both)
 HBM_CAP = 80e9               # bytes
 
-# JAX's assigned archs (``repro.configs.registry.ASSIGNED``), in its order;
-# the sweep runs those the port's registry holds
-ASSIGNED_ALL = ["internlm2-20b", "granite-8b", "internlm2-1.8b", "gemma2-9b",
-                "recurrentgemma-9b", "llama-3.2-vision-11b", "whisper-small",
-                "moonshot-v1-16b-a3b", "granite-moe-3b-a800m", "mamba2-130m"]
-
-
-def _ported(name: str) -> bool:
-    try:
-        get_config(name)
-    except KeyError:
-        return False
-    return True
-
-
-ASSIGNED = [a for a in ASSIGNED_ALL if _ported(a)]
-
 
 def sub_quadratic(cfg: ArchConfig) -> bool:
     """No layer is global attention (JAX's ``ArchConfig.sub_quadratic``)."""
@@ -93,15 +76,16 @@ def applicable_shapes(cfg: ArchConfig):
 
 
 def param_count(cfg: ArchConfig) -> int:
-    """JAX's ``ArchConfig.param_count`` for the layer kinds the port runs
-    (the 6ND model flops' N)."""
+    """JAX's ``ArchConfig.param_count`` (the 6ND model flops' N)."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     per_layer = 0
     for kind in cfg.layer_pattern:
         p = 2 * d
-        if kind in (GLOBAL_ATTN, LOCAL_ATTN):
+        if kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
             p += (d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
                   + cfg.num_heads * hd * d)
+            if kind == CROSS_ATTN:
+                p *= 2
         elif kind == RGLRU:
             w = cfg.rglru_width or d
             p += 2 * d * w + w * d + 3 * w + 2 * w * cfg.window // cfg.window
@@ -120,6 +104,10 @@ def param_count(cfg: ArchConfig) -> int:
     total += cfg.padded_vocab() * d
     if not cfg.tie_embeddings:
         total += cfg.padded_vocab() * d
+    if cfg.encoder_layers:
+        enc = 2 * d + 2 * (d * cfg.num_heads * hd + d * cfg.num_kv_heads * hd)
+        enc += cfg.num_heads * hd * d + 3 * d * cfg.d_ff
+        total += cfg.encoder_layers * enc
     return int(total)
 
 
@@ -256,6 +244,12 @@ def run_cell(arch: Union[str, ArchConfig],
         rec["reason"] = ("full-attention arch: long_500k requires "
                          "sub-quadratic attention (DESIGN.md)")
         return rec
+    if cfg.is_encdec or CROSS_ATTN in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port's dry run does not trace "
+            f"encoders or cross attention yet: no stub context enters the "
+            f"traced step (ROADMAP.md A10b, the dry run of encoder and "
+            f"cross-attention archs)")
 
     t0 = time.perf_counter()
     hp = TrainHParams(schedule=schedule, remat=remat, fine_remat=fine_remat,

@@ -204,17 +204,20 @@ def _rmsnorm_bwd(x, scale, dy, *, eps=1e-5):
                                        scale.new_empty(scale.shape))
 
 
-def _flash_pairs(s, causal, window):
-    if causal:
+def _flash_pairs(s, causal, window, sk=None):
+    sk = s if sk is None else sk
+    if causal and sk == s:
         return bounds.visible_pairs(s, window)
-    return _overlap(0, s, 0, s, False, window)
+    return _overlap(0, s, 0, sk, causal, window)
 
 
 def _flash_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
                scale=None):
     b, s, h, hd = q.shape
+    sk = k.shape[1]
     (nb, fl), _ = bounds.flash_work(b, s, h, k.shape[2], hd,
-                                    _flash_pairs(s, causal, window), _elt(q))
+                                    _flash_pairs(s, causal, window, sk),
+                                    _elt(q), sk)
     return Work(nb, dot=fl), lambda: (
         q.new_empty(q.shape), q.new_empty((b, h, s), dtype=_wide(q)))
 
@@ -222,8 +225,10 @@ def _flash_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
 def _flash_bwd(q, k, v, out, lse, dout, *, causal=True, window=None,
                softcap=0.0, scale=None):
     b, s, h, hd = q.shape
+    sk = k.shape[1]
     _, (nb, fl) = bounds.flash_work(b, s, h, k.shape[2], hd,
-                                    _flash_pairs(s, causal, window), _elt(q))
+                                    _flash_pairs(s, causal, window, sk),
+                                    _elt(q), sk)
     return Work(nb, dot=fl), lambda: (q.new_empty(q.shape),
                                       k.new_empty(k.shape),
                                       v.new_empty(v.shape))

@@ -292,7 +292,8 @@ def train_setup(cfg: ArchConfig, hp: TrainHParams, *, seq_len: int,
         comm.build([info.extra_dp_axes(g.degree) for g, _ in groups])
     return TrainSetup(hp, comm, ctx, groups,
                       ModelLayout(cfg, info, degrees, schedules,
-                                  hp.tmp_layout, ctx.seq_shard))
+                                  hp.tmp_layout, ctx.seq_shard,
+                                  max_pos=seq_len))
 
 
 def plan_comm(comm: Comm) -> MeshComm:

@@ -174,6 +174,10 @@ def _resolve(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced().replace(dtype="float32")
+        if cfg.context_dim:
+            # the reduced context_dim (64) does not meet c_wk, which reads
+            # d_model (128); the full configs have context_dim == d_model
+            cfg = cfg.replace(context_dim=cfg.d_model)
     hp = TrainHParams(schedule=args.schedule, remat=not args.no_remat,
                       fine_remat=not args.coarse_remat,
                       use_planner=args.planner, tmp_layout=args.tmp_layout,

@@ -51,19 +51,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_positions: Optional[torch.Tensor] = None,
                       scale: Optional[float] = None) -> torch.Tensor:
     """The training path's attention (``repro.models.attention
-    .chunked_attention`` over positions ``arange(s)``), differentiable:
-    the flash kernels on the card, their plain versions on the CPU.
+    .chunked_attention`` over query positions ``arange(sq)`` and key
+    positions ``arange(sk)``), differentiable: the flash kernels on the
+    card, their plain versions on the CPU.  Self-attention (sk = sq,
+    causal), the encoder's (non-causal) and cross attention (any sk,
+    non-causal) take the same kernels.
 
-    q [b, s, h, hd]; k, v [b, s, kvh, hd] -> [b, s, h, hd].  ``q * scale``
-    is taken in f32, as the TPU kernel does (``chunked_attention`` scales
-    in q's dtype first; the two agree exactly in f32 and whenever the
-    scale is a power of two)."""
-    for name, pos in (("q_positions", q_positions),
-                      ("kv_positions", kv_positions)):
+    q [b, sq, h, hd]; k, v [b, sk, kvh, hd] -> [b, sq, h, hd].
+    ``q * scale`` is taken in f32, as the TPU kernel does
+    (``chunked_attention`` scales in q's dtype first; the two agree
+    exactly in f32 and whenever the scale is a power of two)."""
+    for name, pos, n in (("q_positions", q_positions, q.shape[1]),
+                         ("kv_positions", kv_positions, k.shape[1])):
         if pos is None:
             continue
-        ar = torch.arange(q.shape[1], device=pos.device)
-        if pos.shape[-1] != q.shape[1] or not bool((pos == ar).all()):
+        ar = torch.arange(n, device=pos.device)
+        if pos.shape[-1] != n or not bool((pos == ar).all()):
             raise NotImplementedError(
                 f"chunked_attention: {name} other than arange(s) (decode "
                 f"through this function) is not ported yet (ROADMAP.md A5)")

@@ -12,9 +12,13 @@ take the sequence-parallel forms under SP and the per-axis forms in 2-D
 SwiGLU or, in the MoE family, the MoE FFN (tp=1: an exit-less part).  A
 LOCAL_ATTN layer is a GLOBAL_ATTN layer whose attention sees only the
 last ``cfg.window`` positions; an RGLRU layer is the RG-LRU part and the
-FFN (tp=1).  An SSD layer is the Mamba2 mixer alone (tp=1).  Plain
-matrix products stay ``torch.matmul``, as the JAX package left them to
-XLA."""
+FFN (tp=1).  An SSD layer is the Mamba2 mixer alone (tp=1).  A
+CROSS_ATTN layer (tp=1) puts the cross part between the attention and
+the FFN; with post-norms (tp=1) the attention's and the SwiGLU's deltas
+are normalized after their exits.  whisper's encoder layers
+(:func:`encoder_layer`) are non-causal attention and SwiGLU without rope
+or recomputation.  Plain matrix products stay ``torch.matmul``, as the
+JAX package left them to XLA."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -22,8 +26,8 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
-                                      ArchConfig)
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
+                                      RGLRU, SSD, ArchConfig)
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
@@ -90,32 +94,44 @@ def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
             rope(k, positions, cfg.rope_theta), v)
 
 
+def post_norm(cfg: ArchConfig, name: str):
+    """The post step of a part with gemma2's post-norms: the exit's delta
+    through RMSNorm with scale ``p[name]`` (``blocks.py:135-136, 151-152,
+    209-210``); None without post-norms."""
+    if not cfg.post_norms:
+        return None
+    return lambda p, delta: rms_norm(delta, p[name], cfg.norm_eps)
+
+
 def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
     """A layer's residual parts by its kind (``blocks.py`` ``train_parts``,
-    1-D, no post-norms): GLOBAL_ATTN and LOCAL_ATTN give ``make_attn_part``
-    (windowed for LOCAL_ATTN) and ``make_mlp_part`` (:func:`moe_part` for
-    MoE configs), RGLRU gives :func:`rglru_part` and the MLP part, SSD
-    gives :func:`ssd_part` alone.  A part's body runs from its input to
-    its exit product's input; the schedule runs the exit (``wo``, ``wd``)
-    and its collectives (in 2-D gathering the output columns).  Under SP
-    a part's input is this rank's sequence chunk: the entry gathers the
-    sequence and the exit scatters it.  With ``seq_shard`` > 1 the
-    attention part is :func:`ring_part`'s."""
+    1-D): GLOBAL_ATTN and LOCAL_ATTN give ``make_attn_part`` (windowed for
+    LOCAL_ATTN) and ``make_mlp_part`` (:func:`moe_part` for MoE configs),
+    CROSS_ATTN the attention part, :func:`cross_part` and the MLP part,
+    RGLRU gives :func:`rglru_part` and the MLP part, SSD gives
+    :func:`ssd_part` alone.  A part's body runs from its input to its exit
+    product's input; the schedule runs the exit (``wo``, ``wd``) and its
+    collectives (in 2-D gathering the output columns), then the part's
+    post step: with post-norms the attention part's ``pn1`` and the
+    SwiGLU part's ``pn2`` (:func:`post_norm`).  Under SP a part's input is
+    this rank's sequence chunk: the entry gathers the sequence and the
+    exit scatters it.  With ``seq_shard`` > 1 the attention part is
+    :func:`ring_part`'s."""
     if kind == SSD:
         return [ssd_part(cfg)]
-    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, RGLRU):
+    if kind not in (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, CROSS_ATTN):
         raise ValueError(kind)
     window = cfg.window if kind == LOCAL_ATTN else None
 
-    def attn_body(p, x, positions, keep):
+    def attn_body(p, x, aux, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, ctx, p, h, positions, keep)
+        q, k, v = _qkv(cfg, ctx, p, h, aux["positions"], keep)
         o = chunked_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap)
         b, s = o.shape[:2]
         return o.reshape(b, s, -1)
 
-    def mlp_body(p, x, positions, keep):
+    def mlp_body(p, x, aux, keep):
         g, u = ctx.gather_matmul(rms_norm(x, p["ln2"], cfg.norm_eps),
                                  (p["wg"], p["wu"]), keep=keep)
         return F.silu(g) * u
@@ -127,9 +143,64 @@ def train_parts(cfg: ArchConfig, ctx: TmpCtx, kind: str) -> List[Part]:
     elif ctx.seq_shard > 1:
         first = ring_part(cfg, ctx)
     else:
-        first = Part(attn_body, "wo", full_out=full_out)
-    return [first, moe_part(cfg) if cfg.moe is not None
-            else Part(mlp_body, "wd", full_out=full_out)]
+        first = Part(attn_body, "wo", full_out=full_out,
+                     post=post_norm(cfg, "pn1"))
+    mlp = (moe_part(cfg) if cfg.moe is not None
+           else Part(mlp_body, "wd", full_out=full_out,
+                     post=post_norm(cfg, "pn2")))
+    if kind == CROSS_ATTN:
+        return [first, cross_part(cfg), mlp]
+    return [first, mlp]
+
+
+def cross_part(cfg: ArchConfig) -> Part:
+    """The cross-attention part (``blocks.py:158-176``) at tp=1: ``c_ln``,
+    ``c_wq`` of the sub-batch's stream against ``c_wk`` / ``c_wv`` of its
+    context (``aux["ctx"]`` [b, L, d]; no rope), non-causal attention of s
+    queries against L keys (the flash kernels on the card), the ``c_wo``
+    exit, then the post step ``delta * tanh(c_gate)`` (``c_gate`` cast to
+    the delta's dtype first, as JAX)."""
+    hd = cfg.resolved_head_dim
+
+    def cross_body(p, x, aux, keep):
+        h = rms_norm(x, p["c_ln"], cfg.norm_eps)
+        c = aux["ctx"]
+        b, s, _ = h.shape
+        q = torch.matmul(h, p["c_wq"]).reshape(b, s, cfg.num_heads, hd)
+        ck = torch.matmul(c, p["c_wk"]).reshape(b, c.shape[1],
+                                                cfg.num_kv_heads, hd)
+        cv = torch.matmul(c, p["c_wv"]).reshape(b, c.shape[1],
+                                                cfg.num_kv_heads, hd)
+        o = chunked_attention(q, ck, cv, causal=False)
+        return o.reshape(b, s, -1)
+
+    def gate(p, delta):
+        return delta * torch.tanh(p["c_gate"].to(delta.dtype))
+
+    return Part(cross_body, "c_wo", post=gate)
+
+
+def encoder_layer(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+    """One layer of whisper's encoder (``blocks.py:540-551``
+    ``encoder_layer_fn``) at tp=1: norm, q/k/v without rope, non-causal
+    self-attention (the flash kernels on the card), ``wo``, then norm,
+    SwiGLU and ``wd`` (``pn2`` after it with post-norms), both residual;
+    no recomputation, as JAX's scan of it has none."""
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = torch.matmul(h, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = torch.matmul(h, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = torch.matmul(h, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    o = chunked_attention(q, k, v, causal=False)
+    x = x + torch.matmul(o.reshape(b, s, -1), p["wo"])
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    d = torch.matmul(F.silu(torch.matmul(h, p["wg"]))
+                     * torch.matmul(h, p["wu"]), p["wd"])
+    if cfg.post_norms:
+        d = rms_norm(d, p["pn2"], cfg.norm_eps)
+    return x + d
 
 
 def rglru_part(cfg: ArchConfig) -> Part:
@@ -137,7 +208,7 @@ def rglru_part(cfg: ArchConfig) -> Part:
     and ``w_in_g``, the causal depthwise conv on the x branch, the RG-LRU
     (the kernel on the card), ``gelu(g) * y`` with JAX's default tanh
     form of gelu, then a local ``w_out`` exit with no collective."""
-    def rglru_body(p, x, positions, keep):
+    def rglru_body(p, x, aux, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         xb = torch.matmul(h, p["w_in_x"])
         gb = torch.matmul(h, p["w_in_g"])
@@ -154,7 +225,7 @@ def moe_part(cfg: ArchConfig) -> Part:
     aux is the router's load-balance loss times ``router_aux_weight``."""
     moe = cfg.moe
 
-    def moe_body(p, x, positions, keep):
+    def moe_body(p, x, aux, keep):
         delta, aux = moe_ffn(
             rms_norm(x, p["ln2"], cfg.norm_eps),
             {k: p[k] for k in ("router", "w1", "w3", "w2")},
@@ -173,7 +244,7 @@ def ssd_part(cfg: ArchConfig) -> Part:
     ``out_proj`` exit with no collective, like :func:`ring_part`'s."""
     d_inner, nheads, n = ssd_dims(cfg)
 
-    def ssd_body(p, x, positions, keep):
+    def ssd_body(p, x, aux, keep):
         proj = torch.matmul(rms_norm(x, p["ln"], cfg.norm_eps),
                             p["in_proj"])
         z = proj[..., :d_inner]
@@ -198,14 +269,15 @@ def ring_part(cfg: ArchConfig, ctx: TmpCtx) -> Part:
     rank's sequence chunk through the mixer; the attention weights are
     replicated (whole heads on every rank; their gradients are partial per
     rank and summed by the training step); rope at the chunk's absolute
-    positions ``rank * s_loc + arange(s_loc)`` (``positions``), ring
+    positions ``rank * s_loc + arange(s_loc)`` (``aux["positions"]``), ring
     attention over the group, and a local ``wo`` exit with no collective.
     The ring op keeps its out and lse for fine recomputation's replay
     (``keep``)."""
-    def ring_body(p, x, positions, keep):
+    def ring_body(p, x, aux, keep):
         h = rms_norm(x, p["ln"], cfg.norm_eps)
         b, s_loc, _ = h.shape
         hd = cfg.resolved_head_dim
+        positions = aux["positions"]
         q = rope(torch.matmul(h, p["wq"]).reshape(b, s_loc, cfg.num_heads,
                                                   hd),
                  positions, cfg.rope_theta)

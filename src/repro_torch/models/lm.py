@@ -24,7 +24,7 @@ from repro_torch.core.tmp import (greedy_token, rms_norm,
 from repro_torch.models import blocks
 from repro_torch.models.params import (PlanGroup, check_families,
                                        check_servable, check_supported,
-                                       check_tp,
+                                       check_tp, encoder_layers,
                                        head_weight, layer_units,
                                        plan_groups)
 
@@ -149,9 +149,11 @@ def group_ctxs(cfg: ArchConfig, hp: TrainHParams, comm: MeshComm,
     return out
 
 
-def _layer_loop(cfg, hp, layers, xs, positions, ctx):
+def _layer_loop(cfg, hp, layers, xs, auxs, ctx):
     """Run ``layers`` (a list of units, each a list of (kind, leaves))
-    under ``ctx`` and ``hp``'s recomputation policy -> (xs, aux)."""
+    over the sub-batches ``xs`` (each with its aux: positions and
+    context) under ``ctx`` and ``hp``'s recomputation policy -> (xs,
+    aux)."""
     parts = {kind: blocks.train_parts(cfg, ctx, kind)
              for unit in layers for kind, _ in unit}
     pol = remat.policy(ctx.schedule, remat=hp.remat, fine=hp.fine_remat)
@@ -159,7 +161,7 @@ def _layer_loop(cfg, hp, layers, xs, positions, ctx):
     def unit_fn(unit, *xs_in):
         xs_u, aux_u = list(xs_in), 0.0
         for kind, p in unit:
-            xs_u, aux_l = apply_layer(parts[kind], p, xs_u, positions, ctx,
+            xs_u, aux_l = apply_layer(parts[kind], p, xs_u, auxs, ctx,
                                       fine=pol == "fine")
             aux_u = aux_u + aux_l
         return (*xs_u, aux_u)
@@ -174,12 +176,34 @@ def _layer_loop(cfg, hp, layers, xs, positions, ctx):
     return list(xs), aux
 
 
-def _positions(xs, s, device, pos=None):
+def _auxs(xs, s, device, pos=None, cross=None):
+    """Each sub-batch's aux (``apply_layer``): its positions ``pos``
+    (default ``arange(s)``) and its rows of the context ``cross`` [b, L,
+    d] (None: no cross attention), split as the stream is (JAX's
+    ``split_tree`` of ``enc_out``)."""
     pos = torch.arange(s, device=device) if pos is None else pos
-    return [pos[None, :].expand(t.shape[0], -1) for t in xs]
+    ctxs = (split_tree(cross, len(xs)) if cross is not None
+            else [None] * len(xs))
+    return [{"positions": pos[None, :].expand(t.shape[0], -1), "ctx": c}
+            for t, c in zip(xs, ctxs)]
 
 
-def _grouped_layers(cfg, hp, params, x, mesh: MeshComm, groups):
+def run_encoder(cfg: ArchConfig, params: Dict[str, Any],
+                ctx_embed: torch.Tensor) -> torch.Tensor:
+    """whisper's encoder over the stub frames (``lm.py:51-73``
+    ``_run_encoder`` at tp=1): ``ctx_embed`` [b, L, d] plus the encoder's
+    ``pos_embed``, its layers (:func:`~repro_torch.models.blocks.
+    encoder_layer`), its final norm -> [b, L, d]."""
+    enc = params["encoder"]
+    x = ctx_embed + enc["pos_embed"][None, :ctx_embed.shape[1]].to(
+        ctx_embed.dtype)
+    for p in encoder_layers(params):
+        x = blocks.encoder_layer(cfg, p, x)
+    return rms_norm(x, enc["final_ln"], cfg.norm_eps)
+
+
+def _grouped_layers(cfg, hp, params, x, mesh: MeshComm, groups,
+                    cross=None):
     """The layer loop of a per-layer plan (``lm._grouped_scan``): each
     plan group runs its layers under its own ``TmpCtx`` and sub-batch
     split of the *local* batch.  The batch is cut over the extra
@@ -189,6 +213,7 @@ def _grouped_layers(cfg, hp, params, x, mesh: MeshComm, groups):
     (a chunk's place is the linearized index over the whole ordered
     tuple, so gathering or cutting only the changed axes would permute
     the batch against the labels).  Ends gathered, for the loss.
+    ``cross``: the context of cross attention (one rank: no reshard).
     -> (x, aux)."""
     cur = mesh.sub(())
 
@@ -217,7 +242,8 @@ def _grouped_layers(cfg, hp, params, x, mesh: MeshComm, groups):
         layers = [[(g.kind, {k: ts[i] for k, ts in per.items()})]
                   for i in range(g.count)]
         xs, aux_g = _layer_loop(cfg, hp, layers, xs,
-                                _positions(xs, x.shape[1], x.device), ctx)
+                                _auxs(xs, x.shape[1], x.device,
+                                      cross=cross), ctx)
         aux = aux + aux_g
         x = merge_tree(xs)
     return reshard(x, ()), aux
@@ -228,15 +254,21 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                ctx: Optional[TmpCtx] = None,
                groups: Optional[List[Tuple[PlanGroup, TmpCtx]]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch {"tokens", "labels"} [b, s] int -> (loss, aux), f32 scalars,
-    the same on every rank: the body of ``build_train_loss`` over the
-    model group (``ctx``, as :func:`train_ctx` makes it; None: tp=1).
+    """batch {"tokens", "labels"} [b, s] int (and, for cross attention,
+    "ctx" [b, L, d]: the stub frontend's embeddings) -> (loss, aux), f32
+    scalars, the same on every rank: the body of ``build_train_loss`` over
+    the model group (``ctx``, as :func:`train_ctx` makes it; None: tp=1).
     ``params`` are this rank's shards (:class:`~repro_torch.models.
     params.ModelLayout`); under a per-layer plan they hold ``groups``
     and ``groups`` gives each plan group's context (:func:`group_ctxs`).
 
     The vocab-parallel embedding (under SP completed by a reduce-scatter
-    along the sequence, so the residual stream is this rank's chunk), the
+    along the sequence, so the residual stream is this rank's chunk; times
+    sqrt(d_model) for gemma models; plus whisper's ``pos_embed``), the
+    context (the encoder's output for encoder-decoder configs,
+    :func:`run_encoder`; else the stub as it is; cast to the model dtype,
+    where JAX promotes the f32 stub through the bf16 products, because
+    the flash kernels take one dtype), the
     batch cut into :func:`~repro_torch.core.schedule.effective_split`
     sub-batches, the layer loop through
     :func:`~repro_torch.core.schedule.apply_layer` under the recomputation
@@ -270,8 +302,19 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
                              sp_seq_dim=1 if ctx.sp else None)
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][None, :s].to(x.dtype)
+    cross = None
+    if cfg.context_len:
+        if "ctx" not in batch:
+            raise ValueError(f"{cfg.name} cross-attends to a context: the "
+                             f"batch needs 'ctx' [b, {cfg.context_len}, d]")
+        cross = batch["ctx"].to(x.dtype)
+        if cfg.is_encdec:
+            cross = run_encoder(cfg, params, cross)
     if grouped:
-        x, aux = _grouped_layers(cfg, hp, params, x, ctx.comm, groups)
+        x, aux = _grouped_layers(cfg, hp, params, x, ctx.comm, groups,
+                                 cross)
     else:
         xs = split_tree(x, effective_split(hp.schedule, hp.split, b))
         pos = None
@@ -279,7 +322,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
             pos = torch.arange(s, device=tokens.device).chunk(
                 ctx.tp_total)[ctx.group.rank]
         xs, aux = _layer_loop(cfg, hp, layer_units(cfg, params), xs,
-                              _positions(xs, s, x.device, pos), ctx)
+                              _auxs(xs, s, x.device, pos, cross), ctx)
         x = ctx.gather_seq(merge_tree(xs))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     loss_sum, count = vocab_parallel_xent(

@@ -33,8 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
-                                      ArchConfig)
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
+                                      RGLRU, SSD, ArchConfig)
 from repro_torch.core.axes import (Axes, MeshInfo, RankMesh, deg_total,
                                    mesh_info)
 
@@ -72,14 +72,20 @@ HYBRID_TP_ITEM = ("ROADMAP.md A10c, RG-LRU and local attention at tp > 1: "
 HYBRID_SERVE_ITEM = ("ROADMAP.md A5/A10d, RG-LRU and local-attention "
                      "serving: rglru_step, the conv state and the window "
                      "ring cache")
-SUPPORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD)
+CROSS_TP_ITEM = ("ROADMAP.md A10c, cross attention, encoders and "
+                 "post-norms at tp > 1")
+CROSS_SERVE_ITEM = ("ROADMAP.md A5, serving cross attention, encoders and "
+                    "post-norms: the context's K/V, the encoder pass and "
+                    "the decode step's post-norms")
+SUPPORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, CROSS_ATTN)
 
 
 def check_supported(cfg: ArchConfig):
-    """The port trains dense global-attention models, the MoE family
-    (global attention with an MoE FFN), the Mamba2 SSD family and
-    patterns that mix global attention, local attention and the RG-LRU
-    (the Griffin hybrid)."""
+    """The port trains dense global-attention models (with gemma2's
+    post-norms and softcaps), the MoE family (global attention with an
+    MoE FFN), the Mamba2 SSD family, patterns that mix global attention,
+    local attention and the RG-LRU (the Griffin hybrid), cross attention
+    to a context and whisper's encoder."""
     other = sorted(set(cfg.layer_pattern) - set(SUPPORTED_KINDS))
     mixed = len(set(cfg.layer_pattern)) > 1
     unsupported = [what for what, on in (
@@ -87,15 +93,13 @@ def check_supported(cfg: ArchConfig):
         ("SSD in mixed layer patterns", mixed and SSD in cfg.layer_pattern),
         ("mixed layer patterns with an MoE FFN",
          mixed and cfg.moe is not None),
-        ("post-norms", cfg.post_norms),
         ("MoE in SSD layers",
          cfg.moe is not None and SSD in cfg.layer_pattern),
-        ("encoders", cfg.encoder_layers),
     ) if on]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not run {', '.join(unsupported)} "
-            f"yet (ROADMAP.md queue A, other model families)")
+            f"yet (ROADMAP.md A10b, what is left of the other families)")
 
 
 def is_hybrid(cfg: ArchConfig) -> bool:
@@ -109,6 +113,13 @@ def is_family(cfg: ArchConfig) -> bool:
     return cfg.moe is not None or SSD in cfg.layer_pattern
 
 
+def has_cross_or_post(cfg: ArchConfig) -> bool:
+    """A config with cross attention, an encoder or post-norms: the port
+    trains it at tp=1 only and serves none."""
+    return (CROSS_ATTN in cfg.layer_pattern or cfg.is_encdec
+            or cfg.post_norms)
+
+
 def check_servable(cfg: ArchConfig):
     """Serving runs the dense all-global-attention models only."""
     check_supported(cfg)
@@ -120,6 +131,10 @@ def check_servable(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port does not serve MoE or SSD models "
             f"yet ({FAMILY_SERVE_ITEM})")
+    if has_cross_or_post(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port does not serve cross attention, "
+            f"encoders or post-norms yet ({CROSS_SERVE_ITEM})")
 
 
 @dataclass(frozen=True)
@@ -152,8 +167,9 @@ def attn_plan(cfg: ArchConfig, tp: int) -> AttnPlan:
 
 
 def check_families(cfg: ArchConfig, tp: int):
-    """MoE and SSD configs, and RG-LRU and local-attention configs, train
-    on a model group of one rank only (ROADMAP.md A10c)."""
+    """MoE and SSD configs, RG-LRU and local-attention configs, and
+    configs with cross attention, an encoder or post-norms train on a
+    model group of one rank only (ROADMAP.md A10c)."""
     if tp > 1 and is_hybrid(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port trains RG-LRU and local-attention "
@@ -162,6 +178,11 @@ def check_families(cfg: ArchConfig, tp: int):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port trains MoE and SSD models at tp=1 "
             f"only, got tp={tp} ({FAMILY_TP_ITEM})")
+    if tp > 1 and has_cross_or_post(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port trains models with cross "
+            f"attention, encoders or post-norms at tp=1 only, got tp={tp} "
+            f"({CROSS_TP_ITEM})")
 
 
 def check_tp(cfg: ArchConfig, tp: int, *, seq_shard: int = 1,
@@ -234,8 +255,9 @@ class ModelLayout:
     """Where the leaves of a model lie on a rank mesh: the partition spec
     of every leaf (:func:`model_specs`) for the mesh ``info`` (None: one
     rank), the per-layer ``degrees`` and ``schedules`` of a plan (None:
-    the stacked layout), the ``layout`` (auto, 1d, 2d) and ring
-    attention's ``seq_shard``.  ``shard`` cuts whole weights into a
+    the stacked layout), the ``layout`` (auto, 1d, 2d), ring
+    attention's ``seq_shard`` and the longest sequence ``max_pos``
+    (whisper's ``pos_embed``).  ``shard`` cuts whole weights into a
     rank's shards and ``gather`` puts every rank's pieces back together
     (JAX's ``shard_map`` in and out specs)."""
     cfg: ArchConfig
@@ -244,6 +266,7 @@ class ModelLayout:
     schedules: Optional[Tuple[str, ...]] = None
     layout: str = "auto"
     seq_shard: int = 1
+    max_pos: int = 0
 
     def __post_init__(self):
         for f in ("degrees", "schedules"):
@@ -254,7 +277,7 @@ class ModelLayout:
         object.__setattr__(self, "specs", model_specs(
             self.cfg, self.info, degrees=self.degrees,
             schedules=self.schedules, layout=self.layout,
-            seq_shard=self.seq_shard))
+            seq_shard=self.seq_shard, max_pos=self.max_pos))
 
     @property
     def mesh(self) -> RankMesh:
@@ -421,11 +444,14 @@ def stack_layout(cfg: ArchConfig) -> Tuple[int, Tuple[str, ...], List[str]]:
 
 def _layer_shapes(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
     """One layer of ``kind``, whole (``params.py`` ``layer_specs``):
-    GLOBAL_ATTN and LOCAL_ATTN (``_attn_specs``) and RGLRU
-    (``_rglru_specs``: the two entry projections, the [4, w] conv, the five
-    f32 gate vectors, ``w_out``), each with a SwiGLU (``_mlp_specs``) or
-    MoE (``_moe_specs``: an f32 router and three expert stacks) FFN, or
-    the SSD mixer alone (``_ssd_specs``)."""
+    GLOBAL_ATTN and LOCAL_ATTN (``_attn_specs``), CROSS_ATTN (the
+    self-attention's leaves, then ``c_ln``, the ``c_``-prefixed
+    projections, which read d_model, and the f32 ``c_gate`` [1], zero at
+    init) and RGLRU (``_rglru_specs``: the two entry projections, the
+    [4, w] conv, the five f32 gate vectors, ``w_out``), each with a
+    SwiGLU (``_mlp_specs``) or MoE (``_moe_specs``: an f32 router and
+    three expert stacks) FFN and, with post-norms, the f32 ``pn1`` and
+    ``pn2``; or the SSD mixer alone (``_ssd_specs``)."""
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
     out = {"ln": Spec((d,), f32=True, scale=0.0)}
@@ -454,13 +480,17 @@ def _layer_shapes(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
             "a_param": Spec((w,), f32=True, scale=-1.0),
             "w_out": Spec((w, d), scale=out_scale),
         })
-    elif kind in (GLOBAL_ATTN, LOCAL_ATTN):
-        out.update({
-            "wq": Spec((d, cfg.num_heads * hd)),
-            "wk": Spec((d, cfg.num_kv_heads * hd)),
-            "wv": Spec((d, cfg.num_kv_heads * hd)),
-            "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
-        })
+    elif kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
+        for pre in ("", "c_") if kind == CROSS_ATTN else ("",):
+            out.update({
+                pre + "wq": Spec((d, cfg.num_heads * hd)),
+                pre + "wk": Spec((d, cfg.num_kv_heads * hd)),
+                pre + "wv": Spec((d, cfg.num_kv_heads * hd)),
+                pre + "wo": Spec((cfg.num_heads * hd, d), scale=out_scale),
+            })
+        if kind == CROSS_ATTN:
+            out["c_ln"] = Spec((d,), f32=True, scale=0.0)
+            out["c_gate"] = Spec((1,), f32=True, scale=0.0)
     else:
         raise ValueError(kind)
     out["ln2"] = Spec((d,), f32=True, scale=0.0)
@@ -478,6 +508,9 @@ def _layer_shapes(cfg: ArchConfig, kind: str) -> Dict[str, Spec]:
             "wu": Spec((d, f)),
             "wd": Spec((f, d), scale=out_scale),
         })
+    if cfg.post_norms:
+        out["pn1"] = Spec((d,), f32=True, scale=0.0)
+        out["pn2"] = Spec((d,), f32=True, scale=0.0)
     return out
 
 
@@ -533,7 +566,7 @@ def layer_specs(cfg: ArchConfig, kind: str, info: Optional[MeshInfo] = None,
     whole (their sharded forms are ROADMAP.md A10c)."""
     out = _layer_shapes(cfg, kind)
     pspecs: Dict[str, PSpec] = {}
-    if info is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN):
+    if info is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
         pspecs.update(_attn_specs(cfg, info, degree, layout, seq_shard))
     if info is not None and cfg.moe is None and kind != SSD:
         pspecs.update(_mlp_specs(cfg, info, degree, layout))
@@ -549,10 +582,15 @@ def model_specs(cfg: ArchConfig, info: Optional[MeshInfo] = None, *,
                 degrees: Optional[Sequence] = None,
                 schedules: Optional[Sequence[str]] = None,
                 layout: str = "auto",
-                seq_shard: int = 1) -> Dict[str, Spec]:
+                seq_shard: int = 1, max_pos: int = 0) -> Dict[str, Spec]:
     """Flat name -> Spec, in the JAX tree's flatten order (sorted keys:
-    ``blocks``, ``embed``, ``final_ln``, ``groups``, ``lm_head``,
-    ``tail``), with partition specs on the mesh ``info`` (None: one rank).
+    ``blocks``, ``embed``, ``encoder``, ``final_ln``, ``groups``,
+    ``lm_head``, ``pos_embed``, ``tail``), with partition specs on the
+    mesh ``info`` (None: one rank).  whisper's decoder has a learned
+    ``pos_embed`` of ``max(max_pos, 2048)`` rows, and an encoder-decoder
+    config the ``encoder`` tree: its ``pos_embed`` [context_len, d], its
+    ``blocks`` (GLOBAL_ATTN layers stacked ``[encoder_layers, ...]``) and
+    its ``final_ln``.
 
     Stacked layout (``degrees`` None): the stacked blocks (one per
     pattern position) and the tail's layers.  Grouped layout (a plan's
@@ -601,7 +639,16 @@ def model_specs(cfg: ArchConfig, info: Optional[MeshInfo] = None, *,
                     cfg, kind, info, layout=layout,
                     seq_shard=seq_shard).items()):
                 out[f"['tail'][{i}]['{name}']"] = s
-    return out
+    if cfg.name.startswith("whisper"):
+        out["['pos_embed']"] = Spec((max(max_pos, 2048), d))
+    if cfg.is_encdec:
+        out["['encoder']['pos_embed']"] = Spec((cfg.context_len, d))
+        for name, s in layer_specs(cfg, GLOBAL_ATTN, info,
+                                   layout=layout).items():
+            out[f"['encoder']['blocks']['{name}']"] = _stacked(
+                s, cfg.encoder_layers)
+        out["['encoder']['final_ln']"] = Spec((d,), f32=True, scale=0.0)
+    return dict(sorted(out.items(), key=lambda kv: _order(kv[0])))
 
 
 def head_weight(params: Dict[str, Any]) -> torch.Tensor:
@@ -609,13 +656,27 @@ def head_weight(params: Dict[str, Any]) -> torch.Tensor:
     return params["lm_head"] if "lm_head" in params else params["embed"].t()
 
 
+def _parts(key: str) -> List[str]:
+    return [p.strip("'") for p in key[1:-1].split("][")]
+
+
+def _order(key: str) -> Tuple:
+    """Sort key of a flat name in the JAX tree's flatten order: dict keys
+    sorted, list entries by index."""
+    return tuple(int(p) if p.isdigit() else p for p in _parts(key))
+
+
 def _parse(key: str) -> Tuple[str, Optional[int], str]:
     """``"['blocks'][1]['wq']"`` -> ("blocks", 1, "wq");
-    ``"['embed']"`` -> ("embed", None, "")."""
-    parts = [p.strip("'") for p in key[1:-1].split("][")]
+    ``"['embed']"`` -> ("embed", None, "");
+    ``"['encoder']['blocks']['wq']"`` -> ("encoder", None, "blocks/wq")
+    (a leaf of a nested dict, not a layer of the stack)."""
+    parts = _parts(key)
     if len(parts) == 1:
         return parts[0], None, ""
-    return parts[0], int(parts[1]), parts[2]
+    if parts[1].isdigit():
+        return parts[0], int(parts[1]), parts[2]
+    return parts[0], None, "/".join(parts[1:])
 
 
 def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -624,6 +685,13 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     params: Dict[str, Any] = {"blocks": [], "tail": []}
     for key, t in flat.items():
         top, i, name = _parse(key)
+        if i is None and name:
+            *path, leaf = name.split("/")
+            node = params.setdefault(top, {})
+            for sub in path:
+                node = node.setdefault(sub, {})
+            node[leaf] = t
+            continue
         if i is None:
             params[top] = t
             continue
@@ -638,11 +706,20 @@ def flatten(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flat name -> leaf, in the JAX tree's flatten order (sorted keys;
     lists in order; a layer's leaves sorted)."""
     flat = {}
+
+    def walk(prefix, node):
+        for name in sorted(node):
+            if isinstance(node[name], dict):
+                walk(f"{prefix}['{name}']", node[name])
+            else:
+                flat[f"{prefix}['{name}']"] = node[name]
+
     for top in sorted(params):
         if isinstance(params[top], list):
             for j, layer in enumerate(params[top]):
-                for name in sorted(layer):
-                    flat[f"['{top}'][{j}]['{name}']"] = layer[name]
+                walk(f"['{top}'][{j}]", layer)
+        elif isinstance(params[top], dict):
+            walk(f"['{top}']", params[top])
         else:
             flat[f"['{top}']"] = params[top]
     return flat
@@ -665,6 +742,15 @@ def layer_units(cfg: ArchConfig, params: Dict[str, Any]
     units = [[(kind, {name: ts[r] for name, ts in per_pos[j].items()})
               for j, kind in enumerate(pat)] for r in range(n)]
     return units + [[(kind, p)] for kind, p in zip(tail, params["tail"])]
+
+
+def encoder_layers(params: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """The encoder's layers in order, each its leaves (unbound from the
+    stack, as :func:`layer_units` does)."""
+    per = {name: t.unbind(0)
+           for name, t in params["encoder"]["blocks"].items()}
+    n = len(next(iter(per.values())))
+    return [{name: ts[i] for name, ts in per.items()} for i in range(n)]
 
 
 @dataclass(frozen=True)
@@ -804,15 +890,17 @@ def relayout_flat(cfg: ArchConfig, flat: Dict[str, Any], src: Dict,
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
+                device: torch.device = torch.device("cpu"),
+                max_pos: int = 0) -> Dict[str, Any]:
     """Random weights from ``seed``, drawn in place on ``device`` in the
     storage dtype (no f32 staging copy of the large matrices).  The numbers
     differ from JAX's ``init_params``; tests move JAX weights over with
-    :func:`from_flat`."""
+    :func:`from_flat`.  ``max_pos``: the longest sequence (whisper's
+    decoder ``pos_embed``)."""
     wdt = DTYPES[cfg.dtype]
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = {}
-    for key, s in model_specs(cfg).items():
+    for key, s in model_specs(cfg, max_pos=max_pos).items():
         t = torch.zeros(s.shape, dtype=torch.float32 if s.f32 else wdt,
                         device=device)
         if s.scale == -1.0:
@@ -832,10 +920,12 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
 
 def from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
               device: torch.device = torch.device("cpu"),
-              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+              dtype: Optional[torch.dtype] = None,
+              max_pos: int = 0) -> Dict[str, Any]:
     """Build the port's weights from ``repro.models.params.tree_to_flat``
-    output: same names, same shapes, no remapping."""
-    specs = model_specs(cfg)
+    output: same names, same shapes, no remapping (``max_pos``: the
+    sequence JAX's specs were built for)."""
+    specs = model_specs(cfg, max_pos=max_pos)
     missing = sorted(set(specs) - set(flat))
     extra = sorted(set(flat) - set(specs))
     if missing or extra:

@@ -116,9 +116,19 @@ class Trainer:
         return prm.unflatten({k: t.to(self.device).requires_grad_()
                               for k, t in prm.flatten(shard).items()})
 
+    def ctx_shape(self):
+        """[B, context_len, context_dim or d_model] of a cross-attention
+        config's stub context (JAX's ``trainer.py:431-435``), else None."""
+        cfg = self.cfg
+        if not cfg.context_len:
+            return None
+        return (self.global_batch, cfg.context_len,
+                cfg.context_dim or cfg.d_model)
+
     def batch(self, dcfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)
-                for k, v in make_batch(dcfg, step).items()}
+                for k, v in make_batch(dcfg, step,
+                                       self.ctx_shape()).items()}
 
     def _overlap_report(self, step: int):
         """End-of-run overlap-efficiency probe (:mod:`repro_torch.obs.
@@ -162,7 +172,8 @@ class Trainer:
         the card, ``device_step_ms`` (CUDA events around each step)."""
         if self.params is None:
             self.params = self._own(
-                prm.init_params(self.cfg, seed=seed, device=self.device))
+                prm.init_params(self.cfg, seed=seed, device=self.device,
+                                max_pos=self.seq_len))
         if self.opt_state is None:
             self.opt_state = adamw.init_opt_state(self.params)
         dcfg = DataConfig(global_batch=self.global_batch,

@@ -1,10 +1,20 @@
 """Shared harness of ``tests/test_torch_ssd.py``,
-``tests/test_torch_moe.py`` and ``tests/test_torch_rglru.py``: a reduced
-f32 config (with further fields replaced where a test says so) run through JAX's
+``tests/test_torch_moe.py``, ``tests/test_torch_rglru.py`` and
+``tests/test_torch_families2*.py``: a reduced f32 config (with further
+fields replaced where a test says so) run through JAX's
 ``build_train_loss`` (value and gradient under ``jax.jit`` on a 1x1 mesh)
 and through the port's ``train_loss`` from the same weights and batch, the
-two trainers side by side, and the launcher on the CPU."""
+two trainers side by side, and the launcher on the CPU.
+
+Cross-attention configs get a stub context ``ctx`` [b, context_len,
+d_model] (JAX's ``tests/test_smoke_archs.py`` feeds it at d_model, where
+the reduced ``context_dim`` is 64).  ``perturb`` draws every leaf that
+JAX initialises to zero (the norm scales, ``c_gate``) from one numpy
+seed, the same arrays on both sides: at init ``tanh(c_gate) = 0`` hides
+the whole cross path (no ``c_w*`` or encoder gradient) and every norm is
+``1 + 0``."""
 import json
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -56,46 +66,97 @@ def grads_err(g1: dict, g2: dict) -> float:
                / (float(np.max(np.abs(g1[k]))) + 1e-8) for k in g1)
 
 
-def loss_and_grads(arch, hp_kw, b=4, s=64, **replace):
+def perturbed(flat: dict, seed: int = 11) -> dict:
+    """``flat`` (JAX's ``tree_to_flat``) with every all-zero leaf drawn
+    from numpy ``seed``: ``c_gate`` 0.5 + 0.1 N(0, 1) (tanh 0.46), the
+    rest 0.1 N(0, 1), in flat order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in flat.items():
+        if np.any(v):
+            out[k] = v
+            continue
+        r = 0.1 * rng.standard_normal(v.shape)
+        out[k] = (r + 0.5 if k.endswith("['c_gate']") else r).astype(v.dtype)
+    return out
+
+
+def make_batch(cfg, b, s, seed=42) -> dict:
+    """Tokens and labels from numpy ``seed``; for a cross-attention
+    config also the context [b, context_len, d_model], N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    if cfg.context_len:
+        batch["ctx"] = rng.standard_normal(
+            (b, cfg.context_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def loss_and_grads(arch, hp_kw, b=4, s=64, perturb=False, **replace):
     """-> (JAX (loss, aux, flat grads), port (loss, aux, flat grads)) of
     the reduced f32 ``arch`` (``replace`` applied) at batch b x s, JAX's
-    init from key 0, tokens and labels from numpy seed 42."""
+    init from key 0 (:func:`perturbed` with ``perturb``), the batch from
+    numpy seed 42 (:func:`make_batch`)."""
+    want, (got,) = against_jax(arch, hp_kw, [hp_kw], b, s, perturb,
+                               **replace)
+    return want, got
+
+
+def against_jax(arch, jax_hp, port_hps, b=4, s=64, perturb=False,
+                **replace):
+    """-> (JAX (loss, aux, flat grads) under ``jax_hp``, [port (loss,
+    aux, flat grads) under each of ``port_hps``]) from the same weights
+    and batch (:func:`loss_and_grads`)."""
     jcfg, tcfg = cfgs(arch, **replace)
     loss_fn, specs, _ = jlm.build_train_loss(
-        jcfg, mesh(), JTrainHParams(**hp_kw), global_batch=b, seq_len=s)
+        jcfg, mesh(), JTrainHParams(**jax_hp), global_batch=b, seq_len=s)
     p = jprm.init_params(specs, jax.random.PRNGKey(0))
-    rng = np.random.default_rng(42)
-    batch = {k: rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32)
-             for k in ("tokens", "labels")}
+    if perturb:
+        p = jprm.tree_from_flat(p, perturbed(jprm.tree_to_flat(p)))
+    batch = make_batch(jcfg, b, s)
     with compat.set_mesh(mesh()):
         (jl, jaux), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
             p, {k: jnp.asarray(v) for k, v in batch.items()})
-    params = tprm.from_flat(tcfg, jprm.tree_to_flat(p))
-    for t in tprm.flat_leaves(params):
-        t.requires_grad_()
-    loss, aux = tlm.train_loss(tcfg, params,
-                               {k: torch.from_numpy(v)
-                                for k, v in batch.items()},
-                               TrainHParams(**hp_kw))
-    loss.backward()
-    grads = {k: t.grad.numpy() for k, t in tprm.flatten(params).items()}
-    return ((float(jl), float(jaux), jax_flat(jg)),
-            (loss.item(), aux.item(), grads))
+    flat = jprm.tree_to_flat(p)
+    got = []
+    for hp_kw in port_hps:
+        params = tprm.from_flat(tcfg, flat, max_pos=s)
+        for t in tprm.flat_leaves(params):
+            t.requires_grad_()
+        loss, aux = tlm.train_loss(tcfg, params,
+                                   {k: torch.from_numpy(v)
+                                    for k, v in batch.items()},
+                                   TrainHParams(**hp_kw))
+        loss.backward()
+        got.append((loss.item(), aux.item(),
+                    {k: t.grad.numpy()
+                     for k, t in tprm.flatten(params).items()}))
+    return (float(jl), float(jaux), jax_flat(jg)), got
 
 
-def trainer_losses(arch, tmp_path, steps=3, **replace):
+def trainer_losses(arch, tmp_path, steps=3, perturb=False, **replace):
     """-> (JAX trainer losses, port trainer, its losses): ``steps`` steps
-    from JAX's initial weights, 2 microbatches, batch 4 x 32."""
+    from JAX's initial weights (:func:`perturbed` with ``perturb``), 2
+    microbatches, batch 4 x 32; a cross-attention config trains on each
+    trainer's own stub context (the same numpy draws)."""
     jcfg, tcfg = cfgs(arch, **replace)
     kw = dict(learning_rate=1e-3, warmup_steps=1, microbatch=2)
     jtr = JTrainer(jcfg, mesh(), JTrainHParams(**kw), global_batch=4,
                    seq_len=32, ckpt_dir=str(tmp_path / "ckpt"),
                    log_fn=lambda msg: None)
-    p0, _, _ = jtr.init_state(seed=0)
-    jres = jtr.train(steps, seed=0)
+    init = jprm.init_params
+    if perturb:
+        def init(specs, key, init=init):
+            p = init(specs, key)
+            return jprm.tree_from_flat(p, perturbed(jprm.tree_to_flat(p)))
+    with mock.patch.object(jprm, "init_params", init):
+        p0, _, _ = jtr.init_state(seed=0)
+        jres = jtr.train(steps, seed=0)
     tr = Trainer(tcfg, TrainHParams(**kw), global_batch=4, seq_len=32,
                  device="cpu", log_fn=None,
-                 params=tprm.from_flat(tcfg, jprm.tree_to_flat(p0)))
+                 params=tprm.from_flat(tcfg, jprm.tree_to_flat(p0),
+                                       max_pos=32))
     res = tr.train(steps)
     return jres["losses"], tr, res
 

@@ -43,7 +43,9 @@ def test_port_has_the_slice_modules():
                  "core.planner.calibrate", "core.pipeline", "launch.mesh",
                  "obs", "obs.recorder", "obs.schema", "obs.tracing",
                  "obs.report", "obs.probe", "core.axes", "launch.hlo_cost",
-                 "launch.dryrun"):
+                 "launch.dryrun", "configs.gemma2_9b", "configs.granite_8b",
+                 "configs.internlm2_20b", "configs.moonshot_16b_a3b",
+                 "configs.llama32_vision_11b", "configs.whisper_small"):
         assert f"repro_torch.{name}" in mods, name
 
 

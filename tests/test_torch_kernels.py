@@ -140,7 +140,8 @@ def test_flash_attention_matches_jax(g, hd, s, causal, window, softcap):
 
 def test_flash_attention_lse_and_refusals():
     """lse is log-sum-exp of the scores each query sees; positions other
-    than arange(s) and non-self-attention shapes raise."""
+    than arange(s) and shapes that do not match ([b, sq, h, hd] against
+    [b, sk, kvh, hd], kvh | h) raise; sk != sq is cross attention."""
     q, k, v, dout = (torch.from_numpy(a) for a in _flash_case(2, 32, 40))
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     qh = q.reshape(2, 40, 2, 2, 32) * 32 ** -0.5
@@ -150,8 +151,12 @@ def test_flash_attention_lse_and_refusals():
                                .reshape(2, 4, 40).numpy(), atol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         chunked_attention(q, k, v, q_positions=torch.arange(40) + 3)
-    with pytest.raises(ValueError, match="self-attention"):
-        flash_attention(q, k[:, :20], v[:, :20])
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, k[:1], v[:1])
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention(q, k[..., :16], v[..., :16])
+    assert flash_attention(q, k[:, :20], v[:, :20],
+                           causal=False).shape == q.shape
     with pytest.raises(ValueError, match="same CUDA device"):
         flash_attention_fwd(q.to("meta"), k, v)
     with pytest.raises(ValueError, match="same CUDA device"):
