@@ -97,7 +97,10 @@ Phases (any failure raises and the script exits non-zero):
    into a JSONL sink per schedule, and its end-of-run overlap probe must
    give one ``overlap.group`` event per plan group (the schedule's tag,
    ``measured_exposed_frac`` in [0, 1]) and both ``overlap.*`` gauges;
-   the readings are recorded, not gated.
+   the readings are recorded, not gated.  When phase 9 runs too, its
+   rank processes run this phase's ranks after their own (one spawn and
+   warm-up for both; the calibration and the sink's directory made in
+   the parent first), and this phase reads their results.
 11. Ring attention against its plain version on the card, with 2 and 4
    rank processes sharing the card over ``PeerComm``: the kernel's out and
    lse on every rank against the plain version computed from all ranks'
@@ -118,7 +121,8 @@ Phases (any failure raises and the script exits non-zero):
    relative, gathered gradients within ``grads_err`` 1e-4; the ring kernel
    launches once per layer and sub-batch (none in the fine replay), the
    ring matmul only under ``fused``; the memory each forward keeps for its
-   backward.
+   backward.  When phase 13 runs too, its ranks run in these processes
+   after this phase's.
 13. Ring-attention training: ``internlm2-1.8b`` at full width and 6 of
    its 24 layers in bf16, tp=2, ``seq_shard`` 2, batch 4 x 4096 in 2
    microbatches, fine recomputation, 3 AdamW steps under ``oases`` and
@@ -295,6 +299,35 @@ Phases (any failure raises and the script exits non-zero):
    present and finite after step 1, launches a step exactly as worked out
    from the code, step time, tokens/s, peak memory and a one-step profile
    with the share of cuBLAS's f32 products (the head's).
+27. The families' serving kernels against their plain versions in f32
+   (TF32 off) and bf16: the paged decode's new instances reading a dense
+   cache through its block-table view (``dense_flash_decode``) at
+   gemma2's layers (hd 256, a group of 2, softcap 50, 8 slots of 2,048),
+   recurrentgemma's wrapped local ring (hd 256, 16/1 heads), granite-moe's
+   global layers (24/8 heads of 64) and whisper's (1,500 rows, page 15)
+   and llama's (6,404 rows, page 4) context reads, each run twice for the
+   same bits and timed beside its bound, its plain version and SDPA on
+   the same cache (no softcap only); the SSD's final state (mamba2-130m's
+   width, 4 x 4096) and the RG-LRU's f32 last state (recurrentgemma-9b's,
+   1 x 4096) against ``ssd_chunked`` and the plain recurrence.
+28. The families' serving, card (kernels) against CPU (plain versions) in
+   f32 at full width from the same perturbed weights: ``lm.prefill``
+   then 8 dense decode steps of gemma2-9b (2 layers) and
+   recurrentgemma-9b (3), both with the window cut to 96 so the rings
+   wrap, mamba2-130m (2), whisper-small (2 + 2, context 1,500),
+   llama-3.2-vision-11b (5, context 6,404) and granite-moe-3b-a800m (2):
+   every token equal, every state leaf within 1e-4 relative, the card's
+   launches exact.
+29. The families' serving at full width in bf16: gemma2-9b at full size
+   (42 layers) on the dense engine (8 slots, max_seq 2,048, 16 requests
+   of 32 new tokens): paged decode launches of steps x 42, a profiled
+   window; then ``lm.prefill`` and 16 decode steps of each family arch
+   (gemma2-9b 1 x 6,000, past its window; recurrentgemma-9b 1 x 4,096;
+   mamba2-130m 4 x 4,096; whisper-small 8 x 448 with its encoder over a
+   1,500-row context; llama-3.2-vision-11b 2 x 2,048 with a 6,404-row
+   context; granite-moe-3b-a800m 8 x 1,024), all at full depth: exact
+   launches of the prefill and of the steps, prefill ms, step ms,
+   tokens/s, peak memory and the idle share of 2 profiled steps.
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -458,10 +491,11 @@ _TC_NAMES = ("flash_fwd_tc_kernel|flash_bwd_dkdv_tc_kernel|"
              "flash_bwd_dq_tc_kernel|ring_attn_tc_kernel|moe_gmm_tc_kernel|"
              "tile_matmul_tc_kernel|ring_mm_rs_tc_kernel")
 # the CUDA-core kernels redesigned in the tenth slice, by instance: the
-# paged decode <dtype, hd, group> and the RMSNorm backward <dtype, 16-byte
-# loads> and its wide-row form <dtype>
+# paged decode <dtype, hd, group> (hd 256 and groups 3 and 16 since the
+# eighteenth slice) and the RMSNorm backward <dtype, 16-byte loads> and
+# its wide-row form <dtype>
 CC_KERNELS = ([f"paged_decode_kernel<{t},{hd},{g}>" for t in ("f32", "bf16")
-               for hd in (32, 64, 128) for g in (1, 2, 4, 8)]
+               for hd in (32, 64, 128, 256) for g in (1, 2, 3, 4, 8, 16)]
               + [f"rmsnorm_bwd_kernel<{t},{v}>" for t in ("f32", "bf16")
                  for v in (0, 1)]
               + [f"rmsnorm_bwd_wide_kernel<{t}>" for t in ("f32", "bf16")])
@@ -725,8 +759,8 @@ def phase_consistency():
     prompts = _consistency_requests(np, cfg.vocab_size)
     runs = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        eng = ServingEngine(cfg, slots=4, max_seq=128, page_size=16,
-                            prefix_cache=True, device=dev)
+        eng = ServingEngine(cfg, slots=4, max_seq=128, paged=True,
+                            page_size=16, prefix_cache=True, device=dev)
         eng.load(params=params)
         reqs = [Request(rid=i, prompt=p, max_new_tokens=4)
                 for i, p in enumerate(prompts)]
@@ -800,8 +834,8 @@ def phase_serve():
     cfg = get_config(ARCH).replace(num_layers=SERVE_LAYERS)
     tel = tempfile.TemporaryDirectory()
     rec = Recorder(tel.name)
-    eng = ServingEngine(cfg, slots=8, max_seq=2048, page_size=16,
-                        prefix_cache=True, telemetry=rec)
+    eng = ServingEngine(cfg, slots=8, max_seq=2048, paged=True,
+                        page_size=16, prefix_cache=True, telemetry=rec)
     require(eng.device.type == "cuda", f"engine chose {eng.device}")
     t0 = time.perf_counter()
     eng.load(seed=0)
@@ -1619,14 +1653,44 @@ def _tmp_kernels_rank(comm, device):
     return out
 
 
+def _pair_rank(comm, device, first, first_args, second, second_args):
+    """Two phases' rank functions in one spawn (one warm-up of the rank
+    processes): -> (``first``'s result, ``second``'s, its seconds)."""
+    import torch
+    a = first(comm, device, *first_args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier()
+    t0 = time.perf_counter()
+    b = second(comm, device, *second_args)
+    return a, b, time.perf_counter() - t0
+
+
+def _spawn_with_next(first, first_args, next_phase: int, setup, second,
+                     timeout: float):
+    """run_ranks of ``first`` on 2 ranks; when phase ``next_phase`` runs
+    too, its rank function ``second`` (arguments from ``setup()``, run in
+    the parent before the spawn) follows in the same processes and its
+    per-rank results wait in ``_RUN`` for that phase.  -> per-rank results
+    of ``first``."""
+    from repro_torch.launch.ranks import run_ranks
+    if next_phase not in _RUN.get("phases", ()):
+        return run_ranks(first, 2, args=first_args, timeout=timeout)
+    ctx, second_args = setup()
+    per = run_ranks(_pair_rank, 2, timeout=timeout + 900,
+                    args=(first, first_args, second, second_args))
+    _RUN[next_phase] = dict(ctx=ctx, per_rank=[b for _, b, _ in per],
+                            wall=per[0][2])
+    return [a for a, _, _ in per]
+
+
 def phase_tp_consistency():
     import torch
-    from repro_torch.launch.ranks import run_ranks
 
     ref = torch.load(TP1_REF)
     t0 = time.perf_counter()
-    per_rank = run_ranks(_tp_consistency_rank, 2, args=(TP_VARIANTS,),
-                         timeout=600)
+    per_rank = _spawn_with_next(_tp_consistency_rank, (TP_VARIANTS,), 10,
+                                _tp_train_setup, _tp_train_rank, 600)
     wall = time.perf_counter() - t0
     out = {"tp": 2, "layers": 2, "dtype": "float32", "batch": 2, "seq": 256,
            "loss_tp1": ref["loss"], "wall_s": wall, "schedules": {}}
@@ -1732,25 +1796,35 @@ def _tp_consistency_rank(comm, device, variants):
     return out
 
 
-def phase_tp_train():
+def _tp_train_setup():
+    """Phase 10's rank arguments: the probe's hardware, calibrated here
+    before the ranks share the card (rank 0 must not time the card under
+    the other rank), and the telemetry directory -> ((hw, tel), args)."""
     import tempfile
 
-    import torch
     from repro_torch.core.planner import calibrate
+    tel = tempfile.TemporaryDirectory()
+    with _cal_cache():
+        hw = calibrate.calibrated_hw(n_chips=2)
+    return (hw, tel), (TP_SCHEDULES, TP_STEPS, 8, 1024, 2, hw, tel.name)
+
+
+def phase_tp_train():
+    """Phase 10 (its ranks spawned by phase 9 when both run)."""
+    import torch
     from repro_torch.launch.ranks import run_ranks
 
     torch.cuda.empty_cache()
     steps, batch, seq, micro = TP_STEPS, 8, 1024, 2
-    tel = tempfile.TemporaryDirectory()
-    with _cal_cache():
-        # the probe's hardware, calibrated here before the ranks share the
-        # card (rank 0 must not time the card under the other rank)
-        hw = calibrate.calibrated_hw(n_chips=2)
-    t0 = time.perf_counter()
-    per_rank = run_ranks(_tp_train_rank, 2, timeout=900,
-                         args=(TP_SCHEDULES, steps, batch, seq, micro, hw,
-                               tel.name))
-    wall = time.perf_counter() - t0
+    done = _RUN.pop(10, None)
+    if done is None:
+        (hw, tel), args = _tp_train_setup()
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_tp_train_rank, 2, timeout=900, args=args)
+        wall = time.perf_counter() - t0
+    else:
+        (hw, tel), per_rank, wall = done["ctx"], done["per_rank"], \
+            done["wall"]
     out = {"arch": TRAIN_ARCH, "tp": 2, "dtype": "bfloat16",
            "layers": TP_TRAIN_LAYERS,
            "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
@@ -2143,7 +2217,6 @@ def phase_sp_consistency():
     from repro_torch.configs.base import TrainHParams
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import lm
     from repro_torch.models import params as prm
 
@@ -2167,8 +2240,10 @@ def phase_sp_consistency():
     del params, loss, base
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    per_rank = run_ranks(_sp_consistency_rank, 2, args=(SP_VARIANTS,),
-                         timeout=600)
+    per_rank = _spawn_with_next(
+        _sp_consistency_rank, (SP_VARIANTS,), 13,
+        lambda: (None, (SP_SCHEDULES, SP_STEPS, 4, 4096, 2)), _sp_train_rank,
+        600)
     wall = time.perf_counter() - t0
     out = {"arch": SP_ARCH, "tp": 2, "layers": 2, "dtype": "float32",
            "batch": 2, "seq": 512, "loss_tp1": ref_loss, "tp1_s": tp1_s,
@@ -2274,15 +2349,20 @@ def _sp_consistency_rank(comm, device, variants):
 
 
 def phase_sp_train():
+    """Phase 13 (its ranks spawned by phase 12 when both run)."""
     import torch
     from repro_torch.launch.ranks import run_ranks
 
     torch.cuda.empty_cache()
     steps, batch, seq, micro = SP_STEPS, 4, 4096, 2
-    t0 = time.perf_counter()
-    per_rank = run_ranks(_sp_train_rank, 2, timeout=900,
-                         args=(SP_SCHEDULES, steps, batch, seq, micro))
-    wall = time.perf_counter() - t0
+    done = _RUN.pop(13, None)
+    if done is None:
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_sp_train_rank, 2, timeout=900,
+                             args=(SP_SCHEDULES, steps, batch, seq, micro))
+        wall = time.perf_counter() - t0
+    else:
+        per_rank, wall = done["per_rank"], done["wall"]
     out = {"arch": SP_ARCH, "tp": 2, "seq_shard": 2, "dtype": "bfloat16",
            "layers": SP_TRAIN_LAYERS, "batch": batch, "seq": seq,
            "microbatch": micro,
@@ -3907,8 +3987,9 @@ def _path_launches(report) -> dict:
     training (phase 16, both families' Trainer and launcher runs), the
     RG-LRU hybrid's training (phase 19, both schedules), the planned
     training (phase 20, the planned run and its replay), the per-layer
-    plans (phase 22) and the other families' training (phase 26, every
-    run)."""
+    plans (phase 22), the other families' training (phase 26, every
+    run) and every family's serving (phase 29: gemma2-9b's dense engine,
+    each arch's prefill and decode steps)."""
     paths = {}
     if "serve" in report:
         paths["serve"] = report["serve"]["launches"]
@@ -3945,6 +4026,8 @@ def _path_launches(report) -> dict:
             for k, v in r["launches"].items():
                 tot[k] = tot.get(k, 0) + v
         paths["families2"] = tot
+    if "serve_families" in report:
+        paths["serve_families"] = report["serve_families"]["launches"]
     return paths
 
 
@@ -3975,10 +4058,17 @@ def _kernels_line(report) -> dict:
                          **{k: row[k] for k in keys}, **extra))
 
     if "kernels" in report:
+        extra = {}
+        if "serve_kernels" in report:
+            extra["at_families"] = [
+                {k: r[k] for k in ("case", "hd", "group", "S", "page",
+                                   "ring", "softcap") + keys}
+                for r in report["serve_kernels"]["paged_decode"]
+                if r["dtype"] == "bfloat16"]
         add("paged_decode", "paged_decode.cu",
             "src/repro/kernels/flash_attention.py:146",
             pick(report["kernels"]["paged_decode"], case="main",
-                 dtype="bfloat16"))
+                 dtype="bfloat16"), **extra)
     if "train_kernels" in report:
         tk = report["train_kernels"]
         train_rms = pick(tk["rmsnorm"], dtype="bfloat16", d=2048)
@@ -4054,10 +4144,15 @@ def _kernels_line(report) -> dict:
                 ("ssd_bwd", "none (XLA's autodiff of src/repro/models/"
                  "ssd.py:13 ssd_chunked)")):
             row = pick(fk[name], case="slice", dtype="bfloat16")
+            extra = {}
+            if name == "ssd" and "serve_kernels" in report:
+                r = pick(report["serve_kernels"]["ssd"], dtype="bfloat16")
+                extra["with_final_state"] = {k: r[k] for k in (
+                    "b", "s", "h", "p", "n", "errs") + keys}
             add(name, "ssd.cu", replaces, row,
                 shape={k: row[k] for k in ("b", "s", "h", "p", "n",
                                            "chunk")},
-                bound_f32_ms=row["bound_f32_ms"])
+                bound_f32_ms=row["bound_f32_ms"], **extra)
         row = pick(fk["moe_gmm"], case="w1", product="fwd",
                    dtype="bfloat16")
         add("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:19", row,
@@ -4067,9 +4162,14 @@ def _kernels_line(report) -> dict:
         for name, side in (("rglru", "ms_stateless"),
                            ("rglru_bwd", "states_bytes")):
             row = pick(hk[name], case="slice", dtype="bfloat16")
+            extra = {}
+            if name == "rglru" and "serve_kernels" in report:
+                r = pick(report["serve_kernels"]["rglru"], dtype="bfloat16")
+                extra["with_last_state"] = {k: r[k] for k in (
+                    "b", "s", "w", "errs", "rounded_h_last_err") + keys}
             add(name, "rglru.cu", "src/repro/kernels/rglru.py:23", row,
                 shape={k: row[k] for k in ("b", "s", "w")},
-                **{side: row[side]})
+                **{side: row[side]}, **extra)
     return {"kernels": rows}
 
 
@@ -4438,6 +4538,534 @@ def phase_families2_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving every assigned family (phases 27-29)
+# ---------------------------------------------------------------------------
+# the paged decode's new instances at the families' decode reads, each a
+# dense cache [b, S, kvh, hd] read through its block-table view
+# (``dense_flash_decode``): gemma2's layers (hd 256, a group of 2, softcap
+# 50) at phase 29's engine, recurrentgemma's local ring (hd 256, 16/1
+# heads) wrapped at phase 29's 4,096 + 16 positions, granite-moe's global
+# layers (24/8 heads of 64: a group of 3) at 1,024 + 16, and the cross
+# reads of whisper's (1,500 rows, page 15) and llama's (6,404, page 4)
+# contexts
+FAMILY_DECODE_CASES = [
+    dict(name="gemma2", b=8, S=2048, h=16, kvh=8, hd=256, softcap=50.0,
+         pos=[0, 15, 16, 1023, 1024, 2047, 777, 1500], ring=False),
+    dict(name="rgemma_ring", b=1, S=2048, h=16, kvh=1, hd=256, softcap=0.0,
+         pos=[4111], ring=True),
+    dict(name="granite_moe", b=8, S=1040, h=24, kvh=8, hd=64, softcap=0.0,
+         pos=[1024, 1030, 1039, 1024, 1031, 1035, 1027, 1039], ring=False),
+    dict(name="whisper_ctx", b=8, S=1500, h=12, kvh=12, hd=64, softcap=0.0,
+         pos=[1499] * 8, ring=False),
+    dict(name="llama_ctx", b=2, S=6404, h=32, kvh=8, hd=128, softcap=0.0,
+         pos=[6403] * 2, ring=False),
+]
+# the prefill kernels' new outputs at the full widths of phase 29's runs:
+# mamba2-130m's SSD final state (b 4, s 4096, 24 heads of 64, state 128)
+# and recurrentgemma-9b's RG-LRU f32 last state (1 x 4096, w 4096)
+SSD_FINAL_CASE = dict(name="mamba2", b=4, s=4096, h=24, p=64, n=128)
+RGLRU_LAST_CASE = dict(name="recurrentgemma", b=1, s=4096, w=4096)
+
+
+def _dense_decode_row(case, dname) -> dict:
+    """One dense-view paged decode row: the kernel against the plain
+    masked softmax, twice for the same bits, timed beside its bound and
+    SDPA on the same cache (no softcap only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import paged_decode_work
+    from repro_torch.kernels.flash_attention import (dense_flash_decode,
+                                                     dense_page)
+
+    b, S, h, kvh, hd = (case[k] for k in ("b", "S", "h", "kvh", "hd"))
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(b, 1, h, hd, generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randn(b, S, kvh, hd, generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    pos = torch.tensor(case["pos"], dtype=torch.int32, device="cuda")
+    kw = dict(softcap=case["softcap"], ring=case["ring"])
+    out = dense_flash_decode(q, kc, vc, pos, **kw)
+    again = dense_flash_decode(q, kc, vc, pos, **kw)
+    want = ref.decode_attention_ref(q, kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(out, again),
+            f"paged_decode {case['name']} {dname}: two runs differ")
+    atol, rtol = PAGED_TOL[dname]
+    err, ok = max_err(out, want, atol, rtol)
+    require(ok, f"paged_decode {case['name']} {dname}: max abs err {err} "
+                f"beyond atol {atol} + rtol {rtol}")
+    n = [min(p, S - 1) + 1 for p in case["pos"]]
+    page = dense_page(S)
+    nbytes, flops = paged_decode_work(b, h, kvh, hd, sum(n), sum(n),
+                                      b * (S // page), q.element_size())
+    bound = _bound(nbytes, flops, dname)
+    row = dict(case=case["name"], dtype=dname, b=b, S=S, h=h, kvh=kvh,
+               hd=hd, group=h // kvh, page=page, pos=case["pos"],
+               ring=case["ring"], softcap=case["softcap"],
+               max_abs_err=err, atol=atol, rtol=rtol, same_bits=True,
+               ms=time_ms(lambda: dense_flash_decode(q, kc, vc, pos, **kw)),
+               plain_ms=time_ms(lambda: ref.decode_attention_ref(
+                   q, kc, vc, pos, **kw), iters=10),
+               bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+               flops=flops, library_ms=None)
+    if not case["softcap"]:
+        # yardstick: SDPA on the same cache (the g query heads of a kv
+        # head as its g query rows), the kernel's mask as a boolean mask
+        g = h // kvh
+        qh = q.reshape(b, kvh, g, hd)
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        last = torch.clamp(pos.long(), max=S - 1)
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= last[:, None])[:, None, None, :]
+        lib = F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask)
+        row["library_err"] = float((lib.reshape(want.shape).float()
+                                    - want.float()).abs().max())
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kt, vt, attn_mask=mask))
+    print(f"[paged_decode] {json.dumps(row)}")
+    del q, kc, vc, out, again, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_serve_kernels():
+    """Phase 27: the paged decode's new instances (groups 3 and 16, hd
+    256) at the families' decode reads, and the prefill kernels' new
+    outputs (the SSD's final state, the RG-LRU's f32 last state) at full
+    width, against their plain versions in f32 and bf16."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import rglru_work, ssd_bounds, ssd_work
+    from repro_torch.kernels.rglru import rglru_prefill
+    from repro_torch.kernels.ssd import ssd_prefill
+
+    results = {"paged_decode": [], "ssd": [], "rglru": []}
+    for case in FAMILY_DECODE_CASES:
+        for dname in ("float32", "bfloat16"):
+            results["paged_decode"].append(_dense_decode_row(case, dname))
+    c = SSD_FINAL_CASE
+    b, s_, h, p, n = (c[k] for k in ("b", "s", "h", "p", "n"))
+    for dname in ("float32", "bfloat16"):
+        ins = _ssd_inputs(b, s_, h, p, n, getattr(torch, dname))
+        y, S = ssd_prefill(*ins, chunk=128)
+        y2, S2 = ssd_prefill(*ins, chunk=128)
+        want_y, want_S = ref.ssd_chunked(*ins, chunk=128)
+        torch.cuda.synchronize()
+        require(torch.equal(y, y2) and torch.equal(S, S2),
+                f"ssd final {dname}: two runs differ")
+        yerr, _ = _family_check(f"ssd final {dname} y", y, want_y, dname)
+        serr, satol = _family_check(f"ssd final {dname} S", S, want_S,
+                                    "float32")
+        nbytes, flops = ssd_work(b, s_, h, p, n, 128, ins[0].element_size())
+        nbytes += b * h * p * n * 4
+        row = dict(c, dtype=dname, chunk=128, max_abs_err=max(yerr, serr),
+                   errs={"y": yerr, "final": serr}, final_atol=satol,
+                   same_bits=True,
+                   ms=time_ms(lambda: ssd_prefill(*ins, chunk=128)),
+                   plain_ms=time_ms(lambda: ref.ssd_chunked(*ins, chunk=128),
+                                    iters=5),
+                   **ssd_bounds(nbytes, flops, dname), bytes=nbytes,
+                   flops=flops, library_ms=None)
+        print(f"[ssd_final] {json.dumps(row)}")
+        results["ssd"].append(row)
+        del ins, y, S, y2, S2, want_y, want_S
+        torch.cuda.empty_cache()
+    c = RGLRU_LAST_CASE
+    b, s_, w = c["b"], c["s"], c["w"]
+    for dname in ("float32", "bfloat16"):
+        x, gates, _ = _rglru_inputs(b, s_, w, getattr(torch, dname))
+        y, hl = rglru_prefill(x, gates)
+        y2, hl2 = rglru_prefill(x, gates)
+        want_h = ref.rglru_states_ref(x, dict(zip(ref.RGLRU_GATES, gates)))
+        torch.cuda.synchronize()
+        require(torch.equal(y, y2) and torch.equal(hl, hl2),
+                f"rglru last {dname}: two runs differ")
+        yerr, _ = _family_check(f"rglru last {dname} y", y,
+                                want_h.to(x.dtype), dname)
+        herr, hatol = _family_check(f"rglru last {dname} h", hl,
+                                    want_h[:, -1], "float32")
+        # the rounded B7 value is not the state in bf16
+        rounded = float((y[:, -1].float() - want_h[:, -1]).abs().max())
+        nbytes, flops = rglru_work(b, s_, w, x.element_size())
+        nbytes += b * w * 4
+        bound = _bound(nbytes, flops, "float32")
+        row = dict(c, dtype=dname, max_abs_err=max(yerr, herr),
+                   errs={"y": yerr, "h_last": herr}, h_atol=hatol,
+                   rounded_h_last_err=rounded, same_bits=True,
+                   ms=time_ms(lambda: rglru_prefill(x, gates)),
+                   plain_ms=time_ms(lambda: ref.rglru_states_ref(
+                       x, dict(zip(ref.RGLRU_GATES, gates))), iters=3,
+                       warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+                   flops=flops, library_ms=None)
+        print(f"[rglru_last] {json.dumps(row)}")
+        results["rglru"].append(row)
+        del x, gates, y, hl, y2, hl2, want_h
+        torch.cuda.empty_cache()
+    return results
+
+
+# phase 28: card (kernels) against CPU (plain versions) in f32 at full
+# width: arch -> (replace, batch, prompt).  gemma2's and recurrentgemma's
+# windows are cut to 96 so that their rings wrap inside the 128 + 8
+# positions (the prefill's roll and the decode's writes); llama keeps 5
+# layers (its first cross layer), whisper 2 + 2 (the encoder)
+SERVE_CONSISTENCY = {
+    "gemma2-9b": (dict(num_layers=2, window=96), 2, 128),
+    "recurrentgemma-9b": (dict(num_layers=3, window=96), 2, 128),
+    "mamba2-130m": (dict(num_layers=2), 2, 128),
+    "whisper-small": (dict(num_layers=2, encoder_layers=2), 2, 64),
+    "llama-3.2-vision-11b": (dict(num_layers=5), 2, 64),
+    "granite-moe-3b-a800m": (dict(num_layers=2), 4, 64),
+}
+SERVE_CONSISTENCY_STEPS = 8
+SERVE_STATE_TOL = 1e-4   # f32 decode states, card vs CPU, relative to max
+# phase 29: prefill plus decode steps at full width and depth, bf16:
+# arch -> (batch, prompt); gemma2-9b also serves on the dense engine
+FAMILY_SERVE = {
+    "gemma2-9b": (1, 6000),
+    "recurrentgemma-9b": (1, 4096),
+    "mamba2-130m": (4, 4096),
+    "whisper-small": (8, 448),
+    "llama-3.2-vision-11b": (2, 2048),
+    "granite-moe-3b-a800m": (8, 1024),
+}
+FAMILY_SERVE_STEPS = 16
+GEMMA2_ENGINE = dict(slots=8, max_seq=2048, requests=16, new_tokens=32)
+
+
+def _serve_launch_counts(cfg, *, prefill: bool) -> dict:
+    """Each kernel's launches in one :func:`lm.prefill` (``prefill``) or
+    one :func:`lm.decode_step` of ``cfg``: the norms of every layer
+    (``ln``; ``pn1`` after attention and ``pn2`` after a SwiGLU with
+    post-norms; ``c_ln``; ``ln2`` before an FFN; the SSD's gated
+    ``norm_g``) and the final one; an attention read a self- or cross
+    attention (flash in the prefill, the paged decode in a step); the
+    RG-LRU and SSD scans in the prefill; three grouped products an MoE
+    FFN; whisper's encoder in the prefill."""
+    from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN,
+                                          LOCAL_ATTN, RGLRU, SSD)
+    from repro_torch.kernels import _build
+    c = {k: 0 for k in _build.LAUNCHES}
+    c["rmsnorm"] = 1
+    post = int(cfg.post_norms)
+    moe = cfg.moe is not None
+    for i in range(cfg.num_layers):
+        k = cfg.layer_pattern[i % len(cfg.layer_pattern)]
+        attn = int(k in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN))
+        cross = int(k == CROSS_ATTN)
+        mlp = k != SSD and bool(cfg.d_ff)
+        c["rmsnorm"] += (1 + attn * post + cross + int(k == SSD)
+                         + (1 + (0 if moe else post) if mlp else 0))
+        c["flash_attention" if prefill else "paged_decode"] += attn + cross
+        if prefill:
+            c["rglru"] += int(k == RGLRU)
+            c["ssd"] += int(k == SSD)
+        if moe and mlp:
+            c["moe_gmm"] += 3
+    if prefill and cfg.is_encdec:
+        c["flash_attention"] += cfg.encoder_layers
+        c["rmsnorm"] += cfg.encoder_layers * (2 + post) + 1
+    return c
+
+
+def _grown_state(cfg, st, b: int, seq: int):
+    """The prefill's state in the tree of a decode state of ``seq``
+    positions: each k/v leaf copied into the first rows of its position
+    axis (a full ring, the context's K/V and the recurrent states keep
+    their shapes)."""
+    from repro_torch.models import params as prm
+    flat = prm.flatten(st)
+    dev = next(iter(flat.values())).device
+    grown = prm.zeros_state(cfg, prm.cache_specs(cfg, batch=b, seq=seq),
+                            device=dev)
+    for key, t in prm.flatten(grown).items():
+        src = flat[key]
+        (t if t.shape == src.shape else t[:, :, :src.shape[2]]).copy_(src)
+    return grown
+
+
+def _serve_inputs(cfg, b, s, device, seed=5):
+    """Prompt tokens [b, s] and, for a cross-attention config, the stub
+    context [b, context_len, d] N(0, 1), from numpy ``seed``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).to(device)
+    ctx = None
+    if cfg.context_len:
+        ctx = torch.from_numpy(rng.standard_normal(
+            (b, cfg.context_len, cfg.d_model)).astype(np.float32)).to(device)
+    return tokens, ctx
+
+
+def _prefill_decode(cfg, params, tokens, ctx, steps):
+    """lm.prefill, then ``steps`` greedy decode steps on the grown state
+    -> (the tokens of every step [steps + 1, b] on the CPU, the state)."""
+    import torch
+    from repro_torch.models import lm
+    b, s = tokens.shape
+    tok, st = lm.prefill(cfg, params, tokens, ctx)
+    state = _grown_state(cfg, st, b, s + steps)
+    del st
+    pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    toks = [tok.cpu()]
+    for _ in range(steps):
+        tok = lm.decode_step(cfg, params, state, tok, pos)
+        toks.append(tok.cpu())
+        pos += 1
+    return torch.stack(toks), state
+
+
+def phase_serve_consistency():
+    """Phase 28: prefill plus 8 dense decode steps of each family arch in
+    f32 at full width, card (kernels) against CPU (plain versions) from
+    the same perturbed weights: every token equal, every state leaf
+    within ``SERVE_STATE_TOL`` of the CPU's relative to its largest
+    magnitude, the card's launches exact."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+
+    out = {}
+    steps = SERVE_CONSISTENCY_STEPS
+    for arch, (replace, b, s) in SERVE_CONSISTENCY.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(dtype="float32", **replace)
+        base = _perturbed_base(cfg, s + steps + 8)
+        tokens, ctx = _serve_inputs(cfg, b, s, "cpu")
+        cpu_tok, cpu_st = _prefill_decode(cfg, base, tokens, ctx, steps)
+        t_cpu = time.perf_counter() - t0
+        gpu = {k: v.cuda() for k, v in prm.flatten(base).items()}
+        _build.reset_launches()
+        tok, st = _prefill_decode(
+            cfg, prm.unflatten(gpu), tokens.cuda(),
+            None if ctx is None else ctx.cuda(), steps)
+        launches = dict(_build.LAUNCHES)
+        pre = _serve_launch_counts(cfg, prefill=True)
+        dec = _serve_launch_counts(cfg, prefill=False)
+        want = {k: pre[k] + steps * dec[k] for k in pre}
+        require(launches == want, f"{arch}: card launches {launches}, "
+                                  f"expected {want}")
+        require(torch.equal(tok, cpu_tok),
+                f"{arch}: card tokens {tok.tolist()} != CPU tokens "
+                f"{cpu_tok.tolist()}")
+        errs = {}
+        cflat = prm.flatten(cpu_st)
+        for key, t in prm.flatten(st).items():
+            w = cflat[key]
+            errs[key] = float((t.cpu() - w).abs().max()) / (
+                float(w.abs().max()) + 1e-8)
+        worst = max(errs, key=errs.get)
+        require(errs[worst] <= SERVE_STATE_TOL,
+                f"{arch}: state {worst} differs by {errs[worst]} "
+                f"(relative; tolerance {SERVE_STATE_TOL})")
+        row = dict(arch=arch, layers=cfg.num_layers, window=cfg.window,
+                   b=b, s=s, steps=steps, tokens=tok.tolist(),
+                   state_max_rel_err=errs[worst], worst_leaf=worst,
+                   launches={k: v for k, v in launches.items() if v},
+                   cpu_s=t_cpu, total_s=time.perf_counter() - t0)
+        print(f"[serve_consistency] {json.dumps(row)}", flush=True)
+        out[arch] = row
+        del base, gpu, st, cpu_st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _profile_decode(cfg, params, state, tok, pos, steps=2):
+    """Device time and idle share of ``steps`` decode steps under
+    ``torch.profiler`` (host wall of the same steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = lm.decode_step(cfg, params, state, tok, pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = _device_kernels(prof)
+    device_ms = sum(k[0] for k in kernels) / 1e3 / steps
+    return dict(steps=steps, wall_ms_per_step_profiled=wall_ms,
+                device_ms_per_step=device_ms if kernels else "not measured",
+                idle_share=(1 - device_ms / wall_ms) if kernels
+                else "not measured",
+                top=[dict(name=k[2][:80], ms_per_step=k[0] / 1e3 / steps)
+                     for k in kernels[:6]])
+
+
+def _family_serve_run(cfg, params, b, s, steps) -> dict:
+    """lm.prefill of b x s and ``steps`` decode steps in bf16 at full
+    width: exact launches of each, times, tokens/s, peak memory; the last
+    2 steps profiled (device ms, idle share)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    torch.cuda.reset_peak_memory_stats()
+    tokens, ctx = _serve_inputs(cfg, b, s, "cuda")
+    ctx = None if ctx is None else ctx.to(torch.bfloat16)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tok, st = lm.prefill(cfg, params, tokens, ctx)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = dict(_build.LAUNCHES)
+    want = _serve_launch_counts(cfg, prefill=True)
+    require(pre == want, f"{cfg.name} prefill launched {pre}, expected "
+                         f"{want}")
+    state = _grown_state(cfg, st, b, s + steps)
+    del st
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    plain = steps - 2
+    _build.reset_launches()
+    step_s, toks = [], [tok.cpu()]
+    for _ in range(plain):
+        t0 = time.perf_counter()
+        tok = lm.decode_step(cfg, params, state, tok, pos)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+    profile = _profile_decode(cfg, params, state, tok, pos, steps - plain)
+    dec = dict(_build.LAUNCHES)
+    per = _serve_launch_counts(cfg, prefill=False)
+    want = {k: steps * v for k, v in per.items()}
+    require(dec == want, f"{cfg.name} decode launched {dec} in {steps} "
+                         f"steps, expected {want}")
+    vp = cfg.padded_vocab()
+    require(all(0 <= int(t) < vp for t in torch.cat(toks).tolist()),
+            f"{cfg.name}: tokens outside the vocab")
+    from repro_torch.models import params as prm
+    for key, t in prm.flatten(state).items():
+        require(bool(torch.isfinite(t).all()), f"{cfg.name}: {key} is not "
+                                               f"finite")
+    med = statistics.median(step_s[1:])
+    row = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               dtype=cfg.dtype, b=b, s=s, steps=steps,
+               prefill_ms=1e3 * prefill_s,
+               prefill_tok_per_s=b * s / prefill_s,
+               step_ms_median=1e3 * med, decode_tok_per_s=b / med,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_prefill={k: v for k, v in pre.items() if v},
+               launches_decode={k: v for k, v in dec.items() if v},
+               profile=profile)
+    del state
+    return row, pre, dec
+
+
+def _gemma2_engine(cfg) -> tuple:
+    """gemma2-9b at full size on the dense engine (``GEMMA2_ENGINE``):
+    exact launches per step (42 paged decode reads, 4 norms a layer and
+    the final one), step times, tokens/s, peak memory, a profiled window
+    -> (row, engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving import Request, ServingEngine
+    g = GEMMA2_ENGINE
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, slots=g["slots"], max_seq=g["max_seq"])
+    require(eng.paged is None and eng.device.type == "cuda",
+            f"gemma2 engine: paged={eng.paged}, device {eng.device}")
+    t0 = time.perf_counter()
+    eng.load(seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        3, cfg.vocab_size, int(rng.integers(32, 129))).astype(np.int32),
+        max_new_tokens=g["new_tokens"]) for i in range(g["requests"])]
+    for r in reqs:
+        eng.submit(r)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run_until_drained(max_steps=60)
+    profile, profiled = _profile_steps(eng, steps=2)
+    stats = eng.run_until_drained()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = stats["steps"]
+    per = _serve_launch_counts(cfg, prefill=False)
+    want = {k: steps * v for k, v in per.items()}
+    require(launches == want and want["paged_decode"] == steps * 42,
+            f"gemma2 engine launched {launches} in {steps} steps, "
+            f"expected {want}")
+    vp = cfg.padded_vocab()
+    for r in reqs:
+        require(r.done and 1 <= len(r.out_tokens) <= g["new_tokens"]
+                and all(0 <= t < vp for t in r.out_tokens),
+                f"request {r.rid}: done={r.done} tokens={r.out_tokens}")
+    step_ms = [1e3 * t for i, t in enumerate(eng.step_s)
+               if i not in range(*profiled)]
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+               **{k: g[k] for k in ("slots", "max_seq", "requests")},
+               prompt_tokens=stats["prompt_tokens"],
+               decoded_tokens=stats["decoded_tokens"], steps=steps,
+               wall_s=wall_s, decoded_tok_per_s=stats["decoded_tokens"]
+               / wall_s, step_ms_median=statistics.median(step_ms),
+               step_ms_p90=float(np.percentile(step_ms, 90)),
+               load_s=load_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k: v for k, v in launches.items() if v},
+               sample_output=reqs[0].out_tokens[:8], profile=profile)
+    print(f"[serve_families] {json.dumps(row)}", flush=True)
+    return row, eng, launches
+
+
+def phase_serve_families():
+    """Phase 29: gemma2-9b at full size on the dense engine, then each
+    family arch's prefill and 16 decode steps at full width and depth in
+    bf16 (``FAMILY_SERVE``), exact launches, times, peak memory and idle
+    share; the launches of every run are the path's."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import params as prm
+
+    out, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    steps = FAMILY_SERVE_STEPS
+    for arch, (b, s) in FAMILY_SERVE.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if arch == "gemma2-9b":
+            row, eng, launches = _gemma2_engine(cfg)
+            add(launches)
+            out["gemma2_engine"] = row
+            params = eng.params
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            params = prm.init_params(cfg, seed=0, device=torch.device("cuda"),
+                                     max_pos=s + steps + 8)
+        row, pre, dec = _family_serve_run(cfg, params, b, s, steps)
+        add(pre)
+        add(dec)
+        row["wall_s"] = time.perf_counter() - t0
+        print(f"[serve_families] {json.dumps(row)}", flush=True)
+        out[arch] = row
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    never = [k for k in ("paged_decode", "rmsnorm", "flash_attention",
+                         "rglru", "ssd", "moe_gmm") if not total.get(k)]
+    require(not never, f"the families' serving path never launched {never}")
+    out["launches"] = total
+    return out
+
+
 PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           3: ("consistency", phase_consistency), 4: ("serve", phase_serve),
           5: ("train_kernels", phase_train_kernels),
@@ -4460,7 +5088,10 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           23: ("dryrun", phase_dryrun),
           24: ("families2_kernels", phase_families2_kernels),
           25: ("families2_consistency", phase_families2_consistency),
-          26: ("families2_train", phase_families2_train)}
+          26: ("families2_train", phase_families2_train),
+          27: ("serve_kernels", phase_serve_kernels),
+          28: ("serve_consistency", phase_serve_consistency),
+          29: ("serve_families", phase_serve_families)}
 
 
 def main(argv=None) -> int:
@@ -4493,6 +5124,7 @@ def main(argv=None) -> int:
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device_name": torch.cuda.get_device_name(0), "phases": {}}
     _RUN["report"] = report
+    _RUN["phases"] = phases
     for p in phases:
         name, fn = PHASES[p]
         tp = time.perf_counter()

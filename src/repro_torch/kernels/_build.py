@@ -93,15 +93,16 @@ _SIGNATURES = {
     # a, b, out, e, m, k, n, ta, tb, bm, bn, bk, dtype, tc, stream
     "repro_moe_gmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
-    # x, dt, A_log, B, C, D, y, cb, states, decay, b, s, h, p, n, q, dtype,
-    # stream
-    "repro_ssd_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # x, dt, A_log, B, C, D, y, cb, states, decay, final, b, s, h, p, n, q,
+    # dtype, stream
+    "repro_ssd_fwd": [_P] * 11 + [_I] * 7 + [_P],
     # x, dt, A_log, B, C, D, dy, dx, ddt, dA_log, dB, dC, dD, cb, states,
     # decay, gstates, dcb_part, dc_part, db_part, head_part, b, s, h, p, n,
     # q, dtype, stream
     "repro_ssd_bwd": [_P] * 21 + [_I] * 7 + [_P],
-    # x, w_a, b_a, w_x, b_x, a_param, y, states, b, s, w, dtype, stream
-    "repro_rglru_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    # x, w_a, b_a, w_x, b_x, a_param, y, states, last, b, s, w, dtype,
+    # stream
+    "repro_rglru_fwd": [_P] * 9 + [_I] * 4 + [_P],
     # x, w_a, b_a, w_x, b_x, a_param, states, dy, dx, partial, dgates, b, s,
     # w, dtype, stream
     "repro_rglru_bwd": [_P] * 11 + [_I] * 4 + [_P],

@@ -38,6 +38,17 @@
 // which that block resets to 0), so a call is one launch and gives the
 // same bits on every run; a pair with one active split writes its output
 // directly.
+//
+// Groups and head dims: g in {1, 2, 3, 4, 8, 16} (granite-moe's 24/8
+// heads give 3, recurrentgemma's 16/1 give 16) and hd in {32, 64, 128,
+// 256} (gemma2, recurrentgemma).  A lane holds 16 bytes of a K/V row, or
+// 32 where a row of 16-byte words would need more than a warp (f32 at
+// hd 256).  A group that is not a power of two reduces each head's dot
+// over the row's lanes whole (no halving butterfly), and the threads
+// past g * (token groups) sit out p.v.  Where q would take more than 64
+// registers a thread (g 16 at 8 values a lane), it stays in shared
+// memory as f32 and every dot reads it there.  The K/V stages are
+// dynamic shared memory (64 KB at f32 hd 256).
 #include <cstdint>
 
 #include "common.cuh"
@@ -50,12 +61,17 @@ constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
 
 template <typename T, int HD>
 struct Geo {
-  static constexpr int ELT = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int E16 = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  // values a lane holds: one 16-byte word, or two where a row would
+  // otherwise span more than a warp
+  static constexpr int ELT = HD / 32 > E16 ? HD / 32 : E16;
+  static constexpr int VEC = ELT / E16;      // 16-byte words a lane
   static constexpr int DL = HD / ELT;        // lanes per K/V row (4..32)
   static constexpr int ROWS = kThreads / DL;  // rows one pass covers
   static constexpr int C0 = 8192 / (HD * static_cast<int>(sizeof(T)));
   // tokens a stage holds: 8 KB of K (and of V), 16..64 rows
   static constexpr int CHUNK = C0 < 16 ? 16 : (C0 > 64 ? 64 : C0);
+  static constexpr int SMEM = 4 * CHUNK * HD * static_cast<int>(sizeof(T));
   static_assert(32 % DL == 0 && CHUNK % ROWS == 0, "row geometry");
 };
 
@@ -110,6 +126,16 @@ __device__ __forceinline__ int head_base(int lane) {
   return base;
 }
 
+// every head's total over a row's DL lanes, in every lane (a group that
+// is not a power of two cannot halve)
+template <int G, int DL>
+__device__ __forceinline__ void row_sums(float (&s)[G]) {
+#pragma unroll
+  for (int o = DL / 2; o >= 1; o >>= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+}
+
 template <typename T>
 __device__ __forceinline__ void to_floats(const uint4& raw, float* f);
 template <>
@@ -131,7 +157,7 @@ __device__ __forceinline__ void to_floats<__nv_bfloat16>(const uint4& raw,
 }
 
 template <typename T, int HD, int G>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+__global__ void __launch_bounds__(kThreads, 1) paged_decode_kernel(
     const T* __restrict__ q,          // [b, kvh * G, HD]
     const T* __restrict__ k_pages,    // [P, page, kvh, HD]
     const T* __restrict__ v_pages,    // [P, page, kvh, HD]
@@ -144,11 +170,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float scale, float softcap, bool vec) {
   using Gm = Geo<T, HD>;
   constexpr int ELT = Gm::ELT, DL = Gm::DL, ROWS = Gm::ROWS;
+  constexpr int E16 = Gm::E16, VEC = Gm::VEC;
   constexpr int CHUNK = Gm::CHUNK;
+  constexpr bool POW2 = (G & (G - 1)) == 0;
   constexpr int GPT = G > ROWS ? G / ROWS : 1;  // heads a thread adds p.v for
   constexpr int TG = G < ROWS ? ROWS / G : 1;   // token groups of p.v
-  constexpr int NH = G > DL ? G / DL : 1;       // totals a lane holds
-  constexpr int DUP = DL > G ? DL / G : 1;      // lanes holding the same
+  constexpr int NJ = (CHUNK + TG - 1) / TG;     // tokens a token group takes
+  // totals a lane holds, and lanes holding the same
+  constexpr int NH = !POW2 ? G : (G > DL ? G / DL : 1);
+  constexpr int DUP = !POW2 ? DL : (DL > G ? DL / G : 1);
+  constexpr bool QSMEM = G * ELT > 64;          // q in shared memory
+  static_assert(G <= ROWS ? true : G % ROWS == 0, "heads over rows");
+  static_assert(TG * G * HD * 4 <= 2 * CHUNK * HD * static_cast<int>(sizeof(T)),
+                "the token groups' sums fit a K stage");
 
   const int split = blockIdx.x % nsplit;
   const int bi = blockIdx.x / nsplit;
@@ -160,9 +194,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int t0 = split * span;
   const int n = max(0, min(t0 + span, last + 1) - t0);
 
-  __shared__ __align__(16) T sk[2][CHUNK * HD];
-  __shared__ __align__(16) T sv[2][CHUNK * HD];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sk = reinterpret_cast<T*>(smem);  // [2][CHUNK * HD]
+  T* sv = sk + 2 * CHUNK * HD;         // [2][CHUNK * HD]
   __shared__ float ssc[CHUNK][G];
+  __shared__ __align__(16) float sq[QSMEM ? G * HD : 1];
   __shared__ int tab[kMaxPps];  // the split's physical pages
   __shared__ int s_last;
 
@@ -172,16 +208,23 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int rest = tid / DL;
 
   const int64_t head0 = (static_cast<int64_t>(bi) * kvh + kh) * G * HD;
-  float qv[G][ELT];
+  float qv[QSMEM ? 1 : G][ELT];
+  if constexpr (QSMEM) {
+    for (int i = tid; i < G * HD; i += kThreads)
+      sq[i] = repro::to_float(q[head0 + i]) * scale;
+  } else {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < ELT; ++e)
-      qv[g][e] = repro::to_float(q[head0 + g * HD + dl * ELT + e]) * scale;
+      for (int e = 0; e < ELT; ++e)
+        qv[g][e] = repro::to_float(q[head0 + g * HD + dl * ELT + e]) * scale;
+  }
 
-  // p.v ownership: heads hg0 .. hg0 + GPT - 1, tokens tg, tg + TG, ...
+  // p.v ownership: heads hg0 .. hg0 + GPT - 1, tokens tg, tg + TG, ...;
+  // threads past G * TG (a group that does not divide ROWS) take none
   const int hg0 = GPT > 1 ? rest * GPT : rest % G;
   const int tg = GPT > 1 ? 0 : rest / G;
+  const bool pv = GPT > 1 || rest < G * TG;
   float m[GPT], l[GPT], acc[GPT][ELT];
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
@@ -211,11 +254,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const int64_t off =
             (static_cast<int64_t>(tab[pi]) * page + po) * tok_stride +
             static_cast<int64_t>(kh) * HD + dl * ELT;
-        T* dk = &sk[st][r * HD + dl * ELT];
-        T* dv = &sv[st][r * HD + dl * ELT];
+        T* dk = sk + st * CHUNK * HD + r * HD + dl * ELT;
+        T* dv = sv + st * CHUNK * HD + r * HD + dl * ELT;
         if (vec) {
-          cp_async16(dk, k_pages + off);
-          cp_async16(dv, v_pages + off);
+#pragma unroll
+          for (int w = 0; w < VEC; ++w) {
+            cp_async16(dk + w * E16, k_pages + off + w * E16);
+            cp_async16(dv + w * E16, v_pages + off + w * E16);
+          }
         } else {
 #pragma unroll
           for (int e = 0; e < ELT; ++e) {
@@ -245,19 +291,37 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int it = 0; it < CHUNK / ROWS; ++it) {
       const int r = it * ROWS + rest;
       float kf[ELT];
-      to_floats<T>(*reinterpret_cast<const uint4*>(&sk[st][r * HD + dl * ELT]),
-                   kf);
+      const T* kr = sk + st * CHUNK * HD + r * HD + dl * ELT;
+#pragma unroll
+      for (int w = 0; w < VEC; ++w)
+        to_floats<T>(*reinterpret_cast<const uint4*>(kr + w * E16),
+                     kf + w * E16);
       float s[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float dot = 0.f;
+        if constexpr (QSMEM) {
+          const float* qs = sq + g * HD + dl * ELT;
 #pragma unroll
-        for (int e = 0; e < ELT; ++e) dot += qv[g][e] * kf[e];
+          for (int e = 0; e < ELT; e += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qs + e);
+            dot += q4.x * kf[e];
+            dot += q4.y * kf[e + 1];
+            dot += q4.z * kf[e + 2];
+            dot += q4.w * kf[e + 3];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < ELT; ++e) dot += qv[g][e] * kf[e];
+        }
         s[g] = dot;
       }
-      butterfly<G, G, DL / 2>(s, lane);
+      if constexpr (POW2)
+        butterfly<G, G, DL / 2>(s, lane);
+      else
+        row_sums<G, DL>(s);
       if (dl % DUP == 0) {
-        const int hb = head_base<G, DL>(lane);
+        const int hb = POW2 ? head_base<G, DL>(lane) : 0;
 #pragma unroll
         for (int i = 0; i < NH; ++i) {
           float sc = s[i];
@@ -272,6 +336,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     // (loops of fixed length, so the shared-memory loads issue together)
 #pragma unroll
     for (int i = 0; i < GPT; ++i) {
+      if (!pv) break;
       const int g = hg0 + i;
       float mx = m[i];
 #pragma unroll
@@ -282,15 +347,17 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
       for (int e = 0; e < ELT; ++e) acc[i][e] *= corr;
 #pragma unroll
-      for (int j = 0; j < CHUNK / TG; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int t = tg + j * TG;
         if (t < n_in) {
           const float p = expf(ssc[t][g] - mx);
           l[i] += p;
           float vf[ELT];
-          to_floats<T>(
-              *reinterpret_cast<const uint4*>(&sv[st][t * HD + dl * ELT]),
-              vf);
+          const T* vr = sv + st * CHUNK * HD + t * HD + dl * ELT;
+#pragma unroll
+          for (int w = 0; w < VEC; ++w)
+            to_floats<T>(*reinterpret_cast<const uint4*>(vr + w * E16),
+                         vf + w * E16);
 #pragma unroll
           for (int e = 0; e < ELT; ++e) acc[i][e] += p * vf[e];
         }
@@ -300,11 +367,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
   // add the token groups in order (the stages are free now)
-  float* red = reinterpret_cast<float*>(&sk[0][0]);   // [TG][G][HD]
-  float* red_l = reinterpret_cast<float*>(&sv[0][0]);  // [TG][G]
+  float* red = reinterpret_cast<float*>(sk);   // [TG][G][HD]
+  float* red_l = reinterpret_cast<float*>(sv);  // [TG][G]
   __shared__ float red_m[G];
 #pragma unroll
   for (int i = 0; i < GPT; ++i) {
+    if (!pv) break;
     const int g = hg0 + i;
 #pragma unroll
     for (int e = 0; e < ELT; ++e)
@@ -339,28 +407,63 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   if (n_active == 1) return;
 
-  // the last block of this pair to finish merges the splits in order
+  // the last block of this pair to finish merges the splits in order:
+  // each head's max over the splits (a warp's lanes, then a shuffle: a
+  // max is exact in any order), then the splits' weights c[s][g] =
+  // exp(m_s - max) a chunk of SC splits at a time in shared memory, and
+  // every output (its running sum in shared memory, a thread's own) and
+  // every l sum adds the splits in split order: the whole block streams
+  // the partials, where one thread an output re-read every split's m
   __threadfence();
   __syncthreads();
   if (tid == 0) s_last = atomicAdd(&counters[pair], 1) == n_active - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  for (int idx = tid; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD;
+  constexpr int SC = 2 * CHUNK * HD * static_cast<int>(sizeof(T)) / (4 * G);
+  float* acc_s = reinterpret_cast<float*>(sk);  // [G * HD], a thread's own
+  float* cw = reinterpret_cast<float*>(sv);     // [SC][G]
+  __shared__ float s_mx[G], s_l[G];
+  for (int g = tid / 32; g < G; g += kThreads / 32) {
     float mx = kNegInf;
-    for (int s = 0; s < n_active; ++s)
+    for (int s = lane; s < n_active; s += 32)
       mx = fmaxf(mx, __ldcg(part + (static_cast<int64_t>(s) * G + g) *
                                        (HD + 2) + HD));
-    float o = 0.f, lsum = 0.f;
-    for (int s = 0; s < n_active; ++s) {
-      const float* ps = part + (static_cast<int64_t>(s) * G + g) * (HD + 2);
-      const float c = expf(__ldcg(ps + HD) - mx);
-      lsum += __ldcg(ps + HD + 1) * c;
-      o += __ldcg(ps + idx % HD) * c;
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) {
+      s_mx[g] = mx;
+      s_l[g] = 0.f;
     }
-    out[head0 + idx] = repro::from_float<T>(o / fmaxf(lsum, 1e-30f));
   }
+  for (int idx = tid; idx < G * HD; idx += kThreads) acc_s[idx] = 0.f;
+  __syncthreads();
+  for (int s0 = 0; s0 < n_active; s0 += SC) {
+    const int ns = min(SC, n_active - s0);
+    for (int i = tid; i < ns * G; i += kThreads)
+      cw[i] = expf(__ldcg(part + (static_cast<int64_t>(s0) * G + i) *
+                                     (HD + 2) + HD) - s_mx[i % G]);
+    __syncthreads();
+    if (tid < G)
+      for (int s = 0; s < ns; ++s)
+        s_l[tid] += __ldcg(part + (static_cast<int64_t>(s0 + s) * G + tid) *
+                                      (HD + 2) + HD + 1) * cw[s * G + tid];
+    for (int idx = tid; idx < G * HD; idx += kThreads) {
+      const int g = idx / HD;
+      const float* ps = part + (static_cast<int64_t>(s0) * G + g) * (HD + 2) +
+                        idx % HD;
+      float o = acc_s[idx];
+      for (int s = 0; s < ns; ++s)
+        o += __ldcg(ps + static_cast<int64_t>(s) * G * (HD + 2)) *
+             cw[s * G + g];
+      acc_s[idx] = o;
+    }
+    __syncthreads();
+  }
+  for (int idx = tid; idx < G * HD; idx += kThreads)
+    out[head0 + idx] =
+        repro::from_float<T>(acc_s[idx] / fmaxf(s_l[idx / HD], 1e-30f));
   if (tid == 0) counters[pair] = 0;
 }
 
@@ -377,7 +480,18 @@ struct Args {
 template <typename T, int HD, int G>
 int launch(const Args& a, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(a.b) * a.nsplit, a.kvh);
-  paged_decode_kernel<T, HD, G><<<grid, kThreads, 0, s>>>(
+  constexpr int smem = Geo<T, HD>::SMEM;
+  // the stages' dynamic shared memory beside the static arrays (once an
+  // instance: a racing second call sets the same value)
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<T, HD, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  paged_decode_kernel<T, HD, G><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.pos), static_cast<T*>(a.out), a.partial,
@@ -391,8 +505,10 @@ int dispatch_g(int g, const Args& a, cudaStream_t s) {
   switch (g) {
     case 1: return launch<T, HD, 1>(a, s);
     case 2: return launch<T, HD, 2>(a, s);
+    case 3: return launch<T, HD, 3>(a, s);
     case 4: return launch<T, HD, 4>(a, s);
     case 8: return launch<T, HD, 8>(a, s);
+    case 16: return launch<T, HD, 16>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -403,6 +519,7 @@ int dispatch_hd(int hd, int g, const Args& a, cudaStream_t s) {
     case 32: return dispatch_g<T, 32>(g, a, s);
     case 64: return dispatch_g<T, 64>(g, a, s);
     case 128: return dispatch_g<T, 128>(g, a, s);
+    case 256: return dispatch_g<T, 256>(g, a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -213,11 +213,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------- 3, 6
 // states [b*h][nc][p*n]: forward, S_c in and the state before chunk c
-// out; REV, G_loc in and G_{c+1} out (the scan from the last chunk).
+// out, and (if `final`) the state after the last chunk into final
+// [b*h][p*n] (the prefill's decode state); REV, G_loc in and G_{c+1} out
+// (the scan from the last chunk).
 template <bool REV>
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_kernel(float* __restrict__ states,
-                    const float* __restrict__ decay, int nc, int pn) {
+                    const float* __restrict__ decay, int nc, int pn,
+                    float* __restrict__ final) {
   const int64_t bh = blockIdx.y;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= pn) return;
@@ -243,6 +246,7 @@ __global__ void __launch_bounds__(kThreads)
       carry = carry * dv[u] + sv[u];
     }
   }
+  if (final != nullptr) final[bh * pn + e] = carry;
 }
 
 // ---------------------------------------------------------------- 4
@@ -657,12 +661,12 @@ int allow_smem(K kernel, size_t bytes) {
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 // launches 1-3: cb, the chunk states (scanned: the state before each
-// chunk) and their decays
+// chunk), their decays and, if `final` is not null, the final state
 template <typename T>
 int states_and_cb(const T* x, const float* dt, const float* A_log,
                   const T* B, const T* C, float* cb, float* states,
-                  float* decay, int b, int s, int h, int p, int n, int q,
-                  cudaStream_t st) {
+                  float* decay, float* final, int b, int s, int h, int p,
+                  int n, int q, cudaStream_t st) {
   const int nc = s / q;
   REPRO_TRY(allow_smem(ssd_cb_kernel<T>, kCbSmem));
   REPRO_TRY(allow_smem(ssd_state_kernel<T, false>, kStateSmem));
@@ -674,20 +678,20 @@ int states_and_cb(const T* x, const float* dt, const float* A_log,
   REPRO_TRY(last_error());
   const int pn = p * n;
   ssd_scan_kernel<false><<<dim3((pn + kThreads - 1) / kThreads, b * h),
-                           kThreads, 0, st>>>(states, decay, nc, pn);
+                           kThreads, 0, st>>>(states, decay, nc, pn, final);
   return last_error();
 }
 
 template <typename T>
 int forward(const void* x, const float* dt, const float* A_log,
             const void* B, const void* C, const float* D, void* y, float* cb,
-            float* states, float* decay, int b, int s, int h, int p, int n,
-            int q, cudaStream_t st) {
+            float* states, float* decay, float* final, int b, int s, int h,
+            int p, int n, int q, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* Bt = static_cast<const T*>(B);
   const T* Ct = static_cast<const T*>(C);
-  REPRO_TRY(states_and_cb<T>(xt, dt, A_log, Bt, Ct, cb, states, decay, b, s,
-                             h, p, n, q, st));
+  REPRO_TRY(states_and_cb<T>(xt, dt, A_log, Bt, Ct, cb, states, decay, final,
+                             b, s, h, p, n, q, st));
   REPRO_TRY(allow_smem(ssd_out_kernel<T>, kOutSmem));
   ssd_out_kernel<T><<<dim3(s / q, h, b), kThreads, kOutSmem, st>>>(
       xt, dt, A_log, Ct, D, cb, states, static_cast<T*>(y), s, h, p, n, q);
@@ -719,15 +723,16 @@ int backward(const BwdArgs& g, int b, int s, int h, int p, int n, int q,
   auto* dc_part = static_cast<float*>(g.dc_part);
   auto* db_part = static_cast<float*>(g.db_part);
   auto* head_part = static_cast<float*>(g.head_part);
-  REPRO_TRY(states_and_cb<T>(x, dt, A_log, B, C, cb, states, decay, b, s, h,
-                             p, n, q, st));
+  REPRO_TRY(states_and_cb<T>(x, dt, A_log, B, C, cb, states, decay, nullptr,
+                             b, s, h, p, n, q, st));
   REPRO_TRY(allow_smem(ssd_state_kernel<T, true>, kStateSmem));
   ssd_state_kernel<T, true><<<dim3(nc, h, b), kThreads, kStateSmem, st>>>(
       dy, dt, A_log, C, gstates, nullptr, s, h, p, n, q);
   REPRO_TRY(last_error());
   const int pn = p * n;
   ssd_scan_kernel<true><<<dim3((pn + kThreads - 1) / kThreads, b * h),
-                          kThreads, 0, st>>>(gstates, decay, nc, pn);
+                          kThreads, 0, st>>>(gstates, decay, nc, pn,
+                                             nullptr);
   REPRO_TRY(last_error());
   REPRO_TRY(allow_smem(ssd_bwd_chunk_kernel<T>, kChunkSmem));
   ssd_bwd_chunk_kernel<T><<<dim3(nc, h, b), kThreads, kChunkSmem, st>>>(
@@ -756,15 +761,17 @@ bool bad_shape(int b, int s, int h, int p, int n, int q) {
 }  // namespace
 
 // x [b, s, h, p], B, C [b, s, n] (dtype code `dtype`), dt [b, s, h],
-// A_log, D [h] f32 -> y [b, s, h, p] (x's dtype).  Scratch, f32: cb
-// [b, s / q, 128, 128], states [b, h, s / q, p, n], decay [b, h, s / q].
-// All contiguous; chunk q in [1, 128] dividing s, p in [1, 64], n in
-// [1, 128].  Returns a cudaError_t code (0 on success).
+// A_log, D [h] f32 -> y [b, s, h, p] (x's dtype) and, if `final` is not
+// null, the f32 state after the last step into final [b, h, p, n].
+// Scratch, f32: cb [b, s / q, 128, 128], states [b, h, s / q, p, n],
+// decay [b, h, s / q].  All contiguous; chunk q in [1, 128] dividing s,
+// p in [1, 64], n in [1, 128].  Returns a cudaError_t code (0 on
+// success).
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A_log,
                              const void* B, const void* C, const void* D,
                              void* y, void* cb, void* states, void* decay,
-                             int b, int s, int h, int p, int n, int q,
-                             int dtype, void* stream) {
+                             void* final, int b, int s, int h, int p, int n,
+                             int q, int dtype, void* stream) {
   if (bad_shape(b, s, h, p, n, q)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* dtf = static_cast<const float*>(dt);
@@ -773,12 +780,13 @@ extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A_log,
   auto* cbf = static_cast<float*>(cb);
   auto* sf = static_cast<float*>(states);
   auto* cf = static_cast<float*>(decay);
+  auto* ff = static_cast<float*>(final);
   if (dtype == repro::kF32)
-    return forward<float>(x, dtf, af, B, C, df, y, cbf, sf, cf, b, s, h, p,
-                          n, q, st);
+    return forward<float>(x, dtf, af, B, C, df, y, cbf, sf, cf, ff, b, s, h,
+                          p, n, q, st);
   if (dtype == repro::kBF16)
-    return forward<__nv_bfloat16>(x, dtf, af, B, C, df, y, cbf, sf, cf, b, s,
-                                  h, p, n, q, st);
+    return forward<__nv_bfloat16>(x, dtf, af, B, C, df, y, cbf, sf, cf, ff, b,
+                                  s, h, p, n, q, st);
   return cudaErrorInvalidValue;
 }
 

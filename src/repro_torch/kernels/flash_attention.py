@@ -1,9 +1,10 @@
 """Flash attention: wrappers of the CUDA kernels ``csrc/flash_attention.cu``
 (training forward and backward) and ``csrc/paged_decode.cu`` (paged
-decode).
+decode, and every dense decode read through a block-table view).
 
 Counterparts of ``repro.kernels.flash_attention.flash_attention`` and
-``paged_flash_decode``, with the same layouts.  A CPU tensor takes the
+``paged_flash_decode``, with the same layouts, and the decode reads of
+``repro.models.attention.decode_attention`` (:func:`dense_flash_decode`).  A CPU tensor takes the
 plain version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches
 the kernel or raises.  :func:`flash_attention` is a
 ``torch.autograd.Function`` whose backward is the backward kernel (the
@@ -16,7 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.ref import (decode_attention_ref,
+                                    flash_attention_bwd_ref,
                                     flash_attention_ref,
                                     paged_decode_attention_ref, wide_dtype)
 
@@ -24,8 +26,8 @@ _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 # query heads per KV head and head dims that the paged decode kernel is
 # compiled for; the training kernels take any group at run time, and
 # their own head dims
-GROUPS = (1, 2, 4, 8)
-PAGED_HEAD_DIMS = (32, 64, 128)
+GROUPS = (1, 2, 3, 4, 8, 16)
+PAGED_HEAD_DIMS = (32, 64, 128, 256)
 HEAD_DIMS = (32, 64, 128, 256)
 # the paged decode's splits: at most this many positions a split (four
 # chunks of a bf16 hd-128 block: short chains of dependent chunk loads),
@@ -37,6 +39,10 @@ SPLIT_BLOCKS = 4 * 132
 # the last block of each (slot, kv head) resets its own) and f32 partials,
 # grown to the largest call seen
 _PAGED_SCRATCH = {}
+# the largest page of a dense cache's block-table view
+DENSE_PAGE = 16
+# per (slots, blocks, device): the view's constant table
+_DENSE_TABLES = {}
 
 
 def paged_splits(b: int, kvh: int, page: int, nb: int):
@@ -115,6 +121,64 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     _build.check(rc, "paged_decode kernel launch")
     _build.LAUNCHES["paged_decode"] += 1
     return out
+
+
+def dense_page(S: int) -> int:
+    """The page of the block-table view of a dense cache of S rows: the
+    largest divisor of S up to ``DENSE_PAGE`` (16 at 2,048 and 4,096, 15
+    at whisper's 1,500 context rows, 4 at llama's 6,404)."""
+    return next(p for p in range(min(DENSE_PAGE, S), 0, -1) if S % p == 0)
+
+
+def _dense_tables(b: int, nb: int, device) -> torch.Tensor:
+    key = (b, nb, device)
+    t = _DENSE_TABLES.get(key)
+    if t is None:
+        t = torch.arange(b * nb, dtype=torch.int32,
+                         device=device).view(b, nb)
+        _DENSE_TABLES[key] = t
+    return t
+
+
+def dense_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, pos: torch.Tensor, *,
+                       window: Optional[int] = None, softcap: float = 0.0,
+                       scale: Optional[float] = None,
+                       ring: bool = False) -> torch.Tensor:
+    """Single-token decode attention over a dense per-slot cache
+    (``repro.models.attention.decode_attention``): q [b, 1, h, hd];
+    k_cache/v_cache [b, S, kvh, hd]; pos [b] int32 -> [b, 1, h, hd].
+
+    On the card the paged decode kernel reads the cache through a view of
+    pages: [b, S, kvh, hd] is [b * nb, page, kvh, hd] (``dense_page``)
+    under the constant table ``tables[s, i] = s * nb + i``, whose gathered
+    view is the cache itself.  A ring of S = window slots attends to the
+    first ``min(pos + 1, S)``: the kernel's mask at ``min(pos, S - 1)``.
+    A window that is not a ring raises on CUDA (no decode step reads one).
+    On the CPU, the plain masked softmax (:func:`~repro_torch.kernels.ref.
+    decode_attention_ref`)."""
+    if _build.on_cpu("dense_flash_decode", q, k_cache, v_cache, pos):
+        return decode_attention_ref(q, k_cache, v_cache, pos, window=window,
+                                    softcap=softcap, scale=scale, ring=ring)
+    if window is not None and not ring:
+        raise NotImplementedError(
+            "dense_flash_decode: a window over a linear cache is not a mask "
+            "the paged decode kernel takes (the decode step reads local "
+            "layers as rings)")
+    b, S, kvh, hd = k_cache.shape
+    if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous()
+                                              and v_cache.is_contiguous()):
+        raise ValueError(
+            f"dense_flash_decode: k_cache {tuple(k_cache.shape)} and v_cache "
+            f"{tuple(v_cache.shape)} must be one contiguous [b, S, kvh, hd]")
+    page = dense_page(S)
+    nb = S // page
+    if ring:
+        pos = torch.clamp(pos, max=S - 1)
+    return paged_flash_decode(
+        q, k_cache.view(b * nb, page, kvh, hd),
+        v_cache.view(b * nb, page, kvh, hd), _dense_tables(b, nb, q.device),
+        pos, softcap=softcap, scale=scale)
 
 
 def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -51,27 +51,51 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                pos: torch.Tensor, *, softcap: float = 0.0,
                                scale: Optional[float] = None) -> torch.Tensor:
     """Single-token decode attention through a block table: gather the
-    slot's pages, mask positions after ``pos``, softmax in f32.
+    slot's pages, then :func:`decode_attention_ref` (positions after
+    ``pos`` masked, softmax in f32).
 
     q [b, 1, h, hd]; k_pages/v_pages [P, page, kvh, hd]; tables [b, nb];
-    pos [b] -> [b, 1, h, hd] in q's dtype.  ``q * scale`` is taken in f32,
-    as the TPU kernel does (``flash_attention.py:160``)."""
+    pos [b] -> [b, 1, h, hd] in q's dtype."""
+    return decode_attention_ref(q, gather_pages(k_pages, tables),
+                                gather_pages(v_pages, tables), pos,
+                                softcap=softcap, scale=scale)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: torch.Tensor, *,
+                         window: Optional[int] = None, softcap: float = 0.0,
+                         scale: Optional[float] = None,
+                         ring: bool = False) -> torch.Tensor:
+    """Single-token decode attention over a dense cache
+    (``repro.models.attention.decode_attention``): the masked softmax over
+    every slot, in f32.
+
+    q [b, 1, h, hd]; k_cache/v_cache [b, S, kvh, hd]; pos [b] the new
+    token's position -> [b, 1, h, hd] in q's dtype.  Slots up to ``pos``
+    are valid (with ``window``, only the last ``window`` of them);
+    ``ring``: a circular buffer of S = window slots, the first
+    ``min(pos + 1, S)`` written.  ``q * scale`` is taken in f32, as the
+    TPU kernel does (``flash_attention.py:160``)."""
     b, _, h, hd = q.shape
-    kvh = k_pages.shape[2]
+    S, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    k = gather_pages(k_pages, tables).float()
-    v = gather_pages(v_pages, tables).float()
     qf = q.float().reshape(b, kvh, g, hd) * scale
-    s = torch.einsum("bkgh,bskh->bkgs", qf, k)
+    s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    slots = torch.arange(k.shape[1], device=q.device)[None, :]
-    valid = slots <= pos.long()[:, None]                    # [b, S]
+    slots = torch.arange(S, device=q.device)[None, :]
+    p_ = pos.long()[:, None]
+    if ring:
+        valid = slots < torch.clamp(p_ + 1, max=S)
+    else:
+        valid = slots <= p_                                 # [b, S]
+        if window is not None:
+            valid &= slots > p_ - window
     s = torch.where(valid[:, None, None, :], s,
                     torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", p, v)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

@@ -5,7 +5,9 @@ Counterpart of ``repro.kernels.rglru.rglru``: x [b, s, w] (the conv'd
 input branch), the five f32 [w] gate vectors ``w_a``, ``b_a``, ``w_x``,
 ``b_x``, ``a_param`` -> (y [b, s, w] in x's dtype, h_last [b, w] f32,
 which is ``y[:, -1]`` cast, as in the TPU kernel).  No initial state, as
-in the TPU kernel.  A CPU tensor takes the plain versions
+in the TPU kernel.  The prefill takes the exact f32 state of the last
+step instead, as JAX's ``rglru_scan`` returns it (:func:`rglru_prefill`:
+the forward kernel writes it beside y).  A CPU tensor takes the plain versions
 (:func:`repro_torch.kernels.ref.rglru_states_ref`,
 :func:`~repro_torch.kernels.ref.rglru_bwd_ref`); a CUDA tensor launches
 the kernels or raises.
@@ -70,6 +72,24 @@ def _cuda_check(what: str, x: torch.Tensor, gates, *more: torch.Tensor):
         raise ValueError(f"{what} kernel takes contiguous tensors")
 
 
+def _fwd(x, gates, states: bool, last: bool):
+    """The forward kernel: (y, the tile-start states if ``states``, the
+    last step's f32 state [b, w] if ``last``)."""
+    _cuda_check("rglru", x, gates)
+    b, s, w = x.shape
+    y = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h0 = torch.empty(b, tiles(s), w, **f32) if states else None
+    hl = torch.empty(b, w, **f32) if last else None
+    rc = _build.library().repro_rglru_fwd(
+        x.data_ptr(), *(g.data_ptr() for g in gates), y.data_ptr(),
+        h0.data_ptr() if states else None, hl.data_ptr() if last else None,
+        b, s, w, _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "rglru kernel launch")
+    _build.LAUNCHES["rglru"] += 1
+    return y, h0, hl
+
+
 def rglru_fwd(x: torch.Tensor, gates: Tuple[torch.Tensor, ...], *,
               states: bool = False):
     """-> (y [b, s, w] in x's dtype, the f32 tile-start states
@@ -80,18 +100,20 @@ def rglru_fwd(x: torch.Tensor, gates: Tuple[torch.Tensor, ...], *,
     if _build.on_cpu("rglru", x, *gates):
         h = rglru_states_ref(x, dict(zip(RGLRU_GATES, gates)))
         return h.to(x.dtype), (tile_states(h) if states else None)
-    _cuda_check("rglru", x, gates)
-    b, s, w = x.shape
-    y = torch.empty_like(x)
-    h0 = (torch.empty(b, tiles(s), w, dtype=torch.float32, device=x.device)
-          if states else None)
-    rc = _build.library().repro_rglru_fwd(
-        x.data_ptr(), *(g.data_ptr() for g in gates), y.data_ptr(),
-        h0.data_ptr() if states else None, b, s, w, _DTYPES[x.dtype],
-        _build.stream_ptr(x))
-    _build.check(rc, "rglru kernel launch")
-    _build.LAUNCHES["rglru"] += 1
-    return y, h0
+    return _fwd(x, gates, states, False)[:2]
+
+
+def rglru_prefill(x: torch.Tensor, gates: Tuple[torch.Tensor, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rglru_scan``'s (y in x's dtype, the f32 state of the last step
+    [b, w]), from h = 0: the forward kernel writing that state beside y
+    (one launch), the plain recurrence on the CPU.  No autograd."""
+    _check(x, gates)
+    if _build.on_cpu("rglru", x, *gates):
+        h = rglru_states_ref(x, dict(zip(RGLRU_GATES, gates)))
+        return h.to(x.dtype), h[:, -1]
+    y, _, hl = _fwd(x, gates, False, True)
+    return y, hl
 
 
 def rglru_bwd(x: torch.Tensor, gates: Tuple[torch.Tensor, ...],

@@ -1,8 +1,9 @@
 """Mamba2 chunked SSD: the wrappers of the CUDA kernels ``csrc/ssd.cu``
 (forward and backward) and the autograd Function of the SSD mixer.
 
-Counterpart of ``repro.kernels.ssd.ssd`` (the training path's y; the
-final state is not returned, decode is ``ssd_step``): x [b, s, h, p],
+Counterpart of ``repro.kernels.ssd.ssd`` (the training path's y) and,
+for the prefill, of ``models/ssd.py`` ``ssd_chunked``'s final state
+(:func:`ssd_prefill`; decode is ``models/ssd.ssd_step``): x [b, s, h, p],
 dt [b, s, h] f32 (post-softplus), A_log [h] f32, B, C [b, s, n], D [h]
 f32 -> y [b, s, h, p] in x's dtype.  The D skip is added in f32 before
 the one cast to x's dtype, as the plain ``ssd_chunked`` does (the
@@ -21,8 +22,10 @@ from __future__ import annotations
 
 import torch
 
+from typing import Tuple
+
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
+from repro_torch.kernels.ref import ssd_bwd_ref, ssd_chunked, ssd_ref
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
 MAX_CHUNK = 128          # the kernels' largest chunk
@@ -74,26 +77,46 @@ def _scratch(x, b, h, nc, p, n):
             torch.empty(b, h, nc, p, n, **f32), torch.empty(b, h, nc, **f32))
 
 
+def _fwd(x, dt, A_log, B, C, D, chunk: int, final: bool):
+    """The forward kernel's y and, with ``final``, the f32 state after
+    the last step [b, h, p, n] (else None)."""
+    b, s, h, p, n, q = _check_kernel((x, dt, A_log, B, C, D), chunk)
+    y = torch.empty_like(x)
+    cb, states, decay = _scratch(x, b, h, s // q, p, n)
+    last = (torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+            if final else None)
+    rc = _build.library().repro_ssd_fwd(
+        x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(), y.data_ptr(), cb.data_ptr(),
+        states.data_ptr(), decay.data_ptr(),
+        last.data_ptr() if final else None, b, s, h, p, n, q,
+        _DTYPES[x.dtype], _build.stream_ptr(x))
+    _build.check(rc, "ssd kernel launch")
+    _build.LAUNCHES["ssd"] += 1
+    return y, last
+
+
 def ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
             chunk: int = 128) -> torch.Tensor:
     """y of the chunked SSD (shapes in the module's docstring), chunk
     ``min(chunk, s)``.  No autograd (see :func:`ssd`)."""
     _check(x, dt, A_log, B, C, D, chunk)
-    tensors = (x, dt, A_log, B, C, D)
-    if _build.on_cpu("ssd", *tensors):
+    if _build.on_cpu("ssd", x, dt, A_log, B, C, D):
         return ssd_ref(x, dt, A_log, B, C, D, chunk=chunk)
-    b, s, h, p, n, q = _check_kernel(tensors, chunk)
-    y = torch.empty_like(x)
-    cb, states, decay = _scratch(x, b, h, s // q, p, n)
-    rc = _build.library().repro_ssd_fwd(
-        x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
-        C.data_ptr(), D.data_ptr(), y.data_ptr(), cb.data_ptr(),
-        states.data_ptr(), decay.data_ptr(), b, s, h, p, n, q,
-        _DTYPES[x.dtype], _build.stream_ptr(x))
-    _build.check(rc, "ssd kernel launch")
-    _build.LAUNCHES["ssd"] += 1
-    return y
+    return _fwd(x, dt, A_log, B, C, D, chunk, False)[0]
+
+
+def ssd_prefill(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_chunked``'s (y, final state [b, h, p, n] f32): the forward
+    kernel with its scan's last carry written out (one launch), the plain
+    ``ssd_chunked`` on the CPU.  No autograd."""
+    _check(x, dt, A_log, B, C, D, chunk)
+    if _build.on_cpu("ssd", x, dt, A_log, B, C, D):
+        return ssd_chunked(x, dt, A_log, B, C, D, chunk=chunk)
+    return _fwd(x, dt, A_log, B, C, D, chunk, True)
 
 
 def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,

@@ -21,8 +21,9 @@ Refused, each naming its ROADMAP.md item (``launch/steps._refusal``):
 a mesh with a ``data`` axis above 1 (A4; JAX's default 16 x 16 ``single``
 mesh is one, so the port runs its model group, ``1x16``, and says so in
 ``mesh_shape``), ``--pp`` or ``--virtual-stages`` above 1 (A8), the
-``prefill_32k`` and ``decode_32k`` shapes (A5: no batched prefill and no
-dense decode) and per-layer seqs (A9).  ``--calibrate``, the default as in
+``prefill_32k`` and ``decode_32k`` shapes (A5: the dry run traces the
+training step only, not ``lm.prefill`` or the decode step) and per-layer
+seqs (A9).  ``--calibrate``, the default as in
 JAX, measures the card for the joint plan; without one it raises, and the
 caller passes ``--no-calibrate``.
 """
@@ -285,8 +286,8 @@ def run_cell(arch: Union[str, ArchConfig],
     if virtual_stages > 1:
         refuse(f"{virtual_stages} virtual pipeline stages", "A8")
     if shape.kind != "train":
-        refuse(f"the {shape.name} shape: no batched prefill and no dense "
-               f"decode", "A5")
+        refuse(f"the {shape.name} shape: the dry run traces the training "
+               f"step only, not the prefill or the decode step", "A5")
     check_plan(cfg, pplan, mesh)
     degrees, schedules, _, hp = plan_layers(cfg, hp, pplan)
     if hw is not None:

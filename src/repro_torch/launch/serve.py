@@ -1,13 +1,20 @@
-"""Serving launcher of the PyTorch port: random requests through the paged
-continuous-batching engine, on the card (default) or the CPU.
+"""Serving launcher of the PyTorch port: random requests through the
+continuous-batching engine, on the card (default) or the CPU.  The cache is
+dense unless ``--paged`` is given, as in ``repro.launch.serve``; every
+assigned arch serves (whisper's and llama's cross layers read the zero
+context JAX's engine holds).
 
     # on the GPU (builds the CUDA kernels at the first step)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-serve-h4096 \
-        --slots 8 --max-seq 2048 --prefix-cache
+        --slots 8 --max-seq 2048 --paged --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --slots 8 --max-seq 2048          # dense: local rings, post-norms
 
     # CPU smoke with the plain PyTorch versions of the kernels
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
-        --page-size 8 --prefix-cache
+        --paged --page-size 8 --prefix-cache
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --arch recurrentgemma-9b
 
     # structured telemetry (JSONL: TTFT, decode step, queue depth, slot
     # occupancy, free pages, prefix hit rate) and its report
@@ -16,7 +23,7 @@ continuous-batching engine, on the card (default) or the CPU.
     PYTHONPATH=src python -m repro_torch.obs.report tel
 
 Prints the engine's stats as JSON.  Mesh, pipeline, plan and draft flags
-of ``repro.launch.serve`` are not offered yet.
+of ``repro.launch.serve`` are not offered yet (ROADMAP.md A5).
 """
 from __future__ import annotations
 
@@ -41,13 +48,19 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="longest admissible prompt; 0 = max_seq // 2")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: global layers' k/v in a shared "
+                         "page pool with per-slot block tables; admission "
+                         "becomes reservation-based with cache-full "
+                         "backpressure (default: the dense per-slot cache)")
     ap.add_argument("--pages", type=int, default=0,
                     help="physical pages in the pool incl. the null page "
                          "(0 = auto: every slot can still reach max_seq)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page (max_seq must divide evenly)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="reuse cached prompt blocks across requests")
+                    help="reuse cached prompt blocks across requests; "
+                         "requires --paged")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
@@ -99,7 +112,8 @@ def _serve(args):
         cfg = cfg.reduced().replace(dtype="float32")
     eng = ServingEngine(cfg, slots=args.slots, max_seq=args.max_seq,
                         prefill_len=args.prefill_len or None,
-                        pages=args.pages, page_size=args.page_size,
+                        paged=args.paged, pages=args.pages,
+                        page_size=args.page_size,
                         prefix_cache=args.prefix_cache, device=args.device)
     eng.load(seed=args.seed)
 

@@ -1,5 +1,5 @@
-"""Rotary embedding, training attention and paged decode attention
-(``repro.models.attention`` for the training and paged decode paths)."""
+"""Rotary embedding, training and prefill attention, and decode attention
+over a dense or paged cache (``repro.models.attention``)."""
 from __future__ import annotations
 
 import functools
@@ -7,11 +7,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (dense_flash_decode,
+                                                flash_attention,
                                                 paged_flash_decode)
 from repro_torch.kernels.ref import gather_pages
 
-__all__ = ["rope", "gather_pages", "chunked_attention",
+__all__ = ["rope", "gather_pages", "chunked_attention", "decode_attention",
            "paged_decode_attention"]
 
 
@@ -68,8 +69,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ar = torch.arange(n, device=pos.device)
         if pos.shape[-1] != n or not bool((pos == ar).all()):
             raise NotImplementedError(
-                f"chunked_attention: {name} other than arange(s) (decode "
-                f"through this function) is not ported yet (ROADMAP.md A5)")
+                f"chunked_attention: {name} other than arange(s) (the "
+                f"speculative verify's offset queries) is not ported yet "
+                f"(ROADMAP.md A5)")
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
 
@@ -78,7 +80,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, tables: torch.Tensor,
                            pos: torch.Tensor, *, softcap: float = 0.0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Single-token decode attention through a block table; the CUDA
-    kernel on the card, its plain version on the CPU."""
+    """Single-token decode attention through a block table (global layers
+    of a paged cache); the CUDA kernel on the card, its plain version on
+    the CPU."""
     return paged_flash_decode(q, k_pages, v_pages, tables, pos,
                               softcap=softcap, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int] = None, softcap: float = 0.0,
+                     scale: Optional[float] = None,
+                     ring: bool = False) -> torch.Tensor:
+    """Single-token decode attention over a dense cache: q [b, 1, h, hd];
+    k_cache/v_cache [b, S, kvh, hd]; pos [b] int32, the new token's
+    position -> [b, 1, h, hd].  ``ring``: S = window slots written
+    circularly (slot = pos % S).  The paged decode kernel reads the cache
+    through a block-table view on the card
+    (:func:`~repro_torch.kernels.flash_attention.dense_flash_decode`);
+    JAX's masked softmax in f32 on the CPU."""
+    return dense_flash_decode(q, k_cache, v_cache, pos, window=window,
+                              softcap=softcap, scale=scale, ring=ring)

@@ -1,6 +1,8 @@
 """Layers: the training residual parts of ``repro.models.blocks`` over a
-:class:`~repro_torch.core.schedule.TmpCtx` and the decode step on a paged
-KV cache (``decode_fn``, tp=1, GLOBAL_ATTN + SwiGLU).
+:class:`~repro_torch.core.schedule.TmpCtx`, and at tp=1 the prefill
+(``prefill_fn``: the full prompt, building a layer's decode state) and the
+decode step (``decode_fn``: one token against that state, dense or paged)
+of every layer kind.
 
 A GLOBAL_ATTN layer is an attention part and an FFN part: each rank runs
 its ``h_local`` heads and ``d_ff / dx`` columns (dx: the width-sharding
@@ -33,12 +35,15 @@ from repro_torch.core.schedule import Part, TmpCtx
 from repro_torch.core.tmp import rms_norm
 from repro_torch.kernels.ref import RGLRU_GATES
 from repro_torch.kernels.ring_attention import ring_attention
-from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.ssd import ssd, ssd_prefill
 from repro_torch.models.attention import (chunked_attention,
+                                         decode_attention,
                                          paged_decode_attention, rope)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import attn_plan, ssd_dims
-from repro_torch.models.rglru import depthwise_conv1d, rglru_scan
+from repro_torch.models.rglru import (depthwise_conv1d, rglru_prefill,
+                                     rglru_scan, rglru_step)
+from repro_torch.models.ssd import ssd_step
 
 
 def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -50,10 +55,21 @@ def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 
 def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
              x: torch.Tensor) -> torch.Tensor:
-    """Residual delta of norm + SwiGLU at tp=1 (the decode step's)."""
+    """Residual delta of the FFN at tp=1 (the prefill's and the decode
+    step's): norm, then SwiGLU (``pn2`` after its exit with post-norms) or
+    the MoE FFN routing all of x's tokens together (capacity from their
+    count, as JAX's ``make_mlp_part``)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        moe = cfg.moe
+        return moe_ffn(h, {k: p[k] for k in ("router", "w1", "w3", "w2")},
+                       num_experts=moe.num_experts, top_k=moe.top_k,
+                       cap_factor=moe.capacity_factor)[0]
     a = F.silu(torch.matmul(h, p["wg"])) * torch.matmul(h, p["wu"])
-    return torch.matmul(a, p["wd"])
+    d = torch.matmul(a, p["wd"])
+    if cfg.post_norms:
+        d = rms_norm(d, p["pn2"], cfg.norm_eps)
+    return d
 
 
 def _qkv(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
@@ -245,13 +261,10 @@ def ssd_part(cfg: ArchConfig) -> Part:
     d_inner, nheads, n = ssd_dims(cfg)
 
     def ssd_body(p, x, aux, keep):
-        proj = torch.matmul(rms_norm(x, p["ln"], cfg.norm_eps),
-                            p["in_proj"])
-        z = proj[..., :d_inner]
-        xbc = proj[..., d_inner:2 * d_inner + 2 * n]
-        dtp = proj[..., 2 * d_inner + 2 * n:]
+        z, xbc, dtp = _ssd_split(cfg, torch.matmul(
+            rms_norm(x, p["ln"], cfg.norm_eps), p["in_proj"]))
         xbc = F.silu(depthwise_conv1d(xbc, p["conv"])[0])
-        b, s, _ = proj.shape
+        b, s, _ = x.shape
         xh = xbc[..., :d_inner].reshape(b, s, nheads, cfg.ssm_headdim)
         B = xbc[..., d_inner:d_inner + n]
         C = xbc[..., d_inner + n:]
@@ -292,25 +305,193 @@ def ring_part(cfg: ArchConfig, ctx: TmpCtx) -> Part:
     return Part(ring_body, "wo", collective=False)
 
 
-def decode_fn(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-              k_pool: torch.Tensor, v_pool: torch.Tensor, pos: torch.Tensor,
-              tables: torch.Tensor) -> torch.Tensor:
-    """x [b, 1, d]; k_pool/v_pool [pages, page, kvh, hd] (this layer's
-    pools); pos [b] int32; tables [b, nb] int32 -> x [b, 1, d].
+def _ssd_split(cfg: ArchConfig, proj: torch.Tensor):
+    """``in_proj``'s output -> (z, xBC, dt's pre-activation)."""
+    d_inner, _, n = ssd_dims(cfg)
+    return (proj[..., :d_inner], proj[..., d_inner:2 * d_inner + 2 * n],
+            proj[..., 2 * d_inner + 2 * n:])
 
-    Writes the new token's k/v into the pools IN PLACE (the JAX version
-    returns updated pools).  Inactive slots carry all-zero tables and write
-    the null page 0, which every reader masks by position."""
-    b = x.shape[0]
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, TmpCtx(), p, h, pos[:, None])
-    page = k_pool.shape[1]
-    pos_l = pos.long()
-    phys = tables.long()[torch.arange(b, device=x.device), pos_l // page]
-    off = pos_l % page
-    k_pool[phys, off] = k[:, 0].to(k_pool.dtype)
-    v_pool[phys, off] = v[:, 0].to(v_pool.dtype)
-    o = paged_decode_attention(q, k_pool, v_pool, tables, pos,
-                               softcap=cfg.attn_softcap)
-    x = x + _attn_out(cfg, p, o)
-    return x + mlp_part(cfg, p, x)
+
+def _rglru_out(p, gb: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU part's exit: ``gelu(g) * y`` (tanh form) through
+    ``w_out``."""
+    return torch.matmul(F.gelu(gb, approximate="tanh") * y, p["w_out"])
+
+
+def prefill_fn(cfg: ArchConfig, kind: str):
+    """The prefill of one layer at tp=1 (``blocks.py:297-375``
+    ``prefill_fn``): ``fn(p, x, aux) -> (x, st)`` over the whole prompt
+    (``aux``: ``positions`` [b, s], ``ctx`` the context [b, L, d] or None),
+    ``st`` the layer's decode state (:func:`~repro_torch.models.params.
+    cache_specs`' keys, unstacked).  Attention kinds run the flash kernels
+    (causal; LOCAL_ATTN windowed; softcapped), keep k and v (a LOCAL_ATTN
+    layer past its window keeps the last ``window`` in ring order, slot =
+    pos % window), and CROSS_ATTN adds the context's K/V (no rope) and
+    non-causal attention of s queries to them; RGLRU and SSD run their
+    kernels over the sequence and keep the last state and the conv's
+    last inputs.  Then the FFN (:func:`mlp_part`) but in SSD layers."""
+    window = cfg.window if kind == LOCAL_ATTN else None
+    mlp = kind != SSD and bool(cfg.d_ff)
+    hd = cfg.resolved_head_dim
+    ctx = TmpCtx()
+
+    def fn(p, x, aux):
+        st: Dict[str, torch.Tensor] = {}
+        b, s, _ = x.shape
+        if kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
+            h = rms_norm(x, p["ln"], cfg.norm_eps)
+            q, k, v = _qkv(cfg, ctx, p, h, aux["positions"])
+            o = chunked_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.attn_softcap)
+            delta = _attn_out(cfg, p, o)
+            if cfg.post_norms:
+                delta = rms_norm(delta, p["pn1"], cfg.norm_eps)
+            x = x + delta
+            if window is not None and s > window:
+                roll = s % window
+                k = torch.roll(k[:, s - window:], roll, dims=1)
+                v = torch.roll(v[:, s - window:], roll, dims=1)
+            st["k"], st["v"] = k, v
+            if kind == CROSS_ATTN:
+                c = aux["ctx"]
+                L = c.shape[1]
+                ck = torch.matmul(c, p["c_wk"]).reshape(
+                    b, L, cfg.num_kv_heads, hd)
+                cv = torch.matmul(c, p["c_wv"]).reshape(
+                    b, L, cfg.num_kv_heads, hd)
+                st["c_k"], st["c_v"] = ck, cv
+                hc = rms_norm(x, p["c_ln"], cfg.norm_eps)
+                qd = torch.matmul(hc, p["c_wq"]).reshape(
+                    b, s, cfg.num_heads, hd)
+                oc = chunked_attention(qd, ck, cv, causal=False)
+                dc = torch.matmul(oc.reshape(b, s, -1), p["c_wo"])
+                x = x + dc * torch.tanh(p["c_gate"].to(dc.dtype))
+        elif kind == RGLRU:
+            h = rms_norm(x, p["ln"], cfg.norm_eps)
+            xb = torch.matmul(h, p["w_in_x"])
+            gb = torch.matmul(h, p["w_in_g"])
+            xc, conv_st = depthwise_conv1d(xb, p["conv"])
+            y, h_last = rglru_prefill(xc, {k: p[k] for k in RGLRU_GATES})
+            x = x + _rglru_out(p, gb, y)
+            st["h"], st["conv"] = h_last, conv_st
+        elif kind == SSD:
+            d_inner, nheads, n = ssd_dims(cfg)
+            z, xbc, dtp = _ssd_split(cfg, torch.matmul(
+                rms_norm(x, p["ln"], cfg.norm_eps), p["in_proj"]))
+            xbc_c, conv_st = depthwise_conv1d(xbc, p["conv"])
+            xbc_c = F.silu(xbc_c)
+            dt = F.softplus(dtp.float() + p["dt_bias"])
+            y, S = ssd_prefill(
+                xbc_c[..., :d_inner].reshape(b, s, nheads, cfg.ssm_headdim)
+                .contiguous(), dt.contiguous(), p["A_log"],
+                xbc_c[..., d_inner:d_inner + n].contiguous(),
+                xbc_c[..., d_inner + n:].contiguous(), p["Dskip"],
+                chunk=min(128, s))
+            y = rms_norm(y.reshape(b, s, d_inner), p["norm_g"],
+                         cfg.norm_eps) * F.silu(z.to(y.dtype))
+            x = x + torch.matmul(y, p["out_proj"])
+            st["S"], st["conv"] = S, conv_st
+        else:
+            raise ValueError(kind)
+        if mlp:
+            x = x + mlp_part(cfg, p, x)
+        return x, st
+
+    return fn
+
+
+def decode_fn(cfg: ArchConfig, kind: str):
+    """The decode step of one layer at tp=1 (``blocks.py:378-475``
+    ``decode_fn``): ``fn(p, x, st, aux) -> x`` for x [b, 1, d] at
+    positions ``aux["pos"]`` [b] int32, updating the layer's state ``st``
+    (views of :func:`~repro_torch.models.params.cache_specs`' leaves) IN
+    PLACE, where JAX returns a new state.
+
+    A GLOBAL_ATTN layer with ``aux["tables"]`` [b, nb] writes k/v into its
+    page pools (inactive slots carry all-zero tables and write the null
+    page 0, which every reader masks by position) and reads through the
+    table; otherwise k/v go to slot ``pos`` (``pos % window`` in a
+    LOCAL_ATTN ring) and :func:`~repro_torch.models.attention.
+    decode_attention` reads the dense cache.  CROSS_ATTN then reads every
+    context row of ``c_k``/``c_v`` (position ``L - 1``) and adds the
+    ``tanh(c_gate)``-gated exit.  RGLRU and SSD run their steps from
+    ``h``/``S`` and the conv history.  Then the FFN but in SSD layers."""
+    is_local = kind == LOCAL_ATTN
+    mlp = kind != SSD and bool(cfg.d_ff)
+    hd = cfg.resolved_head_dim
+    ctx = TmpCtx()
+
+    def fn(p, x, st, aux):
+        pos = aux["pos"]
+        b = x.shape[0]
+        if kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN):
+            h = rms_norm(x, p["ln"], cfg.norm_eps)
+            q, k, v = _qkv(cfg, ctx, p, h, pos[:, None])
+            bidx = torch.arange(b, device=x.device)
+            pos_l = pos.long()
+            if kind == GLOBAL_ATTN and aux.get("tables") is not None:
+                tables = aux["tables"]
+                page = st["k"].shape[1]
+                phys = tables.long()[bidx, pos_l // page]
+                off = pos_l % page
+                st["k"][phys, off] = k[:, 0].to(st["k"].dtype)
+                st["v"][phys, off] = v[:, 0].to(st["v"].dtype)
+                o = paged_decode_attention(q, st["k"], st["v"], tables, pos,
+                                           softcap=cfg.attn_softcap)
+            else:
+                S = st["k"].shape[1]
+                slot = pos_l % S if is_local else pos_l
+                st["k"][bidx, slot] = k[:, 0].to(st["k"].dtype)
+                st["v"][bidx, slot] = v[:, 0].to(st["v"].dtype)
+                o = decode_attention(q, st["k"], st["v"], pos,
+                                     window=cfg.window if is_local else None,
+                                     softcap=cfg.attn_softcap, ring=is_local)
+            delta = _attn_out(cfg, p, o)
+            if cfg.post_norms:
+                delta = rms_norm(delta, p["pn1"], cfg.norm_eps)
+            x = x + delta
+            if kind == CROSS_ATTN:
+                hc = rms_norm(x, p["c_ln"], cfg.norm_eps)
+                qd = torch.matmul(hc, p["c_wq"]).reshape(
+                    b, 1, cfg.num_heads, hd)
+                L = st["c_k"].shape[1]
+                oc = decode_attention(
+                    qd, st["c_k"], st["c_v"],
+                    torch.full((b,), L - 1, dtype=torch.int32,
+                               device=x.device))
+                dc = _attn_out(cfg, {"wo": p["c_wo"]}, oc)
+                x = x + dc * torch.tanh(p["c_gate"].to(dc.dtype))
+        elif kind == RGLRU:
+            h = rms_norm(x, p["ln"], cfg.norm_eps)
+            xb = torch.matmul(h, p["w_in_x"])
+            gb = torch.matmul(h, p["w_in_g"])
+            hist = torch.cat([st["conv"], xb], dim=1)           # [b, k, W]
+            xc = torch.einsum("bkw,kw->bw", hist, p["conv"])[:, None]
+            y, h_new = rglru_step(xc, {k: p[k] for k in RGLRU_GATES},
+                                  st["h"])
+            x = x + _rglru_out(p, gb, y)
+            st["h"].copy_(h_new)
+            st["conv"].copy_(hist[:, 1:])
+        elif kind == SSD:
+            d_inner, nheads, n = ssd_dims(cfg)
+            z, xbc, dtp = _ssd_split(cfg, torch.matmul(
+                rms_norm(x, p["ln"], cfg.norm_eps), p["in_proj"]))
+            hist = torch.cat([st["conv"], xbc], dim=1)          # [b, k, C]
+            xbc_c = F.silu(torch.einsum("bkc,kc->bc", hist, p["conv"]))
+            dt = F.softplus(dtp[:, 0].float() + p["dt_bias"])
+            y, S = ssd_step(
+                xbc_c[:, :d_inner].reshape(b, nheads, cfg.ssm_headdim), dt,
+                p["A_log"], xbc_c[:, d_inner:d_inner + n],
+                xbc_c[:, d_inner + n:], p["Dskip"], st["S"])
+            y = rms_norm(y.reshape(b, 1, d_inner), p["norm_g"],
+                         cfg.norm_eps) * F.silu(z.to(y.dtype))
+            x = x + torch.matmul(y, p["out_proj"])
+            st["S"].copy_(S)
+            st["conv"].copy_(hist[:, 1:])
+        else:
+            raise ValueError(kind)
+        if mlp:
+            x = x + mlp_part(cfg, p, x)
+        return x
+
+    return fn

@@ -1,9 +1,9 @@
 """The model: the training loss of ``repro.models.lm.build_train_loss``
 over a rank mesh (1-D TMP with sequence parallelism and ring attention,
 the 2-D layout, and per-layer plans whose groups mix degrees and
-schedules), and the paged decode step of
-``build_decode`` on one device (embed, copy-on-write, the layer loop,
-final norm, head, greedy token)."""
+schedules), and on one device the batched prefill of ``build_prefill``
+and the decode step of ``build_decode`` on a dense or paged state (embed,
+copy-on-write, the layer loop, final norm, head, greedy token)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, TrainHParams
+from repro_torch.configs.base import GLOBAL_ATTN, ArchConfig, TrainHParams
 from repro_torch.core import remat
 from repro_torch.core import tmp as tmpc
 from repro_torch.core.comm import Comm, MeshComm, SoloComm
@@ -23,10 +23,10 @@ from repro_torch.core.tmp import (greedy_token, rms_norm,
                                   vocab_parallel_embed, vocab_parallel_xent)
 from repro_torch.models import blocks
 from repro_torch.models.params import (PlanGroup, check_families,
-                                       check_servable, check_supported,
-                                       check_tp, encoder_layers,
-                                       head_weight, layer_units,
-                                       plan_groups)
+                                       check_supported, check_tp,
+                                       encoder_layers, head_weight,
+                                       layer_units, plan_groups,
+                                       stack_layout)
 
 
 def normalize_strategy(cfg: ArchConfig, hp: TrainHParams,
@@ -300,8 +300,7 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
             f"seq_shard={shard}) at seq {s}: build it with train_ctx")
     x = vocab_parallel_embed(tokens, params["embed"], ctx.group,
                              sp_seq_dim=1 if ctx.sp else None)
-    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    x = _family_scale(cfg, x)
     if "pos_embed" in params:
         x = x + params["pos_embed"][None, :s].to(x.dtype)
     cross = None
@@ -332,13 +331,18 @@ def train_loss(cfg: ArchConfig, params: Dict[str, Any],
     return loss_sum / count + aux, aux
 
 
-def apply_cow(state: Dict[str, Any], cow_src: torch.Tensor,
-              cow_dst: torch.Tensor):
-    """Copy page ``cow_src[i]`` over page ``cow_dst[i]`` in every layer's k
-    and v pool, IN PLACE.  All sources are gathered before any page is
-    written, as ``lm._apply_cow`` does; ``(0, 0)`` pairs copy the null page
-    onto itself and change nothing."""
-    for entry in state["blocks"]:
+def apply_cow(cfg: ArchConfig, state: Dict[str, Any],
+              cow_src: torch.Tensor, cow_dst: torch.Tensor):
+    """Copy page ``cow_src[i]`` over page ``cow_dst[i]`` in the k and v
+    pools of every GLOBAL_ATTN layer (``lm._apply_cow``), IN PLACE; the
+    other layers' states are dense and stay.  All sources are gathered
+    before any page is written; ``(0, 0)`` pairs copy the null page onto
+    itself and change nothing."""
+    _, pat, tail = stack_layout(cfg)
+    entries = ([e for e, k in zip(state["blocks"], pat) if k == GLOBAL_ATTN]
+               + [e for e, k in zip(state.get("tail", []), tail)
+                  if k == GLOBAL_ATTN])
+    for entry in entries:
         for key in ("k", "v"):
             pool = entry[key]                     # [n, pages, page, kvh, hd]
             taken = pool.index_select(1, cow_src.long())
@@ -356,25 +360,103 @@ def last_logits(cfg: ArchConfig, params: Dict[str, Any],
     return logits
 
 
+def _family_scale(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """gemma's and recurrentgemma's ``sqrt(d_model)`` embedding scale."""
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def _layers(cfg: ArchConfig, params: Dict[str, Any]):
+    """(kind, position in ``blocks`` or None for the tail, repeat or tail
+    index, the layer's leaves) in execution order."""
+    n, pat, tail = stack_layout(cfg)
+    per_pos = [{name: t.unbind(0) for name, t in blk.items()}
+               for blk in params["blocks"]]
+    for r in range(n):
+        for j, kind in enumerate(pat):
+            yield kind, j, r, {name: ts[r] for name, ts in per_pos[j].items()}
+    for i, kind in enumerate(tail):
+        yield kind, None, i, params["tail"][i]
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            ctx: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """tokens [b, s] int32 (and, for cross attention, ``ctx`` [b,
+    context_len, d]: the stub frontend's embeddings) -> (next token [b]
+    int32, the decode state of the prompt): ``build_prefill`` on one
+    device.  The embedding (times sqrt(d_model) for gemma models; plus
+    ``pos_embed[:s]``), the context (whisper's encoder,
+    :func:`run_encoder`; else the stub as it is, in the model dtype), each
+    layer's :func:`~repro_torch.models.blocks.prefill_fn`, the final norm,
+    the f32 head of the last position and the greedy token.  The state
+    has :func:`~repro_torch.models.params.cache_specs`' tree at
+    ``seq = s`` (the blocks' leaves stacked, the tail's [1, ...]), and
+    its dtypes."""
+    check_supported(cfg)
+    b, s = tokens.shape
+    x = _family_scale(cfg, vocab_parallel_embed(tokens, params["embed"]))
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][None, :s].to(x.dtype)
+    cross = None
+    if cfg.context_len:
+        if ctx is None:
+            raise ValueError(f"{cfg.name} cross-attends to a context: "
+                             f"prefill needs ctx [b, {cfg.context_len}, d]")
+        cross = ctx.to(x.dtype)
+        if cfg.is_encdec:
+            cross = run_encoder(cfg, params, cross)
+    aux = {"positions": torch.arange(s, device=x.device)[None, :]
+           .expand(b, -1), "ctx": cross}
+    n, pat, tail = stack_layout(cfg)
+    fns = {k: blocks.prefill_fn(cfg, k) for k in set(pat) | set(tail)}
+    per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in pat]
+    state: Dict[str, Any] = {"blocks": [], "tail": []}
+    for kind, j, _, p in _layers(cfg, params):
+        x, st = fns[kind](p, x, aux)
+        if j is None:
+            state["tail"].append({k: t[None] for k, t in st.items()})
+        else:
+            per_pos[j].append(st)
+    state["blocks"] = [{k: torch.stack([st[k] for st in sts])
+                        for k in sts[0]} for sts in per_pos if sts]
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    return greedy_token(last_logits(cfg, params, x[:, -1])), state
+
+
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict[str, Any],
                 state: Dict[str, Any], tokens: torch.Tensor,
-                pos: torch.Tensor, tables: torch.Tensor,
+                pos: torch.Tensor, tables: Optional[torch.Tensor] = None,
                 cow_src: Optional[torch.Tensor] = None,
                 cow_dst: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [b] int32, pos [b] int32, tables [b, nb] int32 -> next token
-    [b] int32.  ``state`` (the page pools of :func:`params.zeros_state`) is
-    updated in place: copy-on-write pages first, then each layer's k/v."""
-    check_servable(cfg)
-    if cow_src is not None and cow_src.numel():
-        apply_cow(state, cow_src, cow_dst)
-    x = vocab_parallel_embed(tokens[:, None], params["embed"])
-    blk = params["blocks"][0]
-    per_layer = {name: t.unbind(0) for name, t in blk.items()}
-    k_pools = state["blocks"][0]["k"].unbind(0)
-    v_pools = state["blocks"][0]["v"].unbind(0)
-    for i in range(cfg.num_layers):
-        p = {name: ts[i] for name, ts in per_layer.items()}
-        x = blocks.decode_fn(cfg, p, x, k_pools[i], v_pools[i], pos, tables)
+    """tokens [b] int32, pos [b] int32 -> next token [b] int32: dense and
+    paged ``build_decode`` on one device.  ``state`` (the tree of
+    :func:`~repro_torch.models.params.cache_specs`, from
+    :func:`~repro_torch.models.params.zeros_state` or :func:`prefill`) is
+    updated in place.  Paged (``tables`` [b, nb] int32, the GLOBAL_ATTN
+    layers' page pools): copy-on-write pages first (:func:`apply_cow`).
+    The embedding of the current token (times sqrt(d_model) for gemma
+    models; plus ``pos_embed`` at ``min(pos, rows - 1)``), each layer's
+    :func:`~repro_torch.models.blocks.decode_fn`, the final norm, the f32
+    head and the greedy token."""
+    check_supported(cfg)
+    if tables is not None and cow_src is not None and cow_src.numel():
+        apply_cow(cfg, state, cow_src, cow_dst)
+    x = _family_scale(cfg, vocab_parallel_embed(tokens[:, None],
+                                                params["embed"]))
+    if "pos_embed" in params:
+        pe = params["pos_embed"]
+        x = x + pe[torch.clamp(pos.long(), max=pe.shape[0] - 1)][:, None] \
+            .to(x.dtype)
+    _, pat, tail = stack_layout(cfg)
+    fns = {k: blocks.decode_fn(cfg, k) for k in set(pat) | set(tail)}
+    aux = {"pos": pos, "tables": tables}
+    for kind, j, i, p in _layers(cfg, params):
+        entry = state["blocks"][j] if j is not None else state["tail"][i]
+        st = {k: t[i] if j is not None else t[0] for k, t in entry.items()}
+        x = fns[kind](p, x, st, aux)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return greedy_token(last_logits(cfg, params, x[:, 0]))

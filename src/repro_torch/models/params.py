@@ -1,5 +1,6 @@
-"""Parameter and paged-cache shapes, partition specs, init, and the
-bridge to the JAX package's flat checkpoint view.
+"""Parameter and decode-state shapes, partition specs, init, and the
+bridge to the JAX package's flat checkpoint view (weights and decode
+states).
 
 The port's weights are a plain dict with the JAX tree's structure (over
 a rank mesh each rank holds its shard of every sharded leaf, see
@@ -63,20 +64,13 @@ class Spec:
         return tuple(a for axes in self.dims() for a in axes)
 
 
-# the ROADMAP.md items that name what the families of slices 5-6 lack
+# the ROADMAP.md items that name what the families lack at tp > 1
 FAMILY_TP_ITEM = ("ROADMAP.md A10c, MoE and SSD at tp > 1: MoE 'tmp' and "
                   "'ep', the replicated SSD mixer")
-FAMILY_SERVE_ITEM = "ROADMAP.md A10, MoE and SSD serving"
 HYBRID_TP_ITEM = ("ROADMAP.md A10c, RG-LRU and local attention at tp > 1: "
                   "the width-sharded RG-LRU")
-HYBRID_SERVE_ITEM = ("ROADMAP.md A5/A10d, RG-LRU and local-attention "
-                     "serving: rglru_step, the conv state and the window "
-                     "ring cache")
 CROSS_TP_ITEM = ("ROADMAP.md A10c, cross attention, encoders and "
                  "post-norms at tp > 1")
-CROSS_SERVE_ITEM = ("ROADMAP.md A5, serving cross attention, encoders and "
-                    "post-norms: the context's K/V, the encoder pass and "
-                    "the decode step's post-norms")
 SUPPORTED_KINDS = (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD, CROSS_ATTN)
 
 
@@ -115,26 +109,9 @@ def is_family(cfg: ArchConfig) -> bool:
 
 def has_cross_or_post(cfg: ArchConfig) -> bool:
     """A config with cross attention, an encoder or post-norms: the port
-    trains it at tp=1 only and serves none."""
+    trains and serves it at tp=1 only."""
     return (CROSS_ATTN in cfg.layer_pattern or cfg.is_encdec
             or cfg.post_norms)
-
-
-def check_servable(cfg: ArchConfig):
-    """Serving runs the dense all-global-attention models only."""
-    check_supported(cfg)
-    if is_hybrid(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not serve RG-LRU or "
-            f"local-attention models yet ({HYBRID_SERVE_ITEM})")
-    if is_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not serve MoE or SSD models "
-            f"yet ({FAMILY_SERVE_ITEM})")
-    if has_cross_or_post(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port does not serve cross attention, "
-            f"encoders or post-norms yet ({CROSS_SERVE_ITEM})")
 
 
 @dataclass(frozen=True)
@@ -950,17 +927,101 @@ def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
             .detach().cpu().numpy() for k, t in flatten(params).items()}
 
 
-def cache_shape(cfg: ArchConfig, pages: int,
-                page_size: int) -> Tuple[int, ...]:
-    """Page pool of one k (or v) stack: ``[n, pages, page, kvh, hd]``
-    (``repro.models.params.cache_specs(paged=...)`` at tp=1)."""
-    return (cfg.num_layers, pages, page_size, cfg.num_kv_heads,
-            cfg.resolved_head_dim)
+def cache_specs(cfg: ArchConfig, *, batch: int, seq: int,
+                paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+    """The decode state of ``batch`` slots of ``seq`` positions
+    (``repro.models.params.cache_specs`` at tp=1): ``{"blocks": [one dict a
+    pattern position, each leaf stacked [n, ...]], "tail": [one dict a
+    tail layer, [1, ...]]}`` of :class:`Spec` (f32 where JAX's is, else the
+    model dtype), with JAX's keys by layer kind:
+
+    * GLOBAL_ATTN: ``k``, ``v`` [n, batch, seq, kvh, hd];
+    * LOCAL_ATTN: the same over ``min(seq, window)`` positions, a ring
+      (slot = pos % window);
+    * CROSS_ATTN: the self-attention's ``k``, ``v`` and the context's
+      ``c_k``, ``c_v`` [n, batch, context_len, kvh, hd];
+    * RGLRU: ``h`` [n, batch, w] f32 and the conv's last inputs ``conv``
+      [n, batch, 3, w];
+    * SSD: ``S`` [n, batch, heads, p, state] f32 and ``conv`` [n, batch,
+      conv - 1, d_inner + 2 state].
+
+    ``paged=(pages, page_size)`` swaps the GLOBAL_ATTN ``k``, ``v`` for
+    page pools [n, pages, page_size, kvh, hd]; every other state stays
+    dense."""
+    check_supported(cfg)
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    d_inner, nheads, nstate = ssd_dims(cfg)
+    w = cfg.rglru_width or cfg.d_model
+
+    def leaf(*shape, f32=False):
+        return Spec(tuple(shape), f32=f32, scale=0.0)
+
+    def kv(n, s):
+        return {"k": leaf(n, batch, s, kvh, hd),
+                "v": leaf(n, batch, s, kvh, hd)}
+
+    def state_for(kind, n):
+        if kind == GLOBAL_ATTN:
+            if paged is None:
+                return kv(n, seq)
+            pages, page_size = paged
+            return {"k": leaf(n, pages, page_size, kvh, hd),
+                    "v": leaf(n, pages, page_size, kvh, hd)}
+        if kind == LOCAL_ATTN:
+            return kv(n, min(seq, cfg.window))
+        if kind == CROSS_ATTN:
+            return {**kv(n, seq),
+                    "c_k": leaf(n, batch, cfg.context_len, kvh, hd),
+                    "c_v": leaf(n, batch, cfg.context_len, kvh, hd)}
+        if kind == RGLRU:
+            return {"h": leaf(n, batch, w, f32=True),
+                    "conv": leaf(n, batch, 3, w)}
+        if kind == SSD:
+            return {"S": leaf(n, batch, nheads, cfg.ssm_headdim, nstate,
+                              f32=True),
+                    "conv": leaf(n, batch, cfg.ssm_conv - 1,
+                                 d_inner + 2 * nstate)}
+        raise ValueError(kind)
+
+    n, pat, tail = stack_layout(cfg)
+    return {"blocks": [state_for(k, n) for k in pat] if n else [],
+            "tail": [state_for(k, 1) for k in tail]}
 
 
-def zeros_state(cfg: ArchConfig, pages: int, page_size: int,
+def zeros_state(cfg: ArchConfig, specs: Dict[str, Any],
                 device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
-    shape = cache_shape(cfg, pages, page_size)
-    dt = DTYPES[cfg.dtype]
-    return {"blocks": [{"k": torch.zeros(shape, dtype=dt, device=device),
-                        "v": torch.zeros(shape, dtype=dt, device=device)}]}
+    """Zeros in the tree of :func:`cache_specs` (f32 leaves in f32, the
+    rest in the model dtype) on ``device``."""
+    wdt = DTYPES[cfg.dtype]
+    return unflatten({k: torch.zeros(s.shape, device=device,
+                                     dtype=torch.float32 if s.f32 else wdt)
+                      for k, s in flatten(specs).items()})
+
+
+def state_from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
+                    specs: Dict[str, Any],
+                    device: torch.device = torch.device("cpu")
+                    ) -> Dict[str, Any]:
+    """A decode state from JAX's (``jax.tree_util.keystr`` names of its
+    state tree, numpy leaves): the tree of :func:`cache_specs` with the
+    same names and shapes, no remapping."""
+    fs = flatten(specs)
+    missing, extra = sorted(set(fs) - set(flat)), sorted(set(flat) - set(fs))
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: flat state missing {missing}, "
+                       f"unexpected {extra}")
+    wdt = DTYPES[cfg.dtype]
+    out = {}
+    for key, s in fs.items():
+        if tuple(flat[key].shape) != s.shape:
+            raise ValueError(f"{key}: shape {tuple(flat[key].shape)}, "
+                             f"expected {s.shape}")
+        out[key] = _to_torch(flat[key]).to(
+            device=device, dtype=torch.float32 if s.f32 else wdt)
+    return unflatten(out)
+
+
+def state_to_flat(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`state_from_flat`: flat name -> host array (bf16
+    leaves as f32, which holds every bf16 value exactly)."""
+    return to_flat(state)

@@ -1,17 +1,24 @@
-"""Batched serving engine on a paged KV cache (``repro.serving.engine``,
-paged path, one device).
+"""Batched serving engine (``repro.serving.engine`` on one device): a
+dense per-slot decode state by default, or GLOBAL_ATTN k/v in a paged
+pool (``paged=True``).
 
 The engine owns ``slots`` decode rows.  Requests are admitted into free
-slots, every step decodes one token for all active slots (prompts are
+slots, every step decodes one token for all slots (prompts are
 teacher-forced through decode steps, as in the JAX engine), and finished
-sequences free their slots.  The host logic (admission, reservations,
+sequences free their slots.  Every layer kind serves: the state is
+:func:`~repro_torch.models.params.cache_specs`' tree (local-attention
+rings, RG-LRU and SSD states, the context's K/V, which stay zeros, as in
+JAX's engine, since no prefill fills them), and paging swaps only the
+global layers' k/v for pools.  The host logic (admission, reservations,
 prefix reuse, copy-on-write, release audits, ``stats``) is the JAX
 engine's, line for line, so both engines emit the same tokens in the same
-number of steps.  Telemetry (:mod:`repro_torch.obs`) records JAX's
+number of steps.  As in JAX, a slot's dense or recurrent state is not
+cleared between requests (positions mask stale k/v; recurrent states
+carry on).  Telemetry (:mod:`repro_torch.obs`) records JAX's
 ``serving.*`` metrics: queue depth, slot occupancy, free pages and the
 prefix hit rate each tick, the decode step time, TTFT and decoded tokens,
 and the drain's wall time and throughput.  Speculative decoding (and its
-metrics) and the dense cache are not ported yet (ROADMAP.md queue A).
+metrics) is not ported yet (ROADMAP.md queue A, A5).
 """
 from __future__ import annotations
 
@@ -44,9 +51,11 @@ class ServingEngine:
     """``prefill_len`` is the admission contract: the longest prompt a
     request may carry (default ``max_seq // 2``).
 
-    ``pages`` physical pages of ``page_size`` tokens (0 = auto-size so
-    every slot can reach ``max_seq``, plus the null page); ``prefix_cache``
-    reuses cached prompt blocks across requests.
+    ``paged`` puts GLOBAL_ATTN k/v in a pool of ``pages`` physical pages
+    of ``page_size`` tokens (0 = auto-size so every slot can reach
+    ``max_seq``, plus the null page); ``prefix_cache`` (requires
+    ``paged`` and an all-global-attention pattern) reuses cached prompt
+    blocks across requests.
 
     ``device``: ``None`` means the card and raises when there is none;
     pass ``"cpu"`` to run the plain PyTorch versions of the kernels.
@@ -57,13 +66,9 @@ class ServingEngine:
 
     def __init__(self, cfg: ArchConfig, *, slots: int, max_seq: int,
                  eos_id: int = 2, prefill_len: Optional[int] = None,
-                 paged: bool = True, pages: int = 0, page_size: int = 16,
+                 paged: bool = False, pages: int = 0, page_size: int = 16,
                  prefix_cache: bool = False, device=None, telemetry=None):
-        if not paged:
-            raise NotImplementedError(
-                "the PyTorch port serves the paged KV cache only; the dense "
-                "cache is ROADMAP.md queue A item 'dense decode'")
-        prm.check_servable(cfg)
+        prm.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.slots = slots
@@ -77,15 +82,31 @@ class ServingEngine:
                 f"[1, {max_seq}) — a prompt-full slot needs at least one "
                 f"position of decode headroom")
         self.prefill_len = prefill_len
-        if prefix_cache and set(cfg.layer_pattern) - {GLOBAL_ATTN}:
+        if prefix_cache and not paged:
             raise ValueError(
-                f"prefix cache requires an all-global-attention layer "
-                f"pattern; {cfg.name} has {cfg.layer_pattern}")
-        if pages <= 0:
-            pages = slots * (max_seq // max(page_size, 1)) + 1
-        self.paged = PagedKVCache(pages=pages, page_size=page_size,
-                                  slots=slots, max_seq=max_seq,
-                                  prefix_cache=prefix_cache)
+                "prefix_cache requires paged=True — prefix reuse maps "
+                "cached KV *pages* into the new slot's block table; the "
+                "dense per-slot cache has no shareable unit")
+        if prefix_cache:
+            _, pat, tail = prm.stack_layout(cfg)
+            other = sorted((set(pat) | set(tail)) - {GLOBAL_ATTN})
+            if other:
+                raise ValueError(
+                    f"prefix cache requires an all-global-attention layer "
+                    f"pattern; {cfg.name} mixes in {other} — skipping "
+                    f"prefill for a shared span cannot reconstruct "
+                    f"ring-buffer or recurrent layer states")
+        self.paged: Optional[PagedKVCache] = None
+        ptuple = None
+        if paged:
+            if pages <= 0:
+                pages = slots * (max_seq // max(page_size, 1)) + 1
+            self.paged = PagedKVCache(pages=pages, page_size=page_size,
+                                      slots=slots, max_seq=max_seq,
+                                      prefix_cache=prefix_cache)
+            ptuple = (pages, page_size)
+        self.state_specs = prm.cache_specs(cfg, batch=slots, seq=max_seq,
+                                           paged=ptuple)
 
         self.params: Optional[Dict[str, Any]] = None
         self.state: Optional[Dict[str, Any]] = None
@@ -110,11 +131,11 @@ class ServingEngine:
 
     def load(self, seed: int = 0, params: Optional[Dict[str, Any]] = None):
         """Random weights from ``seed`` (or the given weights, e.g. from
-        :func:`repro_torch.models.params.from_flat`) and empty pools."""
+        :func:`repro_torch.models.params.from_flat`) and a zero state."""
         self.params = params if params is not None else prm.init_params(
-            self.cfg, seed=seed, device=self.device)
-        self.state = prm.zeros_state(self.cfg, self.paged.pages,
-                                     self.paged.page_size,
+            self.cfg, seed=seed, device=self.device,
+            max_pos=self.max_seq + 8)
+        self.state = prm.zeros_state(self.cfg, self.state_specs,
                                      device=self.device)
 
     @property
@@ -148,22 +169,25 @@ class ServingEngine:
             req = self._next_request()
             if req is None:
                 return
-            shared, span = self.paged.lookup(req.prompt)
-            # keep at least one prompt token to consume: the engine's
-            # first step on the slot must produce a next-token
-            hit = min(span, len(req.prompt) - 1)
-            if not self.paged.can_admit(len(req.prompt), req.max_new_tokens,
-                                        shared_pages=len(shared)):
-                # cache-full backpressure: park the request at the head of
-                # the line until a release frees enough blocks
-                self._pending = req
-                self.rec.counter("serving.admission_deferred", 1)
-                return
-            self.paged.admit(s, len(req.prompt), req.max_new_tokens,
-                             shared=shared)
-            if hit:
-                self.stats["prefix_hits"] += 1
-                self.stats["prefix_hit_tokens"] += hit
+            hit = 0
+            if self.paged is not None:
+                shared, span = self.paged.lookup(req.prompt)
+                # keep at least one prompt token to consume: the engine's
+                # first step on the slot must produce a next-token
+                hit = min(span, len(req.prompt) - 1)
+                if not self.paged.can_admit(len(req.prompt),
+                                            req.max_new_tokens,
+                                            shared_pages=len(shared)):
+                    # cache-full backpressure: park the request at the
+                    # head of the line until a release frees enough blocks
+                    self._pending = req
+                    self.rec.counter("serving.admission_deferred", 1)
+                    return
+                self.paged.admit(s, len(req.prompt), req.max_new_tokens,
+                                 shared=shared)
+                if hit:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["prefix_hit_tokens"] += hit
             self.active[s] = req
             self.pos[s] = hit
             self.cur_tok[s] = int(req.prompt[hit])
@@ -193,7 +217,8 @@ class ServingEngine:
         """Index the slot's prompt blocks once the full prompt is written
         (before any release, so the pages outlive the slot)."""
         req = self.active[s]
-        if (not self.paged.prefix_enabled or req is None or req._inserted
+        if (self.paged is None or not self.paged.prefix_enabled
+                or req is None or req._inserted
                 or self.pos[s] < len(req.prompt)):
             return
         self.paged.insert(s, req.prompt)
@@ -201,9 +226,10 @@ class ServingEngine:
 
     def _release_slot(self, s: int):
         self.active[s] = None
-        self.paged.release(s)
-        self.paged.check()
-        self._check_invariants()
+        if self.paged is not None:
+            self.paged.release(s)
+            self.paged.check()
+            self._check_invariants()
 
     def _check_invariants(self):
         """Released slots map nothing, and every non-null page is either
@@ -232,26 +258,29 @@ class ServingEngine:
         rec.gauge("serving.queue_depth", self.queued)
         rec.gauge("serving.slot_occupancy",
                   sum(a is not None for a in self.active) / self.slots)
-        rec.gauge("serving.free_pages", self.paged.free_pages)
-        if self.paged.prefix_enabled and self.stats["prompt_tokens"]:
-            rec.gauge("serving.prefix_hit_rate",
-                      self.stats["prefix_hit_tokens"]
-                      / self.stats["prompt_tokens"])
+        if self.paged is not None:
+            rec.gauge("serving.free_pages", self.paged.free_pages)
+            if self.paged.prefix_enabled and self.stats["prompt_tokens"]:
+                rec.gauge("serving.prefix_hit_rate",
+                          self.stats["prefix_hit_tokens"]
+                          / self.stats["prompt_tokens"])
         self._plain_step(rec)
 
     def _plain_step(self, rec):
         t0 = time.perf_counter()
-        cow: List[Tuple[int, int]] = []
-        for s in range(self.slots):
-            if self.active[s] is not None:
-                cow += self.paged.ensure_writable(
-                    s, int(self.pos[s]), int(self.pos[s]))
-        tables, cow_src, cow_dst = self._paged_args(cow)
+        extra = ()
+        if self.paged is not None:
+            cow: List[Tuple[int, int]] = []
+            for s in range(self.slots):
+                if self.active[s] is not None:
+                    cow += self.paged.ensure_writable(
+                        s, int(self.pos[s]), int(self.pos[s]))
+            extra = self._paged_args(cow)
         tokens = torch.from_numpy(self.cur_tok.copy()).to(self.device)
         pos = torch.from_numpy(self.pos.copy()).to(self.device)
         with obs.trace_annotation("engine_tick"):
             next_tok = lm.decode_step(self.cfg, self.params, self.state,
-                                      tokens, pos, tables, cow_src, cow_dst)
+                                      tokens, pos, *extra)
             next_tok = next_tok.cpu().numpy()
         now = time.perf_counter()
         self.step_s.append(now - t0)
@@ -299,14 +328,15 @@ class ServingEngine:
                   self.stats["decoded_tokens"] / max(dt, 1e-9))
         out = {**self.stats, "wall_s": dt,
                "tok_per_s": self.stats["decoded_tokens"] / max(dt, 1e-9)}
-        self.paged.check()
-        self._check_invariants()
-        out["paged"] = dict(self.paged.stats,
-                            free_pages=self.paged.free_pages,
-                            index_size=self.paged.index_size)
-        if self.paged.prefix_enabled:
-            hit = (self.stats["prefix_hit_tokens"]
-                   / max(self.stats["prompt_tokens"], 1))
-            rec.gauge("serving.prefix_hit_rate", hit)
-            out["prefix_hit_rate"] = hit
+        if self.paged is not None:
+            self.paged.check()
+            self._check_invariants()
+            out["paged"] = dict(self.paged.stats,
+                                free_pages=self.paged.free_pages,
+                                index_size=self.paged.index_size)
+            if self.paged.prefix_enabled:
+                hit = (self.stats["prefix_hit_tokens"]
+                       / max(self.stats["prompt_tokens"], 1))
+                rec.gauge("serving.prefix_hit_rate", hit)
+                out["prefix_hit_rate"] = hit
         return out

@@ -81,6 +81,28 @@ def perturbed(flat: dict, seed: int = 11) -> dict:
     return out
 
 
+def numpy_params(specs, seed: int = 0) -> dict:
+    """Flat weights (JAX's ``keystr`` names) of a JAX ``model_specs`` tree
+    drawn with numpy from ``seed``, in place of ``init_params`` (whose
+    per-leaf draws take seconds on the CPU): N(0, scale) where JAX draws,
+    JAX's constant where it sets one (-1 in f32 gate and decay leaves, 1
+    otherwise), and every leaf JAX zeroes drawn as :func:`perturbed` draws
+    it.  f32 leaves; ``jprm.tree_from_flat(specs, flat)`` makes JAX's
+    tree, ``from_flat`` the port's."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for kp, sp in jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=jprm.is_spec)[0]:
+        if sp.scale == 0.0:
+            v = np.zeros(sp.shape)
+        elif sp.scale == -1.0:
+            v = np.full(sp.shape, -1.0 if sp.dtype == jnp.float32 else 1.0)
+        else:
+            v = rng.standard_normal(sp.shape) * sp.scale
+        flat[jax.tree_util.keystr(kp)] = v.astype(np.float32)
+    return perturbed(flat, seed=seed + 11)
+
+
 def make_batch(cfg, b, s, seed=42) -> dict:
     """Tokens and labels from numpy ``seed``; for a cross-attention
     config also the context [b, context_len, d_model], N(0, 1)."""
@@ -161,9 +183,77 @@ def trainer_losses(arch, tmp_path, steps=3, perturb=False, **replace):
     return jres["losses"], tr, res
 
 
+def serves(tcfg, **kw):
+    """The port's dense engine on the CPU serves ``tcfg``: one request of
+    4 prompt tokens and up to 2 new ones drains -> the request."""
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(tcfg, slots=2, max_seq=32, device="cpu", **kw)
+    eng.load(seed=0)
+    req = Request(rid=0, prompt=np.arange(3, 7, dtype=np.int32),
+                  max_new_tokens=2)
+    eng.submit(req)
+    stats = eng.run_until_drained()
+    assert req.done and 1 <= len(req.out_tokens) <= 2
+    assert stats["decoded_tokens"] == len(req.out_tokens)
+    return req
+
+
 def launcher_cpu(arch, capsys) -> dict:
     """The launcher at ``--reduced --device cpu`` for 2 steps."""
     ttrain.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps",
                  "2", "--batch", "2", "--seq", "32"])
     text = capsys.readouterr().out
     return json.loads(text[text.index("{"):])
+
+
+def rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max |want| (f32)."""
+    want = np.asarray(want, np.float32)
+    return float(np.max(np.abs(got - want))) / (
+        float(np.max(np.abs(want))) + 1e-8)
+
+
+def check_state(got: dict, want: dict, tol: float, what: str):
+    """Two flat decode states: the same leaves and shapes, each within
+    ``tol`` of ``want`` relative to its largest magnitude."""
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        assert got[k].shape == w.shape, (what, k)
+        err = rel_err(got[k], w)
+        assert err <= tol, f"{what} {k}: {err}"
+
+
+def serve_requests(vocab, n, plen, new, seed):
+    """``n`` requests (rid, prompt, max new tokens): prompts of
+    2..``plen`` tokens, up to ``new`` new tokens each, from numpy
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(3, vocab, int(rng.integers(2, plen + 1)))
+             .astype(np.int32), int(rng.integers(2, new + 1)))
+            for i in range(n)]
+
+
+def drain(eng, reqs, cls):
+    """Submit ``reqs`` as ``cls`` requests and drain ``eng`` -> (the
+    requests, its stats)."""
+    rs = [cls(rid=i, prompt=p, max_new_tokens=m) for i, p, m in reqs]
+    for r in rs:
+        eng.submit(r)
+    return rs, eng.run_until_drained()
+
+
+def engines_agree(jeng, teng, reqs, tol: float):
+    """JAX's and the port's dense engines drain ``reqs``: the same tokens
+    and stats, and decode states within ``tol`` (:func:`check_state`)."""
+    from repro.serving import Request as JRequest
+    from repro_torch.serving import Request
+    jreqs, jstats = drain(jeng, reqs, JRequest)
+    treqs, tstats = drain(teng, reqs, Request)
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.done and jr.done
+        assert tr.out_tokens == jr.out_tokens, tr.rid
+    assert teng.stats == jeng.stats
+    assert "paged" not in tstats and "paged" not in jstats
+    check_state(tprm.state_to_flat(teng.state), jax_flat(jeng.state), tol,
+                f"{teng.cfg.name} engine")
+

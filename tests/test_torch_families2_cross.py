@@ -38,7 +38,6 @@ import torch
 import _torch_family as fam
 from repro_torch.launch import dryrun as tdry
 from repro_torch.models import params as tprm
-from repro_torch.serving import ServingEngine
 
 MEGATRON = dict(schedule="megatron", remat=False)
 VARIANTS = {"megatron": MEGATRON,
@@ -114,15 +113,14 @@ def test_whisper_launcher_cpu(capsys):
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small",
                                   "gemma2-9b"])
 def test_refusals(arch):
-    """tp > 1 (A10c; gemma2 as a local-attention model), serving (A5;
-    gemma2 A5/A10d) and the dry run of encoder and cross archs (A10b)
-    raise, naming their ROADMAP.md items; tp=1 trains."""
+    """tp > 1 (A10c; gemma2 as a local-attention model) and the dry run
+    of encoder and cross archs (A10b) raise, naming their ROADMAP.md
+    items; tp=1 trains; the dense engine serves at tp=1 (A5)."""
     _, tcfg = fam.cfgs(arch)
     tprm.check_tp(tcfg, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10c"):
         tprm.check_tp(tcfg, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        ServingEngine(tcfg, slots=2, max_seq=32, device="cpu")
+    fam.serves(tcfg)
     if arch != "gemma2-9b":
         with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
             tdry.run_cell(tcfg, "train_4k")

@@ -105,7 +105,8 @@ def test_one_paged_decode_step_matches_jax():
         paged=(pages, page))
     state = jprm.zeros_state(st_specs)
     pool_shape = state["blocks"][0]["k"].shape
-    assert pool_shape == tprm.cache_shape(tcfg, pages, page)
+    assert pool_shape == tprm.cache_specs(
+        tcfg, batch=b, seq=max_seq, paged=(pages, page))["blocks"][0]["k"].shape
     k0 = rng.standard_normal(pool_shape).astype(np.float32)
     v0 = rng.standard_normal(pool_shape).astype(np.float32)
     tables = np.zeros((b, nb), np.int32)
@@ -182,9 +183,12 @@ def test_engine_token_identical_to_jax():
 
 
 def test_engine_refuses_dense_cache_and_missing_card():
+    """The dense cache is the default (as JAX's engine) and serves; with
+    no card the engine refuses to start without ``device="cpu"``."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tcfg, slots=2, max_seq=64, paged=False, device="cpu")
+    eng = ServingEngine(tcfg, slots=2, max_seq=64, paged=False, device="cpu")
+    assert eng.paged is None
+    assert ServingEngine(tcfg, slots=2, max_seq=64, device="cpu").paged is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServingEngine(tcfg, slots=2, max_seq=64)
@@ -241,7 +245,7 @@ def test_paged_cache_copy_matches_jax(seed):
 def test_serve_launcher_cpu(capsys):
     tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                  "--requests", "3", "--slots", "2", "--max-seq", "32",
-                 "--page-size", "8", "--prefix-cache",
+                 "--paged", "--page-size", "8", "--prefix-cache",
                  "--max-new-tokens", "4"])
     out = json.loads(capsys.readouterr().out)
     assert out["admitted"] == 3 and out["device"] == "cpu"

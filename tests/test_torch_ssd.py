@@ -36,7 +36,6 @@ from repro_torch.kernels.ssd import SSDFunction, ssd, ssd_bwd, ssd_fwd
 from repro_torch.models import params as tprm
 from repro_torch.models.rglru import depthwise_conv1d
 from repro_torch.models.ssd import ssd_chunked, ssd_sequential
-from repro_torch.serving import ServingEngine
 
 ARCH = "mamba2-130m"
 
@@ -270,6 +269,5 @@ def test_mamba2_refuses_tp_and_serving():
     _, tcfg = fam.cfgs(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         tprm.check_tp(tcfg, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        ServingEngine(tcfg, slots=2, max_seq=32, device="cpu")
+    fam.serves(tcfg)
     tprm.check_tp(tcfg, 1)

@@ -225,8 +225,8 @@ def main() -> int:
         for name, lib in libs.items():
             def fwd():
                 _build.check(lib.repro_rglru_fwd(
-                    x.data_ptr(), *g, y.data_ptr(), h0.data_ptr(), b, s, w,
-                    code, stream), "rglru_ablation fwd")
+                    x.data_ptr(), *g, y.data_ptr(), h0.data_ptr(), None, b,
+                    s, w, code, stream), "rglru_ablation fwd")
 
             def bwd():
                 _build.check(lib.repro_rglru_bwd(
