@@ -241,7 +241,8 @@ Phases (any failure raises and the script exits non-zero):
    run, each run
    resolved by ``launch/train.py``'s own path (its flags, ``_resolve``)
    and trained by its Trainer on every rank, the two runs on the
-   factored mesh in one spawn (one warm-up), one after the other: a plan file with layers
+   factored mesh in one spawn (one warm-up; phase 21's rank processes
+   when it runs, after its cases), one after the other: a plan file with layers
    0-11 at degree 4 under ``oases`` and 12-23 at degree 2 under
    ``megatron`` (``--tp 4 --mesh factored --plan``), the 2-D layout
    (``--tmp-layout 2d --mesh 1x2x2 --schedule fused``) and the ILP's plan
@@ -328,6 +329,43 @@ Phases (any failure raises and the script exits non-zero):
    context; granite-moe-3b-a800m 8 x 1,024), all at full depth: exact
    launches of the prefill and of the steps, prefill ms, step ms,
    tokens/s, peak memory and the idle share of 2 profiled steps.
+
+30. Speculative decoding's and TMP decode's kernel rows: the verify's
+   read (the paged decode kernel with the 4 queries of each of 8 slots
+   folded into its batch, a query at ``pos + j`` seeing the positions up
+   to it) at gpt-serve-h4096's shapes (32 heads of 128, 2,048 positions)
+   over the dense cache's block-table view and a paged pool (page 16),
+   f32 and bf16, twice for the same bits, timed beside its bound (each
+   slot's K/V read once; beside it the bound of the folded kernel's
+   stream, K/V read once a query row), its plain
+   version and SDPA with the offset causal mask on the gathered cache;
+   then on 2 rank processes the ``wd`` exit at decode shapes, [8, 1,
+   8,192] @ [8,192, 4,096]: the ring kernel over the slot batch (chunks
+   of 4 rows in its 128 x 128 tile) against the plain ring, the fused
+   exit (the ring and the peer all-gather) and megatron's (torch.matmul
+   and the peer all-reduce) against the plain all-reduce, both timed, and
+   the peer all-reduce of the exit's output.  When phase 31 runs, its
+   1-D TMP decode follows in the same rank processes.
+31. Speculative and TMP decode, f32 at full width: gpt-serve-h4096 at 4
+   layers on the dense engine (8 slots, 9 requests of 4-11 prompt and 8
+   new tokens) undrafted on the card, with the draft gpt-draft-h2048 at 2
+   layers (``spec_k`` 3), with the target itself as its draft, and
+   undrafted on the CPU (plain versions): every run's tokens the
+   undrafted card run's, launches exact (a round: the verify's layers and
+   k + 1 draft steps); then at 8 layers the tp=1 card engine against the
+   engine on 2 rank processes under ``megatron``, ``oases`` and
+   ``fused``, dense and paged, and on 4 in 2-D (1, 2, 2) under ``oases``
+   and ``fused``: every rank's tokens tp=1's in as many steps, launches
+   exact (``fused``: a ring a layer's exit, in 2-D also one an entry
+   product over y), the greedy token's gather every step.
+32. Speculative serving at full size in bf16: gpt-serve-h4096 (64
+   layers) on the dense engine, 8 slots of 2,048, 16 requests of 16-64
+   prompt and 32 new tokens, without and with the draft gpt-draft-h2048
+   (12 layers, ``spec_k`` 3): exact launches, rounds, the accept rate,
+   tokens a round, decoded tokens/s, step ms, the device ms and idle
+   share of 2 profiled steps, peak memory; the two runs' tokens
+   compared, any divergence reported with the target's top-2 logit gap
+   there (above 0.05: a fault, not a near tie).
 
 ``python3 chip_smoke.py --phases 1,8`` runs a subset (development only;
 the kernels line then lists what ran).
@@ -981,7 +1019,8 @@ def _profile_steps(eng, steps: int = 4):
 
 # the profiler ranges the port opens (obs.phase_scope, obs.trace_annotation):
 # on the device timeline they are spans, not kernels
-_RANGE_RE = re.compile(r"^(tmp\.|train_step$|engine_tick$)")
+_RANGE_RE = re.compile(
+    r"^(tmp\.|train_step$|engine_tick$|spec_draft$|spec_verify$)")
 
 
 def _device_kernels(prof) -> list:
@@ -1667,17 +1706,19 @@ def _pair_rank(comm, device, first, first_args, second, second_args):
 
 
 def _spawn_with_next(first, first_args, next_phase: int, setup, second,
-                     timeout: float):
-    """run_ranks of ``first`` on 2 ranks; when phase ``next_phase`` runs
-    too, its rank function ``second`` (arguments from ``setup()``, run in
-    the parent before the spawn) follows in the same processes and its
-    per-rank results wait in ``_RUN`` for that phase.  -> per-rank results
-    of ``first``."""
+                     timeout: float, mesh=None):
+    """run_ranks of ``first`` on 2 ranks (or on ``mesh``); when phase
+    ``next_phase`` runs too, its rank function ``second`` (arguments from
+    ``setup()``, run in the parent before the spawn) follows in the same
+    processes and its per-rank results wait in ``_RUN`` for that phase.
+    -> per-rank results of ``first``."""
     from repro_torch.launch.ranks import run_ranks
+    tp = 0 if mesh is not None else 2
     if next_phase not in _RUN.get("phases", ()):
-        return run_ranks(first, 2, args=first_args, timeout=timeout)
+        return run_ranks(first, tp, mesh=mesh, args=first_args,
+                         timeout=timeout)
     ctx, second_args = setup()
-    per = run_ranks(_pair_rank, 2, timeout=timeout + 900,
+    per = run_ranks(_pair_rank, tp, mesh=mesh, timeout=timeout + 900,
                     args=(first, first_args, second, second_args))
     _RUN[next_phase] = dict(ctx=ctx, per_rank=[b for _, b, _ in per],
                             wall=per[0][2])
@@ -3656,8 +3697,10 @@ def phase_plan_consistency():
            "batch": b, "seq": s, "ranks": 4, "loss_tp1": ref["loss"],
            "cases": {}}
     t0 = time.perf_counter()
-    per_rank = run_ranks(_plan_consistency_rank, mesh=PLAN_FACTORED,
-                         args=(PLAN_CASES,), timeout=600)
+    # phase 22's runs on the factored mesh follow in the same processes
+    per_rank = _spawn_with_next(_plan_consistency_rank, (PLAN_CASES,), 22,
+                                _plan_train_setup, _plan_train_runs, 600,
+                                mesh=PLAN_FACTORED)
     wall = time.perf_counter() - t0
     for name in PLAN_CASES:
         _check_plan_case(name, [r[name] for r in per_rank], ref, out, wall)
@@ -3780,41 +3823,33 @@ def _plan_consistency_rank(comm, device, cases):
     return out
 
 
-def phase_plan_train():
+def _plan_train_setup():
+    """Phase 22's runs, resolved in this process by the launcher's own path
+    (the planner calibrated once, before the ranks share the card) ->
+    ((the plan file's directory, each run's resolution, the runs grouped
+    by mesh, the hardware), the factored mesh's rank arguments)."""
     import tempfile
 
     import torch
     from repro_torch.core.planner import calibrate
     from repro_torch.launch import train as launcher
-    from repro_torch.launch.ranks import run_ranks
 
     torch.cuda.empty_cache()
     batch, seq, micro = PLAN_TRAIN
-    steps = PLAN_TRAIN_STEPS
     tmp = tempfile.TemporaryDirectory()
     plan_path = Path(tmp.name) / "plan.json"
     n = 24
     plan_path.write_text(json.dumps({
         "layers": [[4, "oases"]] * (n // 2) + [[2, "megatron"]] * (n // 2),
         "microbatch": micro}))
-    base = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
-            str(batch), "--seq", str(seq), "--microbatch", str(micro),
-            "--seed", "0"]
+    base = ["--arch", TRAIN_ARCH, "--steps", str(PLAN_TRAIN_STEPS),
+            "--batch", str(batch), "--seq", str(seq), "--microbatch",
+            str(micro), "--seed", "0"]
     flags = {"mixed_plan": ["--tp", "4", "--mesh", "factored", "--plan",
                             str(plan_path)],
              "2d_fused": ["--tmp-layout", "2d", "--mesh", "1x2x2",
                           "--schedule", "fused"],
              "planner": ["--tp", "4", "--mesh", "factored", "--planner"]}
-    out = {"arch": TRAIN_ARCH, "dtype": "bfloat16", "layers": n,
-           "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
-           "ranks": 4, "card": _card(), "runs": {}}
-    # each run resolved by the launcher's own path in this process (the
-    # planner calibrated once, before the ranks share the card), then
-    # trained in one spawn a mesh (the plan file's and the ILP's runs
-    # share the factored mesh, and its warm-up: each rank frees a run's
-    # trainer before the next), never beside an earlier spawn: four
-    # ranks' optimizer state leaves no room for what an earlier spawn's
-    # processes still hold
     runs, resolved = {}, {}
     with _cal_cache():
         for name, extra in flags.items():
@@ -3839,15 +3874,45 @@ def phase_plan_train():
     print(f"[plan_train] parent allocated {held / 1e9:.2f} GB, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after collecting",
           flush=True)
-    firsts, by_mesh = {}, {}
+    by_mesh = {}
     for name, (mesh, *run) in runs.items():
         by_mesh.setdefault(mesh, []).append((name, tuple(run)))
+    return ((tmp, resolved, by_mesh, hw),
+            ([r for _, r in by_mesh[PLAN_FACTORED]], PLAN_TRAIN_STEPS,
+             batch, seq, hw))
+
+
+def phase_plan_train():
+    """Phase 22: the plan file's and the ILP's runs on the factored mesh
+    (in phase 21's rank processes when both run: one warm-up, each rank
+    freeing a run's objects before the next), then the 2-D run on its
+    own mesh, never beside an earlier spawn: four ranks' optimizer state
+    leaves no room for what an earlier spawn's processes still hold."""
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+
+    batch, seq, micro = PLAN_TRAIN
+    steps = PLAN_TRAIN_STEPS
+    done = _RUN.pop(22, None)
+    if done is None:
+        (tmp, resolved, by_mesh, hw), _ = _plan_train_setup()
+    else:
+        tmp, resolved, by_mesh, hw = done["ctx"]
+    torch.cuda.empty_cache()
+    out = {"arch": TRAIN_ARCH, "dtype": "bfloat16", "layers": 24,
+           "batch": batch, "seq": seq, "microbatch": micro, "steps": steps,
+           "ranks": 4, "card": _card(), "runs": {},
+           "shared_spawn_with_phase_21": done is not None}
+    firsts = {}
     for mesh, group in by_mesh.items():
-        t0 = time.perf_counter()
-        per_rank = run_ranks(_plan_train_runs, mesh=mesh, timeout=900,
-                             args=([r for _, r in group], steps, batch, seq,
-                                   hw))
-        wall = time.perf_counter() - t0
+        if done is not None and mesh == PLAN_FACTORED:
+            per_rank, wall = done["per_rank"], done["wall"]
+        else:
+            t0 = time.perf_counter()
+            per_rank = run_ranks(_plan_train_runs, mesh=mesh, timeout=900,
+                                 args=([r for _, r in group], steps, batch,
+                                       seq, hw))
+            wall = time.perf_counter() - t0
         for i, (name, _) in enumerate(group):
             firsts[name] = _check_plan_run(name, [r[i] for r in per_rank],
                                            resolved[name], steps, wall, out)
@@ -3988,8 +4053,10 @@ def _path_launches(report) -> dict:
     RG-LRU hybrid's training (phase 19, both schedules), the planned
     training (phase 20, the planned run and its replay), the per-layer
     plans (phase 22), the other families' training (phase 26, every
-    run) and every family's serving (phase 29: gemma2-9b's dense engine,
-    each arch's prefill and decode steps)."""
+    run), every family's serving (phase 29: gemma2-9b's dense engine,
+    each arch's prefill and decode steps), TMP decode (phase 31: rank 0
+    of every 1-D and 2-D run) and speculative serving at full size (phase
+    32: the undrafted and the drafted run)."""
     paths = {}
     if "serve" in report:
         paths["serve"] = report["serve"]["launches"]
@@ -4028,6 +4095,10 @@ def _path_launches(report) -> dict:
         paths["families2"] = tot
     if "serve_families" in report:
         paths["serve_families"] = report["serve_families"]["launches"]
+    if "spec_consistency" in report:
+        paths["serve_tmp"] = report["spec_consistency"]["launches"]
+    if "spec_serve" in report:
+        paths["serve_spec"] = report["spec_serve"]["launches"]
     return paths
 
 
@@ -4064,6 +4135,12 @@ def _kernels_line(report) -> dict:
                 {k: r[k] for k in ("case", "hd", "group", "S", "page",
                                    "ring", "softcap") + keys}
                 for r in report["serve_kernels"]["paged_decode"]
+                if r["dtype"] == "bfloat16"]
+        if "spec_kernels" in report:
+            extra["at_verify"] = [
+                {k: r[k] for k in ("case", "b", "qn", "S", "folded_rows",
+                                   "bound_per_query_row_ms") + keys}
+                for r in report["spec_kernels"]["paged_decode"]
                 if r["dtype"] == "bfloat16"]
         add("paged_decode", "paged_decode.cu",
             "src/repro/kernels/flash_attention.py:146",
@@ -4121,6 +4198,18 @@ def _kernels_line(report) -> dict:
             extra = ({"cublas_same_product_ms":
                       row["cublas_same_product_ms"]}
                      if name == "ring_matmul_rs" else {})
+            if name == "ring_matmul_rs" and "spec_kernels" in report:
+                r = pick(report["spec_kernels"]["ring_matmul_rs"],
+                         dtype="bfloat16")
+                extra["at_decode"] = {k: r[k] for k in (
+                    "case", "rows", "k_local", "d", "chunk", "path",
+                    "fused_exit_ms", "matmul_allreduce_ms",
+                    "cublas_same_product_ms") + keys}
+            if name == "peer_all_reduce" and "spec_kernels" in report:
+                r = pick(report["spec_kernels"]["peer_all_reduce"],
+                         dtype="bfloat16")
+                extra["at_decode"] = {k: r[k] for k in ("case", "shape")
+                                      + keys}
             if name == "peer_reduce_scatter":
                 extra = {"all_reduce_slice_ms": row["all_reduce_slice_ms"]}
             if name == "tile_matmul":
@@ -5066,6 +5155,623 @@ def phase_serve_families():
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving on a TMP mesh and speculative decoding (phases 30-32)
+# ---------------------------------------------------------------------------
+DRAFT_ARCH = "gpt-draft-h2048"
+SPEC_K = 3
+# phase 30: the verify's read at gpt-serve-h4096's shapes, 8 slots x
+# (spec_k + 1) queries of 32 heads of 128 over 2,048 positions (page 16),
+# the last slot's block running past the last position
+VERIFY_CASE = dict(b=8, qn=SPEC_K + 1, h=32, kvh=32, hd=128, S=2048,
+                   page=16, pos=[0, 15, 16, 1023, 1024, 777, 1500, 2046])
+# the decode exit of gpt-serve-h4096's wd at tp=2: [8, 1, 16,384 / tp] @
+# [16,384 / tp, 4,096], the ring over the slot batch (chunks of 4 rows)
+DECODE_EXIT = ("wd_decode", 8, 16384, 4096)
+# phase 31: f32 gates at full width; the spec run's target and draft
+# depths, the TMP runs' depth, the engine's shape
+SPEC_LAYERS, SPEC_DRAFT_LAYERS = 4, 2
+TMP_SERVE_LAYERS = 8
+GATE_ENGINE = dict(slots=8, max_seq=256, requests=9, new=8)
+TMP_SERVE_CASES = [(s, paged) for s in TP_SCHEDULES for paged in (False,
+                                                                 True)]
+TMP_2D_CASES = [("oases", False), ("fused", False)]
+SERVE_2D = ((1, 2, 2), ("data", "model_x", "model_y"))
+# phase 32: gpt-serve-h4096 at full size in bf16 with and without the
+# draft (gpt-draft-h2048, all 12 layers): 8 slots of 2,048, 16 requests
+# of 16-64 prompt and 32 new tokens
+SPEC_SERVE = dict(slots=8, max_seq=2048, requests=16, new=32)
+# a divergence of the drafted run's tokens from the undrafted run's is a
+# near tie only below this gap between the target's top two logits there
+SPEC_GAP_TOL = 0.05
+
+
+def _verify_row(dname: str, paged: bool) -> dict:
+    """The verify's read (row 1, the queries folded into the paged decode
+    kernel's batch) against its plain version, twice for the same bits;
+    timed beside its bound (each slot's K/V rows read once for its qn
+    queries; beside it the bound of what the folded kernel streams, K/V
+    read once a query row), the plain
+    version and SDPA with the offset causal mask on the gathered cache."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bounds import paged_decode_work
+    from repro_torch.kernels.flash_attention import (dense_flash_decode_multi,
+                                                     paged_flash_decode_multi)
+
+    c = VERIFY_CASE
+    b, qn, h, kvh, hd, S, page = (c[k] for k in ("b", "qn", "h", "kvh",
+                                                 "hd", "S", "page"))
+    nb = S // page
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(b, qn, h, hd, generator=gen, device="cuda").to(dtype)
+    pos = torch.tensor(c["pos"], dtype=torch.int32, device="cuda")
+    if paged:
+        kc, vc = (torch.randn(b * nb + 1, page, kvh, hd, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        tables = (torch.randperm(b * nb, generator=gen, device="cuda")
+                  + 1).reshape(b, nb).to(torch.int32)
+
+        def run():
+            return paged_flash_decode_multi(q, kc, vc, tables, pos)
+
+        def plain():
+            return ref.paged_decode_attention_multi_ref(q, kc, vc, tables,
+                                                        pos)
+        kg, vg = ref.gather_pages(kc, tables), ref.gather_pages(vc, tables)
+    else:
+        kc, vc = (torch.randn(b, S, kvh, hd, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+
+        def run():
+            return dense_flash_decode_multi(q, kc, vc, pos)
+
+        def plain():
+            return ref.decode_attention_multi_ref(q, kc, vc, pos)
+        kg, vg = kc, vc
+    out, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    name = f"verify_{'paged' if paged else 'dense'}"
+    require(torch.equal(out, again), f"paged_decode {name} {dname}: two "
+                                     f"runs differ")
+    atol, rtol = PAGED_TOL[dname]
+    err, ok = max_err(out, want, atol, rtol)
+    require(ok, f"paged_decode {name} {dname}: max abs err {err} beyond "
+                f"atol {atol} + rtol {rtol}")
+    elt = q.element_size()
+    seen = sum(min(p + j, S - 1) + 1 for p in c["pos"] for j in range(qn))
+    distinct = sum(min(p + qn - 1, S - 1) + 1 for p in c["pos"])
+    # the function's work: each slot's K/V rows and table row read once
+    # for its qn queries; q.k and p.v over every query row's positions
+    nbytes, flops = paged_decode_work(b * qn, h, kvh, hd, distinct, seen,
+                                      b * nb, elt)
+    bound = _bound(nbytes, flops, dname)
+    # what the folded kernel streams: a slot's K/V and table once a row
+    per_row = _bound(paged_decode_work(b * qn, h, kvh, hd, seen, seen,
+                                       b * qn * nb, elt)[0], flops, dname)
+    # yardstick: one SDPA call on the cache already gathered, the query j
+    # of a slot masked past pos + j (MHA: kvh = h)
+    qh, kh, vh = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+    qpos = pos.long()[:, None] + torch.arange(qn, device="cuda")[None]
+    mask = (torch.arange(S, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    row = dict(case=name, dtype=dname, b=b, qn=qn, h=h, kvh=kvh, hd=hd,
+               S=S, page=page, pos=c["pos"], folded_rows=b * qn,
+               max_abs_err=err, atol=atol, rtol=rtol, same_bits=True,
+               ms=time_ms(run), plain_ms=time_ms(plain, iters=10),
+               bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+               flops=flops, bound_per_query_row_ms=per_row[0],
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask)),
+               library_err=float((lib.transpose(1, 2).float()
+                                  - want.float()).abs().max()))
+    print(f"[paged_decode] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_spec_kernels():
+    """Phase 30: the verify's folded read (row 1), then the decode-shape
+    ring (row 5) and peer all-reduce (5a) on 2 ranks; phase 31's 1-D TMP
+    decode follows in the same rank processes when it runs."""
+    out = {"paged_decode": [], "ring_matmul_rs": [], "peer_all_reduce": []}
+    for paged in (False, True):
+        for dname in ("float32", "bfloat16"):
+            out["paged_decode"].append(_verify_row(dname, paged))
+    t0 = time.perf_counter()
+    per_rank = _spawn_with_next(_decode_exit_rank, (), 31, _tmp_serve_setup,
+                                _tmp_serve_rank, 600)
+    out["spawn_wall_s"] = time.perf_counter() - t0
+    for kind in ("ring_matmul_rs", "peer_all_reduce"):
+        for i, row in enumerate(per_rank[0][kind]):
+            rs = [r[kind][i] for r in per_rank]
+            row = dict(row, tp=2, max_abs_err=max(r["max_abs_err"]
+                                                  for r in rs),
+                       rank_errs=[r["max_abs_err"] for r in rs],
+                       rank_ms=[r["ms"] for r in rs])
+            row.pop("ok")
+            print(f"[{kind}] {json.dumps(row)}", flush=True)
+            require(all(r["ok"] for r in rs),
+                    f"{kind} {row['case']} {row['dtype']}: rank errors "
+                    f"{row['rank_errs']} beyond atol {row['atol']} + rtol "
+                    f"{row['rtol']}")
+            require(all(r.get("same_bits", True) for r in rs),
+                    f"{kind} {row['case']} {row['dtype']}: two runs differ")
+            out[kind].append(row)
+    return out
+
+
+def _decode_exit_rank(comm, device):
+    """One rank of phase 30: gpt-serve-h4096's wd exit at decode shapes,
+    f32 and bf16, every rank drawing all ranks' inputs from one seed: the
+    ring kernel over the slot batch against the plain ring; the fused
+    exit (ring and peer all-gather) and megatron's (torch.matmul and the
+    peer all-reduce) against the plain all-reduce of every rank's product;
+    the peer all-reduce of the exit's output."""
+    import torch
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels.collective_matmul import (matmul_allreduce,
+                                                       matmul_reducescatter)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, rank = comm.size, comm.rank
+    case, rows, kfull, d = DECODE_EXIT
+    k = kfull // n
+    out = {"ring_matmul_rs": [], "peer_all_reduce": []}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=device).manual_seed(5)
+        xs = [torch.randn(rows, 1, k, generator=gen, device=device)
+              .to(dtype) for _ in range(n)]
+        ws = [(torch.randn(k, d, generator=gen, device=device)
+               / kfull ** 0.5).to(dtype) for _ in range(n)]
+        x, w = xs[rank], ws[rank]
+        got = matmul_reducescatter(x, w, comm, 0)
+        same = dname == "float32" or torch.equal(
+            got, matmul_reducescatter(x, w, comm, 0))
+        want = ref.matmul_reducescatter_all_ranks_ref(
+            [t[:, 0] for t in xs], ws, n, rank)[:, None]
+        full = matmul_allreduce(x, w, comm, 0)
+        mega = comm.all_reduce(torch.matmul(x, w))
+        whole = ref.all_reduce_ref([torch.matmul(a, b)
+                                    for a, b in zip(xs, ws)])
+        torch.cuda.synchronize(device)
+        atol, rtol = _mm_tol(kfull, dname)
+        err, ok = max_err(got, want, atol, rtol)
+        err_full, ok_full = max_err(full, whole, atol, rtol)
+        err_mega, ok_mega = max_err(mega, whole, atol, rtol)
+        elt = x.element_size()
+        bound = _bound((rows * k + k * d + rows // n * d) * elt,
+                       2 * rows * k * d, dname)
+        out["ring_matmul_rs"].append(dict(
+            case=case, dtype=dname, rows=rows, k_local=k, d=d,
+            chunk=rows // n, path=autotune.shape_path(k, d, dtype),
+            same_bits=same, max_abs_err=err, ok=ok and ok_full and ok_mega,
+            fused_exit_err=err_full, megatron_exit_err=err_mega, atol=atol,
+            rtol=rtol, ms=time_ms(lambda: matmul_reducescatter(x, w, comm,
+                                                                0)),
+            plain_ms=time_ms(lambda: ref.matmul_reducescatter_all_ranks_ref(
+                [t[:, 0] for t in xs], ws, n, rank), iters=10),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+            cublas_same_product_ms=time_ms(lambda: torch.matmul(x, w)),
+            fused_exit_ms=time_ms(lambda: matmul_allreduce(x, w, comm, 0)),
+            matmul_allreduce_ms=time_ms(
+                lambda: comm.all_reduce(torch.matmul(x, w)))))
+        ys = [torch.matmul(a, b) for a, b in zip(xs, ws)]
+        y = ys[rank]
+        got = comm.all_reduce(y)
+        want = ref.all_reduce_ref(ys)
+        torch.cuda.synchronize(device)
+        err, ok = max_err(got, want, 0.0, 0.0)
+        numel = y.numel()
+        bound = _bound((n + 1) * numel * elt, (n - 1) * numel, dname)
+        out["peer_all_reduce"].append(dict(
+            case="decode_exit", dtype=dname, shape=list(y.shape),
+            max_abs_err=err, ok=ok, atol=0.0, rtol=0.0,
+            ms=time_ms(lambda: comm.all_reduce(y)),
+            plain_ms=time_ms(lambda: ref.all_reduce_ref(ys)),
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+        del xs, ws, ys
+    comm.check()
+    return out
+
+
+def _gate_prompts(np, vocab, n):
+    """``n`` prompts of 4-11 tokens from numpy seed 12."""
+    rng = np.random.default_rng(12)
+    return [rng.integers(3, vocab, int(rng.integers(4, 12)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def _drain(eng, prompts, new):
+    """Submit the prompts and drain ``eng`` -> (the requests, its stats,
+    the launches of the drain, its seconds)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import Request
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    _sync(eng.device)
+    return reqs, stats, dict(_build.LAUNCHES), time.perf_counter() - t0
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_launches(layers: int, steps: int, draft_layers: int = 0,
+                    k: int = 0) -> dict:
+    """The launches of ``steps`` engine steps of a ``layers``-layer dense
+    model, each a decode step or (``draft_layers``) a speculative round:
+    the verify and k + 1 draft steps.  A layer reads its cache once
+    (``paged_decode``) and norms twice, the model once more."""
+    pd = steps * (layers + (k + 1) * draft_layers)
+    rms = steps * (2 * layers + 1 + ((k + 1) * (2 * draft_layers + 1)
+                                     if draft_layers else 0))
+    return {"paged_decode": pd, "rmsnorm": rms}
+
+
+def _tmp_serve_setup():
+    """Phase 31's TMP reference: the tp=1 card engine at 8 layers of
+    gpt-serve-h4096 in f32 (weights from seed 0, as every rank draws
+    them), dense -> (its tokens and steps, the 1-D rank arguments)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(ARCH).replace(num_layers=TMP_SERVE_LAYERS,
+                                   dtype="float32")
+    g = GATE_ENGINE
+    eng = ServingEngine(cfg, slots=g["slots"], max_seq=g["max_seq"])
+    eng.load(seed=0)
+    reqs, stats, launches, s = _drain(
+        eng, _gate_prompts(np, cfg.vocab_size, g["requests"]), g["new"])
+    ref = dict(tokens=[r.out_tokens for r in reqs], steps=stats["steps"],
+               launches=launches, s=s)
+    want = _serve_launches(TMP_SERVE_LAYERS, stats["steps"])
+    require({k: launches[k] for k in want} == want,
+            f"tp=1 reference launched {launches} in {stats['steps']} steps")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, (TMP_SERVE_CASES,)
+
+
+def _tmp_serve_rank(comm, device, cases):
+    """One rank of phase 31's TMP decode: gpt-serve-h4096 at full width and
+    8 layers in f32, this rank's shard of the seed-0 weights, one engine
+    per (schedule, paged) case on the rank's mesh -> each case's tokens,
+    steps, launches, comm counts and seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(ARCH).replace(num_layers=TMP_SERVE_LAYERS,
+                                   dtype="float32")
+    g = GATE_ENGINE
+    prompts = _gate_prompts(np, cfg.vocab_size, g["requests"])
+    params, out = None, {}
+    for sched, paged in cases:
+        eng = ServingEngine(cfg, comm, slots=g["slots"],
+                            max_seq=g["max_seq"], schedule=sched,
+                            paged=paged, device=device)
+        if params is None:
+            eng.load(seed=0)
+            params = eng.params
+        else:
+            eng.load(params=params)
+        comm.reset_counts()
+        comm.barrier()
+        reqs, stats, launches, s = _drain(eng, prompts, g["new"])
+        out[f"{sched}/{'paged' if paged else 'dense'}"] = dict(
+            tokens=[r.out_tokens for r in reqs], steps=stats["steps"],
+            launches=launches, counts=dict(comm.counts), s=s,
+            twod=eng.ctx.is_2d)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    comm.check()
+    return out
+
+
+def _check_tmp_serve(ref, per_rank, wall, ranks) -> dict:
+    """Phase 31's TMP gates: every rank's tokens are tp=1's, in as many
+    steps, with the launches of the code's path (a ring a fused exit; in
+    2-D also one a fused entry product over y)."""
+    out = {}
+    for name in per_rank[0]:
+        rs = [r[name] for r in per_rank]
+        r0 = rs[0]
+        steps = r0["steps"]
+        rings = 0
+        if name.startswith("fused/"):
+            rings = steps * TMP_SERVE_LAYERS * (7 if r0["twod"] else 2)
+        want = {**_serve_launches(TMP_SERVE_LAYERS, steps),
+                "ring_matmul_rs": rings}
+        row = dict(ranks=ranks, steps=steps, launches=r0["launches"],
+                   want=want, counts=r0["counts"],
+                   rank_s=[r["s"] for r in rs], spawn_wall_s=wall,
+                   tokens_equal=all(r["tokens"] == ref["tokens"]
+                                    for r in rs))
+        print(f"[tmp_serve] {name} {json.dumps(row)}", flush=True)
+        require(row["tokens_equal"], f"TMP decode {name} on {ranks} ranks: "
+                f"tokens differ from tp=1's")
+        require(steps == ref["steps"], f"TMP decode {name}: {steps} steps, "
+                                       f"tp=1 took {ref['steps']}")
+        for r in rs:
+            got = {k: r["launches"].get(k, 0) for k in want}
+            require(got == want, f"TMP decode {name}: launched {got}, "
+                                 f"expected {want}")
+            require(r["launches"]["peer_all_gather"] >= steps,
+                    f"TMP decode {name}: {r['launches']['peer_all_gather']}"
+                    f" peer all-gathers in {steps} steps (the greedy "
+                    f"token's gather is one a step)")
+        out[name] = row
+    return out
+
+
+def phase_spec_consistency():
+    """Phase 31: f32 at full width.  gpt-serve-h4096 at 4 layers with the
+    draft gpt-draft-h2048 at 2 (and the target itself as a draft): the
+    drafted card runs' tokens are the undrafted card run's and the CPU
+    run's, launches exact.  TMP decode at 8 layers on 2 ranks (three
+    schedules, dense and paged; in phase 30's spawn when it ran) and on
+    4 ranks in 2-D (oases, fused): tp=1's tokens on every rank."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import params as prm
+    from repro_torch.serving import ServingEngine
+
+    g = GATE_ENGINE
+    cfg = get_config(ARCH).replace(num_layers=SPEC_LAYERS, dtype="float32")
+    dcfg = get_config(DRAFT_ARCH).replace(num_layers=SPEC_DRAFT_LAYERS,
+                                          dtype="float32")
+    cuda = torch.device("cuda")
+    params = prm.init_params(cfg, seed=0, device=cuda)
+    dparams = prm.init_params(dcfg, seed=1, device=cuda)
+    prompts = _gate_prompts(np, cfg.vocab_size, g["requests"])
+    runs = {"card": ({}, params, cuda),
+            "spec": (dict(draft=dcfg, spec_k=SPEC_K), params, cuda),
+            "self_draft": (dict(draft=cfg, spec_k=SPEC_K), params, cuda),
+            "cpu": ({}, prm.unflatten({k: t.cpu() for k, t in
+                                       prm.flatten(params).items()}),
+                    torch.device("cpu"))}
+    res = {}
+    for name, (kw, p, dev) in runs.items():
+        eng = ServingEngine(cfg, slots=g["slots"], max_seq=g["max_seq"],
+                            device=dev, **kw)
+        draft = (dparams if kw.get("draft") is dcfg else p) if kw else None
+        eng.load(params=p, draft_params=draft)
+        reqs, stats, launches, s = _drain(eng, prompts, g["new"])
+        dl = {"spec": SPEC_DRAFT_LAYERS, "self_draft": SPEC_LAYERS}.get(
+            name, 0)
+        want = ({k: 0 for k in launches} if dev.type == "cpu" else
+                {**{k: 0 for k in launches}, **_serve_launches(
+                    SPEC_LAYERS, stats["steps"], dl, SPEC_K if dl else 0)})
+        row = dict(steps=stats["steps"], decoded=stats["decoded_tokens"],
+                   spec_proposed=stats["spec_proposed"],
+                   spec_accepted=stats["spec_accepted"],
+                   accept_rate=stats.get("spec_accept_rate"),
+                   launches=launches, want=want, s=s,
+                   tokens=[r.out_tokens for r in reqs])
+        print(f"[spec_consistency] {name} {json.dumps(row)}", flush=True)
+        require(launches == want, f"{name}: launched {launches}, "
+                                  f"expected {want}")
+        res[name] = row
+        del eng
+    for name in ("spec", "self_draft", "cpu"):
+        require(res[name]["tokens"] == res["card"]["tokens"],
+                f"{name} tokens differ from the undrafted card run's")
+    require(res["self_draft"]["spec_accepted"] > 0,
+            f"the self draft's proposals were never accepted: "
+            f"{res['self_draft']}")
+    del params, dparams, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": ARCH, "draft": DRAFT_ARCH, "layers": SPEC_LAYERS,
+           "draft_layers": SPEC_DRAFT_LAYERS, "dtype": "float32",
+           "spec_k": SPEC_K, **g, "runs": res}
+    done = _RUN.pop(31, None)
+    if done is None:
+        ref, args = _tmp_serve_setup()
+        t0 = time.perf_counter()
+        per_rank = run_ranks(_tmp_serve_rank, 2, args=args, timeout=600)
+        wall = time.perf_counter() - t0
+    else:
+        ref, per_rank, wall = done["ctx"], done["per_rank"], done["wall"]
+    out["tmp_ref"] = {k: v for k, v in ref.items() if k != "tokens"}
+    out["tmp"] = _check_tmp_serve(ref, per_rank, wall, 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = run_ranks(_tmp_serve_rank, mesh=SERVE_2D,
+                         args=(TMP_2D_CASES,), timeout=600)
+    out["tmp_2d"] = _check_tmp_serve(ref, per_rank,
+                                     time.perf_counter() - t0, 4)
+    out["launches"] = {}
+    for rows in (out["tmp"], out["tmp_2d"]):
+        for row in rows.values():
+            for k, v in row["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+    never = [k for k in ("paged_decode", "rmsnorm", "ring_matmul_rs",
+                         "peer_all_reduce", "peer_all_gather")
+             if not out["launches"].get(k)]
+    require(not never, f"TMP decode never launched {never}")
+    return out
+
+
+def _spec_prompts(np, vocab, n):
+    """``n`` prompts of 16-64 tokens from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(3, vocab, int(rng.integers(16, 65)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def _record_gaps(eng, gaps):
+    """Wrap ``eng``'s undrafted step: the target's top-2 logit gap of each
+    token a request emits, kept on the card until the drain ends, by
+    (request, token index)."""
+    import torch
+    from repro_torch.models import lm
+
+    step = eng._plain_step
+    seen = []
+
+    def last_logits(*a, **kw):
+        logits = orig(*a, **kw)
+        top = torch.topk(logits, 2, dim=-1).values
+        seen.append(top[:, 0] - top[:, 1])
+        return logits
+
+    def plain_step(rec):
+        before = [(r, len(r.out_tokens)) if r is not None else None
+                  for r in eng.active]
+        seen.clear()
+        step(rec)
+        for s, b in enumerate(before):
+            if b is not None and len(b[0].out_tokens) > b[1]:
+                gaps[(b[0].rid, b[1])] = seen[0][s]
+
+    orig = lm.last_logits
+    lm.last_logits = last_logits
+    eng._plain_step = plain_step
+    return lambda: setattr(lm, "last_logits", orig)
+
+
+def phase_spec_serve():
+    """Phase 32: gpt-serve-h4096 at full size in bf16 on the dense engine,
+    once without and once with the draft (gpt-draft-h2048, all 12
+    layers, spec_k 3): exact launches, rounds, accept rate, tokens a
+    round, tokens/s, step ms, device ms and idle share of a profiled
+    window, peak memory; the drafted run's tokens against the undrafted
+    run's, any divergence reported with the target's top-2 logit gap
+    there (above ``SPEC_GAP_TOL``: a fault)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import params as prm
+    from repro_torch.serving import Request, ServingEngine
+
+    c = SPEC_SERVE
+    cfg = get_config(ARCH)
+    dcfg = get_config(DRAFT_ARCH)
+    cuda = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = prm.init_params(cfg, seed=0, device=cuda,
+                             max_pos=c["max_seq"] + 8)
+    dparams = prm.init_params(dcfg, seed=1, device=cuda,
+                              max_pos=c["max_seq"] + 8)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompts = _spec_prompts(np, cfg.vocab_size, c["requests"])
+    out = {"arch": ARCH, "draft": DRAFT_ARCH, "layers": cfg.num_layers,
+           "draft_layers": dcfg.num_layers, "dtype": cfg.dtype,
+           "spec_k": SPEC_K, **c, "card": _card(), "load_s": load_s,
+           "runs": {}}
+    tokens, gaps = {}, {}
+    for name, kw in (("plain", {}), ("spec", dict(draft=dcfg,
+                                                  spec_k=SPEC_K))):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg, slots=c["slots"], max_seq=c["max_seq"],
+                            **kw)
+        eng.load(params=params, draft_params=dparams if kw else None)
+        undo = _record_gaps(eng, gaps) if not kw else (lambda: None)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=c["new"])
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_drained(max_steps=24 if kw else 60)
+        profile, profiled = _profile_steps(eng, 2)
+        stats = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        undo()
+        steps = stats["steps"]
+        want = {**{k: 0 for k in launches}, **_serve_launches(
+            cfg.num_layers, steps, dcfg.num_layers if kw else 0,
+            SPEC_K if kw else 0)}
+        step_ms = [1e3 * s for i, s in enumerate(eng.step_s)
+                   if i not in range(*profiled)]
+        row = dict(rounds=steps, decoded_tokens=stats["decoded_tokens"],
+                   prompt_tokens=stats["prompt_tokens"],
+                   spec_proposed=stats["spec_proposed"],
+                   spec_accepted=stats["spec_accepted"],
+                   accept_rate=stats.get("spec_accept_rate"),
+                   tokens_per_round=(stats["decoded_tokens"]
+                                     + stats["prompt_tokens"]) / steps,
+                   decoded_per_round=stats["decoded_tokens"] / steps,
+                   wall_s=wall,
+                   decoded_tok_per_s=stats["decoded_tokens"] / wall,
+                   step_ms_median=statistics.median(step_ms),
+                   step_ms_p90=float(np.percentile(step_ms, 90)),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches, want=want, profile=profile)
+        print(f"[spec_serve] {name} {json.dumps(row)}", flush=True)
+        require(launches == want, f"{name}: launched {launches}, expected "
+                                  f"{want}")
+        vp = cfg.padded_vocab()
+        for r in reqs:
+            require(r.done and 1 <= len(r.out_tokens) <= c["new"]
+                    and all(0 <= t < vp for t in r.out_tokens),
+                    f"{name} request {r.rid}: done={r.done} tokens="
+                    f"{r.out_tokens}")
+        tokens[name] = [r.out_tokens for r in reqs]
+        out["runs"][name] = row
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    diverged = []
+    for rid, (a, b) in enumerate(zip(tokens["plain"], tokens["spec"])):
+        if a != b:
+            i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]),
+                     min(len(a), len(b)))
+            gap = gaps.get((rid, i))
+            diverged.append(dict(request=rid, index=i,
+                                 plain=a[i] if i < len(a) else None,
+                                 spec=b[i] if i < len(b) else None,
+                                 top2_gap=None if gap is None
+                                 else float(gap)))
+    out["tokens_equal"] = not diverged
+    out["divergences"] = diverged
+    # how near to a tie the undrafted run's tokens came
+    out["min_top2_gap"] = min(float(v) for v in gaps.values())
+    print(f"[spec_serve] tokens_equal={not diverged} "
+          f"{json.dumps(diverged)}", flush=True)
+    for d in diverged:
+        require(d["top2_gap"] is not None and d["top2_gap"] <= SPEC_GAP_TOL,
+                f"the drafted run diverges at request {d['request']} token "
+                f"{d['index']} where the target's top-2 gap is "
+                f"{d['top2_gap']} > {SPEC_GAP_TOL}: a fault, not a near "
+                f"tie")
+    out["launches"] = {}
+    for row in out["runs"].values():
+        for k, v in row["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           3: ("consistency", phase_consistency), 4: ("serve", phase_serve),
           5: ("train_kernels", phase_train_kernels),
@@ -5091,7 +5797,10 @@ PHASES = {1: ("build", phase_build), 2: ("kernels", phase_kernels),
           26: ("families2_train", phase_families2_train),
           27: ("serve_kernels", phase_serve_kernels),
           28: ("serve_consistency", phase_serve_consistency),
-          29: ("serve_families", phase_serve_families)}
+          29: ("serve_families", phase_serve_families),
+          30: ("spec_kernels", phase_spec_kernels),
+          31: ("spec_consistency", phase_spec_consistency),
+          32: ("spec_serve", phase_spec_serve)}
 
 
 def main(argv=None) -> int:

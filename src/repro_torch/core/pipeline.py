@@ -5,6 +5,9 @@ pipeline itself (stages, the interleaved 1F1B schedule) is ROADMAP.md
 A8."""
 from __future__ import annotations
 
+# what the serving engine and the launchers refuse a pipeline with
+PIPE_ITEM = "ROADMAP.md A8, pipeline decode (decode_stream)"
+
 
 def _resolve_divisor(local_batch: int, cap: int, requested: int,
                      what: str) -> int:

@@ -372,6 +372,22 @@ def vocab_parallel_xent(x: torch.Tensor, head_local: torch.Tensor,
     return loss, torch.tensor(float(t), device=x.device)
 
 
-def greedy_token(logits: torch.Tensor) -> torch.Tensor:
-    """[b, V] -> [b] int32; the first maximum wins, as ``jnp.argmax``."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def greedy_token(logits_local: torch.Tensor,
+                 comm: Optional[Comm] = None) -> torch.Tensor:
+    """Vocab-parallel greedy sampling (``repro.models.lm.greedy_token``):
+    logits_local [b, V/tp] (this rank's vocab shard over ``comm``; None:
+    tp=1) -> [b] int32 global ids, the same on every rank.  Each rank
+    takes its shard's max and first argmax plus the shard's offset; one
+    all-gather brings every rank's pair (the ids as f32, exact below
+    2^24), and the first rank that holds the max wins, so ties resolve as
+    a global ``jnp.argmax``."""
+    v_local = logits_local.shape[-1]
+    idx = torch.argmax(logits_local, dim=-1)
+    if comm is None or comm.size == 1:
+        return idx.to(torch.int32)
+    val = logits_local.gather(-1, idx[:, None])[:, 0]
+    idx = idx + axes_index(comm) * v_local
+    pairs = comm.all_gather(
+        torch.stack([val.float(), idx.float()])[None], 0)   # [tp, 2, b]
+    win = torch.argmax(pairs[:, 0], dim=0)                  # first max
+    return pairs[:, 1].gather(0, win[None])[0].to(torch.int32)

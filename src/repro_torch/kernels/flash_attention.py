@@ -1,6 +1,7 @@
 """Flash attention: wrappers of the CUDA kernels ``csrc/flash_attention.cu``
 (training forward and backward) and ``csrc/paged_decode.cu`` (paged
-decode, and every dense decode read through a block-table view).
+decode, every dense decode read through a block-table view, and the
+speculative verify's ``qn`` queries a slot folded into its batch).
 
 Counterparts of ``repro.kernels.flash_attention.flash_attention`` and
 ``paged_flash_decode``, with the same layouts, and the decode reads of
@@ -17,9 +18,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (decode_attention_ref,
+from repro_torch.kernels.ref import (decode_attention_multi_ref,
+                                    decode_attention_ref,
                                     flash_attention_bwd_ref,
                                     flash_attention_ref,
+                                    paged_decode_attention_multi_ref,
                                     paged_decode_attention_ref, wide_dtype)
 
 _DTYPES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
@@ -43,6 +46,9 @@ _PAGED_SCRATCH = {}
 DENSE_PAGE = 16
 # per (slots, blocks, device): the view's constant table
 _DENSE_TABLES = {}
+# per (slots, blocks, queries, device): that table with each slot's row
+# repeated once a verified query (the verify's folded batch)
+_FOLDED_TABLES = {}
 
 
 def paged_splits(b: int, kvh: int, page: int, nb: int):
@@ -179,6 +185,82 @@ def dense_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache.view(b * nb, page, kvh, hd),
         v_cache.view(b * nb, page, kvh, hd), _dense_tables(b, nb, q.device),
         pos, softcap=softcap, scale=scale)
+
+
+def _fold(q: torch.Tensor, pos: torch.Tensor, rows: int):
+    """The verify's queries as a decode batch: q [b, qn, h, hd] -> [b * qn,
+    1, h, hd], row ``(slot, j)`` at position ``min(pos + j, rows - 1)`` (a
+    query past the last row sees every row, as JAX's mask does); its
+    table row is the slot's, repeated once a query."""
+    b, qn, h, hd = q.shape
+    qpos = pos[:, None] + torch.arange(qn, dtype=pos.dtype,
+                                       device=pos.device)[None]
+    return (q.contiguous().view(b * qn, 1, h, hd),
+            torch.clamp(qpos, max=rows - 1).view(b * qn))
+
+
+def paged_flash_decode_multi(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, tables: torch.Tensor,
+                             pos: torch.Tensor, *, softcap: float = 0.0,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The speculative verify's attention through a block table
+    (``repro.models.attention.paged_decode_attention_multi``): q [b, qn,
+    h, hd], query j of a slot at position ``pos + j`` sees the slot's
+    positions up to it; k_pages/v_pages [P, page, kvh, hd]; tables [b, nb]
+    int32; pos [b] int32 -> [b, qn, h, hd].  On the card the paged decode
+    kernel runs the ``b * qn`` queries as its batch (:func:`_fold`): what
+    the TPU kernel computes for each query.  On the CPU, JAX's masked
+    softmax in f32 (:func:`~repro_torch.kernels.ref.
+    paged_decode_attention_multi_ref`)."""
+    if _build.on_cpu("paged_flash_decode_multi", q, k_pages, v_pages,
+                     tables, pos):
+        return paged_decode_attention_multi_ref(q, k_pages, v_pages, tables,
+                                                pos, softcap=softcap,
+                                                scale=scale)
+    qf, pf = _fold(q, pos, tables.shape[1] * k_pages.shape[1])
+    return paged_flash_decode(
+        qf, k_pages, v_pages, tables.repeat_interleave(q.shape[1], dim=0),
+        pf, softcap=softcap, scale=scale).view(q.shape)
+
+
+def _folded_tables(b: int, nb: int, qn: int, device) -> torch.Tensor:
+    key = (b, nb, qn, device)
+    t = _FOLDED_TABLES.get(key)
+    if t is None:
+        t = _dense_tables(b, nb, device).repeat_interleave(qn, dim=0)
+        _FOLDED_TABLES[key] = t
+    return t
+
+
+def dense_flash_decode_multi(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, pos: torch.Tensor, *,
+                             softcap: float = 0.0,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The speculative verify's attention over a dense cache
+    (``repro.models.attention.decode_attention_multi``): q [b, qn, h, hd];
+    k_cache/v_cache [b, S, kvh, hd]; pos [b] int32 -> [b, qn, h, hd].  On
+    the card the paged decode kernel reads the cache through its
+    block-table view (:func:`dense_flash_decode`), the view's table row of
+    each slot repeated once a query (cached per shape), the ``b * qn``
+    queries as its batch.  On the CPU, JAX's masked softmax in f32."""
+    if _build.on_cpu("dense_flash_decode_multi", q, k_cache, v_cache, pos):
+        return decode_attention_multi_ref(q, k_cache, v_cache, pos,
+                                          softcap=softcap, scale=scale)
+    b, S, kvh, hd = k_cache.shape
+    if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous()
+                                              and v_cache.is_contiguous()):
+        raise ValueError(
+            f"dense_flash_decode_multi: k_cache {tuple(k_cache.shape)} and "
+            f"v_cache {tuple(v_cache.shape)} must be one contiguous "
+            f"[b, S, kvh, hd]")
+    page = dense_page(S)
+    nb = S // page
+    qf, pf = _fold(q, pos, S)
+    return paged_flash_decode(
+        qf, k_cache.view(b * nb, page, kvh, hd),
+        v_cache.view(b * nb, page, kvh, hd),
+        _folded_tables(b, nb, q.shape[1], q.device), pf, softcap=softcap,
+        scale=scale).view(q.shape)
 
 
 def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -99,6 +99,47 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
+def decode_attention_multi_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, pos: torch.Tensor, *,
+                               softcap: float = 0.0,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The speculative verify's attention over a dense cache
+    (``repro.models.attention.decode_attention_multi``): q [b, qn, h, hd]
+    holds ``qn`` consecutive tokens at positions ``pos + j``; slot s is
+    visible to query j iff ``s <= pos + j``; the masked softmax over
+    every slot in f32 -> [b, qn, h, hd] in q's dtype.  ``q * scale`` is
+    taken in f32, as in :func:`decode_attention_ref` (JAX scales in q's
+    dtype first; the two agree exactly in f32)."""
+    b, qn, h, hd = q.shape
+    S, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, qn, kvh, g, hd) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k_cache.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    slots = torch.arange(S, device=q.device)[None, None, :]
+    qpos = pos.long()[:, None] + torch.arange(qn, device=q.device)[None, :]
+    valid = slots <= qpos[:, :, None]                        # [b, qn, S]
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bkgqh", p, v_cache.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, qn, h, hd).to(q.dtype)
+
+
+def paged_decode_attention_multi_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     tables: torch.Tensor, pos: torch.Tensor,
+                                     *, softcap: float = 0.0,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """:func:`decode_attention_multi_ref` through a block table
+    (``paged_decode_attention_multi``): the slot's pages gathered first."""
+    return decode_attention_multi_ref(q, gather_pages(k_pages, tables),
+                                      gather_pages(v_pages, tables), pos,
+                                      softcap=softcap, scale=scale)
+
+
 def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                     eps: float = 1e-5):
     """Gradient of :func:`rmsnorm_ref` (no Pallas counterpart: XLA

@@ -18,6 +18,7 @@ import math
 from typing import Tuple
 
 from repro_torch.core.axes import RankMesh, T_AXES
+from repro_torch.core.pipeline import PIPE_ITEM
 from repro_torch.core.plan import ParallelPlan
 
 MESH_AXES = ("data", "model")
@@ -148,7 +149,8 @@ def mesh_signature(mesh: RankMesh) -> Tuple[Tuple[int, ...],
 
 
 def resolve_launch(cfg, hp, *, mesh: str = "auto", tp: int = 1,
-                   plan_file: str = "") -> Tuple[RankMesh, ParallelPlan]:
+                   plan_file: str = "", pp: int = 1, save_plan: str = "",
+                   log=print) -> Tuple[RankMesh, ParallelPlan]:
     """The single plan-desugaring path of the launcher
     (``repro.launch.mesh.resolve_launch``):
 
@@ -160,16 +162,33 @@ def resolve_launch(cfg, hp, *, mesh: str = "auto", tp: int = 1,
       scattered knobs (schedule, tmp-layout, microbatch, split, seq
       shards) desugar into one ParallelPlan that records it.
 
+    The serving form (``launch/serve.py``) also passes ``pp`` and
+    ``save_plan``, a file the resolved plan is written to.  A pipeline
+    (``pp`` or the plan's above 1) raises NotImplementedError naming A8:
+    the port's meshes have no pipe axis.
+
     Returns ``(mesh, plan)``: ``hp`` is projected through the plan once,
     where the steps are built (``Trainer(plan=...)``,
-    :func:`~repro_torch.launch.steps.unpack_plan`)."""
+    :func:`~repro_torch.launch.steps.unpack_plan`) or the engine is
+    (``ServingEngine(plan=...)``)."""
     if plan_file:
         plan = ParallelPlan.load(plan_file).validate_for(cfg)
-        print(f"[plan] loaded {plan_file}: {plan.summary()}")
+        log(f"[plan] loaded {plan_file}: {plan.summary()}")
         m = (RankMesh(plan.mesh_shape, plan.mesh_axes) if plan.mesh_shape
              else resolve_mesh_spec(mesh, tp=tp))
-        return m, plan
-    m = resolve_mesh_spec(mesh, tp=tp)
-    shape, axes = mesh_signature(m)
-    return m, ParallelPlan.from_hparams(hp, cfg.num_layers,
-                                        mesh_shape=shape, mesh_axes=axes)
+    else:
+        if pp > 1:
+            raise NotImplementedError(
+                f"--pp {pp}: the port's meshes have no pipeline axis "
+                f"({PIPE_ITEM})")
+        m = resolve_mesh_spec(mesh, tp=tp)
+        shape, axes = mesh_signature(m)
+        plan = ParallelPlan.from_hparams(hp, cfg.num_layers,
+                                         mesh_shape=shape, mesh_axes=axes)
+    if plan.pp > 1:
+        raise NotImplementedError(
+            f"{plan.summary()}: pp={plan.pp} ({PIPE_ITEM})")
+    if save_plan:
+        plan.save(save_plan)
+        log(f"[plan] wrote {save_plan}: {plan.summary()}")
+    return m, plan

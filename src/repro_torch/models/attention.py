@@ -1,5 +1,6 @@
 """Rotary embedding, training and prefill attention, and decode attention
-over a dense or paged cache (``repro.models.attention``)."""
+over a dense or paged cache, one token a slot or the speculative
+verify's block of them (``repro.models.attention``)."""
 from __future__ import annotations
 
 import functools
@@ -8,12 +9,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import (dense_flash_decode,
+                                                dense_flash_decode_multi,
                                                 flash_attention,
-                                                paged_flash_decode)
+                                                paged_flash_decode,
+                                                paged_flash_decode_multi)
 from repro_torch.kernels.ref import gather_pages
 
 __all__ = ["rope", "gather_pages", "chunked_attention", "decode_attention",
-           "paged_decode_attention"]
+           "paged_decode_attention", "decode_attention_multi",
+           "paged_decode_attention_multi"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,9 +73,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ar = torch.arange(n, device=pos.device)
         if pos.shape[-1] != n or not bool((pos == ar).all()):
             raise NotImplementedError(
-                f"chunked_attention: {name} other than arange(s) (the "
-                f"speculative verify's offset queries) is not ported yet "
-                f"(ROADMAP.md A5)")
+                f"chunked_attention: {name} other than arange(s) is not "
+                f"taken: the flash kernels attend at arange(sq) against "
+                f"arange(sk); offset positions are the ring's "
+                f"(kernels/ring_attention.py), the verify's the decode "
+                f"reads' (decode_attention_multi)")
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap, scale=scale)
 
@@ -101,3 +107,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     JAX's masked softmax in f32 on the CPU."""
     return dense_flash_decode(q, k_cache, v_cache, pos, window=window,
                               softcap=softcap, scale=scale, ring=ring)
+
+
+def decode_attention_multi(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor, *,
+                           softcap: float = 0.0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The speculative verify's attention over a dense cache: q [b, qn, h,
+    hd] holds ``qn`` consecutive tokens at positions ``pos + j``, whose
+    k/v the caller wrote first; slot s is visible to query j iff
+    ``s <= pos + j`` -> [b, qn, h, hd].  The paged decode kernel with the
+    queries folded into its batch on the card
+    (:func:`~repro_torch.kernels.flash_attention.dense_flash_decode_multi`);
+    JAX's masked softmax in f32 on the CPU."""
+    return dense_flash_decode_multi(q, k_cache, v_cache, pos,
+                                    softcap=softcap, scale=scale)
+
+
+def paged_decode_attention_multi(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, tables: torch.Tensor,
+                                 pos: torch.Tensor, *, softcap: float = 0.0,
+                                 scale: Optional[float] = None
+                                 ) -> torch.Tensor:
+    """:func:`decode_attention_multi` through a block table (global layers
+    of a paged cache)."""
+    return paged_flash_decode_multi(q, k_pages, v_pages, tables, pos,
+                                    softcap=softcap, scale=scale)

@@ -1,8 +1,9 @@
 """Layers: the training residual parts of ``repro.models.blocks`` over a
-:class:`~repro_torch.core.schedule.TmpCtx`, and at tp=1 the prefill
-(``prefill_fn``: the full prompt, building a layer's decode state) and the
-decode step (``decode_fn``: one token against that state, dense or paged)
-of every layer kind.
+:class:`~repro_torch.core.schedule.TmpCtx`; at tp=1 the prefill
+(``prefill_fn``: the full prompt, building a layer's decode state) of
+every layer kind; over the context the decode step (``decode_fn``: one
+token against that state, dense or paged; the families at tp=1) and the
+speculative verify (``verify_fn``: a block of tokens, global attention).
 
 A GLOBAL_ATTN layer is an attention part and an FFN part: each rank runs
 its ``h_local`` heads and ``d_ff / dx`` columns (dx: the width-sharding
@@ -38,7 +39,9 @@ from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.kernels.ssd import ssd, ssd_prefill
 from repro_torch.models.attention import (chunked_attention,
                                          decode_attention,
-                                         paged_decode_attention, rope)
+                                         decode_attention_multi,
+                                         paged_decode_attention,
+                                         paged_decode_attention_multi, rope)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import attn_plan, ssd_dims
 from repro_torch.models.rglru import (depthwise_conv1d, rglru_prefill,
@@ -46,27 +49,44 @@ from repro_torch.models.rglru import (depthwise_conv1d, rglru_prefill,
 from repro_torch.models.ssd import ssd_step
 
 
-def _attn_out(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+def _row_exit(cfg: ArchConfig, ctx: TmpCtx, a: torch.Tensor,
+              w: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """A part's exit ``a @ w``: the context's row-parallel exit
+    (``ctx.row_matmul``: the schedule's collective; in 2-D the output
+    columns gathered over y) where ``w``'s rows are ``sharded`` or its
+    output columns are, else a plain product (tp=1)."""
+    if sharded or w.shape[-1] != cfg.d_model:
+        return ctx.row_matmul(a, w, full_out=cfg.d_model).wait()
+    return torch.matmul(a, w)
+
+
+def _attn_out(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
               attn: torch.Tensor) -> torch.Tensor:
+    """The attention's exit (``blocks.py`` ``_attn_out``): attn [b, s,
+    h_local, hd] through ``wo`` (:func:`_row_exit`, sharded where the
+    heads are)."""
     b, s = attn.shape[:2]
-    return torch.matmul(
-        attn.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim), p["wo"])
+    return _row_exit(cfg, ctx, attn.reshape(b, s, -1), p["wo"],
+                     attn_plan(cfg, ctx.tp).sharded)
 
 
-def mlp_part(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+def mlp_part(cfg: ArchConfig, ctx: TmpCtx, p: Dict[str, torch.Tensor],
              x: torch.Tensor) -> torch.Tensor:
-    """Residual delta of the FFN at tp=1 (the prefill's and the decode
-    step's): norm, then SwiGLU (``pn2`` after its exit with post-norms) or
-    the MoE FFN routing all of x's tokens together (capacity from their
-    count, as JAX's ``make_mlp_part``)."""
+    """Residual delta of the FFN (the prefill's, the decode step's and
+    the verify's; JAX's ``make_mlp_part``): norm, then the MoE FFN routing
+    all of x's tokens together (capacity from their count; tp=1) or
+    SwiGLU, its entry ``ctx.gather_matmul`` and its exit
+    :func:`_row_exit` (``wd``'s rows sharded over the group), then
+    ``pn2`` with post-norms.  At tp=1 every product is plain."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None:
         moe = cfg.moe
         return moe_ffn(h, {k: p[k] for k in ("router", "w1", "w3", "w2")},
                        num_experts=moe.num_experts, top_k=moe.top_k,
                        cap_factor=moe.capacity_factor)[0]
-    a = F.silu(torch.matmul(h, p["wg"])) * torch.matmul(h, p["wu"])
-    d = torch.matmul(a, p["wd"])
+    g, u = ctx.gather_matmul(h, (p["wg"], p["wu"]))
+    wd = p["wd"]
+    d = _row_exit(cfg, ctx, F.silu(g) * u, wd, wd.shape[0] != cfg.d_ff)
     if cfg.post_norms:
         d = rms_norm(d, p["pn2"], cfg.norm_eps)
     return d
@@ -343,7 +363,7 @@ def prefill_fn(cfg: ArchConfig, kind: str):
             q, k, v = _qkv(cfg, ctx, p, h, aux["positions"])
             o = chunked_attention(q, k, v, causal=True, window=window,
                                   softcap=cfg.attn_softcap)
-            delta = _attn_out(cfg, p, o)
+            delta = _attn_out(cfg, ctx, p, o)
             if cfg.post_norms:
                 delta = rms_norm(delta, p["pn1"], cfg.norm_eps)
             x = x + delta
@@ -394,18 +414,26 @@ def prefill_fn(cfg: ArchConfig, kind: str):
         else:
             raise ValueError(kind)
         if mlp:
-            x = x + mlp_part(cfg, p, x)
+            x = x + mlp_part(cfg, ctx, p, x)
         return x, st
 
     return fn
 
 
-def decode_fn(cfg: ArchConfig, kind: str):
-    """The decode step of one layer at tp=1 (``blocks.py:378-475``
-    ``decode_fn``): ``fn(p, x, st, aux) -> x`` for x [b, 1, d] at
-    positions ``aux["pos"]`` [b] int32, updating the layer's state ``st``
-    (views of :func:`~repro_torch.models.params.cache_specs`' leaves) IN
-    PLACE, where JAX returns a new state.
+def decode_fn(cfg: ArchConfig, ctx: TmpCtx, kind: str):
+    """The decode step of one layer (``blocks.py:378-475`` ``decode_fn``):
+    ``fn(p, x, st, aux) -> x`` for x [b, 1, d] at positions
+    ``aux["pos"]`` [b] int32, updating the layer's state ``st`` (views of
+    :func:`~repro_torch.models.params.cache_specs`' leaves, this rank's
+    shard) IN PLACE, where JAX returns a new state.
+
+    Over the model group of ``ctx`` (a GLOBAL_ATTN layer of a dense
+    model: the families run at tp=1) the layer runs under the schedule as
+    in training, at decode shapes: q/k/v through ``ctx.gather_matmul``
+    (this rank's heads and KV heads; in 2-D the d_model slice and the y
+    sums), the exits through ``ctx.row_matmul`` (``fused``: the ring over
+    the slot batch, ``TmpCtx._ring_dim``).  At tp=1 every product is
+    plain.
 
     A GLOBAL_ATTN layer with ``aux["tables"]`` [b, nb] writes k/v into its
     page pools (inactive slots carry all-zero tables and write the null
@@ -419,7 +447,6 @@ def decode_fn(cfg: ArchConfig, kind: str):
     is_local = kind == LOCAL_ATTN
     mlp = kind != SSD and bool(cfg.d_ff)
     hd = cfg.resolved_head_dim
-    ctx = TmpCtx()
 
     def fn(p, x, st, aux):
         pos = aux["pos"]
@@ -446,7 +473,7 @@ def decode_fn(cfg: ArchConfig, kind: str):
                 o = decode_attention(q, st["k"], st["v"], pos,
                                      window=cfg.window if is_local else None,
                                      softcap=cfg.attn_softcap, ring=is_local)
-            delta = _attn_out(cfg, p, o)
+            delta = _attn_out(cfg, ctx, p, o)
             if cfg.post_norms:
                 delta = rms_norm(delta, p["pn1"], cfg.norm_eps)
             x = x + delta
@@ -459,7 +486,7 @@ def decode_fn(cfg: ArchConfig, kind: str):
                     qd, st["c_k"], st["c_v"],
                     torch.full((b,), L - 1, dtype=torch.int32,
                                device=x.device))
-                dc = _attn_out(cfg, {"wo": p["c_wo"]}, oc)
+                dc = _attn_out(cfg, ctx, {"wo": p["c_wo"]}, oc)
                 x = x + dc * torch.tanh(p["c_gate"].to(dc.dtype))
         elif kind == RGLRU:
             h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -491,7 +518,68 @@ def decode_fn(cfg: ArchConfig, kind: str):
         else:
             raise ValueError(kind)
         if mlp:
-            x = x + mlp_part(cfg, p, x)
+            x = x + mlp_part(cfg, ctx, p, x)
+        return x
+
+    return fn
+
+
+def verify_fn(cfg: ArchConfig, ctx: TmpCtx, kind: str):
+    """The speculative verify's step of one layer (``blocks.py:478-534``
+    ``verify_fn``): ``fn(p, x, st, aux) -> x`` for x [b, qn, d], ``qn``
+    consecutive tokens at positions ``aux["pos"] + j``, under ``ctx`` as
+    :func:`decode_fn`.  The layer writes all ``qn`` k/v rows first (dense
+    at ``min(pos + j, S - 1)``; paged through the table at ``min(pos + j,
+    nb * page - 1)``), then attends, query j to the positions up to
+    ``pos + j`` (:func:`~repro_torch.models.attention.
+    decode_attention_multi`: the paged decode kernel with the queries
+    folded into its batch on the card), so a block of one is the decode
+    step.  Rows clamped onto the last position all write the last
+    query's k/v: JAX's scatter leaves that value there (its updates apply
+    in order), and with every duplicate equal the write is the same in
+    any order on the card.  No emitted token reads that row anyway: the
+    engine stops a slot at ``max_seq - 1``.  GLOBAL_ATTN only."""
+    if kind != GLOBAL_ATTN:
+        raise NotImplementedError(
+            f"speculative verification supports global-attention layers "
+            f"only (got {kind}) — local-window ring buffers and recurrent "
+            f"states cannot absorb multi-token jumps")
+    mlp = bool(cfg.d_ff)
+
+    def fn(p, x, st, aux):
+        pos = aux["pos"]
+        b, qn, _ = x.shape
+        ar = torch.arange(qn, device=x.device)
+        positions = pos.long()[:, None] + ar[None, :]          # [b, qn]
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, ctx, p, h, positions)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        tables = aux.get("tables")
+        if tables is not None:
+            page = st["k"].shape[1]
+            last = tables.shape[1] * page - 1
+        else:
+            last = st["k"].shape[1] - 1
+        rows = torch.clamp(positions, max=last)
+        src = torch.where(positions >= last, qn - 1, ar[None, :])
+        kw, vw = k[bidx, src], v[bidx, src]
+        if tables is not None:
+            phys = tables.long()[bidx, rows // page]
+            st["k"][phys, rows % page] = kw.to(st["k"].dtype)
+            st["v"][phys, rows % page] = vw.to(st["v"].dtype)
+            o = paged_decode_attention_multi(q, st["k"], st["v"], tables,
+                                             pos, softcap=cfg.attn_softcap)
+        else:
+            st["k"][bidx, rows] = kw.to(st["k"].dtype)
+            st["v"][bidx, rows] = vw.to(st["v"].dtype)
+            o = decode_attention_multi(q, st["k"], st["v"], pos,
+                                       softcap=cfg.attn_softcap)
+        delta = _attn_out(cfg, ctx, p, o)
+        if cfg.post_norms:
+            delta = rms_norm(delta, p["pn1"], cfg.norm_eps)
+        x = x + delta
+        if mlp:
+            x = x + mlp_part(cfg, ctx, p, x)
         return x
 
     return fn

@@ -1,9 +1,11 @@
 """The model: the training loss of ``repro.models.lm.build_train_loss``
 over a rank mesh (1-D TMP with sequence parallelism and ring attention,
 the 2-D layout, and per-layer plans whose groups mix degrees and
-schedules), and on one device the batched prefill of ``build_prefill``
-and the decode step of ``build_decode`` on a dense or paged state (embed,
-copy-on-write, the layer loop, final norm, head, greedy token)."""
+schedules); on one device the batched prefill of ``build_prefill``; and
+over a rank mesh the decode step of ``build_decode`` and the speculative
+verify of ``build_verify`` on a dense or paged state (embed,
+copy-on-write, the layer loop, final norm, head, greedy token), under
+the training schedules at decode shapes."""
 from __future__ import annotations
 
 import dataclasses
@@ -351,9 +353,10 @@ def apply_cow(cfg: ArchConfig, state: Dict[str, Any],
 
 def last_logits(cfg: ArchConfig, params: Dict[str, Any],
                 x_last: torch.Tensor) -> torch.Tensor:
-    """x_last [b, d] -> f32 logits over the padded vocab.  Like
-    ``lm._last_logits`` this casts the whole head to f32 each call (a
-    transient copy of the [d, V] head)."""
+    """x_last [b, d] -> f32 logits over this rank's columns of the padded
+    vocab (its head shard [d, V/tp]; all of them at tp=1).  Like
+    ``lm._last_logits`` this casts the head to f32 each call (a transient
+    copy of the [d, V/tp] head)."""
     logits = torch.matmul(x_last.float(), head_weight(params).float())
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -426,37 +429,114 @@ def prefill(cfg: ArchConfig, params: Dict[str, Any], tokens: torch.Tensor,
     return greedy_token(last_logits(cfg, params, x[:, -1])), state
 
 
+def _decode_embed(cfg: ArchConfig, params: Dict[str, Any],
+                  tokens: torch.Tensor, pos: torch.Tensor,
+                  ctx: TmpCtx) -> torch.Tensor:
+    """The decode preamble (``lm._decode_embed``): tokens [b, qn] -> [b,
+    qn, d], the vocab-parallel embedding over the model group (times
+    sqrt(d_model) for gemma models; plus ``pos_embed`` at ``min(pos + j,
+    rows - 1)``)."""
+    x = _family_scale(cfg, vocab_parallel_embed(tokens, params["embed"],
+                                                ctx.group))
+    if "pos_embed" in params:
+        pe = params["pos_embed"]
+        qpos = pos.long()[:, None] + torch.arange(tokens.shape[1],
+                                                  device=pos.device)
+        x = x + pe[torch.clamp(qpos, max=pe.shape[0] - 1)].to(x.dtype)
+    return x
+
+
+def _stack_step(cfg: ArchConfig, params: Dict[str, Any],
+                state: Dict[str, Any], x: torch.Tensor, aux: Dict[str, Any],
+                fns) -> torch.Tensor:
+    """Every layer's step (``fns[kind]``: a decode or verify step) on its
+    views of the state, in execution order, then the final norm."""
+    for kind, j, i, p in _layers(cfg, params):
+        entry = state["blocks"][j] if j is not None else state["tail"][i]
+        st = {k: t[i] if j is not None else t[0] for k, t in entry.items()}
+        x = fns[kind](p, x, st, aux)
+    return rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def check_servable(cfg: ArchConfig, ctx: TmpCtx):
+    """What serves over the model group of ``ctx``: every assigned arch at
+    tp=1; the dense global-attention archs at the degrees training takes
+    (:func:`~repro_torch.models.params.check_tp`, the families' A10c
+    refusals first)."""
+    check_supported(cfg)
+    if ctx.tp_total > 1:
+        check_families(cfg, ctx.tp_total)
+        check_tp(cfg, ctx.tp)
+
+
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Dict[str, Any],
                 state: Dict[str, Any], tokens: torch.Tensor,
                 pos: torch.Tensor, tables: Optional[torch.Tensor] = None,
                 cow_src: Optional[torch.Tensor] = None,
-                cow_dst: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [b] int32, pos [b] int32 -> next token [b] int32: dense and
-    paged ``build_decode`` on one device.  ``state`` (the tree of
-    :func:`~repro_torch.models.params.cache_specs`, from
-    :func:`~repro_torch.models.params.zeros_state` or :func:`prefill`) is
+                cow_dst: Optional[torch.Tensor] = None, *,
+                ctx: Optional[TmpCtx] = None) -> torch.Tensor:
+    """tokens [b] int32, pos [b] int32 -> next token [b] int32, the same
+    on every rank: dense and paged ``build_decode`` under ``ctx`` (the
+    schedule over the model group, as training's; None: one device).
+    ``params`` and ``state`` (the tree of :func:`~repro_torch.models.
+    params.cache_specs`, from :func:`~repro_torch.models.params.
+    zeros_state` or :func:`prefill`) are this rank's shards; the state is
     updated in place.  Paged (``tables`` [b, nb] int32, the GLOBAL_ATTN
     layers' page pools): copy-on-write pages first (:func:`apply_cow`).
-    The embedding of the current token (times sqrt(d_model) for gemma
-    models; plus ``pos_embed`` at ``min(pos, rows - 1)``), each layer's
-    :func:`~repro_torch.models.blocks.decode_fn`, the final norm, the f32
-    head and the greedy token."""
-    check_supported(cfg)
+    The embedding (:func:`_decode_embed`), each layer's
+    :func:`~repro_torch.models.blocks.decode_fn`, the final norm, this
+    rank's head columns in f32 and the greedy token gathered over the
+    vocab shards (:func:`~repro_torch.core.tmp.greedy_token`)."""
+    ctx = ctx or TmpCtx()
+    check_servable(cfg, ctx)
     if tables is not None and cow_src is not None and cow_src.numel():
         apply_cow(cfg, state, cow_src, cow_dst)
-    x = _family_scale(cfg, vocab_parallel_embed(tokens[:, None],
-                                                params["embed"]))
-    if "pos_embed" in params:
-        pe = params["pos_embed"]
-        x = x + pe[torch.clamp(pos.long(), max=pe.shape[0] - 1)][:, None] \
-            .to(x.dtype)
     _, pat, tail = stack_layout(cfg)
-    fns = {k: blocks.decode_fn(cfg, k) for k in set(pat) | set(tail)}
-    aux = {"pos": pos, "tables": tables}
-    for kind, j, i, p in _layers(cfg, params):
-        entry = state["blocks"][j] if j is not None else state["tail"][i]
-        st = {k: t[i] if j is not None else t[0] for k, t in entry.items()}
-        x = fns[kind](p, x, st, aux)
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return greedy_token(last_logits(cfg, params, x[:, 0]))
+    fns = {k: blocks.decode_fn(cfg, ctx, k) for k in set(pat) | set(tail)}
+    x = _stack_step(cfg, params, state, _decode_embed(
+        cfg, params, tokens[:, None], pos, ctx), {"pos": pos,
+                                                  "tables": tables}, fns)
+    return greedy_token(last_logits(cfg, params, x[:, 0]), ctx.group)
+
+
+def check_verifiable(cfg: ArchConfig):
+    """The verify takes all-global-attention patterns only (JAX's
+    ``build_verify`` message)."""
+    _, pat, tail = stack_layout(cfg)
+    other = sorted((set(pat) | set(tail)) - {GLOBAL_ATTN})
+    if other:
+        raise ValueError(
+            f"speculative decoding requires an all-global-attention "
+            f"layer pattern; {cfg.name} mixes in {other} (ring-buffer "
+            f"and recurrent states cannot absorb multi-token jumps)")
+
+
+@torch.no_grad()
+def verify_step(cfg: ArchConfig, params: Dict[str, Any],
+                state: Dict[str, Any], tokens: torch.Tensor,
+                pos: torch.Tensor, tables: Optional[torch.Tensor] = None,
+                cow_src: Optional[torch.Tensor] = None,
+                cow_dst: Optional[torch.Tensor] = None, *,
+                ctx: Optional[TmpCtx] = None) -> torch.Tensor:
+    """The speculative-decoding target forward (``build_verify``): tokens
+    [b, qn] int32 at positions ``pos + j`` (pos [b] int32) -> choices [b,
+    qn] int32, ``choices[:, j]`` the greedy token after ``tokens[:, :j +
+    1]``, what undrafted decode emits there.  One pass writes the k/v of
+    all ``qn`` tokens and attends causally within the block
+    (:func:`~repro_torch.models.blocks.verify_fn`), under ``ctx`` as
+    :func:`decode_step` (its exits ring over the block under ``fused``),
+    dense or paged (copy-on-write first), then the final norm, the f32
+    head over all ``b * qn`` rows and the greedy tokens.  All-global
+    patterns only."""
+    ctx = ctx or TmpCtx()
+    check_servable(cfg, ctx)
+    check_verifiable(cfg)
+    b, qn = tokens.shape
+    if tables is not None and cow_src is not None and cow_src.numel():
+        apply_cow(cfg, state, cow_src, cow_dst)
+    x = _stack_step(cfg, params, state, _decode_embed(
+        cfg, params, tokens, pos, ctx), {"pos": pos, "tables": tables},
+        {GLOBAL_ATTN: blocks.verify_fn(cfg, ctx, GLOBAL_ATTN)})
+    logits = last_logits(cfg, params, x.reshape(b * qn, -1))
+    return greedy_token(logits, ctx.group).reshape(b, qn)

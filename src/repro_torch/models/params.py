@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -296,15 +296,31 @@ class ModelLayout:
         """Flat name -> ``rank``'s block of each whole leaf of ``flat``
         (in this layout's names: :func:`relayout_flat` moves stacked
         weights there first)."""
+        return {key: self._cut(key, flat[key], rank) for key in self.specs}
+
+    def _cut(self, key: str, t, rank: int):
+        for dim, axes in enumerate(self.specs[key].dims()):
+            if axes:
+                t = _take(t, dim, self.mesh.axes_size(axes),
+                          self.mesh.axes_index(rank, axes))
+        return t
+
+    def init_shard(self, rank: int, *, seed: int = 0,
+                   device: torch.device = torch.device("cpu")
+                   ) -> Dict[str, Any]:
+        """``rank``'s shards of :func:`init_params` ``(cfg, seed=seed,
+        max_pos=self.max_pos)``, the same numbers, each whole leaf drawn
+        on ``device``, cut and dropped before the next: the peak is the
+        rank's shards and one whole leaf, not the whole model (ranks that
+        share a card draw side by side).  The stacked layout only."""
+        if self.grouped:
+            raise ValueError("init_shard draws the stacked layout; a plan's "
+                             "groups take shard(init_params(...))")
         out = {}
-        for key, spec in self.specs.items():
-            t = flat[key]
-            for dim, axes in enumerate(spec.dims()):
-                if axes:
-                    t = _take(t, dim, self.mesh.axes_size(axes),
-                              self.mesh.axes_index(rank, axes))
-            out[key] = t
-        return out
+        for key, t in _draw(self.cfg, seed, device, self.max_pos):
+            out[key] = self._cut(key, t, rank).detach().clone()
+            del t
+        return unflatten(out)
 
     def shard(self, params: Dict[str, Any], rank: int) -> Dict[str, Any]:
         """``rank``'s weights of the whole stacked ``params`` (for example
@@ -866,6 +882,23 @@ def relayout_flat(cfg: ArchConfig, flat: Dict[str, Any], src: Dict,
                            schedules=dst.get("schedules"))
 
 
+def _draw(cfg: ArchConfig, seed: int, device: torch.device,
+          max_pos: int) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(flat name, whole leaf) of :func:`init_params`, in its order and
+    from its one generator, each leaf drawn when it is asked for."""
+    wdt = DTYPES[cfg.dtype]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for key, s in model_specs(cfg, max_pos=max_pos).items():
+        t = torch.zeros(s.shape, dtype=torch.float32 if s.f32 else wdt,
+                        device=device)
+        if s.scale == -1.0:
+            t.fill_(-1.0 if s.f32 else 1.0)
+        elif s.scale:
+            t.normal_(0.0, s.scale, generator=gen)
+        yield key, t
+        del t
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: torch.device = torch.device("cpu"),
                 max_pos: int = 0) -> Dict[str, Any]:
@@ -874,18 +907,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     differ from JAX's ``init_params``; tests move JAX weights over with
     :func:`from_flat`.  ``max_pos``: the longest sequence (whisper's
     decoder ``pos_embed``)."""
-    wdt = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=device).manual_seed(seed)
-    flat = {}
-    for key, s in model_specs(cfg, max_pos=max_pos).items():
-        t = torch.zeros(s.shape, dtype=torch.float32 if s.f32 else wdt,
-                        device=device)
-        if s.scale == -1.0:
-            t.fill_(-1.0 if s.f32 else 1.0)
-        elif s.scale:
-            t.normal_(0.0, s.scale, generator=gen)
-        flat[key] = t
-    return unflatten(flat)
+    return unflatten(dict(_draw(cfg, seed, device, max_pos)))
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -928,9 +950,11 @@ def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
 
 def cache_specs(cfg: ArchConfig, *, batch: int, seq: int,
-                paged: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+                paged: Optional[Tuple[int, int]] = None,
+                info: Optional[MeshInfo] = None,
+                layout: str = "auto") -> Dict[str, Any]:
     """The decode state of ``batch`` slots of ``seq`` positions
-    (``repro.models.params.cache_specs`` at tp=1): ``{"blocks": [one dict a
+    (``repro.models.params.cache_specs``): ``{"blocks": [one dict a
     pattern position, each leaf stacked [n, ...]], "tail": [one dict a
     tail layer, [1, ...]]}`` of :class:`Spec` (f32 where JAX's is, else the
     model dtype), with JAX's keys by layer kind:
@@ -947,32 +971,50 @@ def cache_specs(cfg: ArchConfig, *, batch: int, seq: int,
 
     ``paged=(pages, page_size)`` swaps the GLOBAL_ATTN ``k``, ``v`` for
     page pools [n, pages, page_size, kvh, hd]; every other state stays
-    dense."""
+    dense.  On the mesh ``info`` (None: one rank) shapes are global and
+    the kv-head dim shards as JAX's does, by :func:`attn_plan` at the
+    width degree (dx, the x axes alone in 2-D; ``layout`` "1d" flattens
+    every model axis into x): over x where the plan shards KV, and as
+    ``tp * kv_slice`` heads over x where KV is replicated and each rank
+    keeps the slice its q heads need.  The slots are not sharded (a
+    ``data`` axis above 1 is refused by the engine).  :func:`zeros_state`
+    and :func:`state_from_flat` make a rank's shard."""
     check_supported(cfg)
-    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     d_inner, nheads, nstate = ssd_dims(cfg)
     w = cfg.rglru_width or cfg.d_model
+    x_ax, _, tp, _ = info_xy(info, None, layout)
+    plan = attn_plan(cfg, tp)
+    if plan.kv_sharded:
+        kvh, kv_sh = cfg.num_kv_heads, x_ax
+    elif plan.sharded:
+        kvh, kv_sh = tp * plan.kv_slice, x_ax     # duplicated storage
+    else:
+        kvh, kv_sh = cfg.num_kv_heads, ()
+    kv_ps = ((), (), (), kv_sh, ())
 
-    def leaf(*shape, f32=False):
-        return Spec(tuple(shape), f32=f32, scale=0.0)
+    def leaf(*shape, f32=False, pspec=()):
+        return Spec(tuple(shape), f32=f32, scale=0.0, pspec=pspec)
 
     def kv(n, s):
-        return {"k": leaf(n, batch, s, kvh, hd),
-                "v": leaf(n, batch, s, kvh, hd)}
+        return {"k": leaf(n, batch, s, kvh, hd, pspec=kv_ps),
+                "v": leaf(n, batch, s, kvh, hd, pspec=kv_ps)}
 
     def state_for(kind, n):
         if kind == GLOBAL_ATTN:
             if paged is None:
                 return kv(n, seq)
             pages, page_size = paged
-            return {"k": leaf(n, pages, page_size, kvh, hd),
-                    "v": leaf(n, pages, page_size, kvh, hd)}
+            return {"k": leaf(n, pages, page_size, kvh, hd, pspec=kv_ps),
+                    "v": leaf(n, pages, page_size, kvh, hd, pspec=kv_ps)}
         if kind == LOCAL_ATTN:
             return kv(n, min(seq, cfg.window))
         if kind == CROSS_ATTN:
             return {**kv(n, seq),
-                    "c_k": leaf(n, batch, cfg.context_len, kvh, hd),
-                    "c_v": leaf(n, batch, cfg.context_len, kvh, hd)}
+                    "c_k": leaf(n, batch, cfg.context_len, kvh, hd,
+                                pspec=kv_ps),
+                    "c_v": leaf(n, batch, cfg.context_len, kvh, hd,
+                                pspec=kv_ps)}
         if kind == RGLRU:
             return {"h": leaf(n, batch, w, f32=True),
                     "conv": leaf(n, batch, 3, w)}
@@ -988,23 +1030,35 @@ def cache_specs(cfg: ArchConfig, *, batch: int, seq: int,
             "tail": [state_for(k, 1) for k in tail]}
 
 
+def _local_shape(spec: Spec, info: Optional[MeshInfo]) -> Tuple[int, ...]:
+    """A rank's block of a leaf of global shape ``spec.shape``."""
+    if info is None:
+        return spec.shape
+    return tuple(n // info.mesh.axes_size(axes) if axes else n
+                 for n, axes in zip(spec.shape, spec.dims()))
+
+
 def zeros_state(cfg: ArchConfig, specs: Dict[str, Any],
-                device: torch.device = torch.device("cpu")) -> Dict[str, Any]:
+                device: torch.device = torch.device("cpu"),
+                info: Optional[MeshInfo] = None) -> Dict[str, Any]:
     """Zeros in the tree of :func:`cache_specs` (f32 leaves in f32, the
-    rest in the model dtype) on ``device``."""
+    rest in the model dtype) on ``device``: on the mesh ``info`` (None:
+    one rank) a rank's shard."""
     wdt = DTYPES[cfg.dtype]
-    return unflatten({k: torch.zeros(s.shape, device=device,
+    return unflatten({k: torch.zeros(_local_shape(s, info), device=device,
                                      dtype=torch.float32 if s.f32 else wdt)
                       for k, s in flatten(specs).items()})
 
 
 def state_from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
                     specs: Dict[str, Any],
-                    device: torch.device = torch.device("cpu")
-                    ) -> Dict[str, Any]:
+                    device: torch.device = torch.device("cpu"),
+                    info: Optional[MeshInfo] = None,
+                    rank: int = 0) -> Dict[str, Any]:
     """A decode state from JAX's (``jax.tree_util.keystr`` names of its
-    state tree, numpy leaves): the tree of :func:`cache_specs` with the
-    same names and shapes, no remapping."""
+    state tree, numpy leaves, global shapes): the tree of
+    :func:`cache_specs` with the same names and shapes, no remapping; on
+    the mesh ``info`` ``rank``'s shard of each leaf."""
     fs = flatten(specs)
     missing, extra = sorted(set(fs) - set(flat)), sorted(set(flat) - set(fs))
     if missing or extra:
@@ -1013,10 +1067,16 @@ def state_from_flat(cfg: ArchConfig, flat: Dict[str, np.ndarray],
     wdt = DTYPES[cfg.dtype]
     out = {}
     for key, s in fs.items():
-        if tuple(flat[key].shape) != s.shape:
-            raise ValueError(f"{key}: shape {tuple(flat[key].shape)}, "
-                             f"expected {s.shape}")
-        out[key] = _to_torch(flat[key]).to(
+        arr = flat[key]
+        if tuple(arr.shape) != s.shape:
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected "
+                             f"{s.shape}")
+        if info is not None:
+            for dim, axes in enumerate(s.dims()):
+                if axes:
+                    arr = _take(arr, dim, info.mesh.axes_size(axes),
+                                info.mesh.axes_index(rank, axes))
+        out[key] = _to_torch(np.ascontiguousarray(arr)).to(
             device=device, dtype=torch.float32 if s.f32 else wdt)
     return unflatten(out)
 

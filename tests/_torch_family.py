@@ -257,3 +257,28 @@ def engines_agree(jeng, teng, reqs, tol: float):
     check_state(tprm.state_to_flat(teng.state), jax_flat(jeng.state), tol,
                 f"{teng.cfg.name} engine")
 
+
+
+# JAX's serving gate (``tests/_scripts/serving_equivalence.py``): 4 slots
+# of 48 positions, 6 requests of 6 new tokens
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 48, 6, 6
+
+
+def gate_prompts(vocab):
+    """The gate's prompts: 3-7 tokens from numpy seed 123."""
+    rng = np.random.default_rng(123)
+    return [rng.integers(3, vocab, int(rng.integers(3, 8)), dtype=np.int32)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def shared_prefix_prompts(vocab):
+    """The gate's prompts sharing block-aligned and mid-block prefixes
+    (page 8)."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(3, vocab, 12, dtype=np.int32)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        keep = (6, 12, 9, 12, 6, 9)[i]
+        tail = rng.integers(3, vocab, 3 + (i % 3), dtype=np.int32)
+        out.append(np.concatenate([base[:keep], tail]).astype(np.int32))
+    return out

@@ -397,3 +397,35 @@ def split_raises(comm, device, arch, degrees, batch):
     except ValueError as e:
         return str(e)
     return ""
+
+
+def serve_cases(comm, device, arch, flat, dflat, cases):
+    """Per named case ``{"prompts", "new", ...engine options}`` (a
+    ``"draft": True`` case serves with the reduced ``arch`` as its draft
+    on ``dflat``'s weights and ``spec_k`` 3): the tokens of every request
+    through this rank's ``ServingEngine`` on its shards of ``flat``, the
+    engine's stats and the comm counts of the drain."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(arch)
+    full = prm.from_flat(cfg, flat)
+    dfull = prm.from_flat(cfg, dflat)
+    out = {}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        ps, new = kw.pop("prompts"), kw.pop("new")
+        if kw.pop("draft", False):
+            kw.update(draft=cfg, spec_k=3)
+        eng = ServingEngine(cfg, comm, slots=4, max_seq=48, device="cpu",
+                            **kw)
+        eng.load(params=eng.layout.shard(full, eng.rank),
+                 draft_params=(eng.draft_layout.shard(dfull, eng.rank)
+                               if eng.spec_k else None))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(ps)]
+        comm.reset_counts()
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run_until_drained()
+        out[name] = dict(tokens=[r.out_tokens for r in reqs],
+                         stats=stats, counts=dict(comm.counts))
+    return out
